@@ -1,0 +1,78 @@
+"""Serve-side model API: init, prefill logits and the paged decode step.
+
+The port of the serve half of ``repro/core/api.py``. Parameters keep the
+JAX package's ElasticZO split: ``periods_zo`` (the zeroth-order head)
+and ``periods_bp`` (the back-propagated tail of ``tail_periods`` periods).
+Serving runs both in order. Training waits for a later slice.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from ..configs.base import LaneConfig, ModelConfig
+from ..models.transformer import embed, head_logits, init_lm, run_periods, tree_map
+
+
+def tail_periods(cfg: ModelConfig, lane: LaneConfig) -> int:
+    """BP-tail size in periods (>=1, < num_periods)."""
+    plen = len(cfg.pattern)
+    k = max(1, -(-lane.bp_tail_layers // plen))          # ceil
+    return min(k, cfg.num_periods - 1)
+
+
+def split_caches(caches, cfg: ModelConfig, lane: LaneConfig):
+    """{"zo": first periods, "bp": tail periods}; views, not copies."""
+    pz = cfg.num_periods - tail_periods(cfg, lane)
+    return {"zo": tree_map(lambda a: a[:pz], caches),
+            "bp": tree_map(lambda a: a[pz:], caches)}
+
+
+def init(cfg: ModelConfig, lane: Optional[LaneConfig] = None, *,
+         seed: int = 0, device, dtype=None):
+    """Random parameters with the periods split into zo and bp."""
+    params = init_lm(cfg, seed=seed, device=device, dtype=dtype)
+    split = split_caches(params.pop("periods"), cfg, lane or LaneConfig())
+    params["periods_zo"], params["periods_bp"] = split["zo"], split["bp"]
+    return params
+
+
+def _backbone(params, cfg: ModelConfig, tokens, positions, mode, *,
+              caches=None, paged=None):
+    x = embed(params, tokens)
+    x, cz = run_periods(params["periods_zo"], x, cfg, positions=positions,
+                        mode=mode, paged=paged,
+                        caches=None if caches is None else caches["zo"])
+    x, cb = run_periods(params["periods_bp"], x, cfg, positions=positions,
+                        mode=mode, paged=paged,
+                        caches=None if caches is None else caches["bp"])
+    return x, {"zo": cz, "bp": cb}
+
+
+def prefill_logits(params, cfg: ModelConfig, tokens, last_pos):
+    """Prefill of tokens [B, S]. Returns (logits [B, Vp] f32 at each row's
+    ``last_pos`` (right-padded prompts are allowed), full-length caches
+    {"zo", "bp"} of [periods, B, S, KV, Dh] for paged admission)."""
+    B, S = tokens.shape
+    positions = torch.arange(S, dtype=torch.int64,
+                             device=tokens.device).expand(B, S)
+    x, caches = _backbone(params, cfg, tokens, positions, "prefill")
+    xl = x[torch.arange(B, device=x.device), last_pos.to(torch.int64)]
+    return head_logits(params, xl[:, None], cfg)[:, 0].float(), caches
+
+
+def decode_step_paged(params, cfg: ModelConfig, tokens, caches, page_table,
+                      seq_lens):
+    """One continuous-batching decode step against the paged KV pools.
+
+    tokens [B, 1]; page_table [B, P] int (physical page per logical page,
+    0 = null); seq_lens [B] int (tokens already cached per row, also the
+    write position of this step's token). Rows with seq_len 0 and an
+    all-null table are inactive padding slots. The pools in ``caches``
+    are written in place. Returns logits [B, Vp] f32.
+    """
+    positions = seq_lens.to(torch.int64)[:, None]
+    x, _ = _backbone(params, cfg, tokens, positions, "decode",
+                     caches=caches, paged=(page_table, seq_lens))
+    return head_logits(params, x, cfg)[:, 0].float()

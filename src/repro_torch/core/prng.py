@@ -1,0 +1,63 @@
+"""Counter-based hash bits, bitwise equal to ``repro/core/prng.py``.
+
+Every element's bits are a murmur3-style hash of (global flat index,
+salt, seed), so the same (seed, salt, shape, offset) regenerates the same
+bits on any device. The serve sampler's Gumbel stream is built on them.
+
+The arithmetic is uint32 with wrap-around. PyTorch's CPU kernels have no
+uint32 add, shift or remainder, so the hash runs in int64 holding values
+in [0, 2**32) and masks after every add and multiply. Multiplies are
+split into 16-bit halves so that no intermediate leaves int64's range.
+"""
+from __future__ import annotations
+
+import torch
+
+MASK32 = 0xFFFFFFFF
+_M1 = 0x85EBCA6B
+_M2 = 0xC2B2AE35
+_PHI = 0x9E3779B9
+
+
+def mul32(a: torch.Tensor, m: int) -> torch.Tensor:
+    """(a * m) mod 2**32 for int64 ``a`` in [0, 2**32) and a constant m."""
+    lo = a * (m & 0xFFFF)                         # < 2**48
+    hi = ((a * (m >> 16)) & 0xFFFF) << 16         # < 2**32
+    return (lo + hi) & MASK32
+
+
+def _fmix32(h: torch.Tensor) -> torch.Tensor:
+    h = h ^ (h >> 16)
+    h = mul32(h, _M1)
+    h = h ^ (h >> 13)
+    h = mul32(h, _M2)
+    return h ^ (h >> 16)
+
+
+def uniform_bits(seed, salt: int, shape, offset: int = 0, *,
+                 device=None) -> torch.Tensor:
+    """uint32 hash bits (as int64) for every element of ``shape``.
+
+    seed: a Python int or an int64 tensor of uint32 values. A tensor seed
+    of shape S gives bits of shape S + shape, one stream per seed (the
+    batched form of the JAX package's per-row ``vmap``).
+    offset: flat-index offset, ``bits(shape, off)[i] ==
+    bits(bigger_shape)[off + i]``.
+    """
+    shape = tuple(int(d) for d in shape)
+    if isinstance(seed, torch.Tensor):
+        device = seed.device
+        seed = seed.to(torch.int64) & MASK32
+    else:
+        seed = torch.tensor(int(seed) & MASK32, dtype=torch.int64,
+                            device=device)
+    n = 1
+    for d in shape:
+        n *= d
+    idx = (torch.arange(n, dtype=torch.int64, device=device)
+           + (int(offset) & MASK32)) & MASK32
+    h = (mul32(idx, _PHI) + (int(salt) & MASK32)) & MASK32
+    h = h.reshape(shape)
+    s = seed.reshape(seed.shape + (1,) * len(shape))
+    h = _fmix32(h ^ s)
+    return _fmix32((h + mul32(s, _M2)) & MASK32)

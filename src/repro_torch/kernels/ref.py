@@ -1,0 +1,118 @@
+"""Plain PyTorch versions of the kernels (the allclose ground truth).
+
+Each function repeats ``repro/kernels/ref.py`` op for op. The CPU tests
+hold them against the JAX package, ``chip_smoke.py`` holds the CUDA
+kernels against them on the card, and ``kernels/ops.py`` takes them for
+tensors on the CPU.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..core.prng import MASK32
+
+NEG_INF = -1e30
+
+
+def _monotone_key(x: torch.Tensor) -> torch.Tensor:
+    """float32 -> order-preserving uint32 key held in int64 (-0.0 is
+    canonicalised to +0.0, so key order agrees with float order)."""
+    s = (x.float() + 0.0).view(torch.int32).to(torch.int64)
+    u = s & MASK32
+    return torch.where(s < 0, (~u) & MASK32, u | 0x80000000)
+
+
+def topk_topp_mask_ref(logits: torch.Tensor, k: torch.Tensor,
+                       p: torch.Tensor) -> torch.Tensor:
+    """Sort-free top-k/top-p filter: threshold-refine partial selection.
+
+    logits [B, V] f32; k [B] int (<= 0 disables); p [B] f32 (>= 1
+    disables). Returns logits with filtered entries at NEG_INF. Top-k
+    keeps every value >= the exact k-th largest value (found by a 4-round
+    byte-radix descent over the monotone key). Top-p finds the boundary
+    value T where the nucleus mass crosses p and G, the mass strictly
+    above T; the tied run at T is split in index order (rank r kept iff
+    G + r * p_T < p). See ``repro/kernels/ref.py::topk_topp_mask_ref``.
+    """
+    B, V = logits.shape
+    dev = logits.device
+    k = k.to(device=dev, dtype=torch.int64)
+    p = p.to(device=dev, dtype=torch.float32)
+
+    # ---- top-k: radix-select the exact k-th largest key -------------- #
+    keys = _monotone_key(logits)
+    krem = k.clamp(1, V)
+    cand = torch.ones((B, V), dtype=torch.int64, device=dev)
+    kth = torch.zeros(B, dtype=torch.int64, device=dev)
+    for shift in (24, 16, 8, 0):
+        byte = (keys >> shift) & 0xFF
+        hist = torch.zeros((B, 256), dtype=torch.int64,
+                           device=dev).scatter_add_(1, byte, cand)
+        cnt_ge = hist.flip(1).cumsum(1).flip(1)
+        above = cnt_ge - hist                     # strictly above bucket j
+        cond = (above < krem[:, None]) & (cnt_ge >= krem[:, None])
+        j = cond.to(torch.int32).argmax(1)        # the unique True
+        krem = krem - above.gather(1, j[:, None])[:, 0]
+        kth = kth | (j.to(torch.int64) << shift)
+        cand = cand * (byte == j[:, None])
+    keep = (keys >= kth[:, None]) | (k <= 0)[:, None]
+    x = torch.where(keep, logits.float(), NEG_INF)
+
+    # ---- top-p: refine the nucleus boundary value -------------------- #
+    e = torch.exp(x - x.max(dim=1, keepdim=True).values)
+    probs = e / e.sum(dim=1, keepdim=True)
+    keys = _monotone_key(x)
+    cand_m = torch.ones((B, V), dtype=torch.float32, device=dev)
+    above_mass = torch.zeros(B, dtype=torch.float32, device=dev)
+    tkey = torch.zeros(B, dtype=torch.int64, device=dev)
+    for shift in (24, 16, 8, 0):
+        byte = (keys >> shift) & 0xFF
+        mh = torch.zeros((B, 256), dtype=torch.float32,
+                         device=dev).scatter_add_(1, byte, probs * cand_m)
+        above = mh.flip(1).cumsum(1).flip(1) - mh + above_mass[:, None]
+        cond = above < p[:, None]
+        j = cond.to(torch.int32).argmax(1)        # lowest such bucket
+        above_mass = above.gather(1, j[:, None])[:, 0]
+        tkey = tkey | (j.to(torch.int64) << shift)
+        cand_m = cand_m * (byte == j[:, None])
+    eq = keys == tkey[:, None]
+    p_t = torch.where(eq, probs, 0.0).max(dim=1).values
+    eqi = eq.to(torch.int64)
+    r = eqi.cumsum(1) - eqi                       # tie rank in index order
+    keep_p = (keys > tkey[:, None]) \
+        | (eq & (above_mass[:, None] + r * p_t[:, None] < p[:, None])) \
+        | (p >= 1.0)[:, None]
+    return torch.where(keep_p, x, NEG_INF)
+
+
+def paged_attn_step_ref(q, k_new, v_new, k_pool, v_pool, page_table,
+                        seq_lens, *, scale: float, window: int = 0):
+    """Write-then-gather-then-attend version of the paged decode step.
+
+    q [B,KVd,G,Dh]; k_new/v_new [B,KVd,Dh]; pools [N,ps,KVd,Dh];
+    page_table [B,P] int; seq_lens [B] int. The token's K/V is written
+    into its pool slot **in place** (the JAX package returns new pools
+    instead), then the gathered [B, P*ps, KVd, Dh] cache is attended with
+    the model's dense ``_attend_block``. Null table entries (page 0) are
+    masked per position. A row with no live position (an inactive row:
+    seq_len 0, all-null table) gets the mean of the null page's V, as the
+    JAX reference does; the CUDA kernel gives 0 there, as the Pallas
+    kernel does. Callers use active rows only. Returns o [B,KVd,G,Dh].
+    """
+    from ..models.layers import _attend_block
+    from ..serve.kv_pages import NULL_PAGE
+    B, KVd, G, Dh = q.shape
+    ps = k_pool.shape[1]
+    pos = seq_lens.to(torch.int64)
+    table = page_table.to(torch.int64)
+    pidx = table.gather(1, (pos // ps)[:, None])[:, 0]
+    k_pool[pidx, pos % ps] = k_new.to(k_pool.dtype)
+    v_pool[pidx, pos % ps] = v_new.to(v_pool.dtype)
+    k = k_pool[table].reshape(B, -1, KVd, Dh)
+    v = v_pool[table].reshape(B, -1, KVd, Dh)
+    t = torch.arange(k.shape[1], device=q.device)
+    valid = t[None, :] <= pos[:, None]
+    if window > 0:
+        valid &= t[None, :] > pos[:, None] - window
+    valid &= (table != NULL_PAGE).repeat_interleave(ps, dim=1)
+    return _attend_block(q[:, None], k, v, valid[:, None, :], scale)[:, 0]

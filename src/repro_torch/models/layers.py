@@ -1,0 +1,166 @@
+"""Transformer layers: RMS norm, RoPE, GQA attention, SwiGLU MLP.
+
+The port of ``repro/models/layers.py`` for one device: the attention plan
+is the single-device one (no KV-head duplication, no Q-head padding).
+Attention covers what serving runs: chunked causal self-attention for
+prefill, and the paged decode step through ``kernels.ops``. Parameter
+layouts are the JAX package's: wq/wk/wv [d, heads, Dh], wo [H, Dh, d].
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from ..configs.base import ModelConfig
+from ..kernels import ops
+
+Q_CHUNK = 4096          # query block size for chunked attention
+
+
+# --------------------------------------------------------------------- #
+# init helpers
+# --------------------------------------------------------------------- #
+def dense_init(gen: torch.Generator, shape, dtype, *, fan_in: int):
+    """N(0, 1/fan_in) weights drawn in f32 on the generator's device."""
+    w = torch.randn(shape, generator=gen, dtype=torch.float32,
+                    device=gen.device)
+    return (w * (1.0 / math.sqrt(max(fan_in, 1)))).to(dtype)
+
+
+# --------------------------------------------------------------------- #
+# norms and RoPE
+# --------------------------------------------------------------------- #
+def rms_norm(x, scale, eps=1e-5):
+    dt = x.dtype
+    x = x.float()
+    x = x * torch.rsqrt((x * x).mean(dim=-1, keepdim=True) + eps)
+    return (x * scale.float()).to(dt)
+
+
+def rope(x, positions, theta):
+    """x: [B, S, H, Dh], positions: [B, S] int."""
+    if theta <= 0:
+        return x
+    half = x.shape[-1] // 2
+    freqs = torch.exp(-torch.arange(half, dtype=torch.float32,
+                                    device=x.device)
+                      * (math.log(theta) / half))
+    ang = positions[..., None].float() * freqs                # [B,S,half]
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                     dim=-1).to(x.dtype)
+
+
+# --------------------------------------------------------------------- #
+# attention
+# --------------------------------------------------------------------- #
+def init_attention(gen, cfg: ModelConfig, dtype, lead=()):
+    """Attention weights, stacked over the leading dims ``lead``."""
+    d, H, KV, Dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    lead = tuple(lead)
+    p = {
+        "wq": dense_init(gen, lead + (d, H, Dh), dtype, fan_in=d),
+        "wk": dense_init(gen, lead + (d, KV, Dh), dtype, fan_in=d),
+        "wv": dense_init(gen, lead + (d, KV, Dh), dtype, fan_in=d),
+        "wo": dense_init(gen, lead + (H, Dh, d), dtype, fan_in=H * Dh),
+    }
+    if cfg.qk_norm:
+        p["q_norm"] = torch.ones(lead + (Dh,), dtype=dtype, device=gen.device)
+        p["k_norm"] = torch.ones(lead + (Dh,), dtype=dtype, device=gen.device)
+    return p
+
+
+def _attend_block(q, k, v, mask, scale):
+    """q: [B,Sq,KVd,G,Dh], k/v: [B,T,KVd,Dh], mask: [B or 1, Sq, T].
+
+    Scores and the weighted sum accumulate in f32; the weights are cast
+    to v's dtype first, as the JAX package does."""
+    scores = torch.einsum("bskgh,btkh->bksgt", q.float(), k.float()) * scale
+    scores = scores.masked_fill(~mask[:, None, :, None, :], -1e30)
+    w = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bksgt,btkh->bskgh", w.to(v.dtype).float(), v.float())
+    return out.to(v.dtype)
+
+
+def attention(p, x, cfg: ModelConfig, positions, *, window=0,
+              cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+              paged: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+    """Returns (y, (k, v)).
+
+    Prefill (``paged`` None): causal chunked self-attention; (k, v) are
+    this call's full-length [B, S, KV, Dh] keys and values.
+    Decode (``paged`` = (page_table [B, P], seq_lens [B])): ``cache``
+    holds one layer's (k_pool, v_pool) [N_pages, ps, KV, Dh]; the token's
+    K/V is written into them in place by the paged step.
+    """
+    B, S, _ = x.shape
+    H, KV, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    scale = 1.0 / math.sqrt(Dh)
+
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
+    v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    if cfg.rope_theta > 0:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+    q = q.reshape(B, S, KV, H // KV, Dh)
+
+    if paged is not None:
+        page_table, seq_lens = paged
+        k_pool, v_pool = cache
+        y = ops.paged_attention_step(
+            q[:, 0], k[:, 0], v[:, 0], k_pool, v_pool, page_table, seq_lens,
+            scale=scale, window=window)[:, None]
+    else:
+        y = _chunked_self_attention(q, k, v, positions, window, scale)
+    out = torch.einsum("bshk,hkd->bsd", y.reshape(B, S, H, Dh), p["wo"])
+    return out, (k, v)
+
+
+def _chunked_self_attention(q, k, v, positions, window, scale):
+    """Block-causal (optionally banded) attention, query-chunked.
+
+    q: [B,S,KVd,G,Dh]; k,v: [B,S,KVd,Dh]."""
+    S = q.shape[1]
+    nq = max(1, S // Q_CHUNK)
+    cq = S // nq
+    outs = []
+    for i in range(nq):
+        q_i = q[:, i * cq:(i + 1) * cq]
+        q_pos = positions[:, i * cq:(i + 1) * cq]
+        kv_hi = min((i + 1) * cq, k.shape[1])
+        # lowest kv position any query in this chunk can see, chunk-aligned
+        kv_lo = max(0, ((i * cq - window + 1) // cq) * cq) if window > 0 else 0
+        t_pos = positions[:, kv_lo:kv_hi]
+        mask = t_pos[:, None, :] <= q_pos[:, :, None]
+        if window > 0:
+            mask &= t_pos[:, None, :] > q_pos[:, :, None] - window
+        outs.append(_attend_block(q_i, k[:, kv_lo:kv_hi], v[:, kv_lo:kv_hi],
+                                  mask, scale))
+    return torch.cat(outs, dim=1) if len(outs) > 1 else outs[0]
+
+
+# --------------------------------------------------------------------- #
+# MLP (SwiGLU)
+# --------------------------------------------------------------------- #
+def init_mlp(gen, d, ff, dtype, lead=()):
+    lead = tuple(lead)
+    return {
+        "w_gate": dense_init(gen, lead + (d, ff), dtype, fan_in=d),
+        "w_up": dense_init(gen, lead + (d, ff), dtype, fan_in=d),
+        "w_down": dense_init(gen, lead + (ff, d), dtype, fan_in=ff),
+    }
+
+
+def mlp(p, x):
+    h = F.silu(torch.einsum("bsd,df->bsf", x, p["w_gate"]))
+    h = h * torch.einsum("bsd,df->bsf", x, p["w_up"])
+    return torch.einsum("bsf,fd->bsd", h, p["w_down"])

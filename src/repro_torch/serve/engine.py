@@ -1,0 +1,256 @@
+"""Serving engine: prefill -> paged continuous-batching decode -> streams.
+
+The port of ``repro/serve/engine.py`` (``Engine``). One ``Engine.step()``
+is one scheduler iteration:
+
+  1. admit waiting requests as a wave: one batched prefill and one pool
+     write per distinct (bucketed) prompt length, then one batched call
+     that samples every admission's first token;
+  2. assemble the step (page table, seq lens, per-row sampling knobs),
+     preempting newest-first if the pool cannot grow someone's cache;
+  3. ask the scheduler how many ticks the plan is provably stable for
+     (``Scheduler.steady_horizon``) and run that many decode+sample ticks
+     (``_megastep``, a Python loop where the JAX package scans); sampled
+     tokens stay on the device and feed the next tick;
+  4. copy the megastep's [horizon, slots] tokens to the host once, commit
+     them tick by tick, emit stream events and evict finished sequences.
+
+The plan is uploaded once per step, where the JAX package keeps it on the
+device across epoch-stable steps.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable, Dict, List, Optional, Sequence as Seq
+
+import numpy as np
+import torch
+
+from ..configs.base import LaneConfig, ModelConfig
+from ..configs.serve import ServeConfig
+from ..core import api
+from ..core.prng import MASK32
+from ..models.transformer import make_paged_caches
+from . import kv_pages, sampler
+from .sampler import SamplingParams
+from .scheduler import Scheduler
+
+
+@dataclass
+class StreamEvent:
+    rid: int
+    token: int
+    text: str
+    finished: bool = False
+
+
+def _default_detok(token: int) -> str:
+    return f"{token} "
+
+
+def _next_pow2(n: int) -> int:
+    p = 1
+    while p < n:
+        p *= 2
+    return p
+
+
+def resolve_device(device=None) -> torch.device:
+    """The card unless the caller asks for another device; no silent
+    fallback to the CPU."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available; pass device='cpu' to run "
+                           "the plain PyTorch versions on the CPU")
+    return dev
+
+
+class Engine:
+    def __init__(self, cfg: ModelConfig, serve: Optional[ServeConfig] = None,
+                 lane: Optional[LaneConfig] = None, params=None,
+                 init_seed: int = 0,
+                 detok: Optional[Callable[[int], str]] = None,
+                 device=None):
+        self.cfg = cfg
+        self.serve = serve or ServeConfig()
+        self.lane = lane or LaneConfig()
+        self.detok = detok or _default_detok
+        self.device = resolve_device(device)
+        s = self.serve
+        worst = s.max_pages_per_seq
+        if cfg.sliding_window:
+            # SWA reclamation bounds a sequence's footprint by its window
+            worst = min(worst, s.pages_for(cfg.sliding_window) + 1)
+        if worst > s.num_pages - 1:
+            raise ValueError(
+                f"pool of {s.num_pages - 1} usable pages cannot hold one "
+                f"max-length sequence ({worst} pages); raise "
+                "num_pages or lower max_seq_len")
+        self.params = params if params is not None else api.init(
+            cfg, self.lane, seed=init_seed, device=self.device)
+        raw = make_paged_caches(cfg, s.num_pages, s.page_size,
+                                device=self.device)
+        self.caches = api.split_caches(raw, cfg, self.lane)
+        self.sched = Scheduler(s, window=cfg.sliding_window or 0)
+        self.steps_run = 0
+        self.ticks_run = 0          # decode ticks over all megasteps
+
+    # ------------------------------------------------------------- #
+    def submit(self, prompt: Seq[int],
+               sampling: Optional[SamplingParams] = None,
+               max_new_tokens: Optional[int] = None) -> int:
+        return self.sched.submit(prompt, sampling or SamplingParams(),
+                                 max_new_tokens)
+
+    def _tensor(self, values, dtype) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(values), dtype=dtype,
+                               device=self.device)
+
+    def _sample_admitted(self, seqs, logits_parts,
+                         events: List[StreamEvent]) -> None:
+        """Sample the first token of every admission in one batched call
+        and one device->host copy."""
+        if not seqs:
+            return
+        logits = torch.cat(logits_parts) if len(logits_parts) > 1 \
+            else logits_parts[0]
+        sps = [s.req.sampling for s in seqs]
+        if all(sp.temperature <= 0 for sp in sps):
+            toks = sampler.greedy_tokens(logits)
+        else:
+            toks = sampler.sample_tokens(
+                logits,
+                self._tensor([sp.temperature for sp in sps], torch.float32),
+                self._tensor([sp.top_k for sp in sps], torch.int32),
+                self._tensor([sp.top_p for sp in sps], torch.float32),
+                self._tensor([sp.seed & MASK32 for sp in sps], torch.int64),
+                self._tensor([len(s.generated) for s in seqs], torch.int32),
+                vocab_size=self.cfg.vocab_size)
+        for seq, tok in zip(seqs, toks.cpu().tolist()):
+            finished = self.sched.record_first_token(seq, tok)
+            events.append(StreamEvent(seq.req.rid, tok, self.detok(tok),
+                                      finished))
+
+    def _prefill_len(self, seq) -> int:
+        s_tok = len(seq.cached_prompt)
+        if self.serve.bucket_prompts:
+            s_tok = min(_next_pow2(s_tok), self.serve.max_seq_len)
+        return s_tok
+
+    def _admit_wave(self, seqs):
+        """Prefill and page-write a whole admission wave, one prefill call
+        per distinct (bucketed) prompt length. Returns (seqs in processing
+        order, their prefill-logit blocks)."""
+        s = self.serve
+        groups: Dict[int, list] = {}
+        for seq in seqs:                       # group, keep arrival order
+            groups.setdefault(self._prefill_len(seq), []).append(seq)
+        ordered, logits_parts = [], []
+        for s_tok, group in groups.items():
+            toks = np.zeros((len(group), s_tok), np.int64)
+            for i, seq in enumerate(group):
+                prompt = seq.cached_prompt
+                toks[i, :len(prompt)] = prompt
+            last = [seq.pos - 1 for seq in group]
+            logits, dense = api.prefill_logits(
+                self.params, self.cfg, self._tensor(toks, torch.int64),
+                self._tensor(last, torch.int64))
+            kv_pages.admit_prefill(self.caches, dense, self.cfg,
+                                   [q.pages for q in group], s.page_size,
+                                   table_width=s.max_pages_per_seq)
+            ordered.extend(group)
+            logits_parts.append(logits)
+        return ordered, logits_parts
+
+    def _megastep(self, plan, horizon: int, greedy: bool) -> torch.Tensor:
+        """``horizon`` decode+sample ticks. Each tick decodes one token per
+        row and samples the next; positions and sample indices advance by
+        the active mask, on the device. Returns [horizon, slots] tokens."""
+        tok = self._tensor(plan.tokens, torch.int64)
+        table = self._tensor(plan.page_table, torch.int32)
+        seq_lens = self._tensor(plan.seq_lens, torch.int32)
+        step = self._tensor(plan.step, torch.int32)
+        mask = self._tensor(plan.active, torch.int32)
+        if not greedy:
+            temperature = self._tensor(plan.temperature, torch.float32)
+            top_k = self._tensor(plan.top_k, torch.int32)
+            top_p = self._tensor(plan.top_p, torch.float32)
+            seed = self._tensor(plan.seed.astype(np.int64), torch.int64)
+        toks = []
+        for _ in range(horizon):
+            logits = api.decode_step_paged(self.params, self.cfg,
+                                           tok[:, None], self.caches, table,
+                                           seq_lens)
+            if greedy:
+                tok = sampler.greedy_tokens(logits)
+            else:
+                tok = sampler.sample_tokens(
+                    logits, temperature, top_k, top_p, seed, step,
+                    vocab_size=self.cfg.vocab_size)
+            toks.append(tok)
+            seq_lens = seq_lens + mask
+            step = step + mask
+        return torch.stack(toks)
+
+    # ------------------------------------------------------------- #
+    @torch.no_grad()
+    def step(self) -> List[StreamEvent]:
+        """One engine iteration; returns the stream events it produced."""
+        events: List[StreamEvent] = []
+        waiting = self.sched.poll_admissions()
+        if waiting:
+            seqs, logits_parts = self._admit_wave(waiting)
+            self._sample_admitted(seqs, logits_parts, events)
+        plan = self.sched.prepare_step()
+        if plan is None:
+            return events
+        H = self.sched.steady_horizon()
+        # all-greedy megasteps skip the sampler's filters and noise
+        greedy = not bool(plan.temperature.any())
+        toks = self._megastep(plan, H, greedy).cpu().numpy()  # one copy
+        for t in range(H):
+            active = list(self.sched.running)
+            done = {s.req.rid for s in self.sched.commit_step(toks[t])}
+            for seq in active:
+                tok = seq.generated[-1]
+                events.append(StreamEvent(seq.req.rid, tok, self.detok(tok),
+                                          seq.req.rid in done))
+        self.steps_run += 1
+        self.ticks_run += H
+        return events
+
+    def run(self, callback: Optional[Callable[[StreamEvent], None]] = None,
+            max_steps: int = 100_000) -> Dict[int, List[int]]:
+        """Drive until every submitted request finishes. Returns
+        rid -> generated tokens for requests that finished during THIS
+        call; ``callback`` sees every stream event."""
+        start = len(self.sched.finished)
+        for _ in range(max_steps):
+            if not self.sched.has_work():
+                break
+            for ev in self.step():
+                if callback is not None:
+                    callback(ev)
+        else:
+            raise RuntimeError("engine did not drain within max_steps")
+        self.sched.check_invariants()
+        return {s.req.rid: list(s.generated)
+                for s in self.sched.finished[start:]}
+
+    def generate(self, prompts: Seq[Seq[int]],
+                 sampling: Optional[SamplingParams] = None,
+                 max_new_tokens: Optional[int] = None) -> List[List[int]]:
+        rids = [self.submit(p, sampling, max_new_tokens) for p in prompts]
+        out = self.run()
+        return [out[r] for r in rids]
+
+    def page_utilization(self) -> Dict[str, float]:
+        total = self.serve.num_pages - 1
+        s = self.sched
+        mean = s.util_sum / s.util_steps if s.util_steps else 0.0
+        return {"total_pages": total,
+                "peak_pages": int(s.util_peak),
+                "mean_pages": mean,
+                "peak_util": s.util_peak / total,
+                "mean_util": mean / total,
+                "reclaimed_pages": int(s.reclaimed_pages)}

@@ -2,11 +2,14 @@
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one card.
 
 Run from the repository root: ``python3 chip_smoke.py``. It builds the
-CUDA kernels from ``src/repro_torch/csrc`` with nvcc, holds each kernel
-against its plain PyTorch version at the shapes the serve path gives it,
-checks a small model on the card against the CPU, then serves eight
-requests with qwen3-4b at full width and depth (36 layers, bf16, random
-weights from a seed) and checks that the path went through the kernels.
+CUDA kernels from ``src/repro_torch/csrc`` with nvcc and holds each
+kernel against its plain PyTorch version at the shapes its path gives
+it. Then it drives the port's paths and checks that each went through
+its kernels: it checks a small model on the card against the CPU, serves
+eight requests with qwen3-4b at full width and depth (36 layers, bf16,
+random weights from a seed), trains LeNet-5 in the paper's four fp32
+lanes (Table 1), and trains qwen3-4b at full width and depth for a few
+ElasticZO steps.
 
 The last three lines of its output are the card's name and power limit
 (nvidia-smi), a JSON line of per-kernel numbers, and
@@ -32,6 +35,14 @@ PAGED_BF16_TOL = 3e-2            # a few bf16 ulps of |o| <~ 1 (the plain
 #                                  bf16 before the weighted sum; the kernel
 #                                  keeps them in f32)
 PAGED_F32_TOL = 1e-5             # summation order only
+ZO_FLOPS_PER_ELEMENT = 55        # per element and (seed, coeff) record, an
+#                                  FMA counted as two: Box-Muller's 6 muls
+#                                  and adds, logf ~20, cosf ~18, sqrt ~7 as
+#                                  the CUDA math library evaluates them, and
+#                                  the scale-and-add 2. The murmur hash's ~36
+#                                  integer ops per element issue on the INT32
+#                                  pipe beside them and are not counted.
+ZO_CHUNK = 1 << 26               # flat elements per plain-version chunk
 
 
 def phase(name):
@@ -214,6 +225,143 @@ def check_topk(topk_mask, ref, V):
 
 
 # --------------------------------------------------------------------- #
+# the ZO kernels at the train path's leaves
+# --------------------------------------------------------------------- #
+def _ordered(t):
+    """Float bits as integers ordered like the values (-0 == +0), so a
+    difference of two is a distance in units in the last place."""
+    if t.dtype == torch.bfloat16:
+        i = t.view(torch.int16).to(torch.int32)
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+    i = t.view(torch.int32).to(torch.int64)
+    return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+
+
+def ulp_diff(got, plain):
+    """(elements that differ, largest ulp distance) between a kernel's
+    output and ``plain(lo, hi)``, its plain version over the flat range
+    [lo, hi), taken ZO_CHUNK elements at a time."""
+    flat = got.reshape(-1)
+    count = worst = 0
+    for lo in range(0, flat.numel(), ZO_CHUNK):
+        hi = min(lo + ZO_CHUNK, flat.numel())
+        d = (_ordered(flat[lo:hi]) - _ordered(plain(lo, hi))).abs()
+        count += int((d != 0).sum())
+        worst = max(worst, int(d.max()))
+    return count, worst
+
+
+def zo_records(steps, probes, seed=0):
+    """The train step's seeds (u32, as int32 on the card) of ``steps`` x
+    ``probes`` probes, and coefficients of the size eta * g / valid."""
+    from repro_torch.core import keys, prng, zo
+    base = keys.key_data(seed)
+    seeds = [prng.seed_from_key(keys.fold_in(keys.fold_in(base, s), i))
+             for s in range(steps) for i in range(probes)]
+    rng = np.random.default_rng(seed)
+    coeffs = (rng.normal(size=(steps, probes)) * 1e-3).astype(np.float32)
+    return (zo.device_seeds(seeds, "cuda").reshape(steps, probes),
+            torch.from_numpy(coeffs).cuda())
+
+
+def check_zo_leaf(zo_perturb, zo_replay, ref, path, shape, dtype):
+    """Both ZO kernels against their plain versions on one leaf, bitwise:
+    perturbation, the update (S = 1, P = 1 and P = 4), a ledger catch-up
+    (S = 8, P = 4), and 8 single-step launches against one 8-step
+    launch. Returns the leaf, its salt and the records."""
+    from repro_torch.core import zo
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    theta = torch.randn(shape, generator=gen, device="cuda", dtype=dtype)
+    salt = zo.path_salt(path)
+    seeds, coeffs = zo_records(8, 4)
+    flat = theta.reshape(-1)
+    name = f"{zo.keystr(path)} {list(shape)} {str(dtype)[6:]}"
+    checks = [("zo_perturb +eps", zo_perturb.zo_perturb(
+        theta, seeds[0, :1], salt, 1e-3),
+        lambda lo, hi: ref.zo_perturb_ref(flat[lo:hi], seeds[0, :1], salt,
+                                          1e-3, lo))]
+    for S, P in ((1, 1), (1, 4), (8, 4)):
+        sd, cf = seeds[:S, :P], coeffs[:S, :P]
+        checks.append((f"zo_fused_replay S={S} P={P}",
+                       zo_replay.zo_fused_replay(theta, sd, cf, salt),
+                       lambda lo, hi, sd=sd, cf=cf: ref.zo_fused_replay_ref(
+                           flat[lo:hi], sd, cf, salt, lo)))
+    for what, got, plain in checks:
+        count, worst = ulp_diff(got, plain)
+        print(f"{what} on {name}: {count} of {theta.numel()} elements "
+              f"differ from the plain version, largest distance {worst} ulp")
+        if count:
+            raise AssertionError(f"{what} is not bitwise its plain version")
+    live = theta.clone()
+    for s in range(8):
+        zo_replay.zo_fused_replay(live, seeds[s:s + 1], coeffs[s:s + 1],
+                                  salt, out=live)
+    if not torch.equal(live, checks[-1][1]):
+        raise AssertionError(f"8 live steps != one 8-step replay on {name}")
+    print(f"live == replay on {name}: 8 single-step in-place launches equal "
+          "one 8-step launch bitwise")
+    return theta, salt, seeds, coeffs
+
+
+def zo_bound_ms(n, itemsize, records):
+    """(bound ms, what bounds it) of one pass over an n-element leaf."""
+    nbytes = 2 * n * itemsize + 8 * records
+    by_bytes = nbytes / HBM_BYTES_PER_S
+    by_ops = ZO_FLOPS_PER_ELEMENT * n * records / F32_OPS_PER_S
+    return max(by_bytes, by_ops) * 1e3, \
+        "bytes" if by_bytes >= by_ops else "operations"
+
+
+def check_zo(zo_perturb, zo_replay, ref):
+    """The kernels on a LeNet-5 leaf (f32), an odd-sized one and the
+    largest qwen3-4b ZO leaf (bf16), then timed on the last."""
+    check_zo_leaf(zo_perturb, zo_replay, ref, ("fc1", "w"), (784, 120),
+                  torch.float32)
+    check_zo_leaf(zo_perturb, zo_replay, ref, ("conv2", "b"), (16 + 3,),
+                  torch.float32)
+    theta, salt, seeds, coeffs = check_zo_leaf(
+        zo_perturb, zo_replay, ref, ("periods_zo", "blk0", "mlp", "w_gate"),
+        (35, 2560, 9728), torch.bfloat16)
+    flat, n = theta.reshape(-1), theta.numel()
+    seed, sd, cf = seeds[0, :1], seeds[:1, :1], coeffs[:1, :1]
+
+    def chunked(fn):
+        def call():
+            for lo in range(0, n, ZO_CHUNK):
+                fn(lo, min(lo + ZO_CHUNK, n))
+        return call
+
+    out = {}
+    ms = device_ms(lambda: zo_perturb.zo_perturb(theta, seed, salt, 1e-3),
+                   iters=10)
+    plain_ms = device_ms(chunked(lambda lo, hi: ref.zo_perturb_ref(
+        flat[lo:hi], seed, salt, 1e-3, lo)), iters=2)
+    bound, by = zo_bound_ms(n, 2, 1)
+    out["zo_perturb"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                             bound_ms=bound, bound_by=by, library_ms=None)
+    ms = device_ms(lambda: zo_replay.zo_fused_replay(theta, sd, cf, salt),
+                   iters=10)
+    plain_ms = device_ms(chunked(lambda lo, hi: ref.zo_fused_replay_ref(
+        flat[lo:hi], sd, cf, salt, lo)), iters=2)
+    bound, by = zo_bound_ms(n, 2, 1)
+    out["zo_fused_replay"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                                  bound_ms=bound, bound_by=by,
+                                  library_ms=None)
+    catch_up_ms = device_ms(lambda: zo_replay.zo_fused_replay(
+        theta, seeds, coeffs, salt), iters=3)
+    catch_up_bound, catch_up_by = zo_bound_ms(n, 2, 32)
+    for name, r in out.items():
+        print(f"{name} on the {n}-element bf16 leaf: kernel {r['ms']:.4f} "
+              f"ms, plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} "
+              f"ms by {r['bound_by']} ({ZO_FLOPS_PER_ELEMENT} flops per "
+              f"element and record, {2 * n * 2} bytes)")
+    print(f"zo_fused_replay S=8 P=4 (ledger catch-up) on the same leaf: "
+          f"kernel {catch_up_ms:.4f} ms, bound {catch_up_bound:.4f} ms by "
+          f"{catch_up_by}")
+    return out
+
+
+# --------------------------------------------------------------------- #
 # serving
 # --------------------------------------------------------------------- #
 def requests(cfg, rng):
@@ -353,13 +501,212 @@ def _leaves(tree):
         yield tree
 
 
+# --------------------------------------------------------------------- #
+# training: LeNet-5 in the paper's four fp32 lanes (Table 1)
+# --------------------------------------------------------------------- #
+# Test accuracy of the JAX package on the CPU at these settings: as
+# committed in BENCH_paper.json (benchmarks/run.py --fast), and as
+# benchmarks/paper_tables.py::lenet_lanes(steps=150) gives it with
+# jax 0.9.0, the JAX package's current state.
+LENET_JAX_CPU_ACC = {"full_zo": (0.203, 0.354), "zo_feat_cls2": (0.449, 0.600),
+                     "zo_feat_cls1": (0.314, 0.387), "full_bp": (0.998, 1.0)}
+# zo_perturb launches per step: 2 per probe (4 probes) per ZO leaf
+LENET_PERTURB_PER_STEP = {"full_zo": 80, "zo_feat_cls2": 48,
+                          "zo_feat_cls1": 64, "full_bp": 0}
+
+
+def lenet_lanes(steps):
+    """benchmarks/paper_tables.py::lenet_lane_configs at its defaults, as
+    the port's LaneConfigs: (name, lane, partition point C)."""
+    from repro_torch.configs import LaneConfig
+    dk = dict(lr_decay_factor=0.8, lr_decay_every=max(steps // 10, 1))
+    zo = dict(learning_rate=5e-3, zo_eps=1e-2, zo_num_probes=4, **dk)
+    return [
+        ("full_zo", LaneConfig(lane="full_zo", **zo), 5),
+        ("zo_feat_cls2", LaneConfig(lane="elastic_zo", tail_learning_rate=0.05,
+                                    **zo), 3),
+        ("zo_feat_cls1", LaneConfig(lane="elastic_zo", tail_learning_rate=0.05,
+                                    **zo), 4),
+        ("full_bp", LaneConfig(lane="full_bp", learning_rate=0.05, **dk), 0),
+    ]
+
+
+def check_lenet(zo_perturb, zo_replay, steps=150, batch=32):
+    """Each lane from the same init (seed 7) and key (11) for ``steps``
+    steps on glyphs(2048, seed=0), evaluated on glyphs(512, seed=1,
+    start=10000): the settings behind BENCH_paper.json's Table 1."""
+    from repro_torch.core import keys
+    from repro_torch.core.elastic import TrainState, make_elastic_step
+    from repro_torch.data.synthetic import glyphs
+    from repro_torch.models import lenet
+    xs, ys = glyphs(2048, seed=0)
+    xte, yte = glyphs(512, seed=1, start=10_000)
+    xte, yte = torch.from_numpy(xte).cuda(), torch.from_numpy(yte).cuda()
+    acc, peak = {}, {}
+    for name, lane, c in lenet_lanes(steps):
+        part = (lambda p, c=c: lenet.partition_at(p, c)) \
+            if lane.lane == "elastic_zo" else None
+        step = make_elastic_step(lenet.lenet5_loss, lane, partition_fn=part)
+        state = TrainState(lenet.init_lenet5(7, device="cuda"), 0,
+                           keys.key_data(11))
+        mask = np.ones((lane.zo_num_probes,), np.float32)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zo_perturb.launches = zo_replay.launches = 0
+        t0 = time.perf_counter()
+        for s in range(steps):
+            i0 = (s * batch) % len(xs)
+            state, m = step(state, {
+                "x": torch.from_numpy(xs[i0:i0 + batch]).cuda(),
+                "y": torch.from_numpy(ys[i0:i0 + batch]).cuda()}, mask)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n_p, n_r = zo_perturb.launches, zo_replay.launches
+        peak[name] = torch.cuda.max_memory_allocated()
+        loss = float(m["loss"])
+        with torch.no_grad():
+            logits, _ = lenet.lenet5_forward(state.params, xte)
+            acc[name] = float((logits.argmax(-1) == yte).float().mean())
+        committed, current = LENET_JAX_CPU_ACC[name]
+        print(f"lenet {name:13s}: test accuracy {acc[name]:.4f} (JAX on the "
+              f"CPU: {committed:.3f} in BENCH_paper.json, {current:.3f} with "
+              f"jax 0.9.0), last loss {loss:.4f}, "
+              f"{1e3 * wall / steps:.3f} ms per step, peak device memory "
+              f"{peak[name]} bytes, launches per step: zo_perturb "
+              f"{n_p / steps:g}, zo_fused_replay {n_r / steps:g}")
+        want = LENET_PERTURB_PER_STEP[name]
+        if n_p != want * steps or n_r != want // 8 * steps:
+            raise AssertionError(f"lenet {name}: {n_p} zo_perturb and {n_r} "
+                                 f"zo_fused_replay launches in {steps} "
+                                 f"steps, want {want} and {want // 8} a step")
+        if not np.isfinite(loss):
+            raise AssertionError(f"lenet {name}: loss {loss}")
+    order = ("full_bp", "zo_feat_cls2", "zo_feat_cls1", "full_zo")
+    if not all(acc[a] > acc[b] for a, b in zip(order, order[1:])):
+        raise AssertionError(f"Table 1 ordering does not hold: {acc}")
+    print(f"Table 1 ordering holds: {' > '.join(order)}; peak memory "
+          f"full_bp / full_zo = {peak['full_bp'] / peak['full_zo']:.3f}")
+
+
+# --------------------------------------------------------------------- #
+# training: qwen3-4b at full width and depth
+# --------------------------------------------------------------------- #
+TRAIN_ARGV = ["--arch", "qwen3-4b", "--lane", "elastic_zo",
+              "--bp-tail-layers", "1", "--probes", "1", "--batch", "4",
+              "--seq", "128", "--lr", "1e-2", "--eps", "1e-3", "--steps", "5"]
+
+
+def train_run(trainer, run, LoopConfig):
+    """One warm-up step, then four timed ones, through train_loop.run (the
+    loss read on the host after every step). Returns (state, losses,
+    timed wall s, peak device memory of the timed steps)."""
+    def loop(total):
+        return LoopConfig.for_lane(trainer.lane, total_steps=total,
+                                   log_every=1)
+    state, h0 = run(trainer.step_fn, trainer.state, trainer.batch_fn,
+                    loop(1), log=None)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, h1 = run(trainer.step_fn, state, trainer.batch_fn, loop(5),
+                    log=None)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return state, [loss for _, loss in h0 + h1], wall, \
+        torch.cuda.max_memory_allocated()
+
+
+def check_train_lm(zo_perturb, zo_replay):
+    """ElasticZO on qwen3-4b through repro_torch.launch.train's own
+    functions; launch counts, finite losses, a changed head and tail, and
+    a bitwise rerun. Returns the launch counts of the first run."""
+    from repro_torch.core import elastic, zo
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train.train_loop import LoopConfig, run
+    args = launch_train.parse_args(TRAIN_ARGV)
+    t0 = time.perf_counter()
+    trainer = launch_train.setup(args)
+    torch.cuda.synchronize()
+    print(f"train setup (init of {sum(p.numel() for p in _leaves(trainer.state.params))} "
+          f"bf16 parameters) {time.perf_counter() - t0:.2f} s")
+    zo_part, bp_part = ([zo.keystr(p) for p, _ in zo.leaves_with_path(t)]
+                        for t in elastic.partition(trainer.state.params,
+                                                   trainer.lane))
+    zo_perturb.launches = zo_replay.launches = 0
+    state, losses, wall, peak = train_run(trainer, run, LoopConfig)
+    n_p, n_r = zo_perturb.launches, zo_replay.launches
+    tokens = args.batch * args.seq
+    print(f"train qwen3-4b elastic_zo, 1 probe, batch {args.batch} x seq "
+          f"{args.seq}: losses {[round(v, 4) for v in losses]}; "
+          f"{1e3 * wall / 4:.1f} ms per step, {4 * tokens / wall:.1f} tokens/s "
+          f"over 4 timed steps; peak device memory {peak} bytes")
+    print(f"launches on the main path (5 steps): zo_perturb {n_p}, "
+          f"zo_fused_replay {n_r}")
+    if n_p != 24 * 5 or n_r != 12 * 5 or len(zo_part) != 12:
+        raise AssertionError(f"{len(zo_part)} ZO leaves, {n_p} zo_perturb "
+                             f"and {n_r} zo_fused_replay launches in 5 "
+                             "steps, want 12, 24 a step and 12 a step")
+    if len(losses) != 5 or not all(np.isfinite(v) for v in losses):
+        raise AssertionError(f"losses {losses}")
+    del trainer
+    torch.cuda.empty_cache()
+
+    again = launch_train.setup(args)
+    final = dict((zo.keystr(p), t) for p, t in
+                 zo.leaves_with_path(state.params))
+    fresh = dict((zo.keystr(p), t) for p, t in
+                 zo.leaves_with_path(again.state.params))
+    moved = {part: sum(not torch.equal(fresh[k], final[k]) for k in names)
+             for part, names in (("zo", zo_part), ("bp", bp_part))}
+    print(f"leaves changed by training: {moved['zo']} of {len(zo_part)} ZO, "
+          f"{moved['bp']} of {len(bp_part)} BP-tail")
+    if not moved["zo"] or not moved["bp"]:
+        raise AssertionError("training left the ZO head or the tail as it was")
+    del fresh
+    state2, losses2, wall2, _ = train_run(again, run, LoopConfig)
+    same = all(torch.equal(t, final[zo.keystr(p)])
+               for p, t in zo.leaves_with_path(state2.params))
+    print(f"rerun from the same seed: losses {[round(v, 4) for v in losses2]},"
+          f" {1e3 * wall2 / 4:.1f} ms per step; parameters bitwise equal: "
+          f"{same}")
+    if not same or losses2 != losses:
+        raise AssertionError("a rerun from the same parameters and seed gave "
+                             "other parameters or losses")
+    del final, state
+    profile_train_step(again, state2, run, LoopConfig, wall2 / 4)
+    return n_p, n_r
+
+
+def profile_train_step(trainer, state, run, LoopConfig, step_s):
+    """Device time by kernel over one more step, from torch.profiler
+    tracing the device alone (a step launches ~5,000 kernels); the busy
+    share is against an unprofiled step's wall time."""
+    from torch.profiler import ProfilerActivity, profile
+    loop = LoopConfig.for_lane(trainer.lane, total_steps=state.step + 1,
+                               log_every=1)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run(trainer.step_fn, state, trainer.batch_fn, loop, log=None)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if str(e.device_type).endswith("CUDA")]
+    dev_us = _kernel_us(prof)
+    print(f"train profile: {len(kernels)} kernel names, device time "
+          f"{dev_us / 1e3:.1f} ms in one step = {100 * dev_us / 1e6 / step_s:.1f}% "
+          f"of an unprofiled step's wall time")
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)
+    for e in top[:12] + [e for e in top[12:] if "zo_" in e.key]:
+        print(f"  {e.self_device_time_total / 1e3:9.3f} ms {e.count:6d}x "
+              f"{e.key[:90]}")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs import ARCHS, ServeConfig
-    from repro_torch.kernels import _build, paged_attn, ref, topk_mask
+    from repro_torch.kernels import (_build, paged_attn, ref, topk_mask,
+                                     zo_fused_replay, zo_perturb)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -386,12 +733,22 @@ def main():
     P = ServeConfig(page_size=16, max_seq_len=544).max_pages_per_seq
     paged = check_paged(paged_attn, ref, P)
     topk = check_topk(topk_mask, ref, ARCHS["qwen3-4b"].padded_vocab)
+    zo_times = check_zo(zo_perturb, zo_fused_replay, ref)
+    torch.cuda.empty_cache()
 
     phase("small model: card against CPU")
     check_small_model_on_card_vs_cpu()
 
     phase("serve qwen3-4b")
     n_paged, n_topk = check_serve(paged_attn, topk_mask)
+    torch.cuda.empty_cache()
+
+    phase("train LeNet-5: the paper's Table 1")
+    check_lenet(zo_perturb, zo_fused_replay)
+
+    phase("train qwen3-4b")
+    n_zo = dict(zip(("zo_perturb", "zo_fused_replay"),
+                    check_train_lm(zo_perturb, zo_fused_replay)))
 
     kernels = [
         dict(name="paged_attention_step", route="cuda",
@@ -408,7 +765,12 @@ def main():
              ms=topk["ms"], plain_ms=topk["plain_ms"],
              bound_ms=topk["bound_ms"], bound_by="bytes",
              library_ms=topk["library_ms"]),
-    ]
+    ] + [dict(name=name, route="cuda",
+              source=f"src/repro_torch/csrc/{name}.cu",
+              replaces=f"src/repro/kernels/{where}", launches=n_zo[name],
+              **zo_times[name])
+         for name, where in (("zo_perturb", "zo_perturb.py:72"),
+                             ("zo_fused_replay", "zo_fused_replay.py:58"))]
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,1 +1,1 @@
-"""Serve-side model API."""
+"""Noise, probe keys, the ZO update engine and the model API."""

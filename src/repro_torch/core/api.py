@@ -1,9 +1,10 @@
-"""Serve-side model API: init, prefill logits and the paged decode step.
+"""Model API: init, the train step, prefill logits and the paged decode step.
 
-The port of the serve half of ``repro/core/api.py``. Parameters keep the
-JAX package's ElasticZO split: ``periods_zo`` (the zeroth-order head)
-and ``periods_bp`` (the back-propagated tail of ``tail_periods`` periods).
-Serving runs both in order. Training waits for a later slice.
+The port of ``repro/core/api.py``. Parameters keep the JAX package's
+ElasticZO split: ``periods_zo`` (the zeroth-order head) and
+``periods_bp`` (the back-propagated tail of ``tail_periods`` periods).
+Serving runs both in order; training perturbs the head and
+differentiates the tail (``core/elastic.py``).
 """
 from __future__ import annotations
 
@@ -12,7 +13,19 @@ from typing import Optional
 import torch
 
 from ..configs.base import LaneConfig, ModelConfig
-from ..models.transformer import embed, head_logits, init_lm, run_periods, tree_map
+from ..models.transformer import (embed, head_logits, init_lm, lm_loss,
+                                  run_periods, tree_map)
+from . import elastic
+
+
+def resolve_device(device=None) -> torch.device:
+    """The card unless the caller asks for another device; no silent
+    fallback to the CPU."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available; pass device='cpu' to run "
+                           "the plain PyTorch versions on the CPU")
+    return dev
 
 
 def tail_periods(cfg: ModelConfig, lane: LaneConfig) -> int:
@@ -31,7 +44,8 @@ def split_caches(caches, cfg: ModelConfig, lane: LaneConfig):
 
 def init(cfg: ModelConfig, lane: Optional[LaneConfig] = None, *,
          seed: int = 0, device, dtype=None):
-    """Random parameters with the periods split into zo and bp."""
+    """Random parameters with the periods split into zo and bp. Each half
+    is a leading-dim slice of one stacked tensor, so it is contiguous."""
     params = init_lm(cfg, seed=seed, device=device, dtype=dtype)
     split = split_caches(params.pop("periods"), cfg, lane or LaneConfig())
     params["periods_zo"], params["periods_bp"] = split["zo"], split["bp"]
@@ -50,14 +64,42 @@ def _backbone(params, cfg: ModelConfig, tokens, positions, mode, *,
     return x, {"zo": cz, "bp": cb}
 
 
+def _positions(tokens):
+    B, S = tokens.shape
+    return torch.arange(S, dtype=torch.int64, device=tokens.device).expand(B, S)
+
+
+# ---------------------------------------------------------------------- #
+# train
+# ---------------------------------------------------------------------- #
+def loss_fn(params, cfg: ModelConfig, batch):
+    """Mean next-token cross-entropy of batch {"tokens", "labels", "mask"}
+    (each [B, S]). The ZO head is never differentiated: its leaves do not
+    require grad, so autograd records nothing before ``periods_bp`` (the
+    port's form of the JAX package's ``stop_gradient`` cut)."""
+    tokens = batch["tokens"]
+    x, _ = _backbone(params, cfg, tokens, _positions(tokens), "train")
+    return lm_loss(params, x, batch["labels"], batch["mask"], cfg)
+
+
+def make_train_step(cfg: ModelConfig, lane: LaneConfig):
+    """The ElasticZO step of ``lane`` over ``loss_fn``:
+    (state, batch, probe_mask) -> (state, metrics)."""
+    if lane.fused_probes:
+        raise NotImplementedError("fused probes (lane.fused_probes) are not "
+                                  "ported yet")
+    return elastic.make_elastic_step(lambda p, b: loss_fn(p, cfg, b), lane)
+
+
+# ---------------------------------------------------------------------- #
+# serve
+# ---------------------------------------------------------------------- #
 def prefill_logits(params, cfg: ModelConfig, tokens, last_pos):
     """Prefill of tokens [B, S]. Returns (logits [B, Vp] f32 at each row's
     ``last_pos`` (right-padded prompts are allowed), full-length caches
     {"zo", "bp"} of [periods, B, S, KV, Dh] for paged admission)."""
-    B, S = tokens.shape
-    positions = torch.arange(S, dtype=torch.int64,
-                             device=tokens.device).expand(B, S)
-    x, caches = _backbone(params, cfg, tokens, positions, "prefill")
+    B = tokens.shape[0]
+    x, caches = _backbone(params, cfg, tokens, _positions(tokens), "prefill")
     xl = x[torch.arange(B, device=x.device), last_pos.to(torch.int64)]
     return head_logits(params, xl[:, None], cfg)[:, 0].float(), caches
 

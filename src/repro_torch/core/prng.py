@@ -2,7 +2,8 @@
 
 Every element's bits are a murmur3-style hash of (global flat index,
 salt, seed), so the same (seed, salt, shape, offset) regenerates the same
-bits on any device. The serve sampler's Gumbel stream is built on them.
+bits on any device. The serve sampler's Gumbel stream is built on them,
+and ``normal`` turns two streams into the ZO perturbation z.
 
 The arithmetic is uint32 with wrap-around. PyTorch's CPU kernels have no
 uint32 add, shift or remainder, so the hash runs in int64 holding values
@@ -11,6 +12,7 @@ split into 16-bit halves so that no intermediate leaves int64's range.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 MASK32 = 0xFFFFFFFF
@@ -61,3 +63,25 @@ def uniform_bits(seed, salt: int, shape, offset: int = 0, *,
     s = seed.reshape(seed.shape + (1,) * len(shape))
     h = _fmix32(h ^ s)
     return _fmix32((h + mul32(s, _M2)) & MASK32)
+
+
+def normal(seed, salt: int, shape, offset: int = 0, *,
+           device=None) -> torch.Tensor:
+    """Standard normal float32 via Box-Muller on two hashed streams (salts
+    2*salt+1 and 2*salt+2), op for op ``repro/core/prng.py::normal``:
+    u1 = (b1 >> 8) * 2**-24 + 2**-25 in (0, 1], u2 = (b2 >> 8) * 2**-24,
+    z = sqrt(-2 log u1) * cos(float32(2 pi) * u2). Every multiply and add
+    is its own rounded f32 op. ``seed`` as in ``uniform_bits``."""
+    b1 = uniform_bits(seed, 2 * int(salt) + 1, shape, offset, device=device)
+    b2 = uniform_bits(seed, 2 * int(salt) + 2, shape, offset, device=device)
+    u1 = (b1 >> 8).to(torch.float32) * 2.0 ** -24 + 2.0 ** -25
+    u2 = (b2 >> 8).to(torch.float32) * 2.0 ** -24
+    r = torch.sqrt(-2.0 * torch.log(u1))
+    return r * torch.cos(float(np.float32(2.0 * np.pi)) * u2)
+
+
+def seed_from_key(key) -> int:
+    """The uint32 noise seed of a key (numpy uint32[2] key data, see
+    ``core/keys.py``): ``data[0] ^ (data[1] * M1)`` mod 2**32."""
+    k0, k1 = (int(v) for v in np.asarray(key, np.uint32))
+    return (k0 ^ (k1 * _M1)) & MASK32

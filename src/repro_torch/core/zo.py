@@ -1,0 +1,95 @@
+"""Zeroth-order (SPSA) machinery with the MeZO seed-replay trick.
+
+The port of ``repro/core/zo.py``. The perturbation z ~ N(0, I) is never
+stored: it is regenerated from a probe's uint32 seed every time it is
+needed (perturb +, perturb -, update). On the card each leaf goes through
+one hand-written kernel (``kernels/ops.py``): ``zo_perturb`` for theta +
+scale * z, ``zo_fused_replay`` for the update, each one read and one
+write of the leaf. On the CPU the same calls take the plain versions.
+
+Noise streams are salted per leaf by the crc32 of the leaf's path string,
+exactly as ``jax.tree_util.keystr`` spells it inside the tree being
+perturbed, so the port draws the JAX package's z for every leaf.
+"""
+from __future__ import annotations
+
+import zlib
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..kernels import ops
+from . import prng
+
+
+def keystr(path: Sequence[str]) -> str:
+    """``jax.tree_util.keystr`` of a path of dict keys, e.g.
+    ``['periods_zo']['blk0']['mlp']['w_gate']``."""
+    return "".join(f"[{k!r}]" for k in path)
+
+
+def path_salt(path: Sequence[str], prefix: str = "") -> int:
+    return zlib.crc32((prefix + keystr(path)).encode()) & 0x3FFFFFFF
+
+
+def map_with_path(fn, tree, path=()):
+    """``fn(path, leaf)`` over a nested dict of tensors, same structure."""
+    if isinstance(tree, dict):
+        return {k: map_with_path(fn, v, path + (k,)) for k, v in tree.items()}
+    return fn(path, tree)
+
+
+def leaves_with_path(tree, path=()):
+    """(path, leaf) for every tensor of a nested dict, in key order."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from leaves_with_path(v, path + (k,))
+    else:
+        yield path, tree
+
+
+def device_seeds(seeds: Sequence[int], device) -> torch.Tensor:
+    """Host uint32 seeds -> an int32 tensor on ``device`` holding their
+    bits. To a card the copy goes from pinned memory without blocking, so
+    the host never waits on the device for it."""
+    t = torch.from_numpy(np.asarray(seeds, np.uint32).view(np.int32).copy())
+    device = torch.device(device)
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
+def leaf_noise(seed, path, leaf: torch.Tensor) -> torch.Tensor:
+    """The f32 z for one leaf (the plain version's; tests and checks)."""
+    seed = seed.reshape(()) if isinstance(seed, torch.Tensor) else seed
+    return prng.normal(seed, path_salt(path), leaf.shape, device=leaf.device)
+
+
+def perturb(params, seed: torch.Tensor, scale: float):
+    """theta + scale * z for every leaf, out of place (theta is needed
+    again for the other probes and the update). seed: int32 [1] on the
+    params' device."""
+    return map_with_path(
+        lambda path, leaf: ops.zo_perturb(leaf, seed, path_salt(path), scale),
+        params)
+
+
+def zo_update(params, seed: torch.Tensor, step_size: torch.Tensor):
+    """theta - step_size * z (z replayed from ``seed``): one-record
+    ``zo_fused_replay``. step_size: an f32 scalar tensor on the params'
+    device, so the update needs no device-to-host read."""
+    seeds = seed.reshape(1, 1)
+    coeffs = step_size.to(torch.float32).reshape(1, 1)
+    return map_with_path(
+        lambda path, leaf: ops.zo_fused_replay(leaf, seeds, coeffs,
+                                               path_salt(path)),
+        params)
+
+
+def projected_gradient(l_plus, l_minus, eps: float,
+                       clip: Optional[float] = None):
+    g = (l_plus - l_minus) / (2.0 * eps)
+    if clip is not None and clip > 0:
+        g = torch.clamp(g, -clip, clip)
+    return g

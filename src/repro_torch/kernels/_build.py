@@ -1,9 +1,10 @@
 """Build ``csrc/*.cu`` with nvcc on first use and load them with ctypes.
 
 Each source is a shared library with a plain C interface. The library
-name carries a hash of its source and the flags, so an edited kernel is
-rebuilt and a built one is reused. Builds go to ``csrc/_build`` (listed
-in ``.gitignore``); all sources compile at once, one nvcc process each.
+name carries a hash of its source, the shared headers (``csrc/*.cuh``)
+and the flags, so an edited kernel is rebuilt and a built one is reused.
+Builds go to ``csrc/_build`` (listed in ``.gitignore``); all sources
+compile at once, one nvcc process each.
 """
 from __future__ import annotations
 
@@ -32,7 +33,10 @@ def _nvcc() -> str:
 
 
 def _target(src: Path) -> Path:
-    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{src.stem}-{h.hexdigest()[:16]}.so"
 
 

@@ -7,6 +7,8 @@ launches it or raises; a CPU tensor goes to the plain PyTorch version in
 from __future__ import annotations
 
 from . import paged_attn, ref, topk_mask
+from . import zo_fused_replay as _replay
+from . import zo_perturb as _perturb
 
 
 def paged_attention_step(q, k_new, v_new, k_pool, v_pool, page_table,
@@ -35,3 +37,26 @@ def topk_topp_mask(logits, k, p):
     if logits.device.type == "cpu":
         return ref.topk_topp_mask_ref(logits, k, p)
     raise ValueError(f"topk_topp_mask: no path for {logits.device}")
+
+
+def zo_perturb(theta, seed, salt: int, scale: float):
+    """theta' = cast(theta + scale * z(seed, salt, flat index)). seed: an
+    int32 [1] tensor on theta's device holding the uint32 seed."""
+    if theta.is_cuda:
+        return _perturb.zo_perturb(theta, seed, salt, scale)
+    if theta.device.type == "cpu":
+        return ref.zo_perturb_ref(theta, seed, salt, scale)
+    raise ValueError(f"zo_perturb: no path for {theta.device}")
+
+
+def zo_fused_replay(theta, seeds, coeffs, salt: int, out=None):
+    """S steps x P probes of (seed, coeff) records applied to one leaf,
+    accumulate-then-cast per step. seeds int32 [S, P] (uint32 values),
+    coeffs f32 [S, P], on theta's device. ``out`` may be theta itself
+    (an in-place update)."""
+    if theta.is_cuda:
+        return _replay.zo_fused_replay(theta, seeds, coeffs, salt, out=out)
+    if theta.device.type == "cpu":
+        new = ref.zo_fused_replay_ref(theta, seeds, coeffs, salt)
+        return new if out is None else out.copy_(new)
+    raise ValueError(f"zo_fused_replay: no path for {theta.device}")

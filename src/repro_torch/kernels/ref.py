@@ -7,8 +7,10 @@ tensors on the CPU.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from ..core import prng
 from ..core.prng import MASK32
 
 NEG_INF = -1e30
@@ -116,3 +118,46 @@ def paged_attn_step_ref(q, k_new, v_new, k_pool, v_pool, page_table,
         valid &= t[None, :] > pos[:, None] - window
     valid &= (table != NULL_PAGE).repeat_interleave(ps, dim=1)
     return _attend_block(q[:, None], k, v, valid[:, None, :], scale)[:, 0]
+
+
+def _scalar_seed(seed):
+    """A seed as ``prng.uniform_bits`` takes it: a Python int, or a
+    one-element int tensor viewed as a scalar."""
+    return seed.reshape(()) if isinstance(seed, torch.Tensor) else seed
+
+
+def zo_perturb_ref(theta: torch.Tensor, seed, salt: int, scale: float,
+                   offset: int = 0) -> torch.Tensor:
+    """theta + scale * z with z over the flat index ``offset + i``
+    (``repro/kernels/ref.py::zo_perturb_ref``; offset lets a caller check
+    a large leaf chunk by chunk). seed: a Python int or a one-element int
+    tensor holding the uint32 seed; scale is rounded to f32."""
+    flat = theta.reshape(-1)
+    z = prng.normal(_scalar_seed(seed), salt, flat.shape, offset,
+                    device=theta.device)
+    out = flat.to(torch.float32) + float(np.float32(scale)) * z
+    return out.reshape(theta.shape).to(theta.dtype)
+
+
+def zo_fused_replay_ref(theta: torch.Tensor, seeds: torch.Tensor,
+                        coeffs: torch.Tensor, salt: int,
+                        offset: int = 0) -> torch.Tensor:
+    """S steps of P (seed, coeff) records on one leaf
+    (``repro/kernels/ref.py::zo_fused_replay_ref``): per step, sum
+    coeff * z in probe order in f32 starting from 0, subtract once, cast
+    to the leaf dtype; the next step starts from the cast value. seeds
+    int [S, P] (uint32 values), coeffs f32 [S, P]. Separate eager mul and
+    add kernels, so no FMA contraction; S single steps equal one S-step
+    call bitwise."""
+    S, P = seeds.shape
+    shape, dtype = theta.shape, theta.dtype
+    n = theta.numel()
+    x = theta.reshape(-1).to(torch.float32)
+    for s in range(S):
+        inner = torch.zeros_like(x)
+        for p in range(P):
+            z = prng.normal(seeds[s, p], salt, (n,), offset,
+                            device=theta.device)
+            inner = inner + coeffs[s, p] * z
+        x = (x - inner).to(dtype).to(torch.float32)
+    return x.reshape(shape).to(dtype)

@@ -1,0 +1,76 @@
+"""Wrapper of the CUDA ZO perturbation (csrc/zo_perturb.cu).
+
+The port of ``repro/kernels/zo_perturb.py::zo_perturb``: theta' =
+cast(theta + scale * z), z regenerated from (seed, salt, flat index).
+``launches`` counts the launches of the kernel and nothing else.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+
+launches = 0
+
+_P = ctypes.c_void_p
+_SYMBOLS = {torch.float32: "zo_perturb_f32", torch.bfloat16: "zo_perturb_bf16"}
+MAX_ELEMENTS = 2**32 - 1        # flat indices are uint32
+MAX_SALT = 2**30                # 2 * salt + 2 must stay below 2**32
+
+
+def _fn(dtype):
+    fn = getattr(_build.load("zo_perturb"), _SYMBOLS[dtype])
+    fn.argtypes = [_P, _P, _P, ctypes.c_uint32, ctypes.c_float,
+                   ctypes.c_uint32, _P]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def check_leaf(name: str, theta, out, salt: int):
+    """The leaf checks both ZO kernels make before a launch."""
+    if not theta.is_cuda:
+        raise ValueError(f"{name}: theta must be a CUDA tensor")
+    if theta.dtype not in _SYMBOLS:
+        raise ValueError(f"{name}: theta dtype {theta.dtype} is not float32 "
+                         "or bfloat16")
+    if not theta.is_contiguous():
+        raise ValueError(f"{name}: theta must be contiguous (a leading-dim "
+                         "slice of a stacked leaf is)")
+    if theta.numel() > MAX_ELEMENTS:
+        raise ValueError(f"{name}: {theta.numel()} elements; flat indices "
+                         "are uint32, so a leaf holds fewer than 2**32")
+    if not 0 <= salt < MAX_SALT:
+        raise ValueError(f"{name}: salt {salt} is outside [0, 2**30)")
+    if out is not None and (out.shape != theta.shape or out.dtype != theta.dtype
+                            or out.device != theta.device
+                            or not out.is_contiguous()):
+        raise ValueError(f"{name}: out must be a contiguous tensor like theta")
+
+
+def device_ints(name: str, t, device, shape):
+    """A uint32-valued int32 tensor of ``shape`` on ``device``."""
+    if t.device != device or t.dtype != torch.int32 or tuple(t.shape) != shape:
+        raise ValueError(f"{name}: want int32 {list(shape)} on {device}, got "
+                         f"{t.dtype} {list(t.shape)} on {t.device}")
+    return t.contiguous()
+
+
+def zo_perturb(theta, seed, salt: int, scale: float):
+    """theta [any] f32/bf16 contiguous on a CUDA device; seed an int32 [1]
+    tensor on the same device holding the uint32 seed; scale a host float
+    (rounded to f32). Returns a new tensor."""
+    global launches
+    check_leaf("zo_perturb", theta, None, salt)
+    seed = device_ints("zo_perturb seed", seed, theta.device, (1,))
+    out = torch.empty_like(theta)
+    if theta.numel() == 0:
+        return out
+    stream = torch.cuda.current_stream(theta.device).cuda_stream
+    rc = _fn(theta.dtype)(theta.data_ptr(), out.data_ptr(), seed.data_ptr(),
+                          salt, float(scale), theta.numel(), stream)
+    if rc:
+        raise RuntimeError(f"zo_perturb: launch failed with CUDA error {rc}")
+    launches += 1
+    return out

@@ -1,0 +1,96 @@
+"""LM training launcher: ``python -m repro_torch.launch.train --arch <id>``
+
+Trains ``--arch`` (random weights from seed 0) on the synthetic token
+stream with the ElasticZO step of ``--lane``, on the card unless
+``--device cpu`` is given (use that with ``--smoke``, the reduced
+same-family config). The flags and defaults are those of
+``repro.launch.train``; ``--mesh``, ``--ckpt-dir`` and
+``--profile-phases`` are not ported yet.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+from dataclasses import dataclass
+from typing import Any, Callable
+
+import torch
+
+from ..configs import LaneConfig, get_arch, reduced
+from ..core import api
+from ..core.elastic import TrainState
+from ..data.synthetic import token_batch
+from ..train.train_loop import LoopConfig, init_state, run
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--lane", default="elastic_zo",
+                    choices=["elastic_zo", "full_zo", "full_bp"])
+    ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--smoke", action="store_true",
+                    help="reduced same-family config (CPU-trainable)")
+    ap.add_argument("--bp-tail-layers", type=int, default=1)
+    ap.add_argument("--probes", type=int, default=1)
+    ap.add_argument("--probe-drop", type=float, default=0.0)
+    ap.add_argument("--lr", type=float, default=1e-2)
+    ap.add_argument("--eps", type=float, default=1e-3)
+    ap.add_argument("--device", default="cuda")
+    return ap.parse_args(argv)
+
+
+@dataclass
+class Trainer:
+    lane: LaneConfig
+    device: torch.device
+    step_fn: Callable
+    state: TrainState
+    batch_fn: Callable[[int], Any]
+    loop: LoopConfig
+
+
+def setup(args: argparse.Namespace) -> Trainer:
+    """Everything ``main`` runs, from parsed flags; the weights are drawn
+    from seed 0 on ``--device``."""
+    device = api.resolve_device(args.device)
+    cfg = get_arch(args.arch)
+    if args.smoke:
+        cfg = reduced(cfg)
+    lane = LaneConfig(lane=args.lane, bp_tail_layers=args.bp_tail_layers,
+                      zo_num_probes=args.probes, learning_rate=args.lr,
+                      zo_eps=args.eps)
+    step_fn = api.make_train_step(cfg, lane)
+    params = api.init(cfg, lane, seed=0, device=device)
+
+    def batch_fn(step):
+        x, y, m = token_batch(args.batch, args.seq, cfg.vocab_size, seed=1,
+                              step=step)
+        return {k: torch.from_numpy(v).to(device)
+                for k, v in (("tokens", x), ("labels", y), ("mask", m))}
+
+    loop = LoopConfig.for_lane(lane, total_steps=args.steps,
+                               log_every=max(args.steps // 10, 1),
+                               probe_drop_rate=args.probe_drop)
+    return Trainer(lane, device, step_fn, init_state(params, seed=0),
+                   batch_fn, loop)
+
+
+def main(argv=None):
+    t = setup(parse_args(argv))
+    t0 = time.perf_counter()
+    state, history = run(t.step_fn, t.state, t.batch_fn, t.loop)
+    if t.device.type == "cuda":
+        torch.cuda.synchronize(t.device)
+    dt = time.perf_counter() - t0
+    where = torch.cuda.get_device_name(t.device) \
+        if t.device.type == "cuda" else "cpu"
+    print(f"[train] done at step {state.step}; logged {len(history)} loss "
+          f"points in {dt:.2f}s on {where}")
+    return history
+
+
+if __name__ == "__main__":
+    main()

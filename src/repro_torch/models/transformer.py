@@ -1,6 +1,7 @@
 """Decoder-only LM stack for dense, attention-only architectures.
 
-The port of ``repro/models/transformer.py`` for what serving runs.
+The port of ``repro/models/transformer.py`` for what serving and
+training run.
 Layout: params = {embed, periods, final_norm, unembed}; ``periods`` holds
 every block's weights stacked over a leading period dim (one period is
 one repetition of ``cfg.pattern``). ``run_periods`` is a Python loop over
@@ -12,6 +13,8 @@ import torch
 
 from ..configs.base import ATTN, ModelConfig
 from .layers import attention, dense_init, init_attention, init_mlp, mlp, rms_norm
+
+CE_CHUNKS = 4            # sequence chunks for the cross-entropy epilogue
 
 
 def _check_supported(cfg: ModelConfig) -> None:
@@ -62,7 +65,8 @@ def apply_block(p, x, cfg: ModelConfig, *, positions, mode: str,
     mode "prefill": the entry is this block's full-length {"k", "v"}
     [B, S, KV, Dh] (the paged pool stores absolute positions and applies
     a sliding window as a mask). mode "decode": ``cache`` is this layer's
-    {"k", "v"} pool, written in place, and is returned as is.
+    {"k", "v"} pool, written in place, and is returned as is. mode
+    "train": the full causal sequence, no cache; the entry is None.
     """
     h = rms_norm(x, p["ln_attn"], cfg.norm_eps)
     if mode == "decode":
@@ -70,10 +74,10 @@ def apply_block(p, x, cfg: ModelConfig, *, positions, mode: str,
                          window=cfg.sliding_window,
                          cache=(cache["k"], cache["v"]), paged=paged)
         entry = cache
-    elif mode == "prefill":
+    elif mode in ("prefill", "train"):
         y, (k, v) = attention(p["attn"], h, cfg, positions,
                               window=cfg.sliding_window)
-        entry = {"k": k, "v": v}
+        entry = {"k": k, "v": v} if mode == "prefill" else None
     else:
         raise ValueError(f"unknown mode {mode!r}")
     x = x + y
@@ -86,7 +90,7 @@ def run_periods(periods, x, cfg: ModelConfig, *, positions, mode,
     """Run the stacked periods in order. caches: one {"k","v"} dict per
     pattern position, stacked like the params (leading dim = periods).
     Returns (x, caches): prefill stacks the new full-length caches;
-    decode returns ``caches``, updated in place."""
+    decode returns ``caches``, updated in place; train returns None."""
     n = periods["blk0"]["ln_attn"].shape[0]
     entries = [[] for _ in cfg.pattern]
     for i in range(n):
@@ -100,6 +104,8 @@ def run_periods(periods, x, cfg: ModelConfig, *, positions, mode,
                 entries[j].append(e)
     if mode == "decode":
         return x, caches
+    if mode == "train":
+        return x, None
     return x, tuple({name: torch.stack([e[name] for e in es])
                      for name in es[0]} for es in entries)
 
@@ -111,6 +117,28 @@ def embed(params, tokens):
 def head_logits(params, x, cfg: ModelConfig):
     h = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return torch.einsum("bsd,dv->bsv", h, params["unembed"])
+
+
+def lm_loss(params, x, labels, mask, cfg: ModelConfig):
+    """Cross-entropy over the padded vocab in ``CE_CHUNKS`` sequence
+    chunks (f32 logits), masked mean over tokens. labels [B, S] in
+    [0, padded_vocab); mask [B, S] f32. Returns an f32 scalar."""
+    S = x.shape[1]
+    n = CE_CHUNKS if S % CE_CHUNKS == 0 and S >= CE_CHUNKS else 1
+    c = S // n
+    h = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    tot = cnt = 0.0
+    for i in range(n):
+        sl = slice(i * c, (i + 1) * c)
+        logits = torch.einsum("bsd,dv->bsv", h[:, sl],
+                              params["unembed"]).float()
+        logz = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1,
+                          labels[:, sl].to(torch.int64)[..., None])[..., 0]
+        mc = mask[:, sl].float()
+        tot = tot + ((logz - ll) * mc).sum()
+        cnt = cnt + mc.sum()
+    return tot / torch.clamp(cnt, min=1.0)
 
 
 def make_paged_caches(cfg: ModelConfig, num_pages: int, page_size: int, *,

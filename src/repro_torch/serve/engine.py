@@ -55,16 +55,6 @@ def _next_pow2(n: int) -> int:
     return p
 
 
-def resolve_device(device=None) -> torch.device:
-    """The card unless the caller asks for another device; no silent
-    fallback to the CPU."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("CUDA is not available; pass device='cpu' to run "
-                           "the plain PyTorch versions on the CPU")
-    return dev
-
-
 class Engine:
     def __init__(self, cfg: ModelConfig, serve: Optional[ServeConfig] = None,
                  lane: Optional[LaneConfig] = None, params=None,
@@ -75,7 +65,7 @@ class Engine:
         self.serve = serve or ServeConfig()
         self.lane = lane or LaneConfig()
         self.detok = detok or _default_detok
-        self.device = resolve_device(device)
+        self.device = api.resolve_device(device)
         s = self.serve
         worst = s.max_pages_per_seq
         if cfg.sliding_window:

@@ -10,9 +10,13 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch import configs  # noqa: E402
-from repro_torch.kernels import paged_attn, ref, topk_mask  # noqa: E402
+from repro_torch.core import api, zo  # noqa: E402
+from repro_torch.data.synthetic import token_batch  # noqa: E402
+from repro_torch.kernels import (paged_attn, ref, topk_mask,  # noqa: E402
+                                 zo_fused_replay, zo_perturb)
 from repro_torch.models.transformer import tree_map  # noqa: E402
 from repro_torch.serve import Engine, SamplingParams, ServeConfig  # noqa: E402
+from repro_torch.train.train_loop import init_state  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -80,6 +84,68 @@ def test_topk_kernel_matches_plain(dev, V):
     assert torch.equal(got, again)               # fixed reduction order
     assert torch.equal(got > -5e29, want > -5e29)
     assert torch.equal(got, want)
+
+
+def _zo_records(dev, steps=3, probes=2, seed=0):
+    rng = np.random.default_rng(seed)
+    seeds = zo.device_seeds(rng.integers(0, 2**32, steps * probes), dev)
+    coeffs = torch.from_numpy((rng.normal(size=(steps, probes)) * 1e-3)
+                              .astype(np.float32)).to(dev)
+    return seeds.reshape(steps, probes), coeffs
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,skip", [(4099, 0), (4099, 1), (3, 0)])
+def test_zo_kernels_match_plain_bitwise(dev, dtype, n, skip):
+    """skip = 1 starts the leaf off 16-byte alignment (the scalar path)."""
+    g = torch.Generator(device=dev).manual_seed(n)
+    theta = torch.randn(n + skip, generator=g, device=dev, dtype=dtype)[skip:]
+    seeds, coeffs = _zo_records(dev)
+    assert torch.equal(zo_perturb.zo_perturb(theta, seeds[0, :1], 77, -1e-3),
+                       ref.zo_perturb_ref(theta, seeds[0, :1], 77, -1e-3))
+    fused = zo_fused_replay.zo_fused_replay(theta, seeds, coeffs, 77)
+    assert torch.equal(fused, ref.zo_fused_replay_ref(theta, seeds, coeffs,
+                                                      77))
+    live = theta.clone()
+    for s in range(seeds.shape[0]):
+        zo_fused_replay.zo_fused_replay(live, seeds[s:s + 1],
+                                        coeffs[s:s + 1], 77, out=live)
+    assert torch.equal(live, fused)
+
+
+def test_zo_kernels_refuse_what_they_do_not_take(dev):
+    seeds, coeffs = _zo_records(dev)
+    x = torch.zeros(8, 8, device=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        zo_perturb.zo_perturb(x.t(), seeds[0, :1], 1, 1e-3)
+    with pytest.raises(ValueError, match="dtype"):
+        zo_perturb.zo_perturb(x.half(), seeds[0, :1], 1, 1e-3)
+    with pytest.raises(ValueError, match="int32"):
+        zo_fused_replay.zo_fused_replay(x, seeds.cpu(), coeffs, 1)
+    with pytest.raises(ValueError, match="coeffs"):
+        zo_fused_replay.zo_fused_replay(x, seeds, coeffs[:1], 1)
+
+
+def test_train_step_on_card_matches_cpu(dev):
+    """One elastic_zo step of a reduced qwen3-4b in f32: the card (the
+    ZO kernels) and the CPU (their plain versions) agree to matmul
+    rounding."""
+    cfg = configs.reduced(configs.ARCHS["qwen3-4b"], dtype="float32")
+    lane = configs.LaneConfig(zo_num_probes=2)
+    step = api.make_train_step(cfg, lane)
+    x, y, m = token_batch(2, 16, cfg.vocab_size, seed=1, step=0)
+    out = []
+    for d in ("cpu", dev):
+        params = api.init(cfg, lane, seed=3, device="cpu")
+        state = init_state(tree_map(lambda a: a.to(d), params), seed=0)
+        batch = {k: torch.from_numpy(v).to(d)
+                 for k, v in (("tokens", x), ("labels", y), ("mask", m))}
+        out.append(step(state, batch, np.ones((2,), np.float32)))
+    (cs, cm), (gs, gm) = out
+    assert abs(float(cm["loss"]) - float(gm["loss"])) <= 1e-4
+    for (_, a), (_, b) in zip(zo.leaves_with_path(cs.params),
+                              zo.leaves_with_path(gs.params)):
+        assert (a - b.cpu()).abs().max().item() <= 1e-4
 
 
 def test_engine_on_card_matches_cpu(dev):

@@ -8,8 +8,10 @@ it. Then it drives the port's paths and checks that each went through
 its kernels: it checks a small model on the card against the CPU, serves
 eight requests with qwen3-4b at full width and depth (36 layers, bf16,
 random weights from a seed), trains LeNet-5 in the paper's four fp32
-lanes (Table 1), and trains qwen3-4b at full width and depth for a few
-ElasticZO steps.
+lanes (Table 1) and in its three ElasticZO-INT8 lanes in both loss modes
+(Table 1's INT8 and INT8* columns, integer arithmetic through the int8
+kernels), and trains qwen3-4b at full width and depth for a few ElasticZO
+steps.
 
 The last three lines of its output are the card's name and power limit
 (nvidia-smi), a JSON line of per-kernel numbers, and
@@ -43,42 +45,108 @@ ZO_FLOPS_PER_ELEMENT = 55        # per element and (seed, coeff) record, an
 #                                  integer ops per element issue on the INT32
 #                                  pipe beside them and are not counted.
 ZO_CHUNK = 1 << 26               # flat elements per plain-version chunk
+INT8_OPS_PER_S = 1979e12         # H100 SXM dense int8 tensor-core peak
+INT32_LANES = 132 * 64           # INT32 (ALU) pipe: 64 lanes a clock an SM
+SCHED_LANES = 132 * 4 * 32       # one warp instruction a clock per scheduler
+# SASS instructions that run on the INT32 (ALU) pipe; IMAD goes to the
+# FMA pipe, and ops of unknown pipe are left out, so a bound from this
+# set stays a lower bound
+ALU_OPS = {"LOP3", "SHF", "IADD3", "ISETP", "VIMNMX", "IMNMX", "VIADD",
+           "SEL", "PRMT", "IABS", "LEA"}
+WARM_CALLS = 8                   # device_ms's discarded calls a profile
+INT8_LEAF = (35, 2560, 9728)     # qwen3-4b's w_gate count, 871,628,800
 
 
 def phase(name):
     print(f"== {name}", flush=True)
 
 
+def _kernel_events(prof):
+    """(device microseconds, kernel records) of a profile."""
+    evs = [e for e in prof.key_averages()
+           if str(e.device_type).endswith("CUDA")]
+    return (sum(e.self_device_time_total for e in evs),
+            sum(e.count for e in evs))
+
+
 def _kernel_us(prof):
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if str(e.device_type).endswith("CUDA"))
+    return _kernel_events(prof)[0]
 
 
-def device_ms(fn, iters=30, flush=None):
-    """Device time of one fn() call in ms: the kernels' own durations as
-    the profiler (CUPTI) records them, summed over ``iters`` calls, so
-    the host's time to issue a call is not counted. ``flush`` (a buffer
-    larger than L2) is rewritten before every call so fn meets a cold
-    cache; the flush kernels' time, from a run of flushes alone, is
-    subtracted."""
-    from torch.profiler import ProfilerActivity, profile
+def device_ms(fn, iters=30, flush=None, attempts=5):
+    """Device time of one fn() call in ms, for kernels under a
+    millisecond: the kernels' own durations as the profiler (CUPTI)
+    records them, summed over ``iters`` calls, so the host's time to
+    issue a call is not counted. ``flush`` (a buffer larger than L2) is
+    rewritten before every call so fn meets a cold cache; the flush
+    kernels' time, from a run of flushes alone, is subtracted.
+
+    The profiler drops the first kernel records of a session on this
+    card, so each profile opens with a warm-up step of ``WARM_CALLS``
+    calls whose records are discarded, and every call is synchronised. A
+    run counts only if it holds ``iters`` times the records of a single
+    profiled call; a run that falls short is profiled again, and after
+    ``attempts`` short runs the check fails. Time kernels of a
+    millisecond or more with event_ms: over runs of them the profiler
+    under-reported durations."""
+    from torch.profiler import ProfilerActivity, profile, schedule
     for _ in range(3):
         fn()
 
-    def run(call):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                if flush is not None:
-                    flush.zero_()
-                if call:
-                    fn()
+    def calls(call, n):
+        for _ in range(n):
+            if flush is not None:
+                flush.zero_()
+            if call:
+                fn()
             torch.cuda.synchronize()
-        return _kernel_us(prof)
-    total = run(True)
-    if total <= 0:
-        raise RuntimeError("the profiler recorded no device time")
+
+    def run(call, n):
+        got = []
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                     on_trace_ready=lambda p: got.append(_kernel_events(p))
+                     ) as prof:
+            calls(call, WARM_CALLS)
+            prof.step()
+            calls(call, n)
+            prof.step()
+        return got[0]
+
+    def full(call):
+        for _ in range(attempts):
+            one = run(call, 1)[1]
+            us, got = run(call, iters)
+            if one and got == iters * one:
+                return us
+            print(f"  (the profiler recorded {got} of {iters} x {one} kernel "
+                  "records; profiled again)")
+        raise RuntimeError(f"the profiler dropped kernel records in "
+                           f"{attempts} runs")
+    base = full(False) if flush is not None else 0.0
+    return (full(True) - base) / iters / 1e3
+
+
+def event_ms(fn, iters, flush=None):
+    """fn()'s time in ms from CUDA events around ``iters`` back-to-back
+    calls after one warm-up call (less a run of the flushes alone), for
+    kernels of a millisecond or more, behind which the host's issue time
+    hides."""
+    fn()
+
+    def run(call):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        for _ in range(iters):
+            if flush is not None:
+                flush.zero_()
+            if call:
+                fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end)
     base = run(False) if flush is not None else 0.0
-    return (total - base) / iters / 1e3
+    return (run(True) - base) / iters
 
 
 # --------------------------------------------------------------------- #
@@ -332,23 +400,21 @@ def check_zo(zo_perturb, zo_replay, ref):
         return call
 
     out = {}
-    ms = device_ms(lambda: zo_perturb.zo_perturb(theta, seed, salt, 1e-3),
-                   iters=10)
-    plain_ms = device_ms(chunked(lambda lo, hi: ref.zo_perturb_ref(
-        flat[lo:hi], seed, salt, 1e-3, lo)), iters=2)
+    ms = event_ms(lambda: zo_perturb.zo_perturb(theta, seed, salt, 1e-3), 10)
+    plain_ms = event_ms(chunked(lambda lo, hi: ref.zo_perturb_ref(
+        flat[lo:hi], seed, salt, 1e-3, lo)), 2)
     bound, by = zo_bound_ms(n, 2, 1)
     out["zo_perturb"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
                              bound_ms=bound, bound_by=by, library_ms=None)
-    ms = device_ms(lambda: zo_replay.zo_fused_replay(theta, sd, cf, salt),
-                   iters=10)
-    plain_ms = device_ms(chunked(lambda lo, hi: ref.zo_fused_replay_ref(
-        flat[lo:hi], sd, cf, salt, lo)), iters=2)
+    ms = event_ms(lambda: zo_replay.zo_fused_replay(theta, sd, cf, salt), 10)
+    plain_ms = event_ms(chunked(lambda lo, hi: ref.zo_fused_replay_ref(
+        flat[lo:hi], sd, cf, salt, lo)), 2)
     bound, by = zo_bound_ms(n, 2, 1)
     out["zo_fused_replay"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
                                   bound_ms=bound, bound_by=by,
                                   library_ms=None)
-    catch_up_ms = device_ms(lambda: zo_replay.zo_fused_replay(
-        theta, seeds, coeffs, salt), iters=3)
+    catch_up_ms = event_ms(lambda: zo_replay.zo_fused_replay(
+        theta, seeds, coeffs, salt), 3)
     catch_up_bound, catch_up_by = zo_bound_ms(n, 2, 32)
     for name, r in out.items():
         print(f"{name} on the {n}-element bf16 leaf: kernel {r['ms']:.4f} "
@@ -359,6 +425,284 @@ def check_zo(zo_perturb, zo_replay, ref):
           f"kernel {catch_up_ms:.4f} ms, bound {catch_up_bound:.4f} ms by "
           f"{catch_up_by}")
     return out
+
+
+# --------------------------------------------------------------------- #
+# the int8 lane's kernels
+# --------------------------------------------------------------------- #
+def nvidia_smi(query):
+    return subprocess.run(
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+
+
+def max_sm_hz():
+    """The card's highest SM clock (nvidia-smi), which gives the INT32
+    pipe's highest rate and so the least time."""
+    return float(nvidia_smi("clocks.max.sm").split()[0]) * 1e6
+
+
+def int8_records(steps, probes, seed=1):
+    """Probe seeds of ``steps`` x ``probes`` train-step probes and
+    ternary g with one 0 (a masked probe), both int32 on the card."""
+    seeds, _ = zo_records(steps, probes, seed)
+    rng = np.random.default_rng(seed)
+    gs = rng.choice(np.array([-1, 1], np.int32), size=(steps, probes))
+    gs[steps // 2, probes // 2] = 0
+    return seeds, torch.from_numpy(gs).cuda()
+
+
+def int_diff(got, plain):
+    """(elements that differ, largest |difference|) between an int8
+    kernel output and ``plain(lo, hi)``, ZO_CHUNK elements at a time."""
+    flat = got.reshape(-1)
+    count = worst = 0
+    for lo in range(0, flat.numel(), ZO_CHUNK):
+        hi = min(lo + ZO_CHUNK, flat.numel())
+        d = (flat[lo:hi].to(torch.int32) - plain(lo, hi).to(torch.int32)).abs()
+        count += int((d != 0).sum())
+        worst = max(worst, int(d.max()))
+    return count, worst
+
+
+def check_int8_leaf(zo_perturb, zo_replay, ref, path, shape):
+    """int8_perturb (k = +-1) and zo_fused_replay_int8 (S = 1, P = 1 in
+    place; S = 8, P = 4 with one g = 0) against their plain versions on
+    one int8 leaf, bitwise, and 8 single in-place steps against one
+    8-step launch. Returns the leaf, its salt, the records and the
+    largest difference seen."""
+    from repro_torch.core import zo
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    theta = torch.randint(-127, 128, shape, generator=gen, device="cuda",
+                          dtype=torch.int8)
+    salt = zo.path_salt(path)
+    seeds, gs = int8_records(8, 4)
+    flat = theta.reshape(-1)
+    name = f"{zo.keystr(path)} {list(shape)} int8"
+    args = (3, 0.33)
+    checks = [(f"int8_perturb k={k:+d}", zo_perturb.int8_perturb(
+        theta, seeds[0, :1], salt, k, *args),
+        lambda lo, hi, k=k: ref.int8_perturb_ref(flat[lo:hi], seeds[0, :1],
+                                                 salt, k, *args, lo))
+        for k in (1, -1)]
+    live1 = theta.clone()
+    zo_replay.zo_fused_replay_int8(live1, seeds[:1, :1], gs[:1, :1], salt,
+                                   *args, 1, out=live1)
+    checks.append(("zo_fused_replay_int8 S=1 P=1 in place", live1,
+                   lambda lo, hi: ref.zo_fused_replay_int8_ref(
+                       flat[lo:hi], seeds[:1, :1], gs[:1, :1], salt, *args,
+                       1, lo)))
+    checks.append(("zo_fused_replay_int8 S=8 P=4",
+                   zo_replay.zo_fused_replay_int8(theta, seeds, gs, salt,
+                                                  *args, 1),
+                   lambda lo, hi: ref.zo_fused_replay_int8_ref(
+                       flat[lo:hi], seeds, gs, salt, *args, 1, lo)))
+    worst_all = 0
+    for what, got, plain in checks:
+        count, worst = int_diff(got, plain)
+        worst_all = max(worst_all, worst)
+        print(f"{what} on {name}: {count} of {theta.numel()} elements "
+              f"differ from the plain version (largest |difference| {worst})")
+        if count:
+            raise AssertionError(f"{what} is not bitwise its plain version")
+    del live1
+    live = theta.clone()
+    for s in range(8):
+        zo_replay.zo_fused_replay_int8(live, seeds[s:s + 1], gs[s:s + 1],
+                                       salt, *args, 1, out=live)
+    if not torch.equal(live, checks[-1][1]):
+        raise AssertionError(f"8 live steps != one 8-step replay on {name}")
+    print(f"live == replay on {name}: 8 single-step in-place launches equal "
+          "one 8-step launch bitwise")
+    return theta, salt, seeds, gs, worst_all
+
+
+def sass_loop_mix(name, kernel):
+    """(instructions, INT32-pipe instructions) of one iteration of the
+    grid-stride loop over 16-byte vectors of ``kernel`` (a substring of
+    its mangled name) in the built library of csrc/<name>.cu, read from
+    ``cuobjdump -sass``: the backward branch whose body holds the
+    16-byte load and store."""
+    import re
+    from repro_torch.kernels import _build
+    tool = Path(_build._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass",
+                           str(_build._target(_build.CSRC / f"{name}.cu"))],
+                          capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    body = next(f for f in sass.split("Function : ")[1:]
+                if kernel in f.split()[0])
+    code = [(int(a, 16), t.strip()) for a, t in
+            re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", body)]
+    for addr, text in code:
+        m = re.search(r"\bBRA (0x[0-9a-f]+)", text)
+        if m and int(m.group(1), 16) < addr:
+            loop = [t for a, t in code if int(m.group(1), 16) <= a <= addr]
+            if any("LDG.E.128" in t for t in loop) and \
+                    any("STG.E.128" in t for t in loop):
+                ops = [re.sub(r"^@!?U?P\w+\s+", "", t).split()[0]
+                       .split(".")[0] for t in loop]
+                return len(ops), sum(op in ALU_OPS for op in ops)
+    raise RuntimeError(f"no 16-byte grid-stride loop in {kernel}")
+
+
+def int8_noise_bound_ms(n, per_element, hz):
+    """(bound ms, what bounds it) of one pass over an n-element int8 leaf
+    whose every element costs ``per_element`` = (instructions, INT32-pipe
+    instructions): the larger of the bytes (a read and a write), the
+    INT32 pipe and the dispatch rate (one warp instruction a clock per
+    scheduler), at SM clock ``hz``."""
+    total, alu = per_element
+    by_bytes = 2 * n / HBM_BYTES_PER_S
+    by_ops = max(alu * n / (INT32_LANES * hz), total * n / (SCHED_LANES * hz))
+    return max(by_bytes, by_ops) * 1e3, \
+        "bytes" if by_bytes >= by_ops else "operations"
+
+
+def check_int8_noise(zo_perturb, zo_replay, ref):
+    """The int8 noise kernels on every int8 leaf of LeNet-5 (conv1's 150
+    and fc3's 840 elements run the kernels' ragged tail) and on an int8
+    leaf of qwen3-4b's w_gate size, then timed on fc1 and the latter."""
+    from repro_torch.models.lenet import init_lenet5_int8
+    w1 = 0
+    for layer, q in init_lenet5_int8(0, device="cuda").items():
+        leaf, leaf_salt, _, _, w = check_int8_leaf(
+            zo_perturb, zo_replay, ref, (layer, "w"), tuple(q["w"].data.shape))
+        w1 = max(w1, w)
+        if layer == "fc1":
+            fc1, fc1_salt = leaf, leaf_salt
+    theta, salt, seeds, gs, w2 = check_int8_leaf(
+        zo_perturb, zo_replay, ref, ("periods_zo", "blk0", "mlp", "w_gate"),
+        INT8_LEAF)
+    flat, n = theta.reshape(-1), theta.numel()
+    seed, sd, g1 = seeds[0, :1], seeds[:1, :1], gs[:1, :1]
+    args = (3, 0.33)
+
+    def chunked(fn):
+        def call():
+            for lo in range(0, n, ZO_CHUNK):
+                fn(lo, min(lo + ZO_CHUNK, n))
+        return call
+
+    hz = max_sm_hz()
+    total, alu = sass_loop_mix("int8_perturb", "int8_perturb_kernelILi16")
+    per_element = (total / 16, alu / 16)
+    out = {}
+    ms = event_ms(lambda: zo_perturb.int8_perturb(theta, seed, salt, 1,
+                                                   *args), 10)
+    plain_ms = event_ms(chunked(lambda lo, hi: ref.int8_perturb_ref(
+        flat[lo:hi], seed, salt, 1, *args, lo)), 2)
+    bound, by = int8_noise_bound_ms(n, per_element, hz)
+    out["int8_perturb"] = dict(max_abs_err=float(max(w1, w2)), ms=ms,
+                               plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                               library_ms=None)
+    ms = event_ms(lambda: zo_replay.zo_fused_replay_int8(
+        theta, sd, g1, salt, *args, 1), 10)
+    plain_ms = event_ms(chunked(lambda lo, hi: ref.zo_fused_replay_int8_ref(
+        flat[lo:hi], sd, g1, salt, *args, 1, lo)), 2)
+    bound, by = int8_noise_bound_ms(n, per_element, hz)
+    out["zo_fused_replay_int8"] = dict(
+        max_abs_err=float(max(w1, w2)), ms=ms, plain_ms=plain_ms,
+        bound_ms=bound, bound_by=by, library_ms=None)
+    live = int(gs.ne(0).sum())
+    catch_up_ms = event_ms(lambda: zo_replay.zo_fused_replay_int8(
+        theta, seeds, gs, salt, *args, 1), 3)
+    catch_up_bound, catch_up_by = int8_noise_bound_ms(
+        n, tuple(live * c for c in per_element), hz)
+    print(f"operation bound at the card's highest SM clock {hz / 1e6:.0f} "
+          f"MHz ({nvidia_smi('clocks.sm')} now): int8_perturb's 16-byte loop "
+          f"runs {total} SASS instructions, {alu} of them on the INT32 "
+          f"pipe ({total / 16:.2f} and {alu / 16:.2f} an element); a replay "
+          "record costs at least as much an element (the same noise, psr "
+          "in place of the clamp)")
+    for name, r in out.items():
+        print(f"{name} on the {n}-element int8 leaf: kernel {r['ms']:.4f} "
+              f"ms, plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} "
+              f"ms by {r['bound_by']} ({2 * n} bytes)")
+    print(f"zo_fused_replay_int8 S=8 P=4 ({live} records with g != 0) on the "
+          f"same leaf: kernel {catch_up_ms:.4f} ms, bound "
+          f"{catch_up_bound:.4f} ms by {catch_up_by}")
+    # at the path's largest leaf, LeNet-5's fc1 (94,080 elements)
+    small = (device_ms(lambda: zo_perturb.int8_perturb(
+                 fc1, seed, fc1_salt, 1, *args)),
+             device_ms(lambda: zo_replay.zo_fused_replay_int8(
+                 fc1, sd, g1, fc1_salt, *args, 1)))
+    print(f"on LeNet-5's fc1 leaf ({fc1.numel()} elements): int8_perturb "
+          f"{small[0]:.4f} ms, zo_fused_replay_int8 S=1 P=1 {small[1]:.4f} "
+          f"ms, bound {int8_noise_bound_ms(fc1.numel(), per_element, hz)[0]:.5f}"
+          " ms")
+    return out
+
+
+# (M, K, N) of the int8 products of one batch-64 step of LeNet-5: the
+# forward's conv1, conv2 (im2col), fc1, fc2, fc3, and ZO-Feat-Cls2's tail
+# backward (g = a^T e and e_in = e w^T for fc3, then fc2)
+MM_FORWARD = [(64 * 784, 25, 6), (64 * 196, 150, 16), (64, 784, 120),
+              (64, 120, 84), (64, 84, 10)]
+MM_BACKWARD = [(84, 64, 10), (64, 10, 84), (120, 64, 84), (64, 84, 120)]
+MM_ODD = [(1, 1, 1), (65, 129, 67), (1000, 33, 7), (3, 0, 5), (127, 4097, 3)]
+
+
+def mm_bound_ms(M, K, N):
+    by_bytes = (M * K + K * N + 4 * M * N + 4) / HBM_BYTES_PER_S
+    by_ops = 2 * M * N * K / INT8_OPS_PER_S
+    return max(by_bytes, by_ops) * 1e3, \
+        "bytes" if by_bytes >= by_ops else "operations"
+
+
+def check_int8_matmul(int8_mm, ref):
+    """int8_matmul against its plain version (float64 on the card), out
+    and max|out| bitwise, at 4096^3, at the LeNet-5 step's shapes and at
+    odd ones; timed at 4096^3 (beside torch._int_mm) and at the path's."""
+    gen = torch.Generator(device="cuda").manual_seed(7)
+
+    def case(M, K, N):
+        a = torch.randint(-127, 128, (M, K), generator=gen, device="cuda",
+                          dtype=torch.int8)
+        w = torch.randint(-127, 128, (K, N), generator=gen, device="cuda",
+                          dtype=torch.int8)
+        return a, w
+
+    worst = 0
+    for M, K, N in [(4096, 4096, 4096)] + MM_FORWARD + MM_BACKWARD + MM_ODD:
+        a, w = case(M, K, N)
+        out, mx = int8_mm.int8_matmul(a, w)
+        want, want_mx = ref.int8_matmul_ref(a, w)
+        count = int((out != want).sum())
+        worst = max(worst, int((out.double() - want.double()).abs().max())
+                    if out.numel() else 0)
+        if count or int(mx) != int(want_mx):
+            raise AssertionError(f"int8_matmul {M}x{K}x{N}: {count} outputs "
+                                 f"differ, max {int(mx)} vs {int(want_mx)}")
+    print(f"int8_matmul: out and max|out| bitwise the plain version at "
+          f"4096^3, the 5 forward and 4 backward shapes of a batch-64 LeNet-5 "
+          f"step, and {len(MM_ODD)} odd shapes")
+    a, w = case(4096, 4096, 4096)
+    ms = event_ms(lambda: int8_mm.int8_matmul(a, w), 10)
+    plain_ms = event_ms(lambda: ref.int8_matmul_ref(a, w), 3)
+    try:        # a yardstick only: the port never calls torch._int_mm
+        library_ms = event_ms(lambda: torch._int_mm(a, w), 10)
+    except RuntimeError as e:
+        print(f"torch._int_mm refused 4096^3: {e}")
+        library_ms = None
+    bound, by = mm_bound_ms(4096, 4096, 4096)
+    print(f"int8_matmul 4096^3: kernel {ms:.4f} ms "
+          f"({2 * 4096 ** 3 / ms / 1e9:.1f} TOPS), plain {plain_ms:.4f} ms, "
+          f"torch._int_mm {library_ms} ms, bound {bound:.4f} ms by {by}")
+    path_ms = path_plain = path_bound = 0.0
+    for M, K, N in MM_FORWARD + MM_BACKWARD:
+        a, w = case(M, K, N)
+        t = device_ms(lambda: int8_mm.int8_matmul(a, w), iters=20)
+        p = device_ms(lambda: ref.int8_matmul_ref(a, w), iters=20)
+        b, by_ = mm_bound_ms(M, K, N)
+        path_ms, path_plain = path_ms + t, path_plain + p
+        path_bound += b
+        print(f"  int8_matmul {M}x{K}x{N}: kernel {t:.4f} ms, plain {p:.4f} "
+              f"ms, bound {b:.5f} ms by {by_}")
+    print(f"int8_matmul at the path's 9 shapes: kernel {path_ms:.4f} ms in "
+          f"all, plain {path_plain:.4f} ms, bound {path_bound:.5f} ms")
+    return dict(max_abs_err=float(worst), ms=ms, plain_ms=plain_ms,
+                bound_ms=bound, bound_by=by, library_ms=library_ms)
 
 
 # --------------------------------------------------------------------- #
@@ -542,7 +886,7 @@ def check_lenet(zo_perturb, zo_replay, steps=150, batch=32):
     xs, ys = glyphs(2048, seed=0)
     xte, yte = glyphs(512, seed=1, start=10_000)
     xte, yte = torch.from_numpy(xte).cuda(), torch.from_numpy(yte).cuda()
-    acc, peak = {}, {}
+    acc, peak, train_mem = {}, {}, {}
     for name, lane, c in lenet_lanes(steps):
         part = (lambda p, c=c: lenet.partition_at(p, c)) \
             if lane.lane == "elastic_zo" else None
@@ -552,6 +896,8 @@ def check_lenet(zo_perturb, zo_replay, steps=150, batch=32):
         mask = np.ones((lane.zo_num_probes,), np.float32)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        param_bytes = sum(4 * t.numel() for t in _leaves(state.params))
         zo_perturb.launches = zo_replay.launches = 0
         t0 = time.perf_counter()
         for s in range(steps):
@@ -563,6 +909,7 @@ def check_lenet(zo_perturb, zo_replay, steps=150, batch=32):
         wall = time.perf_counter() - t0
         n_p, n_r = zo_perturb.launches, zo_replay.launches
         peak[name] = torch.cuda.max_memory_allocated()
+        train_mem[name] = param_bytes + peak[name] - base
         loss = float(m["loss"])
         with torch.no_grad():
             logits, _ = lenet.lenet5_forward(state.params, xte)
@@ -572,7 +919,9 @@ def check_lenet(zo_perturb, zo_replay, steps=150, batch=32):
               f"CPU: {committed:.3f} in BENCH_paper.json, {current:.3f} with "
               f"jax 0.9.0), last loss {loss:.4f}, "
               f"{1e3 * wall / steps:.3f} ms per step, peak device memory "
-              f"{peak[name]} bytes, launches per step: zo_perturb "
+              f"{peak[name]} bytes (training memory {train_mem[name]} "
+              f"bytes: parameters plus the loop's peak growth), launches "
+              "per step: zo_perturb "
               f"{n_p / steps:g}, zo_fused_replay {n_r / steps:g}")
         want = LENET_PERTURB_PER_STEP[name]
         if n_p != want * steps or n_r != want // 8 * steps:
@@ -585,7 +934,103 @@ def check_lenet(zo_perturb, zo_replay, steps=150, batch=32):
     if not all(acc[a] > acc[b] for a, b in zip(order, order[1:])):
         raise AssertionError(f"Table 1 ordering does not hold: {acc}")
     print(f"Table 1 ordering holds: {' > '.join(order)}; peak memory "
-          f"full_bp / full_zo = {peak['full_bp'] / peak['full_zo']:.3f}")
+          f"full_bp / full_zo = {peak['full_bp'] / peak['full_zo']:.3f}, "
+          "training memory full_bp / full_zo = "
+          f"{train_mem['full_bp'] / train_mem['full_zo']:.3f}")
+    return train_mem
+
+
+# --------------------------------------------------------------------- #
+# training: LeNet-5 in the paper's three ElasticZO-INT8 lanes (Table 1's
+# INT8 and INT8* columns)
+# --------------------------------------------------------------------- #
+# Test accuracy of the JAX package on the CPU after 150 steps at batch 64
+# (benchmarks/paper_tables.py::lenet_int8_lanes, the benchmarks/run.py
+# --fast setting): as committed in BENCH_paper.json (INT8* only), and as
+# jax 0.9.0 gives it, the JAX package's current state. The int-mode lane
+# is integer arithmetic from the init on, so the card must give the
+# current figures to the last digit.
+LENET_INT8_JAX_CPU_ACC = {
+    "int": {"full_zo": (0.017578125, 0.126953125),
+            "zo_feat_cls2": (0.8984375, 0.791015625),
+            "zo_feat_cls1": (0.966796875, 0.951171875)},
+    "float": {"full_zo": (None, 0.41015625),
+              "zo_feat_cls2": (None, 0.970703125),
+              "zo_feat_cls1": (None, 0.912109375)},
+}
+# launches per step at 1 probe: int8_perturb 2 per ZO leaf,
+# zo_fused_replay_int8 1 per ZO leaf, int8_matmul 5 per forward (two
+# forwards) and 2 per tail FC; the test-set forward adds 5 matmuls a lane
+LENET_INT8_PER_STEP = {"full_zo": (10, 5, 10), "zo_feat_cls2": (6, 3, 14),
+                       "zo_feat_cls1": (8, 4, 12)}
+
+
+def check_lenet_int8(zo_perturb, zo_replay, int8_mm, fp32_mem, steps=150,
+                     batch=64):
+    """Each int8 lane in both loss modes through
+    repro_torch.train.paper_lanes.lenet_int8_lanes on the card: launch
+    counts, the int-mode accuracies equal to JAX's, ZO-Feat above Full-ZO,
+    a bitwise rerun, and the peak memory of 5 steps at batch 32 beside the
+    fp32 lane's. Returns the launches of each kernel over the 6 runs."""
+    from repro_torch.core import zo
+    from repro_torch.train.paper_lanes import INT8_LANES, lenet_int8_lanes
+    total = dict.fromkeys(("int8_perturb", "zo_fused_replay_int8",
+                           "int8_matmul"), 0)
+    acc, kept = {}, {}
+    for mode in ("int", "float"):
+        for name, _, _ in INT8_LANES:
+            zo_perturb.int8_launches = zo_replay.int8_launches = 0
+            int8_mm.launches = 0
+            r = lenet_int8_lanes(steps, batch, loss_mode=mode,
+                                 lanes=[name])[name]
+            n = (zo_perturb.int8_launches, zo_replay.int8_launches,
+                 int8_mm.launches)
+            for k, v in zip(total, n):
+                total[k] += v
+            acc[mode, name] = r.acc
+            kept[mode, name] = r.state
+            committed, current = LENET_INT8_JAX_CPU_ACC[mode][name]
+            print(f"lenet int8 {mode:5s} {name:13s}: test accuracy "
+                  f"{r.acc:.9g} (JAX on the CPU: {committed} in "
+                  f"BENCH_paper.json, {current} with jax 0.9.0); "
+                  f"{1e3 * r.train_s / steps:.3f} ms per step, training "
+                  f"memory {r.memory_bytes} bytes; launches per step: "
+                  f"int8_perturb {n[0] / steps:g}, zo_fused_replay_int8 "
+                  f"{n[1] / steps:g}, int8_matmul {(n[2] - 5) / steps:g} "
+                  "(+5 for the test set)")
+            p, u, m = LENET_INT8_PER_STEP[name]
+            if n != (p * steps, u * steps, m * steps + 5):
+                raise AssertionError(
+                    f"lenet int8 {mode} {name}: launches {n}, want "
+                    f"{(p * steps, u * steps, m * steps + 5)}")
+            if mode == "int" and r.acc != current:
+                raise AssertionError(f"lenet int8 {name}: accuracy {r.acc} "
+                                     f"!= JAX's {current}")
+        for name in ("zo_feat_cls2", "zo_feat_cls1"):
+            if not acc[mode, name] > acc[mode, "full_zo"]:
+                raise AssertionError(f"{mode}: {name} {acc[mode, name]} is "
+                                     "not above full_zo "
+                                     f"{acc[mode, 'full_zo']}")
+    print("int mode: all three accuracies equal JAX's to the last digit; "
+          "both ZO-Feat lanes above Full-ZO in both modes")
+    again = lenet_int8_lanes(steps, batch, lanes=["zo_feat_cls1"])
+    first = dict((zo.keystr(p), t) for p, t in
+                 zo.leaves_with_path(kept["int", "zo_feat_cls1"].params))
+    same = all(torch.equal(t.data, first[zo.keystr(p)].data)
+               and torch.equal(t.exp, first[zo.keystr(p)].exp)
+               for p, t in zo.leaves_with_path(
+                   again["zo_feat_cls1"].state.params))
+    print(f"rerun of zo_feat_cls1 (int) from the same seed: parameters "
+          f"bitwise equal: {same}")
+    if not same:
+        raise AssertionError("an int8 rerun from the same seed differs")
+    for name, _, _ in INT8_LANES:
+        mem = lenet_int8_lanes(5, 32, lanes=[name])[name].memory_bytes
+        print(f"lenet {name:13s} training memory (parameters plus the loop's "
+              f"peak growth), 5 steps at batch 32: int8 {mem} bytes, fp32 "
+              f"{fp32_mem[name]} bytes (150 steps, 4 probes): fp32 / int8 = "
+              f"{fp32_mem[name] / mem:.3f}")
+    return total
 
 
 # --------------------------------------------------------------------- #
@@ -705,16 +1150,13 @@ def main():
         return 1
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs import ARCHS, ServeConfig
-    from repro_torch.kernels import (_build, paged_attn, ref, topk_mask,
-                                     zo_fused_replay, zo_perturb)
+    from repro_torch.kernels import (_build, int8_matmul, paged_attn, ref,
+                                     topk_mask, zo_fused_replay, zo_perturb)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
     phase("machine")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    smi = nvidia_smi("name,power.limit")
     print(smi)
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
@@ -735,6 +1177,10 @@ def main():
     topk = check_topk(topk_mask, ref, ARCHS["qwen3-4b"].padded_vocab)
     zo_times = check_zo(zo_perturb, zo_fused_replay, ref)
     torch.cuda.empty_cache()
+    zo_times.update(check_int8_noise(zo_perturb, zo_fused_replay, ref))
+    torch.cuda.empty_cache()
+    zo_times["int8_matmul"] = check_int8_matmul(int8_matmul, ref)
+    torch.cuda.empty_cache()
 
     phase("small model: card against CPU")
     check_small_model_on_card_vs_cpu()
@@ -744,11 +1190,16 @@ def main():
     torch.cuda.empty_cache()
 
     phase("train LeNet-5: the paper's Table 1")
-    check_lenet(zo_perturb, zo_fused_replay)
+    fp32_mem = check_lenet(zo_perturb, zo_fused_replay)
+
+    phase("train LeNet-5 INT8: Table 1's INT8 and INT8* columns")
+    n_int8 = check_lenet_int8(zo_perturb, zo_fused_replay, int8_matmul,
+                              fp32_mem)
 
     phase("train qwen3-4b")
     n_zo = dict(zip(("zo_perturb", "zo_fused_replay"),
                     check_train_lm(zo_perturb, zo_fused_replay)))
+    n_zo.update(n_int8)
 
     kernels = [
         dict(name="paged_attention_step", route="cuda",
@@ -770,7 +1221,11 @@ def main():
               replaces=f"src/repro/kernels/{where}", launches=n_zo[name],
               **zo_times[name])
          for name, where in (("zo_perturb", "zo_perturb.py:72"),
-                             ("zo_fused_replay", "zo_fused_replay.py:58"))]
+                             ("zo_fused_replay", "zo_fused_replay.py:58"),
+                             ("int8_perturb", "zo_perturb.py:117"),
+                             ("zo_fused_replay_int8",
+                              "zo_fused_replay.py:123"),
+                             ("int8_matmul", "int8_matmul.py:40"))]
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,14 +1,23 @@
-"""The update engine of the fp32 lanes (full_zo, elastic_zo, full_bp).
+"""The lane-polymorphic update engine.
 
-The port of the fp32 half of ``repro/core/engine.py``. One train step is
+The port of ``repro/core/engine.py``. One train step is
 
     partition -> probe(seeds, +/-eps) -> loss-diff -> coeff
               -> ZO update -> BP-tail update
 
-with g = clip(delta / 2eps), coeff = eta(t) * g * mask / valid; the ZO
-update accumulates the probe contributions in probe order in f32,
-subtracts once and casts once per step; the BP tail averages the
-perturbed-point gradients and applies one f32-accumulate/cast SGD step.
+with a numerics plugin per lane:
+
+  * ``Fp32Engine`` (full_zo, elastic_zo, full_bp; Alg. 1): g =
+    clip(delta / 2eps), coeff = eta(t) * g * mask / valid; the ZO update
+    accumulates the probe contributions in probe order in f32, subtracts
+    once and casts once per step; the BP tail averages the
+    perturbed-point gradients and applies one f32-accumulate/cast SGD
+    step.
+  * ``Int8Engine`` (elastic_zo_int8; Alg. 2): g = sgn(L+ - L-) in {-1, 0,
+    +1} (from integer logits, ``core/int_loss.py``, or the sign of the
+    f32 loss difference); the ZO update sums psr(g * z, shift) in int32
+    in probe order and clamps once per step; the BP tail is the NITI FC
+    backward, combined as a saturating int8 sum.
 
 How the JAX step maps onto eager PyTorch:
 
@@ -26,12 +35,18 @@ How the JAX step maps onto eager PyTorch:
     launch per leaf with S = 1): the state passed to a step is consumed,
     as JAX's train loop donates it.
 
-The fused-probe path (``paired_loss_fn``), ``apply_tail_records`` and the
-int8 engine are not ported yet.
+The int8 engine follows the same design: probe seeds from the numpy
+threefry twin, the +1/-1 perturbations one ``int8_perturb`` launch per ZO
+leaf each, the ternary g kept on the device as an int32 [1, P] tensor and
+the update one in-place ``zo_fused_replay_int8`` launch per ZO leaf, so
+live == replay bitwise and no step reads g on the host.
+
+The fused-probe path (``paired_loss_fn``) and ``apply_tail_records`` (the
+fleet's ledger tail) are not ported yet.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -40,6 +55,9 @@ from ..configs.base import LaneConfig
 from ..kernels import ops
 from ..kernels.zo_fused_replay import MAX_RECORDS
 from . import keys, prng, zo
+from .int8 import (QTensor, fc_backward_int8, output_error_int8,
+                   perturb_int8, zo_shift)
+from .int_loss import float_loss, int_loss_sign
 
 
 # ------------------------------------------------------------------ #
@@ -87,6 +105,34 @@ def _value_and_grad(loss_fn: Callable, bp_part, *args):
     return loss.detach(), list(grads)
 
 
+def _apply_records(zo_part, seeds: np.ndarray, values: np.ndarray, launch):
+    """S committed steps x n probe records on every ZO leaf, out of place,
+    at most MAX_RECORDS records a launch. ``launch(path, leaf, seeds,
+    values)`` gets the records as tensors on the leaf's device and returns
+    the new leaf (or the leaf itself for one it does not update)."""
+    seeds = np.asarray(seeds, np.uint64).astype(np.uint32)
+    chunk = max(MAX_RECORDS // max(seeds.shape[1], 1), 1)   # steps a launch
+    out = zo_part
+    for s0 in range(0, seeds.shape[0], chunk):
+        sl = slice(s0, s0 + chunk)
+
+        def f(path, leaf, sl=sl):
+            dev = (leaf.data if isinstance(leaf, QTensor) else leaf).device
+            sd = zo.device_seeds(seeds[sl].reshape(-1), dev).reshape(
+                seeds[sl].shape)
+            return launch(path, leaf, sd,
+                          torch.from_numpy(values[sl].copy()).to(dev))
+        out = zo.map_with_path(f, out)
+    return out
+
+
+def _partition_for(lane: LaneConfig, partition_fn: Optional[Callable]):
+    if partition_fn is None:
+        from . import elastic
+        partition_fn = lambda p: elastic.partition(p, lane)  # noqa: E731
+    return partition_fn
+
+
 class Fp32Engine:
     numerics = "fp32"
 
@@ -97,10 +143,7 @@ class Fp32Engine:
             raise NotImplementedError("fused probes (paired_loss_fn) are not "
                                       "ported yet")
         self.lane = lane
-        if partition_fn is None:
-            from . import elastic
-            partition_fn = lambda p: elastic.partition(p, lane)  # noqa: E731
-        self.partition = partition_fn
+        self.partition = _partition_for(lane, partition_fn)
 
     # ---- coeff transform (ledger domain, strict fp32) ----------------- #
     def host_coeffs(self, step: int, deltas: np.ndarray, mask: np.ndarray):
@@ -134,22 +177,10 @@ class Fp32Engine:
     def apply_zo_records(zo_part, seeds: np.ndarray, coeffs: np.ndarray):
         """Apply S committed steps x n probes to every ZO leaf in one fused
         pass (seeds u32 [S, n], coeffs fp32 [S, n]); out of place."""
-        seeds = np.asarray(seeds, np.uint64).astype(np.uint32)
-        coeffs = np.asarray(coeffs, np.float32)
-        n = max(seeds.shape[1], 1)
-        chunk = max(MAX_RECORDS // n, 1)     # steps per launch
-        out = zo_part
-        for s0 in range(0, seeds.shape[0], chunk):
-            sl = slice(s0, s0 + chunk)
-
-            def f(path, leaf, sl=sl):
-                dev = leaf.device
-                sd = zo.device_seeds(seeds[sl].reshape(-1), dev).reshape(
-                    seeds[sl].shape)
-                cf = torch.from_numpy(coeffs[sl].copy()).to(dev)
-                return ops.zo_fused_replay(leaf, sd, cf, zo.path_salt(path))
-            out = zo.map_with_path(f, out)
-        return out
+        return _apply_records(
+            zo_part, seeds, np.asarray(coeffs, np.float32),
+            lambda path, leaf, sd, cf: ops.zo_fused_replay(
+                leaf, sd, cf, zo.path_salt(path)))
 
     # ---- BP-tail update ------------------------------------------------ #
     @staticmethod
@@ -251,3 +282,190 @@ class Fp32Engine:
                                state.seed), metrics)
 
         return step
+
+
+# ------------------------------------------------------------------ #
+# int8 lane (Alg. 2)
+# ------------------------------------------------------------------ #
+class Int8Engine:
+    numerics = "int8"
+
+    def __init__(self, lane: LaneConfig,
+                 partition_fn: Optional[Callable] = None,
+                 tail_fcs: Optional[List[Tuple[str, str]]] = None,
+                 loss_mode: Optional[str] = None,
+                 p_zero: Optional[float] = None):
+        self.lane = lane
+        self.partition = _partition_for(lane, partition_fn)
+        self.tail_fcs = tail_fcs or []
+        self.loss_mode = lane.int8_loss_mode if loss_mode is None \
+            else loss_mode
+        if self.loss_mode not in ("int", "float"):
+            raise ValueError(f"loss_mode {self.loss_mode!r} is not 'int' or "
+                             "'float'")
+        self.r_max = lane.int8_r_max
+        self.p_zero = lane.int8_p_zero if p_zero is None else p_zero
+        self.zo_shift = zo_shift(self.r_max, lane.int8_b_zo)
+
+    # ---- coeff transform (ledger domain) ------------------------------ #
+    @staticmethod
+    def host_coeffs(step: int, gs: np.ndarray, mask: np.ndarray):
+        """(coeffs int32[n], valid): the int8 coeff IS the masked ternary
+        sign, never renormalised (a masked probe has g = 0, an exact no-op
+        of the integer update)."""
+        gs = np.asarray(gs, np.int32)
+        mask = np.asarray(mask, np.float32)
+        valid = np.float32(max(float(mask.sum()), 1.0))
+        return gs * mask.astype(np.int32), valid
+
+    # ---- ZO update (live) --------------------------------------------- #
+    def zo_apply(self, zo_part, seeds: torch.Tensor, gs: torch.Tensor):
+        """theta <- clamp(theta - sum_p psr(g_p * z_p, shift), -127, 127) in
+        probe order, IN PLACE: one ``zo_fused_replay_int8`` launch per
+        QTensor leaf with S = 1. seeds int32 [1, P] and gs int32 [1, P] on
+        the leaves' device. Returns ``zo_part``."""
+        for path, leaf in zo.leaves_with_path(zo_part):
+            if isinstance(leaf, QTensor):
+                ops.zo_fused_replay_int8(leaf.data, seeds, gs,
+                                         zo.path_salt(path), self.r_max,
+                                         self.p_zero, self.zo_shift,
+                                         out=leaf.data)
+        return zo_part
+
+    # ---- ZO update (ledger domain) ------------------------------------ #
+    def apply_zo_records(self, zo_part, seeds: np.ndarray, gs: np.ndarray):
+        """S committed steps x n probes on every int8 QTensor leaf (seeds
+        u32 [S, n], gs int32 [S, n]; masked probes g = 0); out of place."""
+        def launch(path, leaf, sd, g):
+            if not isinstance(leaf, QTensor):
+                return leaf
+            return QTensor(ops.zo_fused_replay_int8(
+                leaf.data, sd, g, zo.path_salt(path), self.r_max,
+                self.p_zero, self.zo_shift), leaf.exp)
+        return _apply_records(zo_part, seeds, np.asarray(gs, np.int32),
+                              launch)
+
+    # ---- probe phase --------------------------------------------------- #
+    def probe_pair(self, forward: Callable, zo_part, bp_part, batch,
+                   seed: torch.Tensor):
+        """One probe's Alg. 2 evaluation: the +1 and -1 perturbed copies
+        (one ``int8_perturb`` launch per ZO leaf each, the +1 copy freed
+        before the -1 one), two integer forwards, the ternary loss
+        difference. seed: int32 [1] on the device. Returns (g int32 0-d,
+        logits_p, acts_p)."""
+        zo_p = perturb_int8(zo_part, seed, +1, self.r_max, self.p_zero)
+        logits_p, acts_p = forward({**zo_p, **bp_part}, batch["x"])
+        del zo_p
+        zo_m = perturb_int8(zo_part, seed, -1, self.r_max, self.p_zero)
+        logits_m, _ = forward({**zo_m, **bp_part}, batch["x"])
+        del zo_m
+        if self.loss_mode == "int":
+            g = int_loss_sign(logits_p, logits_m, batch["y"])
+        else:
+            g = torch.sign(float_loss(logits_p, batch["y"])
+                           - float_loss(logits_m, batch["y"])).to(torch.int32)
+        return g, logits_p, acts_p
+
+    # ---- BP tail ------------------------------------------------------- #
+    def tail_updates(self, bp_part, acts, logits, labels):
+        """One probe's NITI backward: {layer: upd int32} (not applied). The
+        error chain uses the pre-update weights, so computing every update
+        first and applying once is the sequential Alg. 2 application."""
+        upds: Dict[str, torch.Tensor] = {}
+        if not self.tail_fcs:
+            return upds
+        e = output_error_int8(logits, labels)
+        for name, act_key in reversed(self.tail_fcs):
+            w = bp_part[name]["w"]
+            a_in = acts[act_key]
+            new_w, e = fc_backward_int8(w, a_in, e, self.lane.int8_b_bp)
+            upds[name] = w.data.to(torch.int32) - new_w.data.to(torch.int32)
+            # relu mask of the propagated error (the previous layer's
+            # pre-activation is > 0 exactly where its output is)
+            e = e * (a_in.data > 0)
+        return upds
+
+    @staticmethod
+    def combine_tail(upds_list: Sequence[Dict[str, torch.Tensor]]):
+        """Saturating-int8 combine of the per-probe updates."""
+        acc: Dict[str, torch.Tensor] = {}
+        for upds in upds_list:
+            for name, u in upds.items():
+                acc[name] = u if name not in acc else acc[name] + u
+        return {n: torch.clamp(u, -127, 127).to(torch.int8)
+                for n, u in acc.items()}
+
+    @staticmethod
+    def tail_apply(bp_part, combined: Dict[str, torch.Tensor]):
+        """w <- clamp(w - sum(upd), -127, 127), out of place; exponents
+        unchanged."""
+        new_bp = dict(bp_part)
+        for name, u in combined.items():
+            w = bp_part[name]["w"]
+            d = torch.clamp(w.data.to(torch.int32) - u.to(torch.int32),
+                            -127, 127)
+            new_bp[name] = {"w": QTensor(d.to(torch.int8), w.exp)}
+        return new_bp
+
+    def apply_tail_records(self, *args, **kwargs):
+        raise NotImplementedError("apply_tail_records (the fleet's ledger "
+                                  "tail) is not ported yet")
+
+    # ---- the train step ------------------------------------------------ #
+    def make_step(self, forward: Callable):
+        """forward(params, x QTensor) -> (logits QTensor, acts). Returned
+        step: (state, batch {"x": QTensor, "y": int}, probe_mask fp32[n]
+        host array) -> (state, metrics). metrics are f32 0-d tensors on the
+        device ("loss", "g", "acc"); the caller reads them when it needs
+        them."""
+        from .elastic import TrainState
+        lane = self.lane
+        n = lane.zo_num_probes
+
+        def step(state: TrainState, batch, probe_mask):
+            probe_mask = np.asarray(probe_mask, np.float32)
+            if probe_mask.shape != (n,):
+                raise ValueError(
+                    f"probe_mask has shape {probe_mask.shape} but lane "
+                    f"{lane.lane!r} runs {n} probes")
+            zo_part, bp_part = self.partition(state.params)
+            key = keys.fold_in(state.seed, state.step)
+            device = batch["y"].device
+            seeds = zo.device_seeds(
+                [prng.seed_from_key(keys.fold_in(key, i)) for i in range(n)],
+                device)
+            valid = float(np.float32(max(float(probe_mask.sum()), 1.0)))
+            gs, tail_upds = [], []
+            loss_acc = g_acc = acc_acc = 0.0
+            for i in range(n):
+                m = float(probe_mask[i])
+                g, logits_p, acts_p = self.probe_pair(
+                    forward, zo_part, bp_part, batch, seeds[i:i + 1])
+                g = g * int(m)
+                gs.append(g)
+                upds = self.tail_updates(bp_part, acts_p, logits_p,
+                                         batch["y"])
+                tail_upds.append({k: int(m) * u for k, u in upds.items()})
+                loss_acc = loss_acc + float_loss(logits_p, batch["y"]) * m
+                g_acc = g_acc + g.to(torch.float32)
+                acc_acc = acc_acc + m * (logits_p.data.argmax(-1)
+                                         == batch["y"]).to(torch.float32) \
+                    .mean()
+            new_zo = self.zo_apply(zo_part, seeds.reshape(1, n),
+                                   torch.stack(gs).reshape(1, n))
+            new_bp = self.tail_apply(bp_part, self.combine_tail(tail_upds)) \
+                if self.tail_fcs else dict(bp_part)
+            metrics = {"loss": loss_acc / valid, "g": g_acc / valid,
+                       "acc": acc_acc / valid}
+            return (TrainState({**new_zo, **new_bp}, state.step + 1,
+                               state.seed), metrics)
+
+        return step
+
+
+def engine_for(lane: LaneConfig, partition_fn: Optional[Callable] = None,
+               **kwargs):
+    """The one lane -> numerics-plugin mapping."""
+    if lane.lane == "elastic_zo_int8":
+        return Int8Engine(lane, partition_fn, **kwargs)
+    return Fp32Engine(lane, partition_fn, **kwargs)

@@ -44,10 +44,10 @@ def threefry2x32(key, x0, x1):
 
 
 def key_data(seed: int) -> np.ndarray:
-    """``jax.random.key_data(jax.random.key(seed))``: the seed's high and
-    low 32 bits."""
-    seed = int(seed)
-    return np.array([(seed >> 32) & 0xFFFFFFFF, seed & 0xFFFFFFFF], _U32)
+    """``jax.random.key_data(jax.random.key(seed))``: ``[0, seed mod
+    2**32]``. Without x64, JAX keeps only the seed's low 32 bits (a seed
+    of 2**32 + 5 or -1 gives [0, 5] or [0, 2**32 - 1])."""
+    return np.array([0, int(seed) & 0xFFFFFFFF], _U32)
 
 
 def fold_in(key, data: int) -> np.ndarray:

@@ -1,4 +1,6 @@
-// The ZO noise z, shared by csrc/zo_perturb.cu and csrc/zo_fused_replay.cu.
+// The ZO noise, shared by the noise kernels of csrc/: z for zo_perturb.cu
+// and zo_fused_replay.cu, the int8 lane's noise and rounding for
+// int8_perturb.cu and zo_fused_replay_int8.cu.
 //
 // z = Box-Muller over two murmur-fmix32 streams of (global flat index,
 // salt 2s+1 / 2s+2, seed), op for op src/repro_torch/core/prng.py::normal
@@ -47,6 +49,47 @@ __device__ __forceinline__ float normal(uint32_t idx, uint32_t seed,
   const float u2 = __fmul_rn(__uint2float_rn(b2 >> 8), 0x1p-24f);
   const float r = __fsqrt_rn(__fmul_rn(-2.0f, logf(u1)));
   return __fmul_rn(r, cosf(__fmul_rn(kTwoPi, u2)));
+}
+
+// The int8 lane's sparse uniform noise z = m * u (Alg. 2), op for op
+// src/repro_torch/core/int8.py::int8_noise: u = bits_u mod (2 r_max + 1)
+// - r_max from salt 3s+1, and the keep test float32(bits_m) < keep_thresh
+// from salt 3s+2 (keep_thresh = (1 - p_zero) * 2^32, rounded in f32 by
+// the caller). Salts are below 2^30, so 3s+2 stays below 2^32.
+__device__ __forceinline__ int int8_noise(uint32_t idx, uint32_t seed,
+                                          uint32_t salt, int r_max,
+                                          float keep_thresh) {
+  const uint32_t bu = hash_bits(idx, 3u * salt + 1u, seed);
+  const uint32_t bm = hash_bits(idx, 3u * salt + 2u, seed);
+  const int u = static_cast<int>(bu % static_cast<uint32_t>(2 * r_max + 1)) -
+                r_max;
+  return __uint2float_rn(bm) < keep_thresh ? u : 0;
+}
+
+// Pseudo-stochastic rounding of x right by s bits, op for op
+// src/repro/core/int8.py::psr_shift in int32/uint32, with XLA's rule for
+// shift counts outside [0, 32) (0 for left and logical shifts), which C++
+// leaves undefined: every shift below checks its count first.
+__device__ __forceinline__ int psr_shift(int x, int s) {
+  const uint32_t us = static_cast<uint32_t>(s);
+  const bool in_range = us < 32u;
+  const int mag = x < 0 ? static_cast<int>(0u - static_cast<uint32_t>(x)) : x;
+  const uint32_t umag = static_cast<uint32_t>(mag);
+  const int base = in_range ? static_cast<int>(umag >> us) : 0;
+  const int rem =
+      mag - (in_range ? static_cast<int>(static_cast<uint32_t>(base) << us)
+                      : 0);
+  uint32_t h = (static_cast<uint32_t>(rem) * kPhi) ^ umag;
+  h ^= h >> 16;
+  const uint32_t c = 32u - us;
+  const int thresh = static_cast<int>(c < 32u ? h >> c : 0u);
+  const int out = s > 0 ? base + (thresh < rem ? 1 : 0) : mag;
+  if (x > 0) return out;
+  return x < 0 ? static_cast<int>(0u - static_cast<uint32_t>(out)) : 0;
+}
+
+__device__ __forceinline__ int clamp127(int v) {
+  return v < -127 ? -127 : (v > 127 ? 127 : v);
 }
 
 // Element type: load to f32, store from f32 (bf16 rounds to nearest even,

@@ -6,6 +6,7 @@ launches it or raises; a CPU tensor goes to the plain PyTorch version in
 """
 from __future__ import annotations
 
+from . import int8_matmul as _int8_matmul
 from . import paged_attn, ref, topk_mask
 from . import zo_fused_replay as _replay
 from . import zo_perturb as _perturb
@@ -60,3 +61,40 @@ def zo_fused_replay(theta, seeds, coeffs, salt: int, out=None):
         new = ref.zo_fused_replay_ref(theta, seeds, coeffs, salt)
         return new if out is None else out.copy_(new)
     raise ValueError(f"zo_fused_replay: no path for {theta.device}")
+
+
+def int8_perturb(theta, seed, salt: int, k: int, r_max: int, p_zero):
+    """theta' = clamp(theta + k * z, -127, 127) on an int8 leaf, z the int8
+    lane's sparse uniform noise from (seed, salt, flat index). seed: an
+    int32 [1] tensor on theta's device holding the uint32 seed."""
+    if theta.is_cuda:
+        return _perturb.int8_perturb(theta, seed, salt, k, r_max, p_zero)
+    if theta.device.type == "cpu":
+        return ref.int8_perturb_ref(theta, seed, salt, k, r_max, p_zero)
+    raise ValueError(f"int8_perturb: no path for {theta.device}")
+
+
+def zo_fused_replay_int8(theta, seeds, gs, salt: int, r_max: int, p_zero,
+                         shift: int, out=None):
+    """S steps x P probes of (seed, ternary g) records applied to one int8
+    leaf, int32 accumulate then one clamp per step. seeds int32 [S, P]
+    (uint32 values), gs int32 [S, P], on theta's device. ``out`` may be
+    theta itself (an in-place update)."""
+    if theta.is_cuda:
+        return _replay.zo_fused_replay_int8(theta, seeds, gs, salt, r_max,
+                                            p_zero, shift, out=out)
+    if theta.device.type == "cpu":
+        new = ref.zo_fused_replay_int8_ref(theta, seeds, gs, salt, r_max,
+                                           p_zero, shift)
+        return new if out is None else out.copy_(new)
+    raise ValueError(f"zo_fused_replay_int8: no path for {theta.device}")
+
+
+def int8_matmul(a, w):
+    """int8 a [M, K] x int8 w [K, N] -> (int32 [M, N], max|out| int32 0-d
+    tensor)."""
+    if a.is_cuda:
+        return _int8_matmul.int8_matmul(a, w)
+    if a.device.type == "cpu":
+        return ref.int8_matmul_ref(a, w)
+    raise ValueError(f"int8_matmul: no path for {a.device}")

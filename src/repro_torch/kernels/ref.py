@@ -161,3 +161,48 @@ def zo_fused_replay_ref(theta: torch.Tensor, seeds: torch.Tensor,
             inner = inner + coeffs[s, p] * z
         x = (x - inner).to(dtype).to(torch.float32)
     return x.reshape(shape).to(dtype)
+
+
+def int8_perturb_ref(theta: torch.Tensor, seed, salt: int, k: int,
+                     r_max: int, p_zero, offset: int = 0) -> torch.Tensor:
+    """Alg. 2 perturbation of an int8 leaf, clamp(theta + k * z, -127, 127)
+    with z over the flat index ``offset + i``
+    (``repro/kernels/ref.py::int8_perturb_ref``)."""
+    from ..core.int8 import int8_noise
+    z = int8_noise(_scalar_seed(seed), salt, (theta.numel(),), r_max, p_zero,
+                   offset, device=theta.device)
+    out = torch.clamp(theta.reshape(-1).to(torch.int32) + int(k) * z,
+                      -127, 127)
+    return out.to(torch.int8).reshape(theta.shape)
+
+
+def zo_fused_replay_int8_ref(theta: torch.Tensor, seeds: torch.Tensor,
+                             gs: torch.Tensor, salt: int, r_max: int, p_zero,
+                             shift: int, offset: int = 0) -> torch.Tensor:
+    """S steps of P (seed, ternary g) records on one int8 leaf
+    (``repro/kernels/ref.py::zo_fused_replay_int8_ref``): per step, sum
+    psr(g * z, shift) in int32 in probe order, subtract once, clamp once
+    to [-127, 127]. seeds int [S, P] (uint32 values), gs int [S, P]."""
+    from ..core.int8 import int8_noise, psr_shift
+    S, P = seeds.shape
+    n = theta.numel()
+    x = theta.reshape(-1).to(torch.int32)
+    for s in range(S):
+        acc = torch.zeros_like(x)
+        for p in range(P):
+            z = int8_noise(seeds[s, p], salt, (n,), r_max, p_zero, offset,
+                           device=theta.device)
+            acc = acc + psr_shift(gs[s, p].to(torch.int32) * z, shift)
+        x = torch.clamp(x - acc, -127, 127)
+    return x.to(torch.int8).reshape(theta.shape)
+
+
+def int8_matmul_ref(a: torch.Tensor, w: torch.Tensor):
+    """a [M,K] int8, w [K,N] int8 -> (out int32 [M,N], max|out| int32 0-d)
+    (``repro/kernels/ref.py::int8_matmul_ref``). The product is taken in
+    float64, which holds every partial sum exactly while K * 127^2 < 2^53,
+    and runs on the card, where PyTorch has no integer product."""
+    out = (a.to(torch.float64) @ w.to(torch.float64)).to(torch.int32)
+    if out.numel() == 0:
+        return out, torch.zeros((), dtype=torch.int32, device=out.device)
+    return out, out.abs().amax()

@@ -1,8 +1,11 @@
-"""Wrapper of the CUDA ZO perturbation (csrc/zo_perturb.cu).
+"""Wrappers of the CUDA ZO perturbations (csrc/zo_perturb.cu and
+csrc/int8_perturb.cu).
 
-The port of ``repro/kernels/zo_perturb.py::zo_perturb``: theta' =
-cast(theta + scale * z), z regenerated from (seed, salt, flat index).
-``launches`` counts the launches of the kernel and nothing else.
+The ports of ``repro/kernels/zo_perturb.py``: ``zo_perturb``, theta' =
+cast(theta + scale * z), z regenerated from (seed, salt, flat index); and
+``int8_perturb``, theta' = clamp(theta + k * z, -127, 127) with the int8
+lane's sparse uniform z. ``launches`` and ``int8_launches`` count the
+launches of each kernel and nothing else.
 """
 from __future__ import annotations
 
@@ -13,6 +16,7 @@ import torch
 from . import _build
 
 launches = 0
+int8_launches = 0
 
 _P = ctypes.c_void_p
 _SYMBOLS = {torch.float32: "zo_perturb_f32", torch.bfloat16: "zo_perturb_bf16"}
@@ -28,13 +32,13 @@ def _fn(dtype):
     return fn
 
 
-def check_leaf(name: str, theta, out, salt: int):
-    """The leaf checks both ZO kernels make before a launch."""
+def check_leaf(name: str, theta, out, salt: int, dtypes=tuple(_SYMBOLS)):
+    """The leaf checks the ZO kernels make before a launch."""
     if not theta.is_cuda:
         raise ValueError(f"{name}: theta must be a CUDA tensor")
-    if theta.dtype not in _SYMBOLS:
-        raise ValueError(f"{name}: theta dtype {theta.dtype} is not float32 "
-                         "or bfloat16")
+    if theta.dtype not in dtypes:
+        raise ValueError(f"{name}: theta dtype {theta.dtype} is not one of "
+                         f"{', '.join(str(d) for d in dtypes)}")
     if not theta.is_contiguous():
         raise ValueError(f"{name}: theta must be contiguous (a leading-dim "
                          "slice of a stacked leaf is)")
@@ -73,4 +77,29 @@ def zo_perturb(theta, seed, salt: int, scale: float):
     if rc:
         raise RuntimeError(f"zo_perturb: launch failed with CUDA error {rc}")
     launches += 1
+    return out
+
+
+def int8_perturb(theta, seed, salt: int, k: int, r_max: int, p_zero):
+    """theta [any] int8 contiguous on a CUDA device; seed an int32 [1]
+    tensor on the same device holding the uint32 seed; k and r_max host
+    ints; p_zero a host float (the keep threshold is rounded in f32 as
+    ``core.int8.keep_threshold`` does). Returns a new tensor."""
+    global int8_launches
+    from ..core.int8 import keep_threshold
+    check_leaf("int8_perturb", theta, None, salt, (torch.int8,))
+    seed = device_ints("int8_perturb seed", seed, theta.device, (1,))
+    out = torch.empty_like(theta)
+    if theta.numel() == 0:
+        return out
+    fn = _build.load("int8_perturb").int8_perturb
+    fn.argtypes = [_P, _P, _P, ctypes.c_uint32, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_float, ctypes.c_uint32, _P]
+    fn.restype = ctypes.c_int
+    stream = torch.cuda.current_stream(theta.device).cuda_stream
+    rc = fn(theta.data_ptr(), out.data_ptr(), seed.data_ptr(), salt, int(k),
+            int(r_max), keep_threshold(p_zero), theta.numel(), stream)
+    if rc:
+        raise RuntimeError(f"int8_perturb: launch failed with CUDA error {rc}")
+    int8_launches += 1
     return out

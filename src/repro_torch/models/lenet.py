@@ -1,10 +1,12 @@
-"""LeNet-5 as the paper uses it (Fig. 1 top), fp32.
+"""LeNet-5 as the paper uses it (Fig. 1 top), fp32 and int8.
 
-The port of the fp32 half of ``repro/models/lenet.py``: same-padding 5x5
-convs, 2x2 max-pools, a 784->120->84->10 FC head, 107,786 parameters.
-The public functions keep the JAX package's layouts, NHWC activations
-and HWIO conv weights; the forward permutes to NCHW/OIHW for
-``F.conv2d`` inside. The int8 (NITI) variant waits for the int8 slice.
+The port of ``repro/models/lenet.py``: same-padding 5x5 convs, 2x2
+max-pools, a 784->120->84->10 FC head, 107,786 fp32 parameters. The public
+functions keep the JAX package's layouts, NHWC activations and HWIO conv
+weights; the fp32 forward permutes to NCHW/OIHW for ``F.conv2d`` inside.
+The int8 (NITI) variant has no biases and 107,550 int8 weights in five
+``QTensor``s; its convolutions are im2col products through the
+``int8_matmul`` kernel (``core/int8.py``).
 """
 from __future__ import annotations
 
@@ -17,6 +19,8 @@ import torch.nn.functional as F
 
 from ..configs.paper_models import LeNet5Config
 from ..core import keys
+from ..core.int8 import (QTensor, qconv2d, qdense, qmaxpool2, qrelu,
+                         quant_from_float)
 
 LAYER_NAMES = ("conv1", "conv2", "fc1", "fc2", "fc3")
 
@@ -87,3 +91,36 @@ def partition_at(params: Dict, c: int):
     zo = {n: params[n] for n in LAYER_NAMES[:c]}
     bp = {n: params[n] for n in LAYER_NAMES[c:]}
     return zo, bp
+
+
+# ------------------------------------------------------------------ #
+# INT8 (NITI) variant -- no biases, QTensor weights
+# ------------------------------------------------------------------ #
+def init_lenet5_int8(seed: int, cfg: LeNet5Config = LeNet5Config(), *,
+                     device):
+    """The JAX package's ``init_lenet5_int8(jax.random.key(seed))``: the
+    fp32 init quantised with ``quant_from_float(bits=6)``."""
+    fp = init_lenet5(seed, cfg, device=device)
+    return {n: {"w": quant_from_float(fp[n]["w"], bits=6)}
+            for n in LAYER_NAMES}
+
+
+def qconv2d_same(x: QTensor, w: QTensor) -> QTensor:
+    pad = w.data.shape[0] // 2
+    xd = F.pad(x.data, (0, 0, pad, pad, pad, pad))
+    return qconv2d(QTensor(xd, x.exp), w)
+
+
+def lenet5_forward_int8(params, x: QTensor):
+    """x: QTensor [B,28,28,1] -> (logits QTensor [B,10], acts)."""
+    acts = {}
+    h = qmaxpool2(qrelu(qconv2d_same(x, params["conv1"]["w"])))
+    h = qmaxpool2(qrelu(qconv2d_same(h, params["conv2"]["w"])))
+    h = QTensor(h.data.reshape(h.data.shape[0], -1), h.exp)
+    acts["fc1_in"] = h
+    h = qrelu(qdense(h, params["fc1"]["w"]))
+    acts["fc2_in"] = h
+    h = qrelu(qdense(h, params["fc2"]["w"]))
+    acts["fc3_in"] = h
+    logits = qdense(h, params["fc3"]["w"])
+    return logits, acts

@@ -12,8 +12,8 @@ torch = pytest.importorskip("torch")
 from repro_torch import configs  # noqa: E402
 from repro_torch.core import api, zo  # noqa: E402
 from repro_torch.data.synthetic import token_batch  # noqa: E402
-from repro_torch.kernels import (paged_attn, ref, topk_mask,  # noqa: E402
-                                 zo_fused_replay, zo_perturb)
+from repro_torch.kernels import (int8_matmul, paged_attn, ref,  # noqa: E402
+                                 topk_mask, zo_fused_replay, zo_perturb)
 from repro_torch.models.transformer import tree_map  # noqa: E402
 from repro_torch.serve import Engine, SamplingParams, ServeConfig  # noqa: E402
 from repro_torch.train.train_loop import init_state  # noqa: E402
@@ -166,3 +166,85 @@ def test_engine_on_card_matches_cpu(dev):
         out = eng.run()
         streams.append([out[r] for r in rids])
     assert streams[0] == streams[1]
+
+
+# ------------------------------------------------------------------ #
+# the int8 lane's kernels
+# ------------------------------------------------------------------ #
+@pytest.mark.parametrize("n,skip", [(4099, 0), (4099, 1), (3, 0), (94080, 0)])
+def test_int8_noise_kernels_match_plain_bitwise(dev, n, skip):
+    """skip = 1 starts the leaf off 16-byte alignment (the scalar path)."""
+    g = torch.Generator(device="cpu").manual_seed(n)
+    theta = torch.randint(-127, 128, (n + skip,), generator=g,
+                          dtype=torch.int8).to(dev)[skip:]
+    seeds, _ = _zo_records(dev)
+    gs = torch.tensor([[1, -1], [0, 1], [-1, -1]], dtype=torch.int32,
+                      device=dev)
+    for k in (1, -1):
+        assert torch.equal(
+            zo_perturb.int8_perturb(theta, seeds[0, :1], 77, k, 3, 0.33),
+            ref.int8_perturb_ref(theta, seeds[0, :1], 77, k, 3, 0.33))
+    fused = zo_fused_replay.zo_fused_replay_int8(theta, seeds, gs, 77, 3,
+                                                 0.33, 1)
+    assert torch.equal(fused, ref.zo_fused_replay_int8_ref(
+        theta, seeds, gs, 77, 3, 0.33, 1))
+    live = theta.clone()
+    for s in range(seeds.shape[0]):
+        zo_fused_replay.zo_fused_replay_int8(live, seeds[s:s + 1],
+                                             gs[s:s + 1], 77, 3, 0.33, 1,
+                                             out=live)
+    assert torch.equal(live, fused)
+
+
+@pytest.mark.parametrize("M,K,N,skip", [(37, 25, 6, 0), (50176, 25, 6, 1),
+                                        (65, 129, 67, 3), (1, 1, 1, 0),
+                                        (256, 784, 120, 0), (8, 0, 5, 0)])
+def test_int8_matmul_matches_plain_bitwise(dev, M, K, N, skip):
+    g = torch.Generator(device="cpu").manual_seed(M + K + N)
+    a = torch.randint(-127, 128, (M * K + skip,), generator=g,
+                      dtype=torch.int8)[skip:].reshape(M, K).to(dev)
+    w = torch.randint(-127, 128, (K, N), generator=g, dtype=torch.int8).to(dev)
+    out, mx = int8_matmul.int8_matmul(a, w)
+    want, want_mx = ref.int8_matmul_ref(a, w)
+    assert out.dtype == torch.int32 and torch.equal(out, want)
+    assert int(mx) == int(want_mx)
+
+
+def test_int8_kernels_refuse_what_they_do_not_take(dev):
+    seeds, _ = _zo_records(dev)
+    gs = torch.ones((1, 1), dtype=torch.int32, device=dev)
+    x = torch.zeros(8, 8, dtype=torch.int8, device=dev)
+    with pytest.raises(ValueError, match="dtype"):
+        zo_perturb.int8_perturb(x.float(), seeds[0, :1], 1, 1, 3, 0.33)
+    with pytest.raises(ValueError, match="contiguous"):
+        zo_perturb.int8_perturb(x.t(), seeds[0, :1], 1, 1, 3, 0.33)
+    with pytest.raises(ValueError, match="dtype"):
+        zo_fused_replay.zo_fused_replay_int8(x.float(), seeds[:1, :1], gs, 1,
+                                             3, 0.33, 1)
+    with pytest.raises(ValueError, match="int32"):
+        zo_fused_replay.zo_fused_replay_int8(x, seeds[:1, :1], gs.long(), 1,
+                                             3, 0.33, 1)
+    with pytest.raises(ValueError, match="dtype"):
+        int8_matmul.int8_matmul(x.float(), x)
+    with pytest.raises(ValueError, match="contiguous"):
+        int8_matmul.int8_matmul(x.t(), x)
+    with pytest.raises(ValueError, match="K = "):
+        big = torch.zeros((1, int8_matmul.MAX_K + 1), dtype=torch.int8,
+                          device=dev)
+        int8_matmul.int8_matmul(big, big.reshape(-1, 1))
+
+
+@pytest.mark.parametrize("loss_mode", ["int", "float"])
+def test_int8_lane_step_on_card_matches_cpu(dev, loss_mode):
+    """Two ZO-Feat-Cls2 steps at batch 16: the card (the three int8
+    kernels) and the CPU (their plain versions) agree bitwise."""
+    from repro_torch.train.paper_lanes import lenet_int8_lanes
+    out = [lenet_int8_lanes(steps=2, batch=16, test_n=64, loss_mode=loss_mode,
+                            device=d, lanes=["zo_feat_cls2"], log_every=1)
+           ["zo_feat_cls2"] for d in ("cpu", dev)]
+    (c, g) = out
+    assert c.acc == g.acc and c.history == g.history
+    for (_, a), (_, b) in zip(zo.leaves_with_path(c.state.params),
+                              zo.leaves_with_path(g.state.params)):
+        assert torch.equal(a.data, b.data.cpu())
+        assert int(a.exp) == int(b.exp)

@@ -11,7 +11,8 @@ random weights from a seed), trains LeNet-5 in the paper's four fp32
 lanes (Table 1) and in its three ElasticZO-INT8 lanes in both loss modes
 (Table 1's INT8 and INT8* columns, integer arithmetic through the int8
 kernels), and trains qwen3-4b at full width and depth for a few ElasticZO
-steps.
+steps, unfused and with the fused antithetic probe pair at seq 4096
+(the ZO forwards and the prefill attend through the flash kernel).
 
 The last three lines of its output are the card's name and power limit
 (nvidia-smi), a JSON line of per-kernel numbers, and
@@ -19,6 +20,8 @@ The last three lines of its output are the card's name and power limit
 then exits non-zero and prints no result. It needs one CUDA card and
 imports nothing of JAX.
 """
+import contextlib
+import dataclasses
 import json
 import subprocess
 import sys
@@ -57,8 +60,17 @@ WARM_CALLS = 8                   # device_ms's discarded calls a profile
 INT8_LEAF = (35, 2560, 9728)     # qwen3-4b's w_gate count, 871,628,800
 
 
+_PHASE = {"name": None, "t0": None, "start": time.perf_counter()}
+
+
 def phase(name):
-    print(f"== {name}", flush=True)
+    """Starts a phase, printing the wall time of the one before."""
+    now = time.perf_counter()
+    if _PHASE["name"] is not None:
+        print(f"-- {_PHASE['name']}: {now - _PHASE['t0']:.1f} s wall", flush=True)
+    _PHASE.update(name=name, t0=now)
+    if name is not None:
+        print(f"== {name}", flush=True)
 
 
 def _kernel_events(prof):
@@ -293,6 +305,98 @@ def check_topk(topk_mask, ref, V):
 
 
 # --------------------------------------------------------------------- #
+# flash attention at the ZO forwards' and the prefill's shapes
+# --------------------------------------------------------------------- #
+FLASH_F32_TOL = 1e-5             # f32: the sums differ in order only
+# (label, B, H, Hkv, Sq, Sk, D, dtype, causal, window): (a) the fused
+# train path's forwards, (b) a serve prefill, (c) a sliding window, (d)
+# the reduced model's head dim at ragged lengths
+FLASH_CASES = [
+    ("(a) train, seq 4096", 1, 32, 8, 4096, 4096, 128, torch.bfloat16, True,
+     0),
+    ("(b) prefill, batch 8", 8, 32, 8, 512, 512, 128, torch.bfloat16, True, 0),
+    ("(c) window 512", 1, 32, 8, 2048, 2048, 128, torch.bfloat16, True, 512),
+    ("(d) reduced, ragged", 2, 4, 2, 100, 100, 16, torch.float32, True, 0),
+    ("(d) reduced, Sq != Sk", 2, 4, 2, 100, 77, 16, torch.float32, False, 0),
+]
+
+
+def flash_inputs(B, H, Hkv, Sq, Sk, D, dtype, seed=0):
+    """q, k, v as the model passes them: transposed views of [B, S,
+    heads, D] tensors."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def make(heads, S):
+        return torch.randn(B, S, heads, D, generator=g, device="cuda").to(
+            dtype).transpose(1, 2)
+    return make(H, Sq), make(Hkv, Sk), make(Hkv, Sk)
+
+
+def visible_pairs(Sq, Sk, causal, window):
+    """The (query, key) pairs the causal and window masks leave."""
+    n = 0
+    for q in range(Sq):
+        lo = max(0, q - window + 1) if window > 0 else 0
+        hi = min(q, Sk - 1) if causal else Sk - 1
+        n += max(0, hi - lo + 1)
+    return n
+
+
+def check_flash(flash_attn, ref):
+    """flash_attention against its plain version at the four shapes:
+    f32 within FLASH_F32_TOL; bf16 within one bf16 ulp of |o| (both round
+    one f32 result to bf16 once, and the f32 results differ by summation
+    order only). Timed at (a), beside SDPA."""
+    worst = 0.0
+    for label, B, H, Hkv, Sq, Sk, D, dtype, causal, window in FLASH_CASES:
+        q, k, v = flash_inputs(B, H, Hkv, Sq, Sk, D, dtype)
+        got = flash_attn.flash_attention(q, k, v, causal=causal,
+                                         window=window)
+        want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        d = (got.float() - want.float()).abs()
+        err = d.max().item()
+        worst = max(worst, err)
+        if dtype == torch.float32:
+            bad = int((d > FLASH_F32_TOL).sum())
+            tol = f"tolerance {FLASH_F32_TOL}"
+        else:
+            bad = int((d > 2.0**-7 * want.float().abs() + 1e-6).sum())
+            tol = "tolerance one bf16 ulp of |o|"
+        print(f"flash_attention {label}: B {B} H {H}/{Hkv} Sq {Sq} Sk {Sk} D "
+              f"{D} {str(dtype)[6:]} causal {causal} window {window}: max "
+              f"|o - plain| = {err:.3g}, {bad} elements beyond the {tol}")
+        if bad or got.stride() != q.stride():
+            raise AssertionError(f"flash attention {label} disagrees with "
+                                 "its plain version")
+        del q, k, v, got, want, d
+    _, B, H, Hkv, Sq, Sk, D, dtype, causal, window = FLASH_CASES[0]
+    q, k, v = flash_inputs(B, H, Hkv, Sq, Sk, D, dtype)
+    ms = event_ms(lambda: flash_attn.flash_attention(q, k, v), 10)
+    plain_ms = event_ms(lambda: ref.flash_attention_ref(q, k, v), 3)
+    try:        # a yardstick only: the port never calls SDPA
+        library_ms = device_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True))
+    except RuntimeError as e:
+        print(f"scaled_dot_product_attention refused (a): {e}")
+        library_ms = None
+    ops = 4 * B * H * D * visible_pairs(Sq, Sk, causal, window)
+    nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_tc, by_f32 = ops / BF16_OPS_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
+    bound = max(by_bytes, by_tc)
+    print(f"flash_attention (a): kernel {ms:.4f} ms "
+          f"({ops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, SDPA "
+          f"{library_ms} ms; bound {bound:.4f} ms by operations ({ops:.4g} "
+          f"on the bf16 tensor cores; {by_f32:.3f} ms on the f32 CUDA cores "
+          f"the kernel uses; bytes {by_bytes:.4f} ms)")
+    return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by="bytes" if by_bytes >= by_tc else "operations",
+                library_ms=library_ms)
+
+
+# --------------------------------------------------------------------- #
 # the ZO kernels at the train path's leaves
 # --------------------------------------------------------------------- #
 def _ordered(t):
@@ -392,6 +496,18 @@ def check_zo(zo_perturb, zo_replay, ref):
         (35, 2560, 9728), torch.bfloat16)
     flat, n = theta.reshape(-1), theta.numel()
     seed, sd, cf = seeds[0, :1], seeds[:1, :1], coeffs[:1, :1]
+    p, size = 17, theta[0].numel()
+    got = zo_perturb.zo_perturb(theta[p], seed, salt, 1e-3, p * size)
+    same = (torch.equal(got, ref.zo_perturb_ref(theta[p], seed, salt, 1e-3,
+                                                 p * size)),
+            torch.equal(got, zo_perturb.zo_perturb(theta, seed, salt,
+                                                   1e-3)[p]))
+    print(f"zo_perturb at offset {p} x {size} (period {p}'s slice of the "
+          f"stacked w_gate): bitwise its plain version {same[0]}, bitwise "
+          f"the whole leaf's slice {same[1]}")
+    if not all(same):
+        raise AssertionError("zo_perturb with an offset differs")
+    del got
 
     def chunked(fn):
         def call():
@@ -726,9 +842,28 @@ def serve(engine, reqs, new_tokens=32):
     return [out[r] for r in rids]
 
 
-def check_small_model_on_card_vs_cpu():
+@contextlib.contextmanager
+def counting_prefills():
+    """Counts the calls of repro_torch.core.api.prefill_logits (the serve
+    engine's one prefill a prompt-length group) made inside."""
+    from repro_torch.core import api
+    calls = []
+    prefill = api.prefill_logits
+
+    def counted(*a, **k):
+        calls.append(a[2].shape)
+        return prefill(*a, **k)
+    api.prefill_logits = counted
+    try:
+        yield calls
+    finally:
+        api.prefill_logits = prefill
+
+
+def check_small_model_on_card_vs_cpu(flash_attn):
     """Reduced qwen3-4b in f32: the same requests on the card (CUDA
-    kernels) and on the CPU (plain versions) give the same streams."""
+    kernels, the flash kernel at head dim 16) and on the CPU (plain
+    versions) give the same streams."""
     from repro_torch import configs
     from repro_torch.models.transformer import tree_map
     from repro_torch.serve import Engine, SamplingParams, ServeConfig
@@ -745,13 +880,22 @@ def check_small_model_on_card_vs_cpu():
              (14, SamplingParams(temperature=1.1, top_p=0.9, seed=23)),
              (8, SamplingParams(temperature=0.7, top_k=20, top_p=0.8,
                                 seed=5)))]
-    a, b = serve(cpu, reqs, 12), serve(card, reqs, 12)
+    a = serve(cpu, reqs, 12)
+    flash_attn.launches = 0
+    with counting_prefills() as prefills:
+        b = serve(card, reqs, 12)
     if a != b:
         raise AssertionError(f"card streams {b} != CPU streams {a}")
-    print(f"small model: card == CPU for {len(a)} streams of 12 tokens")
+    n = flash_attn.launches
+    print(f"small model: card == CPU for {len(a)} streams of 12 tokens; "
+          f"flash_attention (head dim 16) launched {n} times for "
+          f"{len(prefills)} prefills of {cfg.num_layers} layers")
+    if n == 0 or n != cfg.num_layers * len(prefills):
+        raise AssertionError("the small model's prefill missed the flash "
+                             "kernel")
 
 
-def check_serve(paged_attn, topk_mask):
+def check_serve(paged_attn, topk_mask, flash_attn):
     from repro_torch import configs
     from repro_torch.core import api
     from repro_torch.serve import Engine, ServeConfig
@@ -768,20 +912,25 @@ def check_serve(paged_attn, topk_mask):
 
     engine = Engine(cfg, sc, params=params)
     torch.cuda.reset_peak_memory_stats()
-    paged_attn.launches = 0
-    topk_mask.launches = 0
+    paged_attn.launches = topk_mask.launches = flash_attn.launches = 0
     t0 = time.perf_counter()
-    streams = serve(engine, reqs)
+    with counting_prefills() as prefills:
+        streams = serve(engine, reqs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     n_paged, n_topk = paged_attn.launches, topk_mask.launches
+    n_flash = flash_attn.launches
     n_tok = sum(len(s) for s in streams)
     print(f"serve: {n_tok} tokens for 8 requests in {wall:.3f} s "
           f"({n_tok / wall:.1f} tok/s), {engine.steps_run} engine steps, "
           f"{engine.ticks_run} decode ticks, peak device memory "
           f"{torch.cuda.max_memory_allocated()} bytes")
     print(f"launches on the main path: paged_attention_step {n_paged}, "
-          f"topk_topp_mask {n_topk}")
+          f"topk_topp_mask {n_topk}, flash_attention {n_flash} "
+          f"({len(prefills)} prefills, batches x lengths {prefills})")
+    if n_flash != cfg.num_layers * len(prefills) or n_flash == 0:
+        raise AssertionError(f"flash attention launched {n_flash} times, "
+                             f"want {cfg.num_layers} x {len(prefills)}")
     if n_paged != cfg.num_layers * engine.ticks_run or n_paged == 0:
         raise AssertionError(f"paged attention launched {n_paged} times, "
                              f"want {cfg.num_layers} x {engine.ticks_run}")
@@ -814,7 +963,7 @@ def check_serve(paged_attn, topk_mask):
           f"including prefill)")
     del engine
     profile_serve(Engine(cfg, sc, params=params), reqs, warm)
-    return n_paged, n_topk
+    return n_paged, n_topk, n_flash
 
 
 def profile_serve(engine, reqs, warm_s):
@@ -1044,13 +1193,17 @@ TRAIN_ARGV = ["--arch", "qwen3-4b", "--lane", "elastic_zo",
 def train_run(trainer, run, LoopConfig):
     """One warm-up step, then four timed ones, through train_loop.run (the
     loss read on the host after every step). Returns (state, losses,
-    timed wall s, peak device memory of the timed steps)."""
+    timed wall s, peak device memory of the timed steps, peak device
+    memory of the first step)."""
     def loop(total):
         return LoopConfig.for_lane(trainer.lane, total_steps=total,
                                    log_every=1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     state, h0 = run(trainer.step_fn, trainer.state, trainer.batch_fn,
                     loop(1), log=None)
     torch.cuda.synchronize()
+    peak0 = torch.cuda.max_memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     state, h1 = run(trainer.step_fn, state, trainer.batch_fn, loop(5),
@@ -1058,13 +1211,15 @@ def train_run(trainer, run, LoopConfig):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     return state, [loss for _, loss in h0 + h1], wall, \
-        torch.cuda.max_memory_allocated()
+        torch.cuda.max_memory_allocated(), peak0
 
 
-def check_train_lm(zo_perturb, zo_replay):
+def check_train_lm(zo_perturb, zo_replay, flash_attn):
     """ElasticZO on qwen3-4b through repro_torch.launch.train's own
-    functions; launch counts, finite losses, a changed head and tail, and
-    a bitwise rerun. Returns the launch counts of the first run."""
+    functions; launch counts (the flash kernel in the 35 ZO periods of
+    each probe forward, none in the BP tail), finite losses, a changed
+    head and tail, and a bitwise rerun. Returns the launch counts of the
+    first run."""
     from repro_torch.core import elastic, zo
     from repro_torch.launch import train as launch_train
     from repro_torch.train.train_loop import LoopConfig, run
@@ -1077,20 +1232,25 @@ def check_train_lm(zo_perturb, zo_replay):
     zo_part, bp_part = ([zo.keystr(p) for p, _ in zo.leaves_with_path(t)]
                         for t in elastic.partition(trainer.state.params,
                                                    trainer.lane))
-    zo_perturb.launches = zo_replay.launches = 0
-    state, losses, wall, peak = train_run(trainer, run, LoopConfig)
-    n_p, n_r = zo_perturb.launches, zo_replay.launches
+    zo_perturb.launches = zo_replay.launches = flash_attn.launches = 0
+    state, losses, wall, peak, peak0 = train_run(trainer, run, LoopConfig)
+    n_p, n_r, n_f = (zo_perturb.launches, zo_replay.launches,
+                     flash_attn.launches)
     tokens = args.batch * args.seq
     print(f"train qwen3-4b elastic_zo, 1 probe, batch {args.batch} x seq "
           f"{args.seq}: losses {[round(v, 4) for v in losses]}; "
           f"{1e3 * wall / 4:.1f} ms per step, {4 * tokens / wall:.1f} tokens/s "
-          f"over 4 timed steps; peak device memory {peak} bytes")
+          f"over 4 timed steps; peak device memory {peak} bytes ({peak0} in "
+          "the first step)")
     print(f"launches on the main path (5 steps): zo_perturb {n_p}, "
-          f"zo_fused_replay {n_r}")
-    if n_p != 24 * 5 or n_r != 12 * 5 or len(zo_part) != 12:
-        raise AssertionError(f"{len(zo_part)} ZO leaves, {n_p} zo_perturb "
-                             f"and {n_r} zo_fused_replay launches in 5 "
-                             "steps, want 12, 24 a step and 12 a step")
+          f"zo_fused_replay {n_r}, flash_attention {n_f}")
+    zo_periods = trainer.state.params["periods_zo"]["blk0"]["ln_attn"].shape[0]
+    if n_p != 24 * 5 or n_r != 12 * 5 or len(zo_part) != 12 \
+            or n_f != 2 * zo_periods * 5 or zo_periods != 35:
+        raise AssertionError(f"{len(zo_part)} ZO leaves, {n_p} zo_perturb, "
+                             f"{n_r} zo_fused_replay and {n_f} flash "
+                             "launches in 5 steps, want 12, 24 a step, 12 a "
+                             "step and 70 a step (35 ZO periods x 2)")
     if len(losses) != 5 or not all(np.isfinite(v) for v in losses):
         raise AssertionError(f"losses {losses}")
     del trainer
@@ -1108,7 +1268,7 @@ def check_train_lm(zo_perturb, zo_replay):
     if not moved["zo"] or not moved["bp"]:
         raise AssertionError("training left the ZO head or the tail as it was")
     del fresh
-    state2, losses2, wall2, _ = train_run(again, run, LoopConfig)
+    state2, losses2, wall2, _, _ = train_run(again, run, LoopConfig)
     same = all(torch.equal(t, final[zo.keystr(p)])
                for p, t in zo.leaves_with_path(state2.params))
     print(f"rerun from the same seed: losses {[round(v, 4) for v in losses2]},"
@@ -1119,13 +1279,179 @@ def check_train_lm(zo_perturb, zo_replay):
                              "other parameters or losses")
     del final, state
     profile_train_step(again, state2, run, LoopConfig, wall2 / 4)
-    return n_p, n_r
+    return n_p, n_r, n_f, peak0
+
+
+# --------------------------------------------------------------------- #
+# training: qwen3-4b with the fused antithetic probe pair, seq 4096
+# --------------------------------------------------------------------- #
+FUSED_ARGV = ["--arch", "qwen3-4b", "--lane", "elastic_zo",
+              "--bp-tail-layers", "1", "--probes", "1", "--batch", "1",
+              "--seq", "4096", "--lr", "1e-2", "--eps", "1e-3", "--steps",
+              "5"]
+# launches a step at 1 probe: zo_perturb embed 2 + 11 periods_zo leaves x
+# 35 periods x 2 signs; zo_fused_replay one per ZO leaf; flash 35 x 2
+FUSED_PER_STEP = {"zo_perturb": 2 + 11 * 35 * 2, "zo_fused_replay": 12,
+                  "flash_attention": 35 * 2}
+
+
+@contextlib.contextmanager
+def probe_losses():
+    """Records the probe losses of the steps run inside, in order: l+ and
+    l- of each fused pair (repro_torch.core.api.paired_loss), and each
+    unfused probe forward's loss (api.loss_fn: +eps, then -eps)."""
+    from repro_torch.core import api
+    seen = []
+    paired, single = api.paired_loss, api.loss_fn
+
+    def p(*a, **k):
+        out = paired(*a, **k)
+        seen.extend(x.detach() for x in out)
+        return out
+
+    def s(*a, **k):
+        out = single(*a, **k)
+        seen.append(out.detach())
+        return out
+    api.paired_loss, api.loss_fn = p, s
+    try:
+        yield seen
+    finally:
+        api.paired_loss, api.loss_fn = paired, single
+
+
+@contextlib.contextmanager
+def probe_phase_peaks():
+    """Records max_memory_allocated() when each step inside reaches its
+    ZO update (Fp32Engine.zo_apply), i.e. the peak of its probe forwards
+    and backwards; the rest of a step's peak is its update."""
+    from repro_torch.core.engine import Fp32Engine
+    seen = []
+    apply = Fp32Engine.zo_apply
+
+    def at_update(*a, **k):
+        seen.append(torch.cuda.max_memory_allocated())
+        return apply(*a, **k)
+    Fp32Engine.zo_apply = staticmethod(at_update)
+    try:
+        yield seen
+    finally:
+        Fp32Engine.zo_apply = staticmethod(apply)
+
+
+def check_train_fused(kernels, unfused_peak0):
+    """The fused-probe elastic_zo lane on qwen3-4b at batch 1 x seq 4096,
+    built through repro_torch.launch.train.setup with the lane override:
+    launch counts a step, finite losses, a changed head and tail, a
+    bitwise rerun; then one unfused step from the same init, whose
+    (l+, l-) must equal the fused step's and whose peak device memory is
+    printed beside it; and one fused step at the unfused train phase's
+    shape, whose peak is printed beside that phase's first step's
+    (``unfused_peak0``). Returns the fused run's launch counts."""
+    from repro_torch.core import elastic, zo
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train.train_loop import LoopConfig, run
+    args = launch_train.parse_args(FUSED_ARGV)
+    fused = dataclasses.replace(launch_train.lane_from_args(args),
+                                fused_probes=True)
+    trainer = launch_train.setup(args, fused)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    for k in kernels.values():
+        k.launches = 0
+    with probe_losses() as seen, probe_phase_peaks() as probe_peaks:
+        state, losses, wall, peak, peak0 = train_run(trainer, run, LoopConfig)
+    n = {name: k.launches for name, k in kernels.items()}
+    pair_fused = [float(x) for x in seen[:2]]
+    tokens = args.batch * args.seq
+    print(f"train qwen3-4b elastic_zo fused probes, 1 probe, batch "
+          f"{args.batch} x seq {args.seq}: losses "
+          f"{[round(v, 4) for v in losses]}; {1e3 * wall / 4:.1f} ms per step, "
+          f"{4 * tokens / wall:.1f} tokens/s over 4 timed steps; peak device "
+          f"memory {peak0} bytes in the first step, {peak} in the timed ones "
+          f"(parameters {base})")
+    print(f"launches on the main path (5 steps): {n}")
+    if n != {k: 5 * v for k, v in FUSED_PER_STEP.items()}:
+        raise AssertionError(f"launches {n}, want 5 x {FUSED_PER_STEP}")
+    if len(losses) != 5 or not all(np.isfinite(v) for v in losses):
+        raise AssertionError(f"losses {losses}")
+    del trainer
+
+    again = launch_train.setup(args, fused)
+    final = dict((zo.keystr(p), t) for p, t in
+                 zo.leaves_with_path(state.params))
+    zo_part, bp_part = ([zo.keystr(p) for p, _ in zo.leaves_with_path(t)]
+                        for t in elastic.partition(again.state.params, fused))
+    fresh = dict((zo.keystr(p), t) for p, t in
+                 zo.leaves_with_path(again.state.params))
+    moved = {part: sum(not torch.equal(fresh[k], final[k]) for k in names)
+             for part, names in (("zo", zo_part), ("bp", bp_part))}
+    print(f"leaves changed by training: {moved['zo']} of {len(zo_part)} ZO, "
+          f"{moved['bp']} of {len(bp_part)} BP-tail")
+    if not moved["zo"] or not moved["bp"]:
+        raise AssertionError("training left the ZO head or the tail as it was")
+    del fresh
+    state2, losses2, wall2, _, _ = train_run(again, run, LoopConfig)
+    same = all(torch.equal(t, final[zo.keystr(p)])
+               for p, t in zo.leaves_with_path(state2.params))
+    print(f"rerun from the same seed: losses {[round(v, 4) for v in losses2]},"
+          f" {1e3 * wall2 / 4:.1f} ms per step; parameters bitwise equal: "
+          f"{same}")
+    if not same or losses2 != losses:
+        raise AssertionError("a fused rerun from the same parameters and "
+                             "seed gave other parameters or losses")
+    del state, final
+    profile_train_step(again, state2, run, LoopConfig, wall2 / 4)
+    del again, state2
+    torch.cuda.empty_cache()
+
+    unfused = launch_train.setup(args)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with probe_losses() as seen, probe_phase_peaks() as probe_u:
+        run(unfused.step_fn, unfused.state, unfused.batch_fn,
+            LoopConfig.for_lane(unfused.lane, total_steps=1, log_every=1),
+            log=None)
+        torch.cuda.synchronize()
+    peak_u = torch.cuda.max_memory_allocated()
+    pair_unfused = [float(x) for x in seen[:2]]
+    print(f"first step from the same init, batch {args.batch} x seq "
+          f"{args.seq}: (l+, l-) "
+          f"fused {pair_fused}, unfused {pair_unfused}; peak device memory "
+          f"fused {peak0} bytes, unfused {peak_u} bytes (unfused - fused = "
+          f"{peak_u - peak0} bytes; parameters {base}); peak up to the ZO "
+          f"update fused {probe_peaks[0]}, unfused {probe_u[0]}")
+    if pair_fused != pair_unfused:
+        raise AssertionError("the fused pair's losses differ from the "
+                             "unfused forwards'")
+    del unfused
+    torch.cuda.empty_cache()
+
+    small = launch_train.parse_args(TRAIN_ARGV)
+    trainer = launch_train.setup(small, dataclasses.replace(
+        launch_train.lane_from_args(small), fused_probes=True))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    with probe_phase_peaks() as probe_small:
+        run(trainer.step_fn, trainer.state, trainer.batch_fn,
+            LoopConfig.for_lane(trainer.lane, total_steps=1, log_every=1),
+            log=None)
+    torch.cuda.synchronize()
+    print(f"first step at batch {small.batch} x seq {small.seq}: peak device "
+          f"memory fused {torch.cuda.max_memory_allocated()} bytes "
+          f"(allocated before it {base}; {probe_small[0]} up to the ZO "
+          f"update), unfused {unfused_peak0} bytes (the unfused train "
+          "phase's first step)")
+    del trainer
+    torch.cuda.empty_cache()
+    return n
 
 
 def profile_train_step(trainer, state, run, LoopConfig, step_s):
     """Device time by kernel over one more step, from torch.profiler
-    tracing the device alone (a step launches ~5,000 kernels); the busy
-    share is against an unprofiled step's wall time."""
+    tracing the device alone (a step launches thousands of kernels); the
+    busy share is against an unprofiled step's wall time."""
     from torch.profiler import ProfilerActivity, profile
     loop = LoopConfig.for_lane(trainer.lane, total_steps=state.step + 1,
                                log_every=1)
@@ -1139,7 +1465,8 @@ def profile_train_step(trainer, state, run, LoopConfig, step_s):
           f"{dev_us / 1e3:.1f} ms in one step = {100 * dev_us / 1e6 / step_s:.1f}% "
           f"of an unprofiled step's wall time")
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)
-    for e in top[:12] + [e for e in top[12:] if "zo_" in e.key]:
+    for e in top[:12] + [e for e in top[12:]
+                         if "zo_" in e.key or "flash" in e.key]:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms {e.count:6d}x "
               f"{e.key[:90]}")
 
@@ -1150,8 +1477,9 @@ def main():
         return 1
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs import ARCHS, ServeConfig
-    from repro_torch.kernels import (_build, int8_matmul, paged_attn, ref,
-                                     topk_mask, zo_fused_replay, zo_perturb)
+    from repro_torch.kernels import (_build, flash_attn, int8_matmul,
+                                     paged_attn, ref, topk_mask,
+                                     zo_fused_replay, zo_perturb)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -1181,12 +1509,15 @@ def main():
     torch.cuda.empty_cache()
     zo_times["int8_matmul"] = check_int8_matmul(int8_matmul, ref)
     torch.cuda.empty_cache()
+    zo_times["flash_attention"] = check_flash(flash_attn, ref)
+    torch.cuda.empty_cache()
 
     phase("small model: card against CPU")
-    check_small_model_on_card_vs_cpu()
+    check_small_model_on_card_vs_cpu(flash_attn)
 
     phase("serve qwen3-4b")
-    n_paged, n_topk = check_serve(paged_attn, topk_mask)
+    n_paged, n_topk, n_flash_serve = check_serve(paged_attn, topk_mask,
+                                                 flash_attn)
     torch.cuda.empty_cache()
 
     phase("train LeNet-5: the paper's Table 1")
@@ -1197,9 +1528,20 @@ def main():
                               fp32_mem)
 
     phase("train qwen3-4b")
-    n_zo = dict(zip(("zo_perturb", "zo_fused_replay"),
-                    check_train_lm(zo_perturb, zo_fused_replay)))
+    n_lm = check_train_lm(zo_perturb, zo_fused_replay, flash_attn)
+    n_zo = dict(zip(("zo_perturb", "zo_fused_replay"), n_lm))
     n_zo.update(n_int8)
+    torch.cuda.empty_cache()
+
+    phase("train qwen3-4b, fused probes, seq 4096")
+    n_fused = check_train_fused({"zo_perturb": zo_perturb,
+                                 "zo_fused_replay": zo_fused_replay,
+                                 "flash_attention": flash_attn}, n_lm[3])
+    n_zo["flash_attention"] = n_fused["flash_attention"]
+    print(f"flash_attention launches: {n_flash_serve} serving, {n_lm[2]} in "
+          f"the unfused train run, {n_fused['flash_attention']} in the fused "
+          "one (the kernels line reports the fused run's)")
+    phase(None)
 
     kernels = [
         dict(name="paged_attention_step", route="cuda",
@@ -1225,7 +1567,13 @@ def main():
                              ("int8_perturb", "zo_perturb.py:117"),
                              ("zo_fused_replay_int8",
                               "zo_fused_replay.py:123"),
-                             ("int8_matmul", "int8_matmul.py:40"))]
+                             ("int8_matmul", "int8_matmul.py:40"))] + [
+        dict(name="flash_attention", route="cuda",
+             source="src/repro_torch/csrc/flash_attn.cu",
+             replaces="src/repro/kernels/flash_attn.py:79",
+             launches=n_zo["flash_attention"],
+             **zo_times["flash_attention"])]
+    print(f"chip_smoke: {time.perf_counter() - _PHASE['start']:.1f} s in all")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -14,8 +14,8 @@ import torch
 
 from ..configs.base import LaneConfig, ModelConfig
 from ..models.transformer import (embed, head_logits, init_lm, lm_loss,
-                                  run_periods, tree_map)
-from . import elastic
+                                  run_periods, run_periods_paired, tree_map)
+from . import elastic, zo
 
 
 def resolve_device(device=None) -> torch.device:
@@ -82,13 +82,48 @@ def loss_fn(params, cfg: ModelConfig, batch):
     return lm_loss(params, x, batch["labels"], batch["mask"], cfg)
 
 
+def paired_loss(bp_part, zo_part, cfg: ModelConfig, lane: LaneConfig, batch,
+                seed):
+    """(l+, l-) of one antithetic probe pair, the two ZO-head streams
+    advanced together (``repro/core/api.py`` ``paired_loss``): ``embed``
+    perturbed whole, the ``periods_zo`` stack one period's slice at a time
+    (``run_periods_paired``), then the BP tail and ``lm_loss`` for each
+    stream. Bitwise the unfused path's two losses, with no perturbed copy
+    of the head. seed: int32 [1] on the params' device."""
+    tokens = batch["tokens"]
+    positions = _positions(tokens)
+    rest = {k: v for k, v in zo_part.items() if k != "periods_zo"}
+    with torch.no_grad():
+        xp = embed(zo.perturb(rest, seed, lane.zo_eps), tokens)
+        xm = embed(zo.perturb(rest, seed, -lane.zo_eps), tokens)
+    periods = zo_part["periods_zo"]
+    n = periods["blk0"]["ln_attn"].shape[0]
+    salts = zo.map_with_path(
+        lambda p, _: zo.path_salt(p, "['periods_zo']"), periods)
+    sizes = zo.map_with_path(lambda p, a: a.numel() // n, periods)
+    xp, xm = run_periods_paired(periods, (xp, xm), cfg, positions=positions,
+                                seed=seed, eps=lane.zo_eps, salts=salts,
+                                sizes=sizes)
+    losses = []
+    for x in (xp, xm):
+        x, _ = run_periods(bp_part["periods_bp"], x, cfg, positions=positions,
+                           mode="train")
+        losses.append(lm_loss(bp_part, x, batch["labels"], batch["mask"],
+                              cfg))
+    return losses[0], losses[1]
+
+
 def make_train_step(cfg: ModelConfig, lane: LaneConfig):
     """The ElasticZO step of ``lane`` over ``loss_fn``:
-    (state, batch, probe_mask) -> (state, metrics)."""
-    if lane.fused_probes:
-        raise NotImplementedError("fused probes (lane.fused_probes) are not "
-                                  "ported yet")
-    return elastic.make_elastic_step(lambda p, b: loss_fn(p, cfg, b), lane)
+    (state, batch, probe_mask) -> (state, metrics). With
+    ``lane.fused_probes`` an elastic_zo step takes each probe pair through
+    ``paired_loss``."""
+    paired = None
+    if lane.fused_probes and lane.lane == "elastic_zo":
+        paired = lambda bp, zo_part, batch, seed: paired_loss(  # noqa: E731
+            bp, zo_part, cfg, lane, batch, seed)
+    return elastic.make_elastic_step(lambda p, b: loss_fn(p, cfg, b), lane,
+                                     paired_loss_fn=paired)
 
 
 # ---------------------------------------------------------------------- #

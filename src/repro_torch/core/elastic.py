@@ -10,7 +10,8 @@ layer stack as two period stacks, ``periods_zo`` (first P-K periods) and
   full_bp    : BP = everything            (paper baseline, C = 0)
 
 The BP-tail gradient is taken at the perturbed points and averaged
-(``bp_grad_mode="clean"`` takes it at theta with a third forward). The
+(``bp_grad_mode="clean"`` takes it at theta with a third forward; the
+fused probe pair takes the gradient of the mean of the two losses). The
 step itself is built by ``core/engine.py::Fp32Engine``.
 """
 from __future__ import annotations
@@ -57,6 +58,8 @@ def make_elastic_step(loss_fn: Callable[[Any, Any], Any], lane: LaneConfig,
 
     loss_fn(params, batch) -> f32 scalar tensor. partition_fn(params) ->
     (zo_part, bp_part); defaults to the LM top-level-group partition.
+    paired_loss_fn(bp_part, zo_part, batch, seed) -> (l+, l-), the fused
+    antithetic pair, used for lanes with a BP tail.
     Returned step: (state, batch, probe_mask) -> (state, metrics).
     """
     return Fp32Engine(lane, partition_fn,

@@ -31,6 +31,10 @@ How the JAX step maps onto eager PyTorch:
     ``torch.no_grad()``, and only the tail's leaves are differentiated;
   * the +eps copy is freed before the -eps perturbation (JAX orders the
     two with ``optimization_barrier`` for the same reason);
+  * with a fused probe pair (``paired_loss_fn``, lanes with a tail) no
+    perturbed copy of the head exists: both streams advance together one
+    period's perturbed slice at a time, and one backward of the mean of
+    the two losses gives the averaged tail gradient;
   * the ZO update writes the ZO leaves in place (one ``zo_fused_replay``
     launch per leaf with S = 1): the state passed to a step is consumed,
     as JAX's train loop donates it.
@@ -41,8 +45,7 @@ leaf each, the ternary g kept on the device as an int32 [1, P] tensor and
 the update one in-place ``zo_fused_replay_int8`` launch per ZO leaf, so
 live == replay bitwise and no step reads g on the host.
 
-The fused-probe path (``paired_loss_fn``) and ``apply_tail_records`` (the
-fleet's ledger tail) are not ported yet.
+``apply_tail_records`` (the fleet's ledger tail) is not ported yet.
 """
 from __future__ import annotations
 
@@ -105,6 +108,15 @@ def _value_and_grad(loss_fn: Callable, bp_part, *args):
     return loss.detach(), list(grads)
 
 
+def _paired_value_and_grad(paired_loss_fn: Callable, bp_part, *args):
+    """(l+, l-, grads of 0.5 (l+ + l-) over the tail leaves), one
+    backward."""
+    leaves = [t.detach().requires_grad_(True) for t in _leaves(bp_part)]
+    lp, lm = paired_loss_fn(_rebuild(bp_part, leaves), *args)
+    grads = torch.autograd.grad(0.5 * (lp + lm), leaves)
+    return lp.detach(), lm.detach(), list(grads)
+
+
 def _apply_records(zo_part, seeds: np.ndarray, values: np.ndarray, launch):
     """S committed steps x n probe records on every ZO leaf, out of place,
     at most MAX_RECORDS records a launch. ``launch(path, leaf, seeds,
@@ -139,10 +151,8 @@ class Fp32Engine:
     def __init__(self, lane: LaneConfig,
                  partition_fn: Optional[Callable] = None,
                  paired_loss_fn: Optional[Callable] = None):
-        if paired_loss_fn is not None:
-            raise NotImplementedError("fused probes (paired_loss_fn) are not "
-                                      "ported yet")
         self.lane = lane
+        self.paired_loss_fn = paired_loss_fn
         self.partition = _partition_for(lane, partition_fn)
 
     # ---- coeff transform (ledger domain, strict fp32) ----------------- #
@@ -207,6 +217,7 @@ class Fp32Engine:
         n = lane.zo_num_probes
         base_eta_tail = tail_learning_rate(lane)
         eps = lane.zo_eps
+        paired_loss_fn = self.paired_loss_fn
 
         def step(state: TrainState, batch, probe_mask):
             probe_mask = np.asarray(probe_mask, np.float32)
@@ -241,7 +252,12 @@ class Fp32Engine:
             coeffs, loss_acc, g_acc = [], 0.0, 0.0
             for i in range(n):
                 seed, m = seeds[i:i + 1], float(probe_mask[i])
-                if has_tail:
+                if paired_loss_fn is not None and has_tail:
+                    # fused antithetic pair: the grad of the mean IS the
+                    # averaged tail grad
+                    lp, lm, g_tail = _paired_value_and_grad(
+                        paired_loss_fn, bp_part, zo_part, batch, seed)
+                elif has_tail:
                     zp = zo.perturb(zo_part, seed, eps)
                     lp, gp = _value_and_grad(tail_loss, bp_part, zp)
                     del zp                  # free +eps before -eps
@@ -254,9 +270,6 @@ class Fp32Engine:
                     else:
                         g_tail = [(a + b) * 0.5 for a, b in zip(gp, gm)]
                     del gp, gm
-                    g_tail = [m * g.to(torch.float32) for g in g_tail]
-                    tail_grad = g_tail if tail_grad is None else \
-                        [a + b for a, b in zip(tail_grad, g_tail)]
                 else:
                     with torch.no_grad():
                         zp = zo.perturb(zo_part, seed, eps)
@@ -265,6 +278,10 @@ class Fp32Engine:
                         zm = zo.perturb(zo_part, seed, -eps)
                         lm = loss_fn(merge(zm, bp_part), batch)
                         del zm
+                if has_tail:
+                    g_tail = [m * g.to(torch.float32) for g in g_tail]
+                    tail_grad = g_tail if tail_grad is None else \
+                        [a + b for a, b in zip(tail_grad, g_tail)]
                 g = zo.projected_gradient(lp, lm, eps, lane.zo_clip) * m
                 coeffs.append(eta_zo * g / valid)
                 loss_acc = loss_acc + 0.5 * (lp + lm) * m

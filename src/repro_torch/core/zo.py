@@ -4,8 +4,9 @@ The port of ``repro/core/zo.py``. The perturbation z ~ N(0, I) is never
 stored: it is regenerated from a probe's uint32 seed every time it is
 needed (perturb +, perturb -, update). On the card each leaf goes through
 one hand-written kernel (``kernels/ops.py``): ``zo_perturb`` for theta +
-scale * z, ``zo_fused_replay`` for the update, each one read and one
-write of the leaf. On the CPU the same calls take the plain versions.
+scale * z (a whole leaf, or one period's slice of a stacked leaf in the
+fused-probe lane), ``zo_fused_replay`` for the update, each one read and
+one write of the leaf. On the CPU the same calls take the plain versions.
 
 Noise streams are salted per leaf by the crc32 of the leaf's path string,
 exactly as ``jax.tree_util.keystr`` spells it inside the tree being
@@ -14,7 +15,7 @@ perturbed, so the port draws the JAX package's z for every leaf.
 from __future__ import annotations
 
 import zlib
-from typing import Optional, Sequence
+from typing import Any, Callable, Optional, Sequence
 
 import numpy as np
 import torch
@@ -75,6 +76,26 @@ def perturb(params, seed: torch.Tensor, scale: float):
         params)
 
 
+def perturb_slice(pparams, salts, sizes, p_idx: int, seed: torch.Tensor,
+                  scale: float):
+    """theta + scale * z for one period's slice of a stacked period tree,
+    z drawn so that it equals the stacked leaf's noise of that slice: the
+    salt of the *stacked* leaf's path and the flat-index offset p_idx *
+    size (``repro/core/zo.py::perturb_slice``). pparams: the slice;
+    salts / sizes: trees of the same structure (stacked-path salt, slice
+    size); seed: int32 [1] on the params' device."""
+    def f(path, leaf):
+        salt, size = _at(salts, path), _at(sizes, path)
+        return ops.zo_perturb(leaf, seed, salt, scale, p_idx * size)
+    return map_with_path(f, pparams)
+
+
+def _at(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
 def zo_update(params, seed: torch.Tensor, step_size: torch.Tensor):
     """theta - step_size * z (z replayed from ``seed``): one-record
     ``zo_fused_replay``. step_size: an f32 scalar tensor on the params'
@@ -93,3 +114,17 @@ def projected_gradient(l_plus, l_minus, eps: float,
     if clip is not None and clip > 0:
         g = torch.clamp(g, -clip, clip)
     return g
+
+
+def spsa_gradient_estimate(loss_fn: Callable[[Any], torch.Tensor], params,
+                           seed: torch.Tensor, eps: float,
+                           clip: Optional[float] = None):
+    """Two-point SPSA estimate (``repro/core/zo.py::spsa_gradient_estimate``):
+    (g, l_plus, l_minus) with g = clip((l+ - l-) / 2eps). The caller
+    applies ``zo_update`` with the same seed (int32 [1] on the params'
+    device). Gradient-free: runs under ``torch.no_grad``, and the +eps
+    copy is freed before the -eps one is made."""
+    with torch.no_grad():
+        l_plus = loss_fn(perturb(params, seed, eps))
+        l_minus = loss_fn(perturb(params, seed, -eps))
+    return projected_gradient(l_plus, l_minus, eps, clip), l_plus, l_minus

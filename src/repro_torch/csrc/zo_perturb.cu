@@ -1,9 +1,12 @@
 // zo_perturb: theta' = cast(float(theta) + scale * z), z regenerated from
-// (seed, salt, global flat index) and never stored.
+// (seed, salt, offset + flat index) and never stored.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/zo_perturb.py:72
 // (zo_perturb, pallas_call at :85). It carries every +eps / -eps
-// perturbation of the port's ElasticZO step (core/zo.py::perturb).
+// perturbation of the port's ElasticZO step: whole leaves
+// (core/zo.py::perturb, offset 0) and one period's slice of a stacked
+// leaf at a time (core/zo.py::perturb_slice, offset = period * slice
+// size, so the slice draws the stacked leaf's noise).
 //
 // Bound on an H100 SXM: the bytes are one read and one write of theta,
 // 2 * n * itemsize over 3.35 TB/s (1.04 ms for the 871.6M-element bf16
@@ -21,7 +24,7 @@
 // C interface (ctypes): returns cudaGetLastError() after the launch.
 // The seed is read from device memory (one uint32), so the host never
 // waits on the device to launch. Flat indices are uint32: the wrapper
-// refuses leaves of 2**32 elements or more.
+// refuses an offset plus leaf size above 2**32.
 #include <cstdint>
 
 #include <cuda_runtime.h>
@@ -33,7 +36,8 @@ namespace {
 template <typename T, int VEC>
 __global__ void __launch_bounds__(zo::kThreads)
     zo_perturb_kernel(const T* theta, T* out, const uint32_t* seed_ptr,
-                      uint32_t salt, float scale, uint32_t n) {
+                      uint32_t salt, float scale, uint32_t offset,
+                      uint32_t n) {
   using E = zo::Elt<T>;
   using P = zo::Pack<T, VEC>;
   const uint32_t seed = *seed_ptr;
@@ -44,30 +48,32 @@ __global__ void __launch_bounds__(zo::kThreads)
     P p = reinterpret_cast<const P*>(theta)[i];
 #pragma unroll
     for (int j = 0; j < VEC; ++j) {
-      const uint32_t idx = static_cast<uint32_t>(i * VEC + j);
+      const uint32_t idx = offset + static_cast<uint32_t>(i * VEC + j);
       const float z = zo::normal(idx, seed, salt);
       p.v[j] = E::store(__fadd_rn(E::load(p.v[j]), __fmul_rn(scale, z)));
     }
     reinterpret_cast<P*>(out)[i] = p;
   }
   for (size_t i = nvec * VEC + tid; i < n; i += stride) {
-    const float z = zo::normal(static_cast<uint32_t>(i), seed, salt);
+    const float z =
+        zo::normal(offset + static_cast<uint32_t>(i), seed, salt);
     out[i] = E::store(__fadd_rn(E::load(theta[i]), __fmul_rn(scale, z)));
   }
 }
 
 template <typename T>
 int launch(const void* theta, void* out, const uint32_t* seed, uint32_t salt,
-           float scale, uint32_t n, cudaStream_t stream) {
+           float scale, uint32_t offset, uint32_t n, cudaStream_t stream) {
   constexpr int kVec = 16 / sizeof(T);
   const T* t = static_cast<const T*>(theta);
   T* o = static_cast<T*>(out);
   if (zo::aligned16(theta, out)) {
     zo_perturb_kernel<T, kVec><<<zo::grid_for(n / kVec), zo::kThreads, 0,
-                                 stream>>>(t, o, seed, salt, scale, n);
+                                 stream>>>(t, o, seed, salt, scale, offset,
+                                            n);
   } else {
     zo_perturb_kernel<T, 1><<<zo::grid_for(n), zo::kThreads, 0, stream>>>(
-        t, o, seed, salt, scale, n);
+        t, o, seed, salt, scale, offset, n);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -76,12 +82,15 @@ int launch(const void* theta, void* out, const uint32_t* seed, uint32_t salt,
 
 extern "C" int zo_perturb_f32(const void* theta, void* out,
                               const uint32_t* seed, uint32_t salt, float scale,
-                              uint32_t n, cudaStream_t stream) {
-  return launch<float>(theta, out, seed, salt, scale, n, stream);
+                              uint32_t offset, uint32_t n,
+                              cudaStream_t stream) {
+  return launch<float>(theta, out, seed, salt, scale, offset, n, stream);
 }
 
 extern "C" int zo_perturb_bf16(const void* theta, void* out,
                                const uint32_t* seed, uint32_t salt,
-                               float scale, uint32_t n, cudaStream_t stream) {
-  return launch<__nv_bfloat16>(theta, out, seed, salt, scale, n, stream);
+                               float scale, uint32_t offset, uint32_t n,
+                               cudaStream_t stream) {
+  return launch<__nv_bfloat16>(theta, out, seed, salt, scale, offset, n,
+                               stream);
 }

@@ -6,10 +6,29 @@ launches it or raises; a CPU tensor goes to the plain PyTorch version in
 """
 from __future__ import annotations
 
+from . import flash_attn as _flash
 from . import int8_matmul as _int8_matmul
 from . import paged_attn, ref, topk_mask
 from . import zo_fused_replay as _replay
 from . import zo_perturb as _perturb
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    scale: float | None = None):
+    """Online-softmax attention in the JAX layout: q [B,H,Sq,D], k/v
+    [B,Hkv,Sk,D] (q head h reads kv head h // (H / Hkv)) -> o [B,H,Sq,D]
+    in q's dtype; masks top-left aligned. Forward only, as the TPU kernel
+    is: an input that requires grad raises, on every device."""
+    if q.requires_grad or k.requires_grad or v.requires_grad:
+        raise ValueError("flash_attention has no backward; an input "
+                         "requires grad")
+    if q.is_cuda:
+        return _flash.flash_attention(q, k, v, causal=causal, window=window,
+                                      scale=scale)
+    if q.device.type == "cpu":
+        return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                       scale=scale)
+    raise ValueError(f"flash_attention: no path for {q.device}")
 
 
 def paged_attention_step(q, k_new, v_new, k_pool, v_pool, page_table,
@@ -40,13 +59,15 @@ def topk_topp_mask(logits, k, p):
     raise ValueError(f"topk_topp_mask: no path for {logits.device}")
 
 
-def zo_perturb(theta, seed, salt: int, scale: float):
-    """theta' = cast(theta + scale * z(seed, salt, flat index)). seed: an
-    int32 [1] tensor on theta's device holding the uint32 seed."""
+def zo_perturb(theta, seed, salt: int, scale: float, offset: int = 0):
+    """theta' = cast(theta + scale * z(seed, salt, offset + flat index)).
+    seed: an int32 [1] tensor on theta's device holding the uint32 seed;
+    ``offset`` places theta inside a larger leaf (a period's slice of a
+    stacked leaf draws that leaf's noise)."""
     if theta.is_cuda:
-        return _perturb.zo_perturb(theta, seed, salt, scale)
+        return _perturb.zo_perturb(theta, seed, salt, scale, offset)
     if theta.device.type == "cpu":
-        return ref.zo_perturb_ref(theta, seed, salt, scale)
+        return ref.zo_perturb_ref(theta, seed, salt, scale, offset)
     raise ValueError(f"zo_perturb: no path for {theta.device}")
 
 

@@ -7,6 +7,8 @@ tensors on the CPU.
 """
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
@@ -14,6 +16,33 @@ from ..core import prng
 from ..core.prng import MASK32
 
 NEG_INF = -1e30
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
+                        scale: float | None = None) -> torch.Tensor:
+    """Dense-softmax version of the flash attention
+    (``repro/kernels/ref.py::flash_attention_ref``, same layout): q
+    [B,H,Sq,D], k/v [B,Hkv,Sk,D] -> o [B,H,Sq,D] in q's dtype. Hkv divides
+    H and q head h reads kv head h // (H / Hkv) (the JAX function has
+    Hkv == H). Masks are top-left aligned, masked scores are -1e30, and
+    the scores, softmax and weighted sum are f32."""
+    B, H, Sq, D = q.shape
+    Sk = k.shape[2]
+    scale = 1.0 / math.sqrt(D) if scale is None else scale
+    G = H // k.shape[1]
+    if G > 1:
+        k, v = k.repeat_interleave(G, dim=1), v.repeat_interleave(G, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    q_pos = torch.arange(Sq, device=q.device)[:, None]
+    k_pos = torch.arange(Sk, device=q.device)[None, :]
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= k_pos <= q_pos
+    if window > 0:
+        mask &= k_pos > q_pos - window
+    s = torch.where(mask[None, None], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
 
 
 def _monotone_key(x: torch.Tensor) -> torch.Tensor:

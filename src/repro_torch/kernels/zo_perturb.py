@@ -27,7 +27,7 @@ MAX_SALT = 2**30                # 2 * salt + 2 must stay below 2**32
 def _fn(dtype):
     fn = getattr(_build.load("zo_perturb"), _SYMBOLS[dtype])
     fn.argtypes = [_P, _P, _P, ctypes.c_uint32, ctypes.c_float,
-                   ctypes.c_uint32, _P]
+                   ctypes.c_uint32, ctypes.c_uint32, _P]
     fn.restype = ctypes.c_int
     return fn
 
@@ -61,19 +61,23 @@ def device_ints(name: str, t, device, shape):
     return t.contiguous()
 
 
-def zo_perturb(theta, seed, salt: int, scale: float):
+def zo_perturb(theta, seed, salt: int, scale: float, offset: int = 0):
     """theta [any] f32/bf16 contiguous on a CUDA device; seed an int32 [1]
     tensor on the same device holding the uint32 seed; scale a host float
-    (rounded to f32). Returns a new tensor."""
+    (rounded to f32); z is drawn over the flat indices offset + i, which
+    must stay below 2**32. Returns a new tensor."""
     global launches
     check_leaf("zo_perturb", theta, None, salt)
+    if not 0 <= offset <= 2**32 - theta.numel():
+        raise ValueError(f"zo_perturb: offset {offset} + {theta.numel()} "
+                         "elements passes 2**32 (flat indices are uint32)")
     seed = device_ints("zo_perturb seed", seed, theta.device, (1,))
     out = torch.empty_like(theta)
     if theta.numel() == 0:
         return out
     stream = torch.cuda.current_stream(theta.device).cuda_stream
     rc = _fn(theta.dtype)(theta.data_ptr(), out.data_ptr(), seed.data_ptr(),
-                          salt, float(scale), theta.numel(), stream)
+                          salt, float(scale), offset, theta.numel(), stream)
     if rc:
         raise RuntimeError(f"zo_perturb: launch failed with CUDA error {rc}")
     launches += 1

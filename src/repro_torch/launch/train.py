@@ -12,7 +12,7 @@ from __future__ import annotations
 import argparse
 import time
 from dataclasses import dataclass
-from typing import Any, Callable
+from typing import Any, Callable, Optional
 
 import torch
 
@@ -52,16 +52,23 @@ class Trainer:
     loop: LoopConfig
 
 
-def setup(args: argparse.Namespace) -> Trainer:
+def lane_from_args(args: argparse.Namespace) -> LaneConfig:
+    return LaneConfig(lane=args.lane, bp_tail_layers=args.bp_tail_layers,
+                      zo_num_probes=args.probes, learning_rate=args.lr,
+                      zo_eps=args.eps)
+
+
+def setup(args: argparse.Namespace,
+          lane: Optional[LaneConfig] = None) -> Trainer:
     """Everything ``main`` runs, from parsed flags; the weights are drawn
-    from seed 0 on ``--device``."""
+    from seed 0 on ``--device``. ``lane`` replaces the flags' lane (as
+    ``repro.launch.dryrun`` builds ``LaneConfig(fused_probes=True)``; the
+    CLI has no fused-probe flag)."""
     device = api.resolve_device(args.device)
     cfg = get_arch(args.arch)
     if args.smoke:
         cfg = reduced(cfg)
-    lane = LaneConfig(lane=args.lane, bp_tail_layers=args.bp_tail_layers,
-                      zo_num_probes=args.probes, learning_rate=args.lr,
-                      zo_eps=args.eps)
+    lane = lane or lane_from_args(args)
     step_fn = api.make_train_step(cfg, lane)
     params = api.init(cfg, lane, seed=0, device=device)
 

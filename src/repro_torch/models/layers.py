@@ -2,9 +2,12 @@
 
 The port of ``repro/models/layers.py`` for one device: the attention plan
 is the single-device one (no KV-head duplication, no Q-head padding).
-Attention covers what serving runs: chunked causal self-attention for
-prefill, and the paged decode step through ``kernels.ops``. Parameter
-layouts are the JAX package's: wq/wk/wv [d, heads, Dh], wo [H, Dh, d].
+Attention covers what serving and training run: causal self-attention
+over the whole sequence for prefill and train (the flash kernel where no
+gradient is needed, the JAX package's chunked eager attention where
+autograd differentiates it), and the paged decode step, both through
+``kernels.ops``. Parameter layouts are the JAX package's: wq/wk/wv [d,
+heads, Dh], wo [H, Dh, d].
 """
 from __future__ import annotations
 
@@ -92,8 +95,12 @@ def attention(p, x, cfg: ModelConfig, positions, *, window=0,
               paged: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
     """Returns (y, (k, v)).
 
-    Prefill (``paged`` None): causal chunked self-attention; (k, v) are
-    this call's full-length [B, S, KV, Dh] keys and values.
+    Prefill and train (``paged`` None): causal self-attention over
+    positions 0..S-1; (k, v) are this call's full-length [B, S, KV, Dh]
+    keys and values. When none of q, k, v requires grad (the ZO head's
+    probe forwards, serving) it runs the flash kernel, which has no
+    backward; otherwise (the BP tail) the chunked eager attention that
+    autograd differentiates.
     Decode (``paged`` = (page_table [B, P], seq_lens [B])): ``cache``
     holds one layer's (k_pool, v_pool) [N_pages, ps, KV, Dh]; the token's
     K/V is written into them in place by the paged step.
@@ -111,16 +118,24 @@ def attention(p, x, cfg: ModelConfig, positions, *, window=0,
     if cfg.rope_theta > 0:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
-    q = q.reshape(B, S, KV, H // KV, Dh)
 
     if paged is not None:
         page_table, seq_lens = paged
         k_pool, v_pool = cache
         y = ops.paged_attention_step(
-            q[:, 0], k[:, 0], v[:, 0], k_pool, v_pool, page_table, seq_lens,
-            scale=scale, window=window)[:, None]
+            q[:, 0].reshape(B, KV, H // KV, Dh), k[:, 0], v[:, 0], k_pool,
+            v_pool, page_table, seq_lens, scale=scale, window=window)[:, None]
+    elif not (q.requires_grad or k.requires_grad or v.requires_grad):
+        # positions is arange(S) in "prefill" and "train"
+        # (core/api.py::_positions), so the kernel's top-left causal and
+        # window masks are the model's; head h reads KV head h // G, the
+        # grouping of q.reshape(B, S, KV, G, Dh)
+        y = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                v.transpose(1, 2), causal=True,
+                                window=window, scale=scale).transpose(1, 2)
     else:
-        y = _chunked_self_attention(q, k, v, positions, window, scale)
+        y = _chunked_self_attention(q.reshape(B, S, KV, H // KV, Dh), k, v,
+                                    positions, window, scale)
     out = torch.einsum("bshk,hkd->bsd", y.reshape(B, S, H, Dh), p["wo"])
     return out, (k, v)
 

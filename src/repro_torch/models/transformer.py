@@ -1,7 +1,8 @@
 """Decoder-only LM stack for dense, attention-only architectures.
 
 The port of ``repro/models/transformer.py`` for what serving and
-training run.
+training run, the fused antithetic probe pair (``run_periods_paired``)
+included.
 Layout: params = {embed, periods, final_norm, unembed}; ``periods`` holds
 every block's weights stacked over a leading period dim (one period is
 one repetition of ``cfg.pattern``). ``run_periods`` is a Python loop over
@@ -12,6 +13,7 @@ from __future__ import annotations
 import torch
 
 from ..configs.base import ATTN, ModelConfig
+from ..core import zo
 from .layers import attention, dense_init, init_attention, init_mlp, mlp, rms_norm
 
 CE_CHUNKS = 4            # sequence chunks for the cross-entropy epilogue
@@ -108,6 +110,34 @@ def run_periods(periods, x, cfg: ModelConfig, *, positions, mode,
         return x, None
     return x, tuple({name: torch.stack([e[name] for e in es])
                      for name in es[0]} for es in entries)
+
+
+def run_periods_paired(periods, x_pair, cfg: ModelConfig, *, positions,
+                       seed, eps: float, salts, sizes):
+    """Fused antithetic forward (``repro/models/transformer.py::
+    run_periods_paired``): advance the theta + eps z and theta - eps z
+    streams through the period stack together, perturbing one period's
+    slice at a time, so no perturbed copy of the whole stack exists.
+
+    Exactness: each slice's noise is the stacked leaf's (``salts`` are the
+    stacked leaves' path salts, ``sizes`` the slice sizes, and
+    ``core/zo.py::perturb_slice`` draws over the flat offset p * size), so
+    both streams are bitwise the unfused path's. Train mode, no gradient
+    (the ZO head is never differentiated); each perturbed slice is freed
+    before the next is made. seed: int32 [1] on the params' device.
+    Returns (hp, hm)."""
+    h = list(x_pair)
+    n = periods["blk0"]["ln_attn"].shape[0]
+    with torch.no_grad():
+        for i in range(n):
+            pparams = tree_map(lambda a: a[i], periods)
+            for s, scale in enumerate((eps, -eps)):
+                pert = zo.perturb_slice(pparams, salts, sizes, i, seed, scale)
+                for j in range(len(cfg.pattern)):
+                    h[s], _ = apply_block(pert[f"blk{j}"], h[s], cfg,
+                                          positions=positions, mode="train")
+                del pert
+    return h[0], h[1]
 
 
 def embed(params, tokens):

@@ -12,8 +12,9 @@ torch = pytest.importorskip("torch")
 from repro_torch import configs  # noqa: E402
 from repro_torch.core import api, zo  # noqa: E402
 from repro_torch.data.synthetic import token_batch  # noqa: E402
-from repro_torch.kernels import (int8_matmul, paged_attn, ref,  # noqa: E402
-                                 topk_mask, zo_fused_replay, zo_perturb)
+from repro_torch.kernels import (flash_attn, int8_matmul,  # noqa: E402
+                                 paged_attn, ref, topk_mask, zo_fused_replay,
+                                 zo_perturb)
 from repro_torch.models.transformer import tree_map  # noqa: E402
 from repro_torch.serve import Engine, SamplingParams, ServeConfig  # noqa: E402
 from repro_torch.train.train_loop import init_state  # noqa: E402
@@ -124,6 +125,112 @@ def test_zo_kernels_refuse_what_they_do_not_take(dev):
         zo_fused_replay.zo_fused_replay(x, seeds.cpu(), coeffs, 1)
     with pytest.raises(ValueError, match="coeffs"):
         zo_fused_replay.zo_fused_replay(x, seeds, coeffs[:1], 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_zo_perturb_offset_slices_equal_the_whole_leaf(dev, dtype):
+    """A period's slice perturbed at offset p * size is bitwise the whole
+    stacked leaf's perturbation of that slice, and its plain version."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    stacked = torch.randn(5, 37, 11, generator=g, device=dev, dtype=dtype)
+    seeds, _ = _zo_records(dev)
+    whole = zo_perturb.zo_perturb(stacked, seeds[0, :1], 91, 1e-3)
+    size = stacked[0].numel()
+    for p in range(5):
+        got = zo_perturb.zo_perturb(stacked[p], seeds[0, :1], 91, 1e-3,
+                                    p * size)
+        assert torch.equal(got, whole[p])
+        assert torch.equal(got, ref.zo_perturb_ref(stacked[p], seeds[0, :1],
+                                                   91, 1e-3, p * size))
+    with pytest.raises(ValueError, match="2\\*\\*32"):
+        zo_perturb.zo_perturb(stacked[0], seeds[0, :1], 91, 1e-3,
+                              2**32 - size + 1)
+
+
+# (B, H, Hkv, Sq, Sk, D, causal, window); q/k/v are transposed views of
+# [B, S, heads, D] tensors, as the model passes them, but in the last case
+FLASH_CASES = [
+    (1, 4, 2, 100, 100, 16, True, 0),     # the reduced model, ragged S
+    (2, 4, 2, 100, 77, 16, False, 0),     # Sq != Sk, no mask
+    (1, 2, 2, 256, 256, 64, True, 0),
+    (1, 4, 1, 130, 130, 64, True, 33),    # GQA 4:1, window, ragged
+    (1, 8, 2, 200, 200, 128, True, 0),
+    (1, 2, 2, 100, 40, 128, True, 8),     # rows past Sk + 7 see no key
+    (2, 4, 4, 64, 300, 128, False, 50),   # a window without causality
+    (1, 4, 2, 192, 192, 128, True, 0),    # contiguous [B, H, S, D]
+]
+
+
+def _bf16_ulp_close(got, want):
+    """Both round one f32 result to bf16 once; the f32 sums differ only in
+    order, so the two differ by at most one bf16 ulp of |o|."""
+    return bool(((got.float() - want.float()).abs()
+                 <= 2.0**-7 * want.float().abs() + 1e-6).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_kernel_matches_plain(dev, dtype, case):
+    B, H, Hkv, Sq, Sk, D, causal, window = case
+    g = torch.Generator(device="cpu").manual_seed(Sq * Sk + D)
+    model_layout = case is not FLASH_CASES[-1]
+
+    def make(heads, S):
+        if model_layout:
+            return torch.randn(B, S, heads, D, generator=g).to(
+                dev, dtype).transpose(1, 2)
+        return torch.randn(B, heads, S, D, generator=g).to(dev, dtype)
+    q, k, v = make(H, Sq), make(Hkv, Sk), make(Hkv, Sk)
+    got = flash_attn.flash_attention(q, k, v, causal=causal, window=window)
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and got.dtype == dtype
+    assert got.stride() == q.stride()         # q's layout, no copy back
+    if dtype == torch.float32:
+        assert (got - want).abs().max().item() <= 1e-5
+    else:
+        assert _bf16_ulp_close(got, want)
+
+
+def test_flash_kernel_refuses_what_it_does_not_take(dev):
+    x = torch.zeros(1, 2, 8, 64, device=dev)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attn.flash_attention(x[..., :32], x[..., :32], x[..., :32])
+    with pytest.raises(ValueError, match="dtypes"):
+        flash_attn.flash_attention(x.half(), x.half(), x.half())
+    with pytest.raises(ValueError, match="Hkv divides H"):
+        flash_attn.flash_attention(torch.zeros(1, 3, 8, 64, device=dev), x, x)
+    with pytest.raises(ValueError, match="contiguous"):
+        y = torch.zeros(1, 2, 64, 8, device=dev).transpose(2, 3)
+        flash_attn.flash_attention(y, y, y)
+    with pytest.raises(ValueError, match="no backward"):
+        from repro_torch.kernels import ops
+        ops.flash_attention(x.clone().requires_grad_(), x, x)
+
+
+def test_fused_train_step_on_card_matches_cpu(dev):
+    """Two fused-probe elastic_zo steps of a reduced qwen3-4b in f32: the
+    card (the ZO kernels with offsets, the flash kernel) and the CPU
+    (their plain versions) agree to matmul rounding."""
+    cfg = configs.reduced(configs.ARCHS["qwen3-4b"], dtype="float32",
+                          num_layers=3)
+    lane = configs.LaneConfig(zo_num_probes=2, fused_probes=True)
+    step = api.make_train_step(cfg, lane)
+    out = []
+    for d in ("cpu", dev):
+        params = api.init(cfg, lane, seed=3, device="cpu")
+        state = init_state(tree_map(lambda a: a.to(d), params), seed=0)
+        for s in range(2):
+            x, y, m = token_batch(2, 16, cfg.vocab_size, seed=1, step=s)
+            batch = {k: torch.from_numpy(a).to(d)
+                     for k, a in (("tokens", x), ("labels", y), ("mask", m))}
+            state, metrics = step(state, batch, np.ones((2,), np.float32))
+        out.append((state, metrics))
+    (cs, cm), (gs, gm) = out
+    assert abs(float(cm["loss"]) - float(gm["loss"])) <= 1e-4
+    for (_, a), (_, b) in zip(zo.leaves_with_path(cs.params),
+                              zo.leaves_with_path(gs.params)):
+        assert (a - b.cpu()).abs().max().item() <= 1e-4
 
 
 def test_train_step_on_card_matches_cpu(dev):

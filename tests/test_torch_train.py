@@ -37,6 +37,7 @@ from repro_torch.data.synthetic import glyphs, token_batch  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.models import lenet  # noqa: E402
+from repro_torch.train.train_loop import init_state, run  # noqa: E402
 
 LENET_TOL = dict(rtol=1e-4, atol=2e-5)
 LM_TOL = dict(rtol=1e-3, atol=1e-4)
@@ -144,9 +145,10 @@ def test_lenet_launches_per_step():
 # ------------------------------------------------------------------ #
 # the LM: reduced qwen3-4b in f32
 # ------------------------------------------------------------------ #
-def _lm_case(lane_name, probes):
+def _lm_case(lane_name, probes, **lane_kw):
     jcfg = jreduced(JARCHS["qwen3-4b"], dtype="float32")
-    jl = JLane(lane=lane_name, bp_tail_layers=1, zo_num_probes=probes)
+    jl = JLane(lane=lane_name, bp_tail_layers=1, zo_num_probes=probes,
+               **lane_kw)
     shape = ShapeConfig("t", seq_len=16, global_batch=2, kind="train")
     m = japi.build(jcfg, shape, jl, ShardingRules(None, jcfg, shape))
     params = m.init(jax.random.key(0))
@@ -159,20 +161,23 @@ def _lm_case(lane_name, probes):
             api.make_train_step(cfg, _port_lane(jl)), state, cfg)
 
 
+def _lm_batch(cfg, s):
+    x, y, m = token_batch(2, 16, cfg.vocab_size, seed=1, step=s)
+    return ({"tokens": jnp.asarray(x), "labels": jnp.asarray(y),
+             "mask": jnp.asarray(m)},
+            {"tokens": torch.from_numpy(x), "labels": torch.from_numpy(y),
+             "mask": torch.from_numpy(m)})
+
+
 @pytest.mark.parametrize("lane_name,steps,probes", [
     ("elastic_zo", 2, 1), ("full_zo", 1, 1), ("full_bp", 1, 1)])
 def test_reduced_lm_step_matches_jax(lane_name, steps, probes):
     mask = np.ones((probes,), np.float32)
     jstep, jstate, jl, step, state, cfg = _lm_case(lane_name, probes)
     for s in range(steps):
-        x, y, m = token_batch(2, 16, cfg.vocab_size, seed=1, step=s)
-        jstate, jm = jstep(jstate, {"tokens": jnp.asarray(x),
-                                    "labels": jnp.asarray(y),
-                                    "mask": jnp.asarray(m)},
-                           jnp.asarray(mask))
-        state, tm = step(state, {"tokens": torch.from_numpy(x),
-                                 "labels": torch.from_numpy(y),
-                                 "mask": torch.from_numpy(m)}, mask)
+        jb, tb = _lm_batch(cfg, s)
+        jstate, jm = jstep(jstate, jb, jnp.asarray(mask))
+        state, tm = step(state, tb, mask)
         np.testing.assert_allclose(float(tm["loss"]), float(jm["loss"]),
                                    err_msg=f"{lane_name} step {s}", **LM_TOL)
         np.testing.assert_allclose(float(tm["zo_g"]), float(jm["zo_g"]),
@@ -180,10 +185,112 @@ def test_reduced_lm_step_matches_jax(lane_name, steps, probes):
     _assert_trees_close(state.params, jstate.params, LM_TOL)
 
 
-def test_fused_probes_are_not_ported():
-    cfg = configs.reduced(configs.ARCHS["qwen3-4b"])
-    with pytest.raises(NotImplementedError):
-        api.make_train_step(cfg, LaneConfig(fused_probes=True))
+# ------------------------------------------------------------------ #
+# the fused antithetic probe pair (lane.fused_probes)
+# ------------------------------------------------------------------ #
+def _fused_masks(probes, steps):
+    """Every probe live, but the second dropped at step 1."""
+    masks = np.ones((steps, probes), np.float32)
+    masks[1, 1:] = 0.0
+    return masks
+
+
+@pytest.fixture(scope="module")
+def fused_runs():
+    """3 steps of the fused lane (2 probes) in JAX and in the port from
+    the same init, keeping every step's metrics and the states after steps
+    1 and 3."""
+    jstep, jstate, _, step, state, cfg = _lm_case("elastic_zo", 2,
+                                                  fused_probes=True)
+    out = {"jax": [], "port": []}
+    for s, mask in enumerate(_fused_masks(2, 3)):
+        jb, tb = _lm_batch(cfg, s)
+        jstate, jm = jstep(jstate, jb, jnp.asarray(mask))
+        state, tm = step(state, tb, mask)
+        out["jax"].append((jm, _np_tree(jstate.params)))
+        out["port"].append((tm, zo.map_with_path(lambda p, t: t.clone(),
+                                                 state.params)))
+    return out
+
+
+@pytest.mark.parametrize("steps", [1, 3])
+def test_reduced_lm_fused_lane_matches_jax(fused_runs, steps):
+    for s in range(steps):
+        (jm, _), (tm, _) = fused_runs["jax"][s], fused_runs["port"][s]
+        np.testing.assert_allclose(float(tm["loss"]), float(jm["loss"]),
+                                   err_msg=f"step {s}", **LM_TOL)
+        np.testing.assert_allclose(float(tm["zo_g"]), float(jm["zo_g"]),
+                                   rtol=1e-2, atol=1e-2)
+    _assert_trees_close(fused_runs["port"][steps - 1][1],
+                        fused_runs["jax"][steps - 1][1], LM_TOL)
+
+
+def test_fused_lane_equals_unfused_in_the_port(fused_runs):
+    """The perturbed slices are bitwise the stacked perturbation, so the
+    losses and zo_g are the unfused lane's bitwise at the first step (and
+    within 1e-6 after, where the tail differs by rounding), the ZO head
+    bitwise, and the tail within 1e-6: one backward of the mean sums the
+    two streams' gradients in another order than the unfused lane's mean
+    of two backwards."""
+    *_, step, state, cfg = _lm_case("elastic_zo", 2)
+    for s, mask in enumerate(_fused_masks(2, 3)):
+        state, m = step(state, _lm_batch(cfg, s)[1], mask)
+        fm, fparams = fused_runs["port"][s]
+        for key in ("loss", "zo_g"):
+            if s == 0:
+                assert float(m[key]) == float(fm[key]), key
+            np.testing.assert_allclose(float(m[key]), float(fm[key]),
+                                       rtol=1e-6, err_msg=f"{key} step {s}")
+    fused = dict((zo.keystr(p), t) for p, t in zo.leaves_with_path(fparams))
+    for path, t in zo.leaves_with_path(state.params):
+        name = zo.keystr(path)
+        if path[0] in elastic.ZO_GROUPS:
+            assert torch.equal(t, fused[name]), name
+        else:
+            torch.testing.assert_close(t, fused[name], rtol=0, atol=1e-6,
+                                       msg=name)
+
+
+def test_fused_step_launches(monkeypatch):
+    """zo_perturb calls per fused step and probe: embed twice, then every
+    periods_zo leaf's slice twice per period (11 leaves on qwen3-4b); the
+    update one zo_fused_replay per ZO leaf (12)."""
+    calls = {"perturb": 0, "replay": 0}
+    perturb, replay = ops.zo_perturb, ops.zo_fused_replay
+
+    def count(name, fn):
+        def wrapped(*a, **k):
+            calls[name] += 1
+            return fn(*a, **k)
+        return wrapped
+    monkeypatch.setattr(ops, "zo_perturb", count("perturb", perturb))
+    monkeypatch.setattr(ops, "zo_fused_replay", count("replay", replay))
+    cfg = configs.reduced(configs.ARCHS["qwen3-4b"], dtype="float32",
+                          num_layers=4)
+    lane = LaneConfig(bp_tail_layers=1, zo_num_probes=2, fused_probes=True)
+    step = api.make_train_step(cfg, lane)
+    state = init_state(api.init(cfg, lane, seed=1, device="cpu"), seed=2)
+    step(state, _lm_batch(cfg, 0)[1], np.ones((2,), np.float32))
+    assert calls == {"perturb": 2 * (2 + 11 * 3 * 2), "replay": 12}
+
+
+def test_fused_lane_through_the_launcher():
+    """launch.train.setup with a LaneConfig override builds the fused lane
+    (the launcher has no fused flag, as in the JAX package), and it
+    trains as the unfused lane does from the same flags."""
+    args = launch_train.parse_args(["--arch", "qwen3-4b", "--smoke",
+                                    "--device", "cpu", "--steps", "2",
+                                    "--seq", "16", "--batch", "2"])
+    hist = {}
+    for fused in (False, True):
+        lane = dataclasses.replace(launch_train.lane_from_args(args),
+                                   fused_probes=fused)
+        t = launch_train.setup(args, lane)
+        assert t.lane.fused_probes is fused
+        hist[fused] = run(t.step_fn, t.state, t.batch_fn, t.loop,
+                          log=None).history
+    assert hist[True][0] == hist[False][0]
+    assert all(np.isfinite(loss) for _, loss in hist[True])
 
 
 # ------------------------------------------------------------------ #

@@ -272,3 +272,67 @@ def test_apply_zo_records_matches_jax():
          "b": torch.from_numpy(tree["b"])}, SEEDS.astype(np.uint64), COEFFS)
     _close(got["a"]["w"], want["a"]["w"], "float32")
     _close(got["b"], want["b"], "float32")
+
+
+# ------------------------------------------------------------------ #
+# the fused probe pair's slice noise, and the SPSA estimate
+# ------------------------------------------------------------------ #
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_perturb_slice_draws_the_stacked_leaf_noise(dtype):
+    """The port's twin of tests/test_fused.py::
+    test_offset_noise_matches_stacked_slice. Slice l of a stacked leaf,
+    perturbed by ``perturb_slice`` at offset l * size, equals slice l of
+    the whole perturbed leaf bitwise; its z is JAX's ``prng.normal(...,
+    offset=l * size)`` within Z_ULP (the hash bits under it are JAX's
+    bitwise, test_normal_streams_bitwise_and_z_within_ulp), and the
+    perturbed slice is JAX's ``perturb_slice`` within the leaf tolerance."""
+    rng = np.random.default_rng(8)
+    stacked = rng.normal(size=(6, 4, 8)).astype(np.float32)
+    jstack = jnp.asarray(stacked, getattr(jnp, dtype))
+    tstack = torch.from_numpy(stacked).to(getattr(torch, dtype))
+    seed = 2**31 + 99
+    key = _seed_tensor([seed])
+    salt = zo.path_salt(("blk0", "w"), "['periods_zo']")
+    assert salt == jzo.path_salt((jax.tree_util.DictKey("periods_zo"),
+                                  jax.tree_util.DictKey("blk0"),
+                                  jax.tree_util.DictKey("w")))
+    salts, sizes = {"blk0": {"w": salt}}, {"blk0": {"w": 32}}
+    whole = zo.perturb({"periods_zo": {"blk0": {"w": tstack}}}, key,
+                       1e-3)["periods_zo"]["blk0"]["w"]
+    for l in range(6):
+        got = zo.perturb_slice({"blk0": {"w": tstack[l]}}, salts, sizes, l,
+                               key, 1e-3)["blk0"]["w"]
+        assert torch.equal(got, whole[l])
+        want = jzo.perturb_slice({"blk0": {"w": jstack[l]}}, salts, sizes,
+                                 jnp.int32(l), jnp.uint32(seed), 1e-3)
+        _close(got, want["blk0"]["w"], dtype)
+        z = zo.perturb_slice({"blk0": {"w": torch.zeros(4, 8)}}, salts, sizes,
+                             l, key, 1.0)["blk0"]["w"]
+        zj = jprng.normal(jnp.uint32(seed), salt, (4, 8), offset=l * 32)
+        assert _ulp(z.numpy(), zj).max() <= Z_ULP
+
+
+@pytest.mark.parametrize("clip", [None, 0.5])
+def test_spsa_gradient_estimate_matches_jax(clip):
+    from repro.models import lenet as jl
+    from repro_torch.convert import params_from_jax
+    from repro_torch.models import lenet as tl
+    jp = jl.init_lenet5(jax.random.key(2))
+    tp = params_from_jax(jax.tree.map(np.asarray, jp), "cpu", torch.float32)
+    x = np.random.default_rng(0).normal(size=(8, 28, 28, 1)).astype(np.float32)
+    y = np.arange(8, dtype=np.int32)
+    key = jax.random.fold_in(jax.random.key(4), 2)
+    seed = _seed_tensor([prng.seed_from_key(keys.fold_in(keys.key_data(4),
+                                                         2))])
+    jg, jlp, jlm = jzo.spsa_gradient_estimate(
+        lambda p: jl.lenet5_loss(p, {"x": jnp.asarray(x), "y": jnp.asarray(y)}),
+        jp, key, 1e-2, clip)
+    g, lp, lm = zo.spsa_gradient_estimate(
+        lambda p: tl.lenet5_loss(p, {"x": torch.from_numpy(x),
+                                     "y": torch.from_numpy(y)}),
+        tp, seed, 1e-2, clip)
+    for got, want in ((lp, jlp), (lm, jlm)):
+        np.testing.assert_allclose(float(got), float(want), rtol=1e-5)
+    # g = (l+ - l-) / 2eps: the losses' rounding over 2eps = 0.02
+    np.testing.assert_allclose(float(g), float(jg), rtol=1e-3, atol=2e-4)
+    assert clip is None or abs(float(g)) <= clip

@@ -319,6 +319,16 @@ FLASH_CASES = [
     ("(d) reduced, ragged", 2, 4, 2, 100, 100, 16, torch.float32, True, 0),
     ("(d) reduced, Sq != Sk", 2, 4, 2, 100, 77, 16, torch.float32, False, 0),
 ]
+# the bf16 tensor-core kernel's edge paths: head dims 16 and 64, ragged Sq
+# != Sk, and windows under which rows past Sk + window - 1 see no key
+FLASH_EDGE_CASES = [
+    ("(e) D 16, window, rows see no key", 2, 4, 2, 100, 40, 16,
+     torch.bfloat16, True, 8),
+    ("(f) D 16, Sq != Sk", 2, 4, 2, 100, 77, 16, torch.bfloat16, False, 0),
+    ("(g) D 64, Sq != Sk", 1, 8, 2, 130, 77, 64, torch.bfloat16, False, 0),
+    ("(h) D 64, window, rows see no key", 1, 4, 1, 200, 90, 64,
+     torch.bfloat16, True, 16),
+]
 
 
 def flash_inputs(B, H, Hkv, Sq, Sk, D, dtype, seed=0):
@@ -342,13 +352,74 @@ def visible_pairs(Sq, Sk, causal, window):
     return n
 
 
+def attention_f64(q, k, v):
+    """Causal attention of q [B,H,S,D], k/v [B,Hkv,S,D] in float64."""
+    G = q.shape[1] // k.shape[1]
+    k, v = (t.double().repeat_interleave(G, dim=1) for t in (k, v))
+    s = torch.einsum("bhqd,bhkd->bhqk", q.double(), k) / q.shape[-1] ** 0.5
+    pos = torch.arange(q.shape[2], device=q.device)
+    s = torch.where(pos[None, :] <= pos[:, None], s, -1e30)
+    return torch.einsum("bhqk,bhkd->bhqd", torch.softmax(s, dim=-1), v)
+
+
+def check_flash_large_scores(flash_attn, ref, q, k, v):
+    """(a) with q scaled by 8: scores up to ~40, where an f32 score's own
+    rounding (~2e-6) moves outputs that cancel to |o| ~ 1e-5 by more than
+    one bf16 ulp. Both the kernel and the f32 plain version are held to
+    the attention in float64; the kernel may not miss it more often."""
+    exact = attention_f64(q, k, v)
+    tol = 2.0**-7 * exact.abs() + 1e-6
+    counts = []
+    for o in (flash_attn.flash_attention(q, k, v),
+              ref.flash_attention_ref(q, k, v)):
+        counts.append(int(((o.double() - exact).abs() > tol).sum()))
+    print(f"flash_attention (a), q x 8, against float64: {counts[0]} of "
+          f"{exact.numel()} outputs beyond one bf16 ulp of |o|; the f32 plain "
+          f"version {counts[1]}")
+    if counts[0] > counts[1]:
+        raise AssertionError("flash attention at large scores misses the "
+                             "float64 result more often than its plain "
+                             "version")
+    del exact, tol
+
+
+def check_p_split(ref, q, k, v):
+    """Why the kernel's P.V takes P in three bf16 terms: at (a), P fed to
+    bf16 tensor cores as one, two (hi + lo) or three (hi + mid + lo) bf16
+    terms, each term's products with V summed in f32, against the plain
+    version. Prints the outputs beyond one bf16 ulp of |o| for each."""
+    want = ref.flash_attention_ref(q, k, v).float()
+    G = q.shape[1] // k.shape[1]
+    k, v = (t.float().repeat_interleave(G, dim=1) for t in (k, v))
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k) / q.shape[-1] ** 0.5
+    pos = torch.arange(q.shape[2], device=q.device)
+    rest = torch.softmax(torch.where(pos[None, :] <= pos[:, None], s, -1e30),
+                         dim=-1)
+    del s
+    acc, counts = torch.zeros_like(want), []
+    for _ in range(3):
+        term = rest.bfloat16().float()
+        rest -= term
+        acc += torch.einsum("bhqk,bhkd->bhqd", term, v)
+        o = acc.bfloat16().float()
+        counts.append(int(((o - want).abs()
+                           > 2.0**-7 * want.abs() + 1e-6).sum()))
+        del term, o
+    print(f"P.V at (a) with P as 1 / 2 / 3 bf16 terms: {counts[0]} / "
+          f"{counts[1]} / {counts[2]} of {want.numel()} outputs beyond one "
+          "bf16 ulp of the plain version")
+    del rest, acc, want
+
+
 def check_flash(flash_attn, ref):
-    """flash_attention against its plain version at the four shapes:
-    f32 within FLASH_F32_TOL; bf16 within one bf16 ulp of |o| (both round
-    one f32 result to bf16 once, and the f32 results differ by summation
-    order only). Timed at (a), beside SDPA."""
+    """flash_attention against its plain version at FLASH_CASES and
+    FLASH_EDGE_CASES: f32 within FLASH_F32_TOL; bf16 within one bf16 ulp
+    of |o| (both round one f32 result to bf16 once, and the f32 results
+    differ by summation order only: the kernel's P.V takes P in three
+    exact bf16 terms). Timed at (a), beside SDPA."""
     worst = 0.0
-    for label, B, H, Hkv, Sq, Sk, D, dtype, causal, window in FLASH_CASES:
+    for label, B, H, Hkv, Sq, Sk, D, dtype, causal, window in \
+            FLASH_CASES + FLASH_EDGE_CASES:
         q, k, v = flash_inputs(B, H, Hkv, Sq, Sk, D, dtype)
         got = flash_attn.flash_attention(q, k, v, causal=causal,
                                          window=window)
@@ -372,6 +443,9 @@ def check_flash(flash_attn, ref):
         del q, k, v, got, want, d
     _, B, H, Hkv, Sq, Sk, D, dtype, causal, window = FLASH_CASES[0]
     q, k, v = flash_inputs(B, H, Hkv, Sq, Sk, D, dtype)
+    check_flash_large_scores(flash_attn, ref, q * 8, k, v)
+    check_p_split(ref, q, k, v)
+    torch.cuda.empty_cache()
     ms = event_ms(lambda: flash_attn.flash_attention(q, k, v), 10)
     plain_ms = event_ms(lambda: ref.flash_attention_ref(q, k, v), 3)
     try:        # a yardstick only: the port never calls SDPA
@@ -384,13 +458,15 @@ def check_flash(flash_attn, ref):
     ops = 4 * B * H * D * visible_pairs(Sq, Sk, causal, window)
     nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    by_tc, by_f32 = ops / BF16_OPS_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
+    by_tc = ops / BF16_OPS_PER_S * 1e3
     bound = max(by_bytes, by_tc)
+    ratio = f"{ms / library_ms:.2f}x SDPA" if library_ms else "SDPA refused"
     print(f"flash_attention (a): kernel {ms:.4f} ms "
-          f"({ops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, SDPA "
-          f"{library_ms} ms; bound {bound:.4f} ms by operations ({ops:.4g} "
-          f"on the bf16 tensor cores; {by_f32:.3f} ms on the f32 CUDA cores "
-          f"the kernel uses; bytes {by_bytes:.4f} ms)")
+          f"({ops / ms / 1e9:.1f} TFLOP/s, {ratio}), plain {plain_ms:.4f} "
+          f"ms, SDPA {library_ms} ms; bound {bound:.4f} ms by operations "
+          f"({ops:.4g} on the bf16 tensor cores; the three-term P.V design's "
+          f"tensor work is twice that, a {2 * by_tc:.4f} ms floor; bytes "
+          f"{by_bytes:.4f} ms)")
     return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bound,
                 bound_by="bytes" if by_bytes >= by_tc else "operations",
                 library_ms=library_ms)
@@ -662,6 +738,43 @@ def sass_loop_mix(name, kernel):
     raise RuntimeError(f"no 16-byte grid-stride loop in {kernel}")
 
 
+def sass_mma_counts(name):
+    """{kernel: {op: count}} of the tensor-core instructions (HGMMA:
+    wgmma, HMMA: mma.sync on floats, IMMA: mma.sync on integers) in each
+    kernel of the built library of csrc/<name>.cu, from cuobjdump -sass."""
+    import re
+    from repro_torch.kernels import _build
+    tool = Path(_build._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass",
+                           str(_build._target(_build.CSRC / f"{name}.cu"))],
+                          capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    counts = {}
+    for body in sass.split("Function : ")[1:]:
+        ops = re.findall(r"\b(HGMMA|HMMA|IMMA)\.", body)
+        counts[body.split()[0]] = {op: ops.count(op)
+                                   for op in ("HGMMA", "HMMA", "IMMA")}
+    return counts
+
+
+def check_tensor_core_sass():
+    """The bf16 flash kernels and the int8 GEMM must reach the tensor
+    cores: each of their SASS functions holds MMA instructions."""
+    for name, kernel, ops in (("flash_attn", "flash_tc", ("HGMMA", "HMMA")),
+                              ("int8_matmul", "int8_mma", ("IMMA",))):
+        found = 0
+        for fn, c in sass_mma_counts(name).items():
+            print(f"  {name} SASS {fn}: " +
+                  ", ".join(f"{op} {n}" for op, n in c.items()))
+            if kernel in fn:
+                found += 1
+                if not sum(c[op] for op in ops):
+                    raise AssertionError(f"{fn} in {name} holds no "
+                                         f"{'/'.join(ops)}")
+        if not found:
+            raise AssertionError(f"no {kernel} kernel in {name}'s SASS")
+
+
 def int8_noise_bound_ms(n, per_element, hz):
     """(bound ms, what bounds it) of one pass over an n-element int8 leaf
     whose every element costs ``per_element`` = (instructions, INT32-pipe
@@ -757,6 +870,7 @@ MM_FORWARD = [(64 * 784, 25, 6), (64 * 196, 150, 16), (64, 784, 120),
               (64, 120, 84), (64, 84, 10)]
 MM_BACKWARD = [(84, 64, 10), (64, 10, 84), (120, 64, 84), (64, 84, 120)]
 MM_ODD = [(1, 1, 1), (65, 129, 67), (1000, 33, 7), (3, 0, 5), (127, 4097, 3)]
+MM_MISALIGNED = [(64 * 784, 25, 6, 1), (1000, 4096, 1000, 1)]
 
 
 def mm_bound_ms(M, K, N):
@@ -768,8 +882,9 @@ def mm_bound_ms(M, K, N):
 
 def check_int8_matmul(int8_mm, ref):
     """int8_matmul against its plain version (float64 on the card), out
-    and max|out| bitwise, at 4096^3, at the LeNet-5 step's shapes and at
-    odd ones; timed at 4096^3 (beside torch._int_mm) and at the path's."""
+    and max|out| bitwise, at 4096^3, at the LeNet-5 step's shapes, at odd
+    ones, on views off 16-byte alignment and at K = MAX_K; timed at 4096^3
+    (beside torch._int_mm) and at the path's."""
     gen = torch.Generator(device="cuda").manual_seed(7)
 
     def case(M, K, N):
@@ -790,9 +905,26 @@ def check_int8_matmul(int8_mm, ref):
         if count or int(mx) != int(want_mx):
             raise AssertionError(f"int8_matmul {M}x{K}x{N}: {count} outputs "
                                  f"differ, max {int(mx)} vs {int(want_mx)}")
+    # views that start one byte off 16-byte alignment (the byte path), and
+    # the deepest K the wrapper takes
+    for M, K, N, skip in MM_MISALIGNED + [(5, int8_mm.MAX_K, 7, 0)]:
+        raw = torch.randint(-127, 128, (M * K + skip,), generator=gen,
+                            device="cuda", dtype=torch.int8)
+        a = raw[skip:].view(M, K)
+        w = torch.randint(-127, 128, (K, N), generator=gen, device="cuda",
+                          dtype=torch.int8)
+        out, mx = int8_mm.int8_matmul(a, w)
+        want, want_mx = ref.int8_matmul_ref(a, w)
+        count = int((out != want).sum())
+        worst = max(worst, int((out.double() - want.double()).abs().max()))
+        if count or int(mx) != int(want_mx):
+            raise AssertionError(f"int8_matmul {M}x{K}x{N} at byte offset "
+                                 f"{skip}: {count} outputs differ, max "
+                                 f"{int(mx)} vs {int(want_mx)}")
     print(f"int8_matmul: out and max|out| bitwise the plain version at "
           f"4096^3, the 5 forward and 4 backward shapes of a batch-64 LeNet-5 "
-          f"step, and {len(MM_ODD)} odd shapes")
+          f"step, {len(MM_ODD)} odd shapes, {len(MM_MISALIGNED)} views one "
+          f"byte off alignment and K = {int8_mm.MAX_K} (MAX_K)")
     a, w = case(4096, 4096, 4096)
     ms = event_ms(lambda: int8_mm.int8_matmul(a, w), 10)
     plain_ms = event_ms(lambda: ref.int8_matmul_ref(a, w), 3)
@@ -802,9 +934,11 @@ def check_int8_matmul(int8_mm, ref):
         print(f"torch._int_mm refused 4096^3: {e}")
         library_ms = None
     bound, by = mm_bound_ms(4096, 4096, 4096)
+    lib = (f"{library_ms:.4f} ms ({2 * 4096 ** 3 / library_ms / 1e9:.1f} "
+           f"TOPS)" if library_ms else "refused")
     print(f"int8_matmul 4096^3: kernel {ms:.4f} ms "
           f"({2 * 4096 ** 3 / ms / 1e9:.1f} TOPS), plain {plain_ms:.4f} ms, "
-          f"torch._int_mm {library_ms} ms, bound {bound:.4f} ms by {by}")
+          f"torch._int_mm {lib}, bound {bound:.4f} ms by {by}")
     path_ms = path_plain = path_bound = 0.0
     for M, K, N in MM_FORWARD + MM_BACKWARD:
         a, w = case(M, K, N)
@@ -981,7 +1115,8 @@ def profile_serve(engine, reqs, warm_s):
     print(f"profile: {len(kernels)} kernel names, device time "
           f"{dev_us / 1e3:.1f} ms = {100 * dev_us / 1e6 / warm_s:.1f}% of "
           f"the warm run's wall time")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)
+    for e in top[:12] + [e for e in top[12:] if "flash" in e.key]:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms {e.count:6d}x "
               f"{e.key[:90]}")
 
@@ -1498,6 +1633,7 @@ def main():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
+    check_tensor_core_sass()
 
     phase("kernels against their plain versions")
     P = ServeConfig(page_size=16, max_seq_len=544).max_pages_per_seq

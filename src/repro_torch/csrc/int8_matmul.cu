@@ -5,20 +5,35 @@
 // Replaces the Pallas TPU kernel src/repro/kernels/int8_matmul.py:40
 // (int8_matmul, pallas_call at :52). In the port every product of the
 // int8 lane goes through it: qdense, qconv2d (im2col) and both products
-// of the NITI FC backward (core/int8.py). PyTorch has no integer matrix
-// product on CUDA for the port to call.
+// of the NITI FC backward (core/int8.py).
 //
 // Bound on an H100 SXM: 2 M N K operations against the int8 tensor-core
 // peak of 1,979 TOPS, or the bytes (M K + K N + 4 M N) over 3.35 TB/s,
-// whichever is larger; at the LeNet-5 path's shapes (K = 25..784, N =
-// 6..120) the bytes bound, at 4096^3 the operations. This first kernel
-// does not reach the tensor cores: it is a tiled shared-memory GEMM with
-// __dp4a (four int8 products summed into int32 per instruction), 64 x 64
-// output tiles, 32-deep k slices, 256 threads each owning 4 x 4 outputs.
-// A is staged row-major and B transposed, both with rows padded to 36
-// bytes, so each thread's operands are 4-byte shared loads without bank
-// conflicts. Tile loads zero-pad outside [M, K, N] (exact in integer
-// arithmetic), so any shape is taken. mma.sync s8 or wgmma is later work.
+// whichever is larger; at the LeNet-5 path's shapes (K = 10..784, N =
+// 6..120) the bytes bound, at 4096^3 the operations (0.069 ms).
+//
+// Design: the int8 tensor cores through mma.sync.m16n8k32 (s8 x s8 ->
+// s32, exact), with a ring of four 64-deep k stages in shared memory
+// filled by cp.async, so the next stages load while this one is
+// multiplied. The MMA takes both operands K-major; a is (K contiguous)
+// and is read with ldmatrix, but w is N-major and int8 has no transposing
+// ldmatrix, so w's tile is stored as it lies and each thread builds its B
+// fragments itself: one 32-bit load gives four adjacent columns of one k
+// row, four rows give a 4 x 4 byte block, and a byte transpose (PRMT)
+// turns it into the four columns' k-quads. For that the n8 tile nt of a
+// warp maps its column slot j to column NI j + nt of the warp's slice, so
+// a thread's four fragments are four adjacent columns; the epilogue puts
+// each sum back where it belongs. No pass over w in device memory. Tile
+// rows are XOR-swizzled in 16-byte chunks, so ldmatrix and the fragment
+// loads hit distinct banks.
+//
+// Two tiles, picked by the host: 128 x 128 (8 warps of 64 x 32) where
+// there are enough of them to fill the card, else 64 x 16 (4 warps of
+// 16 x 16) for the LeNet-5 shapes (N = 6..120, tall or short M), where a
+// 128-wide tile would be mostly padding. Tile loads zero-pad outside [M,
+// K, N] (exact in integer arithmetic), so any shape is taken; rows that
+// are not 16-byte aligned (K or N not a multiple of 16, or a view that
+// starts off alignment) are copied a byte at a time.
 //
 // max|out|: each block reduces its tile (warp shuffles, then shared
 // memory) and does one atomicMax on a device int32 that this function
@@ -33,79 +48,260 @@
 
 namespace {
 
-constexpr int kBM = 64;
-constexpr int kBN = 64;
-constexpr int kBK = 32;
-constexpr int kLds = kBK + 4;      // padded row, in bytes
-constexpr int kThreads = 256;      // 16 x 16, 4 x 4 outputs each
+constexpr int kBK = 64;            // k bytes a stage
+constexpr int kStages = 4;
 
-__global__ void __launch_bounds__(kThreads)
-    int8_matmul_kernel(const int8_t* __restrict__ a,
-                       const int8_t* __restrict__ w, int32_t* __restrict__ out,
-                       int32_t* maxabs, int M, int K, int N) {
-  __shared__ __align__(16) int8_t s_a[kBM * kLds];
-  __shared__ __align__(16) int8_t s_bt[kBN * kLds];
-  __shared__ int s_max[kThreads / 32];
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const long m0 = static_cast<long>(blockIdx.x) * kBM;
-  const long n0 = static_cast<long>(blockIdx.y) * kBN;
-  int acc[4][4] = {};
-  for (int k0 = 0; k0 < K; k0 += kBK) {
-    for (int idx = tid; idx < kBM * kBK; idx += kThreads) {
-      const int r = idx / kBK, c = idx % kBK;
-      const long gm = m0 + r;
-      const int gk = k0 + c;
-      s_a[r * kLds + c] = (gm < M && gk < K) ? a[gm * K + gk] : int8_t(0);
-    }
-    for (int idx = tid; idx < kBK * kBN; idx += kThreads) {
-      const int kr = idx / kBN, nc = idx % kBN;
-      const int gk = k0 + kr;
-      const long gn = n0 + nc;
-      s_bt[nc * kLds + kr] =
-          (gk < K && gn < N) ? w[static_cast<long>(gk) * N + gn] : int8_t(0);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 4) {
-      int av[4], bv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        av[i] = *reinterpret_cast<const int*>(&s_a[(ty + 16 * i) * kLds + kk]);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        bv[j] = *reinterpret_cast<const int*>(&s_bt[(tx + 16 * j) * kLds + kk]);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = __dp4a(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-  unsigned local = 0;
+// byte offset of the 16-byte chunk c of row r in an a tile (64-byte rows)
+__device__ __forceinline__ int a_off(int r, int c) {
+  return r * kBK + ((c ^ ((r >> 1) & 3)) << 4);
+}
+
+// byte offset of the 16-byte chunk c of k row r in a w tile (BN-byte rows)
+template <int BN>
+__device__ __forceinline__ int b_off(int r, int c) {
+  return r * BN + ((BN >= 128 ? c ^ (((r >> 2) & 3) << 1) : c) << 4);
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(in ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void st_shared16(uint32_t dst,
+                                            const uint32_t (&w)[4]) {
+  asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(dst),
+               "r"(w[0]), "r"(w[1]), "r"(w[2]), "r"(w[3])
+               : "memory");
+}
+
+// 16 bytes of a row from byte `col` on, zero past `len` or out of rows
+__device__ __forceinline__ void bytes16(uint32_t (&w)[4], const int8_t* row,
+                                        long long col, long long len,
+                                        bool in) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const long gm = m0 + ty + 16 * i;
+    uint32_t x = 0;
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      const long gn = n0 + tx + 16 * j;
-      if (gm < M && gn < N) {
-        out[gm * N + gn] = acc[i][j];
-        const int v = acc[i][j];
-        const unsigned mag = v < 0 ? 0u - static_cast<unsigned>(v)
-                                   : static_cast<unsigned>(v);
-        local = mag > local ? mag : local;
-      }
+      const long long c = col + 4 * i + j;
+      if (in && c < len)
+        x |= static_cast<uint32_t>(static_cast<uint8_t>(row[c])) << (8 * j);
+    }
+    w[i] = x;
+  }
+}
+
+template <int BM, int BN, int WARPS_M, int WARPS_N>
+struct Cfg {
+  static constexpr int THREADS = 32 * WARPS_M * WARPS_N;
+  static constexpr int WTM = BM / WARPS_M;    // warp tile rows
+  static constexpr int WTN = BN / WARPS_N;    // warp tile columns
+  static constexpr int MI = WTM / 16;         // m16 tiles a warp
+  static constexpr int NI = WTN / 8;          // n8 tiles a warp (2 or 4)
+  static constexpr int A_BYTES = BM * kBK;
+  static constexpr int STAGE = A_BYTES + kBK * BN;
+  static constexpr int SMEM = kStages * STAGE;
+};
+
+// One stage: a's rows m0.. and w's k rows k0.., columns n0..
+template <int BM, int BN, int THREADS, bool VEC>
+__device__ __forceinline__ void load_stage(uint32_t sa, uint32_t sb,
+                                           const int8_t* a, const int8_t* w,
+                                           long long m0, long long n0, int k0,
+                                           int M, int K, int N, int tid) {
+  for (int e = tid; e < BM * (kBK / 16); e += THREADS) {
+    const int r = e / (kBK / 16), c = e % (kBK / 16);
+    const long long gm = m0 + r;
+    const int gk = k0 + 16 * c;
+    const uint32_t dst = sa + a_off(r, c);
+    if (VEC) {
+      const bool in = gm < M && gk < K;
+      cp_async16(dst, a + (in ? gm * K + gk : 0), in);
+    } else {
+      uint32_t v[4];
+      bytes16(v, a + (gm < M ? gm * K : 0), gk, K, gm < M);
+      st_shared16(dst, v);
     }
   }
+  for (int e = tid; e < kBK * (BN / 16); e += THREADS) {
+    const int r = e / (BN / 16), c = e % (BN / 16);
+    const int gk = k0 + r;
+    const long long gn = n0 + 16 * c;
+    const uint32_t dst = sb + b_off<BN>(r, c);
+    if (VEC) {
+      const bool in = gk < K && gn < N;
+      cp_async16(dst, w + (in ? static_cast<long long>(gk) * N + gn : 0), in);
+    } else {
+      uint32_t v[4];
+      bytes16(v, w + (gk < K ? static_cast<long long>(gk) * N : 0), gn, N,
+              gk < K);
+      st_shared16(dst, v);
+    }
+  }
+}
+
+// column quad of the 4 x 4 bytes x0..x3 (rows): y[j] = x0.bj x1.bj x2.bj x3.bj
+__device__ __forceinline__ void transpose4(const uint32_t (&x)[4],
+                                           uint32_t (&y)[4]) {
+  const uint32_t t0 = __byte_perm(x[0], x[1], 0x5140);
+  const uint32_t t1 = __byte_perm(x[0], x[1], 0x7362);
+  const uint32_t t2 = __byte_perm(x[2], x[3], 0x5140);
+  const uint32_t t3 = __byte_perm(x[2], x[3], 0x7362);
+  y[0] = __byte_perm(t0, t2, 0x5410);
+  y[1] = __byte_perm(t0, t2, 0x7632);
+  y[2] = __byte_perm(t1, t3, 0x5410);
+  y[3] = __byte_perm(t1, t3, 0x7632);
+}
+
+template <int BM, int BN, int WARPS_M, int WARPS_N, bool VEC>
+__global__ void __launch_bounds__(Cfg<BM, BN, WARPS_M, WARPS_N>::THREADS)
+    int8_mma(const int8_t* __restrict__ a, const int8_t* __restrict__ w,
+             int32_t* __restrict__ out, int32_t* maxabs, int M, int K,
+             int N) {
+  using C = Cfg<BM, BN, WARPS_M, WARPS_N>;
+  constexpr int MI = C::MI, NI = C::NI;
+  extern __shared__ __align__(128) uint8_t smem[];
+  __shared__ int s_max[C::THREADS / 32];
+  const uint32_t s0 = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int wm = warp / WARPS_N, wn = warp % WARPS_N;
+  const long long m0 = static_cast<long long>(blockIdx.x) * BM;
+  const long long n0 = static_cast<long long>(blockIdx.y) * BN;
+  const int nk = (K + kBK - 1) / kBK;
+
+  auto load = [&](int kt) {
+    const uint32_t sa = s0 + (kt % kStages) * C::STAGE;
+    load_stage<BM, BN, C::THREADS, VEC>(sa, sa + C::A_BYTES, a, w, m0, n0,
+                                        kt * kBK, M, K, N, tid);
+  };
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < nk) load(s);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  }
+
+  int acc[MI][NI][4];
+#pragma unroll
+  for (int i = 0; i < MI; ++i)
+#pragma unroll
+    for (int j = 0; j < NI; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
+
+  for (int kt = 0; kt < nk; ++kt) {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(kStages - 2) : "memory");
+    __syncthreads();          // stage kt is in; stage kt - 1 is read
+    if (kt + kStages - 1 < nk) load(kt + kStages - 1);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+
+    const uint32_t sa = s0 + (kt % kStages) * C::STAGE;
+    const uint32_t sb = sa + C::A_BYTES;
+#pragma unroll
+    for (int ks = 0; ks < kBK / 32; ++ks) {
+      uint32_t af[MI][4];
+#pragma unroll
+      for (int i = 0; i < MI; ++i) {
+        const int r = wm * C::WTM + i * 16 + (lane % 8) + ((lane / 8) & 1) * 8;
+        const uint32_t addr = sa + a_off(r, 2 * ks + lane / 16);
+        asm volatile(
+            "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, "
+            "[%4];\n"
+            : "=r"(af[i][0]), "=r"(af[i][1]), "=r"(af[i][2]), "=r"(af[i][3])
+            : "r"(addr));
+      }
+      // b[j][h]: k quad 4 t (h = 0) or 16 + 4 t (h = 1) of column
+      // wn WTN + NI g + j
+      uint32_t bf[NI][2];
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        uint32_t x[4], y[4];
+        const int byte = wn * C::WTN + NI * g;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int r = ks * 32 + hh * 16 + 4 * t + i;
+          const uint8_t* p = smem + (sb - s0) + b_off<BN>(r, byte / 16) +
+                             byte % 16;
+          if constexpr (NI == 4)
+            x[i] = *reinterpret_cast<const uint32_t*>(p);
+          else
+            x[i] = *reinterpret_cast<const uint16_t*>(p);
+        }
+        transpose4(x, y);
+#pragma unroll
+        for (int j = 0; j < NI; ++j) bf[j][hh] = y[j];
+      }
+#pragma unroll
+      for (int i = 0; i < MI; ++i)
+#pragma unroll
+        for (int j = 0; j < NI; ++j)
+          asm volatile(
+              "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+              "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+              "{%0, %1, %2, %3};\n"
+              : "+r"(acc[i][j][0]), "+r"(acc[i][j][1]), "+r"(acc[i][j][2]),
+                "+r"(acc[i][j][3])
+              : "r"(af[i][0]), "r"(af[i][1]), "r"(af[i][2]), "r"(af[i][3]),
+                "r"(bf[j][0]), "r"(bf[j][1]));
+    }
+  }
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+
+  // the thread's sums: rows g and g + 8 of each m16 tile, 2 NI adjacent
+  // columns from wn WTN + 2 NI t (slot 2 t of tile j is column 2 NI t + j,
+  // slot 2 t + 1 is column 2 NI t + NI + j)
+  unsigned local = 0;
+#pragma unroll
+  for (int i = 0; i < MI; ++i)
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const long long gm = m0 + wm * C::WTM + i * 16 + g + 8 * hr;
+      if (gm >= M) continue;
+      const long long gn0 = n0 + wn * C::WTN + 2 * NI * t;
+#pragma unroll
+      for (int c = 0; c < 2 * NI; ++c) {
+        const int v = acc[i][c % NI][2 * hr + c / NI];
+        if (gn0 + c < N) {
+          out[gm * N + gn0 + c] = v;
+          const unsigned mag = v < 0 ? 0u - static_cast<unsigned>(v)
+                                     : static_cast<unsigned>(v);
+          local = mag > local ? mag : local;
+        }
+      }
+    }
   local = __reduce_max_sync(0xffffffffu, local);
-  if (tid % 32 == 0) s_max[tid / 32] = static_cast<int>(local);
+  if (lane == 0) s_max[warp] = static_cast<int>(local);
   __syncthreads();
   if (tid == 0) {
     int m = 0;
-    for (int i = 0; i < kThreads / 32; ++i) m = s_max[i] > m ? s_max[i] : m;
+    for (int i = 0; i < C::THREADS / 32; ++i) m = s_max[i] > m ? s_max[i] : m;
     atomicMax(maxabs, m);
   }
+}
+
+template <int BM, int BN, int WARPS_M, int WARPS_N, bool VEC>
+int go(const int8_t* a, const int8_t* w, int32_t* out, int32_t* maxabs,
+       int M, int K, int N, cudaStream_t stream) {
+  using C = Cfg<BM, BN, WARPS_M, WARPS_N>;
+  auto* kernel = int8_mma<BM, BN, WARPS_M, WARPS_N, VEC>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN);
+  kernel<<<grid, C::THREADS, C::SMEM, stream>>>(a, w, out, maxabs, M, K, N);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool VEC>
+int pick(const int8_t* a, const int8_t* w, int32_t* out, int32_t* maxabs,
+         int M, int K, int N, cudaStream_t stream) {
+  const long long wide_tiles =
+      ((M + 127LL) / 128) * ((N + 127LL) / 128);
+  if (N > 64 && wide_tiles >= 132)       // enough 128 x 128 tiles for 132 SMs
+    return go<128, 128, 2, 4, VEC>(a, w, out, maxabs, M, K, N, stream);
+  return go<64, 16, 4, 1, VEC>(a, w, out, maxabs, M, K, N, stream);
 }
 
 }  // namespace
@@ -115,9 +311,14 @@ extern "C" int int8_matmul(const void* a, const void* w, void* out,
                            cudaStream_t stream) {
   cudaError_t e = cudaMemsetAsync(maxabs, 0, sizeof(int32_t), stream);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid((M + kBM - 1) / kBM, (N + kBN - 1) / kBN);
-  int8_matmul_kernel<<<grid, kThreads, 0, stream>>>(
-      static_cast<const int8_t*>(a), static_cast<const int8_t*>(w),
-      static_cast<int32_t*>(out), static_cast<int32_t*>(maxabs), M, K, N);
-  return static_cast<int>(cudaGetLastError());
+  const auto* a8 = static_cast<const int8_t*>(a);
+  const auto* w8 = static_cast<const int8_t*>(w);
+  auto* o32 = static_cast<int32_t*>(out);
+  auto* mx = static_cast<int32_t*>(maxabs);
+  // 16-byte copies need every row of a and w to start on 16 bytes
+  const bool vec = reinterpret_cast<uintptr_t>(a) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(w) % 16 == 0 && K % 16 == 0 &&
+                   N % 16 == 0;
+  return vec ? pick<true>(a8, w8, o32, mx, M, K, N, stream)
+             : pick<false>(a8, w8, o32, mx, M, K, N, stream);
 }

@@ -18,7 +18,7 @@ launches = 0
 
 _P = ctypes.c_void_p
 MAX_K = 133_143                 # K * 127^2 < 2^31: the int32 sum cannot wrap
-MAX_N = 65_535 * 64             # grid.y (64-column tiles) is at most 65,535
+MAX_N = 65_535 * 64             # keeps grid.y (N tiles) within 65,535
 
 
 def int8_matmul(a, w):

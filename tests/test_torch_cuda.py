@@ -192,6 +192,70 @@ def test_flash_kernel_matches_plain(dev, dtype, case):
         assert _bf16_ulp_close(got, want)
 
 
+def _attention_f64(q, k, v, causal, window):
+    """The plain version's function evaluated in float64."""
+    Sq, Sk, D = q.shape[2], k.shape[2], q.shape[3]
+    G = q.shape[1] // k.shape[1]
+    k, v = (t.double().repeat_interleave(G, dim=1) for t in (k, v))
+    s = torch.einsum("bhqd,bhkd->bhqk", q.double(), k) / D ** 0.5
+    q_pos = torch.arange(Sq, device=q.device)[:, None]
+    k_pos = torch.arange(Sk, device=q.device)[None, :]
+    seen = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        seen &= k_pos <= q_pos
+    if window > 0:
+        seen &= k_pos > q_pos - window
+    s = torch.where(seen, s, -1e30)
+    return torch.einsum("bhqk,bhkd->bhqd", torch.softmax(s, dim=-1), v)
+
+
+@pytest.mark.parametrize("case", [
+    (1, 8, 2, 200, 200, 128, True, 0),
+    (2, 4, 4, 64, 300, 128, False, 50),
+    (1, 4, 1, 130, 130, 64, True, 33),
+    (2, 4, 2, 100, 77, 16, False, 0),
+])
+def test_flash_bf16_large_scores(dev, case):
+    """q scaled by 8: scores of large magnitude move the running max often,
+    so the rescale of the output accumulator is exercised. The yardstick
+    is the attention in float64, within one bf16 ulp of |o|: at these
+    scores an f32 score carries an absolute error near 2e-6, so where
+    the weighted sum cancels to |o| ~ 1e-5 the f32 plain version itself
+    can land more than one ulp from the float64 result (chip_smoke.py
+    counts such outputs at seq 4096), and the kernel cannot be held to
+    it there."""
+    B, H, Hkv, Sq, Sk, D, causal, window = case
+    g = torch.Generator(device="cpu").manual_seed(Sq + Sk + D)
+
+    def make(heads, S, s=1.0):
+        return (torch.randn(B, S, heads, D, generator=g) * s).to(
+            dev, torch.bfloat16).transpose(1, 2)
+    q, k, v = make(H, Sq, 8.0), make(Hkv, Sk), make(Hkv, Sk)
+    got = flash_attn.flash_attention(q, k, v, causal=causal, window=window)
+    want = _attention_f64(q, k, v, causal, window)
+    torch.cuda.synchronize()
+    assert bool(((got.double() - want).abs()
+                 <= 2.0**-7 * want.abs() + 1e-6).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_one_query_row_gqa(dev, dtype):
+    """B > 1, H / Hkv = 4, D 128 and Sq = 1: the smallest tile edge."""
+    g = torch.Generator(device="cpu").manual_seed(11)
+    q = torch.randn(3, 1, 16, 128, generator=g).to(dev, dtype).transpose(1, 2)
+    k, v = (torch.randn(3, 45, 4, 128, generator=g).to(dev, dtype)
+            .transpose(1, 2) for _ in range(2))
+    for causal in (True, False):
+        got = flash_attn.flash_attention(q, k, v, causal=causal)
+        want = ref.flash_attention_ref(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        assert got.stride() == q.stride()
+        if dtype == torch.float32:
+            assert (got - want).abs().max().item() <= 1e-5
+        else:
+            assert _bf16_ulp_close(got, want)
+
+
 def test_flash_kernel_refuses_what_it_does_not_take(dev):
     x = torch.zeros(1, 2, 8, 64, device=dev)
     with pytest.raises(ValueError, match="head dim"):
@@ -315,6 +379,27 @@ def test_int8_matmul_matches_plain_bitwise(dev, M, K, N, skip):
     want, want_mx = ref.int8_matmul_ref(a, w)
     assert out.dtype == torch.int32 and torch.equal(out, want)
     assert int(mx) == int(want_mx)
+
+
+@pytest.mark.parametrize("M,K,N,skip", [
+    (64 * 784, 25, 6, 0), (64 * 196, 150, 16, 0), (64, 784, 120, 1),
+    (84, 64, 10, 0), (130, 4097, 70, 0), (300, 4097, 200, 1),
+    (4096, 64, 4096, 0), (200, 512, 260, 0),
+])
+def test_int8_matmul_narrow_deep_and_last_tile_max(dev, M, K, N, skip):
+    """The narrow-N LeNet-5 shapes, K = 4097 (a ragged last k stage) and
+    the largest |out| in the last row and column, so the last M and N
+    tile carries max|out|."""
+    g = torch.Generator(device="cpu").manual_seed(M * 7 + K + N)
+    a = torch.randint(-127, 128, (M * K + skip,), generator=g,
+                      dtype=torch.int8).to(dev)[skip:].reshape(M, K)
+    w = torch.randint(-127, 128, (K, N), generator=g, dtype=torch.int8).to(dev)
+    a[-1] = 127
+    w[:, -1] = 127
+    out, mx = int8_matmul.int8_matmul(a, w)
+    want, want_mx = ref.int8_matmul_ref(a, w)
+    assert torch.equal(out, want)
+    assert int(mx) == int(want_mx) == 127 * 127 * K
 
 
 def test_int8_kernels_refuse_what_they_do_not_take(dev):

@@ -40,13 +40,6 @@ PAGED_BF16_TOL = 3e-2            # a few bf16 ulps of |o| <~ 1 (the plain
 #                                  bf16 before the weighted sum; the kernel
 #                                  keeps them in f32)
 PAGED_F32_TOL = 1e-5             # summation order only
-ZO_FLOPS_PER_ELEMENT = 55        # per element and (seed, coeff) record, an
-#                                  FMA counted as two: Box-Muller's 6 muls
-#                                  and adds, logf ~20, cosf ~18, sqrt ~7 as
-#                                  the CUDA math library evaluates them, and
-#                                  the scale-and-add 2. The murmur hash's ~36
-#                                  integer ops per element issue on the INT32
-#                                  pipe beside them and are not counted.
 ZO_CHUNK = 1 << 26               # flat elements per plain-version chunk
 INT8_OPS_PER_S = 1979e12         # H100 SXM dense int8 tensor-core peak
 INT32_LANES = 132 * 64           # INT32 (ALU) pipe: 64 lanes a clock an SM
@@ -161,6 +154,29 @@ def event_ms(fn, iters, flush=None):
     return (run(True) - base) / iters
 
 
+def kernel_records(fn, calls=3, attempts=5):
+    """{kernel name: records} of ``calls`` fn() calls, profiled after
+    WARM_CALLS discarded calls as device_ms does; a run whose records do
+    not come in whole calls is profiled again."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    for _ in range(attempts):
+        got = []
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                     on_trace_ready=lambda p: got.append(
+                         {e.key: e.count for e in p.key_averages()
+                          if str(e.device_type).endswith("CUDA")})) as prof:
+            for n in (WARM_CALLS, calls):
+                for _ in range(n):
+                    fn()
+                    torch.cuda.synchronize()
+                prof.step()
+        if got and got[0] and all(c % calls == 0 for c in got[0].values()):
+            return got[0]
+    raise RuntimeError(f"the profiler dropped kernel records in {attempts} "
+                       "runs")
+
+
 # --------------------------------------------------------------------- #
 # paged attention at the serve path's shapes
 # --------------------------------------------------------------------- #
@@ -222,8 +238,18 @@ def check_paged(paged_attn, ref, P):
                 raise AssertionError("inactive row must give o = 0")
             out[(dtype, window)] = err
 
+    check_paged_dead_pages(paged_attn, ref, P)
+
     # timing at the main path's case: bf16, full attention
     q, kn, vn, kp, vp, table, sl = paged_case(torch.bfloat16, 0, P)
+    records = kernel_records(lambda: paged_attn.paged_attention_step(
+        q, kn, vn, kp, vp, table, sl, scale=128 ** -0.5))
+    print(f"paged_attention_step: kernel records per call {records} "
+          "(3 calls)")
+    if len(records) != 1 or sum(records.values()) != 3:
+        raise AssertionError("paged_attention_step must be one kernel "
+                             "launch a call")
+    name = next(iter(records))
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     scale = 128 ** -0.5
     ms = device_ms(lambda: paged_attn.paged_attention_step(
@@ -251,12 +277,43 @@ def check_paged(paged_attn, ref, P):
     ops = live * KVd * 4 * G * Dh
     bound = max(nbytes / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S) * 1e3
     print(f"paged_attention_step bf16 B=8 live positions {live}: kernel "
-          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA on gathered cache "
-          f"{library_ms:.4f} ms, bound {bound:.4f} ms ({nbytes} bytes)")
+          f"{ms:.4f} ms ({name[:60]}), plain {plain_ms:.4f} ms, SDPA on "
+          f"gathered cache {library_ms:.4f} ms, bound {bound:.4f} ms "
+          f"({nbytes} bytes); kernel / SDPA {ms / library_ms:.2f}")
     return dict(max_abs_err=out[(torch.bfloat16, 0)], ms=ms,
                 plain_ms=plain_ms, bound_ms=bound, library_ms=library_ms,
                 f32_err=max(out[(torch.float32, 0)],
                             out[(torch.float32, 64)]))
+
+
+def check_paged_dead_pages(paged_attn, ref, P):
+    """NaN in every pool page the tables do not reference (the null page
+    and the pages reclaimed out of row 6's window) must not reach o: the
+    kernel, given those pools, within tolerance of the plain version
+    given the finite ones, on active rows; inactive row 0 still 0."""
+    for dtype, tol in ((torch.float32, PAGED_F32_TOL),
+                       (torch.bfloat16, PAGED_BF16_TOL)):
+        q, kn, vn, kp, vp, table, sl = paged_case(dtype, 64, P)
+        dead = torch.ones(kp.shape[0], dtype=torch.bool, device="cuda")
+        dead[table.flatten().long()] = False
+        dead[0] = True
+        kp_nan, vp_nan = kp.clone(), vp.clone()
+        kp_nan[dead] = float("nan")
+        vp_nan[dead] = float("nan")
+        o = paged_attn.paged_attention_step(
+            q, kn, vn, kp_nan, vp_nan, table, sl, scale=128 ** -0.5,
+            window=64)
+        want = ref.paged_attn_step_ref(q, kn, vn, kp, vp, table, sl,
+                                       scale=128 ** -0.5, window=64)
+        torch.cuda.synchronize()
+        err = (o[1:].float() - want[1:].float()).abs().max().item()
+        print(f"paged_attention_step {str(dtype)[6:]} window 64 with "
+              f"{int(dead.sum())} NaN-filled dead pages: o finite "
+              f"{bool(torch.isfinite(o).all())}, max |o - plain| over "
+              f"active rows = {err:.3g}")
+        if not (bool(torch.isfinite(o).all()) and err <= tol
+                and o[0].abs().max().item() == 0.0):
+            raise AssertionError("NaN in a dead page reached o")
 
 
 # --------------------------------------------------------------------- #
@@ -551,13 +608,31 @@ def check_zo_leaf(zo_perturb, zo_replay, ref, path, shape, dtype):
     return theta, salt, seeds, coeffs
 
 
-def zo_bound_ms(n, itemsize, records):
-    """(bound ms, what bounds it) of one pass over an n-element leaf."""
-    nbytes = 2 * n * itemsize + 8 * records
-    by_bytes = nbytes / HBM_BYTES_PER_S
-    by_ops = ZO_FLOPS_PER_ELEMENT * n * records / F32_OPS_PER_S
-    return max(by_bytes, by_ops) * 1e3, \
-        "bytes" if by_bytes >= by_ops else "operations"
+def noise_paths(name, kernel, per_iteration):
+    """(instructions, INT32-pipe instructions) an element of the 16-byte
+    grid-stride loop of ``kernel`` (one iteration handles
+    ``per_iteration`` elements), and of one noise record where the loop
+    holds a record loop (the innermost loop with a MUFU), else None:
+    issued along the loop's fast path (sass_fast_path)."""
+    code = sass_code(name, kernel)
+    loops = [(tg, a) for a, t in code if (tg := _bra_target(t)) is not None
+             and tg < a]
+
+    def body(lo, hi):
+        return [t for a, t in code if lo <= a <= hi]
+    main = next((lo, hi) for lo, hi in loops
+                if any("LDG.E.128" in t for t in body(lo, hi))
+                and any("STG.E.128" in t for t in body(lo, hi)))
+    records = [(lo, hi) for lo, hi in loops if main[0] < lo and hi < main[1]
+               and any(_opcode(t) == "MUFU" for t in body(lo, hi))]
+    inner = [r for r in records
+             if not any(r[0] < o[0] and o[1] < r[1] for o in records)]
+
+    def mix(lo, hi, per):
+        ops = sass_fast_path(code, lo, hi)
+        return len(ops) / per, sum(op in ALU_OPS for op in ops) / per
+    return mix(*main, per_iteration), \
+        mix(*inner[0], 1) if inner else None
 
 
 def check_zo(zo_perturb, zo_replay, ref):
@@ -591,31 +666,43 @@ def check_zo(zo_perturb, zo_replay, ref):
                 fn(lo, min(lo + ZO_CHUNK, n))
         return call
 
+    # the bound: bytes, or the instructions the build issues an element
+    hz = max_sm_hz()
+    mix = {"zo_perturb": noise_paths(
+        "zo_perturb", "zo_perturb_kernelI13__nv_bfloat16Li8E", 8)[0]}
+    mix["zo_fused_replay"], record = noise_paths(
+        "zo_fused_replay", "zo_replay_kernelI13__nv_bfloat16Li8E", 8)
     out = {}
     ms = event_ms(lambda: zo_perturb.zo_perturb(theta, seed, salt, 1e-3), 10)
     plain_ms = event_ms(chunked(lambda lo, hi: ref.zo_perturb_ref(
         flat[lo:hi], seed, salt, 1e-3, lo)), 2)
-    bound, by = zo_bound_ms(n, 2, 1)
+    bound, by = noise_bound_ms(n, 2, mix["zo_perturb"], hz)
     out["zo_perturb"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
                              bound_ms=bound, bound_by=by, library_ms=None)
     ms = event_ms(lambda: zo_replay.zo_fused_replay(theta, sd, cf, salt), 10)
     plain_ms = event_ms(chunked(lambda lo, hi: ref.zo_fused_replay_ref(
         flat[lo:hi], sd, cf, salt, lo)), 2)
-    bound, by = zo_bound_ms(n, 2, 1)
+    bound, by = noise_bound_ms(n, 2, mix["zo_fused_replay"], hz)
     out["zo_fused_replay"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
                                   bound_ms=bound, bound_by=by,
                                   library_ms=None)
     catch_up_ms = event_ms(lambda: zo_replay.zo_fused_replay(
         theta, seeds, coeffs, salt), 3)
-    catch_up_bound, catch_up_by = zo_bound_ms(n, 2, 32)
+    catch_up_bound, catch_up_by = noise_bound_ms(
+        n, 2, tuple(32 * c for c in record), hz)
+    print(f"operation bound at the card's highest SM clock {hz / 1e6:.0f} "
+          f"MHz: instructions an element on the fast path of the bf16 "
+          "16-byte loop (total, INT32 pipe): " + ", ".join(
+              f"{k} {t:.2f}, {a:.2f}" for k, (t, a) in mix.items()) +
+          f"; one replay record {record[0]:.0f}, {record[1]:.0f}")
     for name, r in out.items():
         print(f"{name} on the {n}-element bf16 leaf: kernel {r['ms']:.4f} "
               f"ms, plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} "
-              f"ms by {r['bound_by']} ({ZO_FLOPS_PER_ELEMENT} flops per "
-              f"element and record, {2 * n * 2} bytes)")
+              f"ms by {r['bound_by']} ({2 * n * 2} bytes); kernel at "
+              f"{100 * r['bound_ms'] / r['ms']:.0f}% of its bound")
     print(f"zo_fused_replay S=8 P=4 (ledger catch-up) on the same leaf: "
           f"kernel {catch_up_ms:.4f} ms, bound {catch_up_bound:.4f} ms by "
-          f"{catch_up_by}")
+          f"{catch_up_by} (32 records)")
     return out
 
 
@@ -709,52 +796,99 @@ def check_int8_leaf(zo_perturb, zo_replay, ref, path, shape):
     return theta, salt, seeds, gs, worst_all
 
 
-def sass_loop_mix(name, kernel):
-    """(instructions, INT32-pipe instructions) of one iteration of the
-    grid-stride loop over 16-byte vectors of ``kernel`` (a substring of
-    its mangled name) in the built library of csrc/<name>.cu, read from
-    ``cuobjdump -sass``: the backward branch whose body holds the
-    16-byte load and store."""
+def _opcode(text):
     import re
+    return re.sub(r"^@!?U?P\w+\s+", "", text).split()[0].split(".")[0]
+
+
+def _bra_target(text):
+    import re
+    m = re.search(r"\bBRA (?:\w+, )?(0x[0-9a-f]+)", text)
+    return int(m.group(1), 16) if m else None
+
+
+def sass_functions(name):
+    """{mangled kernel name: SASS text} of the built library of
+    csrc/<name>.cu, from cuobjdump -sass."""
     from repro_torch.kernels import _build
     tool = Path(_build._nvcc()).with_name("cuobjdump")
     sass = subprocess.run([str(tool), "-sass",
                            str(_build._target(_build.CSRC / f"{name}.cu"))],
                           capture_output=True, text=True, check=True,
                           timeout=120).stdout
-    body = next(f for f in sass.split("Function : ")[1:]
-                if kernel in f.split()[0])
-    code = [(int(a, 16), t.strip()) for a, t in
+    return {f.split()[0]: f for f in sass.split("Function : ")[1:]}
+
+
+def sass_code(name, kernel):
+    """[(address, instruction)] of ``kernel`` (a substring of its mangled
+    name) in the built library of csrc/<name>.cu."""
+    import re
+    body = next(f for fn, f in sass_functions(name).items() if kernel in fn)
+    return [(int(a, 16), t.strip()) for a, t in
             re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", body)]
-    for addr, text in code:
-        m = re.search(r"\bBRA (0x[0-9a-f]+)", text)
-        if m and int(m.group(1), 16) < addr:
-            loop = [t for a, t in code if int(m.group(1), 16) <= a <= addr]
-            if any("LDG.E.128" in t for t in loop) and \
-                    any("STG.E.128" in t for t in loop):
-                ops = [re.sub(r"^@!?U?P\w+\s+", "", t).split()[0]
-                       .split(".")[0] for t in loop]
-                return len(ops), sum(op in ALU_OPS for op in ops)
-    raise RuntimeError(f"no 16-byte grid-stride loop in {kernel}")
 
 
-def sass_mma_counts(name):
-    """{kernel: {op: count}} of the tensor-core instructions (HGMMA:
-    wgmma, HMMA: mma.sync on floats, IMMA: mma.sync on integers) in each
-    kernel of the built library of csrc/<name>.cu, from cuobjdump -sass."""
+def sass_fast_path(code, lo, hi):
+    """The opcodes issued by one pass from ``lo`` to the loop's backward
+    branch at ``hi`` along the fast path: straight on, into every inner
+    loop once, over a forward branch when it is unconditional or when the
+    code it skips is a slow path (a call or a table load, and no MUFU: the
+    precise cosf's Payne-Hanek reduction, which the Box-Muller angle in
+    [0, 2 pi) never takes, and the sqrt's special cases). Predicated
+    instructions count: they issue."""
+    addrs = [a for a, _ in code]
+    text = dict(code)
+    i, ops = addrs.index(lo), []
+    while i < len(addrs) and addrs[i] <= hi:
+        a = addrs[i]
+        ops.append(_opcode(text[a]))
+        tg = _bra_target(text[a])
+        if tg is not None and tg > a:
+            skipped = [t for b, t in code if a < b < tg]
+            if not text[a].startswith("@") or (
+                    any(_opcode(t) == "CALL" or "CONSTANT" in t
+                        for t in skipped)
+                    and not any(_opcode(t) == "MUFU" for t in skipped)):
+                i = addrs.index(tg)
+                continue
+        i += 1
+    return ops
+
+
+def sass_counts(name, ops):
+    """{kernel: {op: count}} of the SASS instructions or registers ``ops``
+    in each kernel of the built library of csrc/<name>.cu."""
     import re
-    from repro_torch.kernels import _build
-    tool = Path(_build._nvcc()).with_name("cuobjdump")
-    sass = subprocess.run([str(tool), "-sass",
-                           str(_build._target(_build.CSRC / f"{name}.cu"))],
-                          capture_output=True, text=True, check=True,
-                          timeout=120).stdout
     counts = {}
-    for body in sass.split("Function : ")[1:]:
-        ops = re.findall(r"\b(HGMMA|HMMA|IMMA)\.", body)
-        counts[body.split()[0]] = {op: ops.count(op)
-                                   for op in ("HGMMA", "HMMA", "IMMA")}
+    for fn, body in sass_functions(name).items():
+        found = re.findall(r"\b(" + "|".join(ops) + r")\b", body)
+        counts[fn] = {op: found.count(op) for op in ops}
     return counts
+
+
+def check_cluster_sass():
+    """The two cluster kernels must combine through distributed shared
+    memory: every SASS function of their builds reads the shared-memory
+    window register SR_SWINHI (ptxas lowers mapa.shared::cluster to a
+    PRMT of the CTA rank into that window and ld.shared::cluster to a
+    generic LD on it; sm_90's SASS has no MAPA for it) and arrives on the
+    cluster barrier (UCGABAR_ARV); the bf16 paged kernels score on the
+    tensor cores (HMMA)."""
+    for name in ("paged_attn", "topk_mask"):
+        counts = sass_counts(name, ("SR_SWINHI", "UCGABAR_ARV", "HMMA"))
+        bf16 = [c for fn, c in counts.items() if "bfloat16" in fn]
+        print(f"  {name}: {len(counts)} kernels; SR_SWINHI reads "
+              f"{sorted({c['SR_SWINHI'] for c in counts.values()})}, "
+              f"UCGABAR_ARV {sorted({c['UCGABAR_ARV'] for c in counts.values()})}"
+              f", HMMA in the {len(bf16)} bf16 ones "
+              f"{sorted({c['HMMA'] for c in bf16})}")
+        if not counts or not all(c["SR_SWINHI"] and c["UCGABAR_ARV"]
+                                 for c in counts.values()):
+            raise AssertionError(f"a kernel of {name} reads no distributed "
+                                 "shared memory")
+        if name == "paged_attn" and not (bf16 and all(c["HMMA"]
+                                                       for c in bf16)):
+            raise AssertionError("a bf16 paged kernel holds no HMMA")
 
 
 def check_tensor_core_sass():
@@ -763,7 +897,7 @@ def check_tensor_core_sass():
     for name, kernel, ops in (("flash_attn", "flash_tc", ("HGMMA", "HMMA")),
                               ("int8_matmul", "int8_mma", ("IMMA",))):
         found = 0
-        for fn, c in sass_mma_counts(name).items():
+        for fn, c in sass_counts(name, ("HGMMA", "HMMA", "IMMA")).items():
             print(f"  {name} SASS {fn}: " +
                   ", ".join(f"{op} {n}" for op, n in c.items()))
             if kernel in fn:
@@ -775,14 +909,14 @@ def check_tensor_core_sass():
             raise AssertionError(f"no {kernel} kernel in {name}'s SASS")
 
 
-def int8_noise_bound_ms(n, per_element, hz):
-    """(bound ms, what bounds it) of one pass over an n-element int8 leaf
+def noise_bound_ms(n, itemsize, per_element, hz):
+    """(bound ms, what bounds it) of one pass over an n-element leaf
     whose every element costs ``per_element`` = (instructions, INT32-pipe
     instructions): the larger of the bytes (a read and a write), the
     INT32 pipe and the dispatch rate (one warp instruction a clock per
     scheduler), at SM clock ``hz``."""
     total, alu = per_element
-    by_bytes = 2 * n / HBM_BYTES_PER_S
+    by_bytes = 2 * n * itemsize / HBM_BYTES_PER_S
     by_ops = max(alu * n / (INT32_LANES * hz), total * n / (SCHED_LANES * hz))
     return max(by_bytes, by_ops) * 1e3, \
         "bytes" if by_bytes >= by_ops else "operations"
@@ -793,13 +927,13 @@ def check_int8_noise(zo_perturb, zo_replay, ref):
     and fc3's 840 elements run the kernels' ragged tail) and on an int8
     leaf of qwen3-4b's w_gate size, then timed on fc1 and the latter."""
     from repro_torch.models.lenet import init_lenet5_int8
-    w1 = 0
+    w1, lenet = 0, {}
     for layer, q in init_lenet5_int8(0, device="cuda").items():
         leaf, leaf_salt, _, _, w = check_int8_leaf(
             zo_perturb, zo_replay, ref, (layer, "w"), tuple(q["w"].data.shape))
         w1 = max(w1, w)
-        if layer == "fc1":
-            fc1, fc1_salt = leaf, leaf_salt
+        lenet[layer] = leaf, leaf_salt
+    fc1, fc1_salt = lenet["fc1"]
     theta, salt, seeds, gs, w2 = check_int8_leaf(
         zo_perturb, zo_replay, ref, ("periods_zo", "blk0", "mlp", "w_gate"),
         INT8_LEAF)
@@ -814,14 +948,15 @@ def check_int8_noise(zo_perturb, zo_replay, ref):
         return call
 
     hz = max_sm_hz()
-    total, alu = sass_loop_mix("int8_perturb", "int8_perturb_kernelILi16")
-    per_element = (total / 16, alu / 16)
+    per_element = noise_paths("int8_perturb", "int8_perturb_kernelILi16",
+                              16)[0]
+    total, alu = (16 * c for c in per_element)
     out = {}
     ms = event_ms(lambda: zo_perturb.int8_perturb(theta, seed, salt, 1,
                                                    *args), 10)
     plain_ms = event_ms(chunked(lambda lo, hi: ref.int8_perturb_ref(
         flat[lo:hi], seed, salt, 1, *args, lo)), 2)
-    bound, by = int8_noise_bound_ms(n, per_element, hz)
+    bound, by = noise_bound_ms(n, 1, per_element, hz)
     out["int8_perturb"] = dict(max_abs_err=float(max(w1, w2)), ms=ms,
                                plain_ms=plain_ms, bound_ms=bound, bound_by=by,
                                library_ms=None)
@@ -829,18 +964,18 @@ def check_int8_noise(zo_perturb, zo_replay, ref):
         theta, sd, g1, salt, *args, 1), 10)
     plain_ms = event_ms(chunked(lambda lo, hi: ref.zo_fused_replay_int8_ref(
         flat[lo:hi], sd, g1, salt, *args, 1, lo)), 2)
-    bound, by = int8_noise_bound_ms(n, per_element, hz)
+    bound, by = noise_bound_ms(n, 1, per_element, hz)
     out["zo_fused_replay_int8"] = dict(
         max_abs_err=float(max(w1, w2)), ms=ms, plain_ms=plain_ms,
         bound_ms=bound, bound_by=by, library_ms=None)
     live = int(gs.ne(0).sum())
     catch_up_ms = event_ms(lambda: zo_replay.zo_fused_replay_int8(
         theta, seeds, gs, salt, *args, 1), 3)
-    catch_up_bound, catch_up_by = int8_noise_bound_ms(
-        n, tuple(live * c for c in per_element), hz)
+    catch_up_bound, catch_up_by = noise_bound_ms(
+        n, 1, tuple(live * c for c in per_element), hz)
     print(f"operation bound at the card's highest SM clock {hz / 1e6:.0f} "
           f"MHz ({nvidia_smi('clocks.sm')} now): int8_perturb's 16-byte loop "
-          f"runs {total} SASS instructions, {alu} of them on the INT32 "
+          f"runs {total:.0f} SASS instructions, {alu:.0f} of them on the INT32 "
           f"pipe ({total / 16:.2f} and {alu / 16:.2f} an element); a replay "
           "record costs at least as much an element (the same noise, psr "
           "in place of the clamp)")
@@ -858,8 +993,16 @@ def check_int8_noise(zo_perturb, zo_replay, ref):
                  fc1, sd, g1, fc1_salt, *args, 1)))
     print(f"on LeNet-5's fc1 leaf ({fc1.numel()} elements): int8_perturb "
           f"{small[0]:.4f} ms, zo_fused_replay_int8 S=1 P=1 {small[1]:.4f} "
-          f"ms, bound {int8_noise_bound_ms(fc1.numel(), per_element, hz)[0]:.5f}"
+          f"ms, bound {noise_bound_ms(fc1.numel(), 1, per_element, hz)[0]:.5f}"
           " ms")
+    # one live update (S = 1, P = 1) a launch at every LeNet-5 int8 leaf
+    for layer, (leaf, leaf_salt) in lenet.items():
+        t = device_ms(lambda: zo_replay.zo_fused_replay_int8(
+            leaf, sd, g1, leaf_salt, *args, 1))
+        b, by_ = noise_bound_ms(leaf.numel(), 1, per_element, hz)
+        print(f"  zo_fused_replay_int8 S=1 P=1 on LeNet-5's {layer} "
+              f"({leaf.numel()} elements): {t:.4f} ms a launch, bound "
+              f"{b:.3g} ms by {by_}")
     return out
 
 
@@ -1634,6 +1777,7 @@ def main():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
     check_tensor_core_sass()
+    check_cluster_sass()
 
     phase("kernels against their plain versions")
     P = ServeConfig(page_size=16, max_seq_len=544).max_pages_per_seq

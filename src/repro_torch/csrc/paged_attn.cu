@@ -5,317 +5,596 @@
 //
 // Computes, for every batch row b and KV head h, with pos = seq_lens[b]:
 //   1. the fused KV write: k_new/v_new[b, h] land in pool slot
-//      (page_table[b, pos / ps], pos % ps) before that position is read;
+//      (page_table[b, pos / ps], pos % ps);
 //   2. GQA attention of the G query heads of h over positions
 //      max(0, pos - window + 1) .. pos (window 0 = all), reading pages
 //      through the row's table and skipping null page 0, with softmax
 //      statistics and sums in f32. o is stored in the input dtype. A row
 //      with no live position (an inactive row: seq_len 0, all-null table)
 //      gets o = 0, as the Pallas kernel gives.
-// The pools are updated in place.
+// The pools are updated in place. Position pos is attended from k_new/v_new
+// themselves, the values its pool slot receives, so no read of the pool
+// can see the slot before its write.
 //
 // What bounds it on the card: device-memory bytes. Every live position
-// costs 2 * KVd * Dh * sizeof(T) bytes of K and V per row and only
-// 4 * G * Dh flops per KV head, far below the H100's compute rate.
+// costs 2 * Dh * sizeof(T) bytes of K and V per KV head and only
+// 4 * G * Dh flops, far below the H100's compute rate.
 //
-// Design. A block of 128 threads takes one (row, KV head) and one split
-// of `split_pos` positions, so a batch of 8 rows at ~500 positions fills
-// the card with a few hundred blocks (flash-decoding). The block stages
-// tiles of positions in shared memory: every thread issues up to 16
-// independent 16-byte loads of the contiguous Dh-slices of K and V before
-// storing any, so a whole tile is in flight at once (a page-at-a-time
-// walk with per-position loads was latency-bound at about 240x the byte
-// bound). Warps score the tile's positions (lanes over Dh, shuffle
-// reduction); warp g then turns head g's scores into weights and updates
-// its running max and sum, and every thread accumulates the dims it owns.
-// Positions outside the live stretch or on a null page get weight 0 and
-// their V is never read, so stale values (even NaN) cannot reach o. Each
-// split writes (max, sum, unnormalised o) in f32; a second kernel
-// combines the splits of a (row, head) in split order.
-//
-// Not done yet: cp.async/TMA double buffering of tiles, and tensor-core
-// (mma) scoring of the G heads.
+// Design: one launch, one thread-block cluster per (row, KV head). The
+// cluster's CTA r takes split r of the row's positions (the wrapper's
+// plan: at most 8 CTAs, splits of whole 64-position tiles). In a CTA, each
+// of the 4 warps is an independent flash-decoding worker over 16-position
+// chunks of its split (chunks w, w + 4, ...): per chunk, 16 lanes resolve
+// one position each through the split's page ids (read once per CTA) and
+// the warp streams the chunk's K and V rows into its own ring of
+// shared-memory stages with cp.async (16-byte pieces of each position's
+// contiguous Dh slice; positions that are dead, masked or out of range
+// are zero-filled and never read from the pool), so the next chunk is in
+// flight while this one is scored and accumulated, with no block barrier
+// in the loop. The kernel is instantiated per head dim and per head group
+// (a power of two >= G), so every index is a shift and no lane work is
+// predicated away. bf16 scores come from mma.sync.m16n8k16 with positions
+// on M and the query heads on N (bf16 x bf16 products are exact in f32);
+// f32 scores from the CUDA cores (lanes over Dh, shuffle sums). The online
+// softmax keeps each head's running max and sum in registers, and P.V
+// stays in f32 on the CUDA cores (each lane owns pairs of dims of every
+// head). At the end each warp's (max, sum, unnormalised o) is combined in
+// warp order into the CTA's partial; after cluster.sync() CTA r reads the
+// partials of all CTAs through distributed shared memory, in rank order,
+// for its 1/C share of o's elements, and writes them. Nothing goes through
+// global memory between the two; every sum has a fixed order, so o is the
+// same bits on every run.
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
+constexpr int kWarps = 4;
+constexpr int kThreads = kWarps * 32;
+constexpr int kChunk = 16;                      // positions a warp step
 constexpr int kMaxG = 8;                        // query heads per KV head
-constexpr int kMaxDh = 256;
-constexpr int kDimsPerThread = kMaxDh / kThreads;
-constexpr int kTileBytes = 32768;               // K + V tile in shared memory
-constexpr int kMaxTile = 64;                    // positions per tile
-constexpr int kLoads = 8;                       // 16-byte loads in flight
+constexpr int kMaxCluster = 8;
 constexpr int kNullPage = 0;
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
+template <typename T> struct Elt;
+template <> struct Elt<float> {
+  static __device__ __forceinline__ float2 pair(const unsigned char* p) {
+    return *reinterpret_cast<const float2*>(p);
+  }
+  static __device__ __forceinline__ float from(float x) { return x; }
+};
+template <> struct Elt<__nv_bfloat16> {
+  static __device__ __forceinline__ float2 pair(const unsigned char* p) {
+    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+  }
+  static __device__ __forceinline__ __nv_bfloat16 from(float x) {
+    return __float2bfloat16(x);
+  }
+};
+
+// Shared-memory layout; kernels/paged_attn.py::smem_bytes mirrors it.
+__host__ __device__ inline int row_bytes(int Dh, int isz) {
+  return Dh * isz + 16;                         // 16-byte pad: no conflicts
 }
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) {
-  return x;
+__host__ __device__ inline int part_bytes(int G, int Dh) {
+  return (2 * kMaxG + G * Dh) * 4;              // m[kMaxG], l[kMaxG], o
 }
-template <> __device__ __forceinline__ __nv_bfloat16
-from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
+__host__ __device__ inline int pages_bytes(int split, int ps) {
+  return ((split / ps + 2) * 4 + 15) / 16 * 16;
+}
+__host__ __device__ inline int stage_bytes(int Dh, int isz) {
+  return 2 * kChunk * row_bytes(Dh, isz);       // K rows then V rows
+}
+__host__ __device__ inline int warp_bytes(int Dh, int isz, int stages) {
+  return stages * stage_bytes(Dh, isz) + kChunk * kMaxG * 4 + kMaxG * 4 +
+         kChunk * 8;                            // p_s, alpha_s, off_s
+}
+inline size_t smem_bytes(int G, int Dh, int isz, int split, int ps,
+                         int stages) {
+  return (size_t)part_bytes(G, Dh) + pages_bytes(split, ps) +
+         (size_t)kWarps * warp_bytes(Dh, isz, stages);
 }
 
-template <typename T>
-int tile_positions(int Dh) {
-  return min(kMaxTile, kTileBytes / (2 * Dh * (int)sizeof(T)));
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads) paged_attn_split_kernel(
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool live) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(live ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait(int stages) {
+  if (stages > 1)
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+  else
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Distributed shared memory: the address of p in CTA `rank` of the
+// cluster, and a 4-byte load from it.
+__device__ __forceinline__ uint32_t map_rank(const void* p, int rank) {
+  uint32_t a;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(a)
+               : "r"(smem_u32(p)), "r"(rank));
+  return a;
+}
+__device__ __forceinline__ float ld_cluster(uint32_t a) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(a));
+  return v;
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
+                                            const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+struct Row {
+  int pos, lo, hi;                              // live stretch [lo, hi]
+  int ps, page0;                                // page size, pages[0]'s index
+  const int* pages;                             // the split's page ids
+  __device__ __forceinline__ int page(int t) const {
+    return pages[t / ps - page0];
+  }
+  __device__ __forceinline__ bool live(int t) const {
+    return t >= lo && t <= hi && page(t) != kNullPage;
+  }
+};
+
+// A warp's cp.async of one chunk's K and V rows into a stage: lane j < 16
+// resolves position base + j once (its head slice's element offset in the
+// pools, -1 dead, -2 the token itself), then the lanes copy 16-byte
+// pieces of the 32 rows.
+template <typename T, int DH>
+__device__ __forceinline__ void issue_chunk(
+    unsigned char* stage, long long* off_s, int base, const Row& row,
+    const T* k_pool, const T* v_pool, const T* k_tok, const T* v_tok,
+    int KVd, int h, int lane) {
+  constexpr int kPerRow = DH * (int)sizeof(T) / 16;
+  constexpr int kRow = DH * (int)sizeof(T) + 16;
+  if (lane < kChunk) {
+    const int t = base + lane;
+    off_s[lane] = !row.live(t) ? -1
+                  : t == row.pos
+                      ? -2
+                      : ((long long)row.page(t) * row.ps + t % row.ps) *
+                                KVd * DH +
+                            (long long)h * DH;
+  }
+  __syncwarp();
+#pragma unroll
+  for (int i = lane; i < 2 * kChunk * kPerRow; i += 32) {
+    const int kv = i / (kChunk * kPerRow);      // 0: K, 1: V
+    const int j = i / kPerRow % kChunk, c = i % kPerRow;
+    const long long off = off_s[j];
+    const T* src = off == -2 ? (kv ? v_tok : k_tok)
+                             : (kv ? v_pool : k_pool) + (off < 0 ? 0 : off);
+    cp_async16(stage + (kv * kChunk + j) * kRow + c * 16,
+               reinterpret_cast<const unsigned char*>(src) + c * 16,
+               off != -1);
+  }
+  __syncwarp();  // off_s is rewritten by the next chunk's issue
+}
+
+// DH: head dim; KG: query heads computed (a power of two >= G; heads
+// past G have q = 0 and are not stored).
+template <typename T, int DH, int KG>
+__global__ void __launch_bounds__(kThreads) paged_attn_cluster_kernel(
     const T* __restrict__ q, const T* __restrict__ k_new,
     const T* __restrict__ v_new, T* k_pool, T* v_pool,
     const int* __restrict__ page_table, const int* __restrict__ seq_lens,
-    float* __restrict__ part_acc, float* __restrict__ part_ml, int KVd,
-    int G, int Dh, int ps, int P, float scale, int window, int split_pos,
-    int tile) {
+    T* __restrict__ out, int KVd, int G, int ps, int P, float scale,
+    int window, int split, int stages) {
   extern __shared__ __align__(16) unsigned char smem[];
-  T* k_s = reinterpret_cast<T*>(smem);                   // [tile][Dh]
-  T* v_s = k_s + (size_t)tile * Dh;                       // [tile][Dh]
-  long long* off_s = reinterpret_cast<long long*>(v_s + (size_t)tile * Dh);
-  float* q_s = reinterpret_cast<float*>(off_s + tile);    // [G][Dh]
-  float* p_s = q_s + G * Dh;                              // [G][tile]
-  float* m_s = p_s + G * tile;                            // [G] running max
-  float* l_s = m_s + kMaxG;                               // [G] running sum
-  float* alpha_s = l_s + kMaxG;                           // [G] tile rescale
-
-  const int b = blockIdx.x, h = blockIdx.y, split = blockIdx.z;
-  const int n_splits = gridDim.z;
+  constexpr int isz = sizeof(T);
+  constexpr int kRow = DH * isz + 16;
+  constexpr int kPairs = (DH + 63) / 64;        // dim pairs a lane owns
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int C = (int)cluster.num_blocks();
+  const int h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int stage_b = stage_bytes(DH, isz);
+
+  float* part = reinterpret_cast<float*>(smem);   // m[kMaxG] l[kMaxG] o[G*DH]
+  int* pages = reinterpret_cast<int*>(smem + part_bytes(G, DH));
+  unsigned char* wbase = smem + part_bytes(G, DH) + pages_bytes(split, ps) +
+                         (size_t)warp * warp_bytes(DH, isz, stages);
+  float* p_s = reinterpret_cast<float*>(wbase + stages * stage_b);
+  float* alpha_s = p_s + kChunk * kMaxG;
+  long long* off_s = reinterpret_cast<long long*>(alpha_s + kMaxG);
+
   const int pos = seq_lens[b];
   const int* table = page_table + (size_t)b * P;
-  const size_t slot_stride = (size_t)KVd * Dh;  // one pool position
-  const size_t head_off = (size_t)h * Dh;
   const size_t bh = (size_t)b * KVd + h;
-  const int lo = max(window > 0 ? pos - window + 1 : 0, split * split_pos);
-  const int hi = min(pos, (split + 1) * split_pos - 1);
+  const int s0 = rank * split;
+  Row row;
+  row.pos = pos;
+  row.lo = max(window > 0 ? pos - window + 1 : 0, s0);
+  row.hi = min(pos, s0 + split - 1);
+  row.ps = ps;
+  row.page0 = s0 / ps;
+  row.pages = pages;
 
-  // 1. fused KV write, by the split that will read position pos
-  //    (inactive rows write into the never-read null page)
-  if (pos / split_pos == split) {
-    const size_t dst =
-        ((size_t)table[pos / ps] * ps + pos % ps) * slot_stride + head_off;
-    for (int d = tid; d < Dh; d += kThreads) {
-      k_pool[dst + d] = k_new[bh * Dh + d];
-      v_pool[dst + d] = v_new[bh * Dh + d];
+  // 1. the fused KV write, by the CTA whose split holds pos (an inactive
+  //    row writes into the never-read null page)
+  if (pos >= s0 && pos < s0 + split) {
+    const size_t dst = ((size_t)table[pos / ps] * ps + pos % ps) *
+                           (size_t)KVd * DH + (size_t)h * DH;
+    for (int d = tid; d < DH; d += kThreads) {
+      k_pool[dst + d] = k_new[bh * DH + d];
+      v_pool[dst + d] = v_new[bh * DH + d];
     }
   }
-  for (int i = tid; i < G * Dh; i += kThreads) q_s[i] = to_f(q[bh * G * Dh + i]);
-  if (tid < G) {
-    m_s[tid] = -INFINITY;
-    l_s[tid] = 0.f;
+  // 2. the split's page ids, once
+  const int last_page = min((s0 + split - 1) / ps, P - 1);
+  for (int i = tid; i <= last_page - row.page0; i += kThreads)
+    pages[i] = table[row.page0 + i];
+
+  // q: bf16 as mma B fragments (column n = head lane / 4, rows k = dims),
+  // f32 as the lane's dim pairs of every head
+  uint32_t bq[DH / 16][2];
+  float2 qf[KG][kPairs];
+  if constexpr (isz == 2) {
+    const int n = lane >> 2, k2 = 2 * (lane & 3);
+    const uint32_t* qw =
+        reinterpret_cast<const uint32_t*>(q + (bh * G + n) * DH);
+#pragma unroll
+    for (int ks = 0; ks < DH / 16; ++ks) {
+      bq[ks][0] = n < G ? qw[(ks * 16 + k2) / 2] : 0u;
+      bq[ks][1] = n < G ? qw[(ks * 16 + 8 + k2) / 2] : 0u;
+    }
+  } else {
+#pragma unroll
+    for (int g = 0; g < KG; ++g)
+#pragma unroll
+      for (int i = 0; i < kPairs; ++i) {
+        const int d = 2 * lane + 64 * i;
+        qf[g][i] = g < G && d < DH
+                       ? *reinterpret_cast<const float2*>(
+                             reinterpret_cast<const float*>(q) +
+                             (bh * G + g) * DH + d)
+                       : make_float2(0.f, 0.f);
+      }
   }
-  float acc[kMaxG][kDimsPerThread];
-#pragma unroll
-  for (int g = 0; g < kMaxG; ++g)
-#pragma unroll
-    for (int i = 0; i < kDimsPerThread; ++i) acc[g][i] = 0.f;
+  __syncthreads();  // pages[] for every warp
 
-  const int chunks = Dh * (int)sizeof(T) / 16;         // 16-byte chunks
-  for (int t0 = lo; t0 <= hi; t0 += tile) {
-    const int n = min(tile, hi - t0 + 1);
-    // 2. element offset of each position's head slice (-1: null page)
-    for (int j = tid; j < n; j += kThreads) {
-      const int t = t0 + j, page = table[t / ps];
-      off_s[j] = page == kNullPage
-                     ? -1
-                     : (long long)(((size_t)page * ps + t % ps) * slot_stride +
-                                   head_off);
-    }
-    __syncthreads();  // (the first pass also orders the KV write and q_s)
-
-    // 3. stage the tile: a thread's loads are all issued before its stores
-    for (int idx0 = tid; idx0 < n * chunks; idx0 += kThreads * kLoads) {
-      uint4 kr[kLoads], vr[kLoads];
+  // 3. this warp's chunks of [lo, hi]: chunk c_first + kWarps * i
+  float2 acc[KG][kPairs];
 #pragma unroll
-      for (int u = 0; u < kLoads; ++u) {
-        const int idx = idx0 + u * kThreads;
-        const long long off = idx < n * chunks ? off_s[idx / chunks] : -1;
-        if (off >= 0) {
-          kr[u] = reinterpret_cast<const uint4*>(k_pool + off)[idx % chunks];
-          vr[u] = reinterpret_cast<const uint4*>(v_pool + off)[idx % chunks];
+  for (int g = 0; g < KG; ++g)
+#pragma unroll
+    for (int i = 0; i < kPairs; ++i) acc[g][i] = make_float2(0.f, 0.f);
+  const int n0 = 2 * (lane & 3), r0 = lane >> 2;  // mma C layout
+  float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
+  int n_chunks = 0, c_first = 0;
+  if (row.lo <= row.hi) {
+    c_first = (row.lo - s0) / kChunk + warp;
+    const int c_last = (row.hi - s0) / kChunk;
+    n_chunks = c_first <= c_last ? (c_last - c_first) / kWarps + 1 : 0;
+  }
+  const T* k_tok = k_new + bh * DH;
+  const T* v_tok = v_new + bh * DH;
+  for (int i = 0; i < stages; ++i) {
+    if (i < n_chunks)
+      issue_chunk<T, DH>(wbase + i * stage_b, off_s,
+                         s0 + (c_first + kWarps * i) * kChunk, row, k_pool,
+                         v_pool, k_tok, v_tok, KVd, h, lane);
+    cp_async_commit();
+  }
+  for (int i = 0; i < n_chunks; ++i) {
+    const int base = s0 + (c_first + kWarps * i) * kChunk;
+    const unsigned live =
+        __ballot_sync(0xffffffffu, lane < kChunk && row.live(base + lane));
+    cp_async_wait(stages);
+    __syncwarp();
+    const unsigned char* kst = wbase + (i % stages) * stage_b;
+    const unsigned char* vst = kst + kChunk * kRow;
+
+    // scores of rows r0, r0 + 8 for heads n0, n0 + 1 (mma C layout)
+    float sc[4] = {0.f, 0.f, 0.f, 0.f};
+    if constexpr (isz == 2) {
+      const unsigned char* arow = kst + (lane & 15) * kRow + (lane >> 4) * 16;
+#pragma unroll
+      for (int ks = 0; ks < DH / 16; ++ks) {
+        uint32_t a[4];
+        ldmatrix_x4(a, arow + ks * 32);
+        mma_bf16(sc, a, bq[ks][0], bq[ks][1]);
+      }
+    } else {
+#pragma unroll 4
+      for (int j = 0; j < kChunk; ++j) {
+        float part_g[KG];
+#pragma unroll
+        for (int g = 0; g < KG; ++g) part_g[g] = 0.f;
+#pragma unroll
+        for (int ii = 0; ii < kPairs; ++ii) {
+          const int d = 2 * lane + 64 * ii;
+          if (d < DH) {
+            const float2 kv = Elt<T>::pair(kst + j * kRow + d * isz);
+#pragma unroll
+            for (int g = 0; g < KG; ++g)
+              part_g[g] += qf[g][ii].x * kv.x + qf[g][ii].y * kv.y;
+          }
         }
-      }
 #pragma unroll
-      for (int u = 0; u < kLoads; ++u) {
-        const int idx = idx0 + u * kThreads;
-        const long long off = idx < n * chunks ? off_s[idx / chunks] : -1;
-        if (off >= 0) {
-          const int j = idx / chunks, c = idx % chunks;
-          reinterpret_cast<uint4*>(k_s + (size_t)j * Dh)[c] = kr[u];
-          reinterpret_cast<uint4*>(v_s + (size_t)j * Dh)[c] = vr[u];
+        for (int g = 0; g < KG; ++g) {
+#pragma unroll
+          for (int o = 16; o > 0; o >>= 1)
+            part_g[g] += __shfl_xor_sync(0xffffffffu, part_g[g], o);
         }
-      }
-    }
-    __syncthreads();
-
-    // 4. scores: warp w takes positions w, w + 4, ...; -inf where dead
-    for (int j = warp; j < n; j += kWarps) {
-      const bool live = off_s[j] >= 0;                  // warp-uniform
-      float part[kMaxG];
+        float s0v = 0.f, s1v = 0.f;
 #pragma unroll
-      for (int g = 0; g < kMaxG; ++g) part[g] = 0.f;
-      if (live) {
-        for (int d = lane; d < Dh; d += 32) {
-          const float kv = to_f(k_s[(size_t)j * Dh + d]);
-#pragma unroll
-          for (int g = 0; g < kMaxG; ++g)
-            if (g < G) part[g] += q_s[g * Dh + d] * kv;
+        for (int g = 0; g < KG; ++g) {
+          if (g == n0) s0v = part_g[g];
+          if (g == n0 + 1) s1v = part_g[g];
         }
-      }
-#pragma unroll
-      for (int g = 0; g < kMaxG; ++g) {
-        if (g < G) {
-          float v = part[g];
-#pragma unroll
-          for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-          if (lane == 0) p_s[g * tile + j] = live ? v * scale : -INFINITY;
-        }
-      }
-    }
-    __syncthreads();
-
-    // 5. warp g: the tile's max, weights and sum for head g, and the
-    //    online-softmax update of its running max and sum
-    for (int g = warp; g < G; g += kWarps) {
-      float mp = -INFINITY;
-      for (int j = lane; j < n; j += 32) mp = fmaxf(mp, p_s[g * tile + j]);
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        mp = fmaxf(mp, __shfl_xor_sync(0xffffffffu, mp, o));
-      const float m_old = m_s[g];
-      const float m_new = fmaxf(m_old, mp);
-      float sum = 0.f;
-      for (int j = lane; j < n; j += 32) {
-        const float sc = p_s[g * tile + j];
-        const float w = sc == -INFINITY ? 0.f : expf(sc - m_new);
-        p_s[g * tile + j] = w;
-        sum += w;
-      }
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-      if (lane == 0) {
-        // 0 on the first live tile; 1 while nothing is live yet
-        const float alpha = m_new == -INFINITY ? 1.f : expf(m_old - m_new);
-        alpha_s[g] = alpha;
-        l_s[g] = l_s[g] * alpha + sum;
-        m_s[g] = m_new;
-      }
-    }
-    __syncthreads();
-
-    // 6. every thread: rescale and accumulate the dims it owns
-#pragma unroll
-    for (int g = 0; g < kMaxG; ++g)
-      if (g < G)
-#pragma unroll
-        for (int i = 0; i < kDimsPerThread; ++i) acc[g][i] *= alpha_s[g];
-    for (int j = 0; j < n; ++j) {
-      if (off_s[j] < 0) continue;                       // V never read
-      float vv[kDimsPerThread];
-#pragma unroll
-      for (int i = 0; i < kDimsPerThread; ++i) {
-        const int d = tid + i * kThreads;
-        vv[i] = d < Dh ? to_f(v_s[(size_t)j * Dh + d]) : 0.f;
-      }
-#pragma unroll
-      for (int g = 0; g < kMaxG; ++g) {
-        if (g < G) {
-          const float w = p_s[g * tile + j];
-#pragma unroll
-          for (int i = 0; i < kDimsPerThread; ++i) acc[g][i] += w * vv[i];
+        if (j == r0) {
+          sc[0] = s0v;
+          sc[1] = s1v;
+        } else if (j == r0 + 8) {
+          sc[2] = s0v;
+          sc[3] = s1v;
         }
       }
     }
-    __syncthreads();  // the tile buffers are rewritten next
-  }
-  __syncthreads();    // m_s/l_s are final (also when the split is empty)
 
-  // 7. this split's (max, sum, unnormalised o)
-  const size_t base = (bh * n_splits + split) * G;
+    // online softmax per head; dead rows get weight 0
+    const bool live0 = (live >> r0) & 1u, live1 = (live >> (r0 + 8)) & 1u;
 #pragma unroll
-  for (int g = 0; g < kMaxG; ++g) {
-    if (g < G) {
+    for (int hh = 0; hh < 2; ++hh) {
+      const float a = live0 ? sc[hh] * scale : -INFINITY;
+      const float c = live1 ? sc[2 + hh] * scale : -INFINITY;
+      float mx = fmaxf(a, c);
 #pragma unroll
-      for (int i = 0; i < kDimsPerThread; ++i) {
-        const int d = tid + i * kThreads;
-        if (d < Dh) part_acc[(base + g) * Dh + d] = acc[g][i];
+      for (int o = 4; o < 32; o <<= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+      const float m_new = fmaxf(m_run[hh], mx);
+      const float alpha = m_new == -INFINITY ? 1.f : expf(m_run[hh] - m_new);
+      const float pa = a == -INFINITY ? 0.f : expf(a - m_new);
+      const float pc = c == -INFINITY ? 0.f : expf(c - m_new);
+      float sum = pa + pc;
+#pragma unroll
+      for (int o = 4; o < 32; o <<= 1)
+        sum += __shfl_xor_sync(0xffffffffu, sum, o);
+      l_run[hh] = l_run[hh] * alpha + sum;
+      m_run[hh] = m_new;
+      p_s[r0 * kMaxG + n0 + hh] = pa;
+      p_s[(r0 + 8) * kMaxG + n0 + hh] = pc;
+      if (lane < 4) alpha_s[n0 + hh] = alpha;
+    }
+    __syncwarp();
+
+    // P.V in f32: rescale, then every position of the chunk
+#pragma unroll
+    for (int g = 0; g < KG; ++g) {
+      const float al = alpha_s[g];
+#pragma unroll
+      for (int ii = 0; ii < kPairs; ++ii) {
+        acc[g][ii].x *= al;
+        acc[g][ii].y *= al;
       }
     }
+#pragma unroll 4
+    for (int j = 0; j < kChunk; ++j) {
+      const float4 pa = *reinterpret_cast<const float4*>(p_s + j * kMaxG);
+      const float4 pb =
+          *reinterpret_cast<const float4*>(p_s + j * kMaxG + 4);
+      const float p8[kMaxG] = {pa.x, pa.y, pa.z, pa.w, pb.x, pb.y, pb.z, pb.w};
+#pragma unroll
+      for (int ii = 0; ii < kPairs; ++ii) {
+        const int d = 2 * lane + 64 * ii;
+        if (d < DH) {
+          const float2 vv = Elt<T>::pair(vst + j * kRow + d * isz);
+#pragma unroll
+          for (int g = 0; g < KG; ++g) {
+            acc[g][ii].x += p8[g] * vv.x;
+            acc[g][ii].y += p8[g] * vv.y;
+          }
+        }
+      }
+    }
+    __syncwarp();  // this stage and p_s are rewritten next
+    if (i + stages < n_chunks)
+      issue_chunk<T, DH>(wbase + (i % stages) * stage_b, off_s,
+                         s0 + (c_first + kWarps * (i + stages)) * kChunk, row,
+                         k_pool, v_pool, k_tok, v_tok, KVd, h, lane);
+    cp_async_commit();
   }
-  if (tid < G) {
-    part_ml[(base + tid) * 2] = m_s[tid];
-    part_ml[(base + tid) * 2 + 1] = l_s[tid];
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  __syncwarp();
+
+  // 4. the warp's partial into its own (now idle) stage ring
+  float* wp = reinterpret_cast<float*>(wbase);
+  if (lane < 4) {
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      wp[n0 + hh] = m_run[hh];
+      wp[kMaxG + n0 + hh] = l_run[hh];
+    }
   }
+#pragma unroll
+  for (int g = 0; g < KG; ++g)
+#pragma unroll
+    for (int ii = 0; ii < kPairs; ++ii) {
+      const int d = 2 * lane + 64 * ii;
+      if (g < G && d < DH)
+        *reinterpret_cast<float2*>(wp + 2 * kMaxG + g * DH + d) = acc[g][ii];
+    }
+  __syncthreads();
+
+  // 5. the CTA's partial: its warps combined in warp order
+  const int wstride = warp_bytes(DH, isz, stages) / 4;   // in floats
+  const float* w0 = reinterpret_cast<const float*>(
+      smem + part_bytes(G, DH) + pages_bytes(split, ps));
+  for (int e = tid; e < G * DH; e += kThreads) {
+    const int g = e / DH;
+    float M = -INFINITY;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) M = fmaxf(M, w0[w * wstride + g]);
+    float l = 0.f, o = 0.f;
+    if (M != -INFINITY) {
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) {
+        const float* x = w0 + w * wstride;
+        const float f = expf(x[g] - M);       // 0 for a warp with no key
+        l += f * x[kMaxG + g];
+        o += f * x[2 * kMaxG + e];
+      }
+    }
+    part[2 * kMaxG + e] = o;
+    if (e % DH == 0) {
+      part[g] = M;
+      part[kMaxG + g] = l;
+    }
+  }
+  cluster.sync();
+
+  // 6. CTA r combines its share of o's elements over the cluster's
+  //    partials, in rank order
+  {
+    uint32_t parts[kMaxCluster];
+#pragma unroll
+    for (int r = 0; r < kMaxCluster; ++r)
+      if (r < C) parts[r] = map_rank(part, r);
+    T* o_out = out + bh * G * DH;
+    const int share = (G * DH + C - 1) / C;
+    const int e_hi = min(G * DH, (rank + 1) * share);
+    for (int e = rank * share + tid; e < e_hi; e += kThreads) {
+      const int g = e / DH;
+      float m[kMaxCluster], l_r[kMaxCluster], o_r[kMaxCluster];
+      float M = -INFINITY;
+#pragma unroll
+      for (int r = 0; r < kMaxCluster; ++r) {
+        if (r < C) {
+          m[r] = ld_cluster(parts[r] + 4 * g);
+          l_r[r] = ld_cluster(parts[r] + 4 * (kMaxG + g));
+          o_r[r] = ld_cluster(parts[r] + 4 * (2 * kMaxG + e));
+          M = fmaxf(M, m[r]);
+        }
+      }
+      float l = 0.f, o = 0.f;
+      if (M != -INFINITY) {
+#pragma unroll
+        for (int r = 0; r < kMaxCluster; ++r) {
+          if (r < C) {
+            const float f = expf(m[r] - M);
+            l += f * l_r[r];
+            o += f * o_r[r];
+          }
+        }
+      }
+      o_out[e] = Elt<T>::from(l > 0.f ? o / l : 0.f);
+    }
+  }
+  cluster.sync();  // no CTA leaves while another reads its shared memory
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads) paged_attn_combine_kernel(
-    const float* __restrict__ part_acc, const float* __restrict__ part_ml,
-    T* __restrict__ out, int G, int Dh, int n_splits) {
-  const size_t bh = (size_t)blockIdx.x * gridDim.y + blockIdx.y;
-  for (int g = 0; g < G; ++g) {
-    float mx = -INFINITY;
-    for (int s = 0; s < n_splits; ++s)
-      mx = fmaxf(mx, part_ml[((bh * n_splits + s) * G + g) * 2]);
-    float l = 0.f;
-    float acc[kDimsPerThread] = {};
-    if (mx != -INFINITY) {
-      for (int s = 0; s < n_splits; ++s) {  // split order: deterministic
-        const size_t base = (bh * n_splits + s) * G + g;
-        const float w = expf(part_ml[base * 2] - mx);  // 0 for empty splits
-        l += w * part_ml[base * 2 + 1];
-#pragma unroll
-        for (int i = 0; i < kDimsPerThread; ++i) {
-          const int d = threadIdx.x + i * kThreads;
-          if (d < Dh) acc[i] += w * part_acc[base * Dh + d];
-        }
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < kDimsPerThread; ++i) {
-      const int d = threadIdx.x + i * kThreads;
-      if (d < Dh)
-        out[(bh * G + g) * Dh + d] = from_f<T>(l > 0.f ? acc[i] / l : 0.f);
-    }
-  }
+template <typename T, int DH, int KG>
+cudaError_t launch_kernel(const cudaLaunchConfig_t& cfg, const void* q,
+                          const void* k_new, const void* v_new, void* k_pool,
+                          void* v_pool, const int* page_table,
+                          const int* seq_lens, void* out, int KVd, int G,
+                          int ps, int P, float scale, int window, int split,
+                          int stages) {
+  auto kernel = paged_attn_cluster_kernel<T, DH, KG>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)cfg.dynamicSmemBytes);
+  if (err != cudaSuccess) return err;
+  return cudaLaunchKernelEx(&cfg, kernel, (const T*)q, (const T*)k_new,
+                            (const T*)v_new, (T*)k_pool, (T*)v_pool,
+                            page_table, seq_lens, (T*)out, KVd, G, ps, P,
+                            scale, window, split, stages);
+}
+
+template <typename T, int DH>
+cudaError_t launch_dh(const cudaLaunchConfig_t& cfg, const void* q,
+                      const void* k_new, const void* v_new, void* k_pool,
+                      void* v_pool, const int* page_table,
+                      const int* seq_lens, void* out, int KVd, int G, int ps,
+                      int P, float scale, int window, int split, int stages) {
+#define PAGED_KG(KG)                                                        \
+  if (G <= KG)                                                              \
+    return launch_kernel<T, DH, KG>(cfg, q, k_new, v_new, k_pool, v_pool,   \
+                                    page_table, seq_lens, out, KVd, G, ps,  \
+                                    P, scale, window, split, stages);
+  PAGED_KG(1)
+  PAGED_KG(2)
+  PAGED_KG(4)
+  PAGED_KG(8)
+#undef PAGED_KG
+  return cudaErrorInvalidValue;
 }
 
 template <typename T>
 int launch(const void* q, const void* k_new, const void* v_new, void* k_pool,
            void* v_pool, const int* page_table, const int* seq_lens,
-           void* out, float* part_acc, float* part_ml, int B, int KVd, int G,
-           int Dh, int ps, int P, float scale, int window, int split_pos,
-           int n_splits, void* stream) {
-  if (G < 1 || G > kMaxG || Dh < 1 || Dh > kMaxDh ||
-      (Dh * (int)sizeof(T)) % 16 || ps < 1 || KVd < 1 || KVd > 65535 ||
-      P < 1 || split_pos < 1 || n_splits < 1 || n_splits > 65535 ||
-      (long long)split_pos * n_splits < (long long)P * ps)
+           void* out, int B, int KVd, int G, int Dh, int ps, int P,
+           float scale, int window, int cluster, int split, int stages,
+           void* stream) {
+  if (G < 1 || G > kMaxG || (Dh != 16 && Dh != 64 && Dh != 128 && Dh != 256) ||
+      ps < 1 || KVd < 1 || KVd > 65535 || B > 65535 || P < 1 ||
+      cluster < 1 || cluster > kMaxCluster || split < kWarps * kChunk ||
+      split % (kWarps * kChunk) || stages < 1 || stages > 2 ||
+      (long long)split * cluster < (long long)P * ps ||
+      (long long)split * (cluster - 1) >= (long long)P * ps)
     return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
-  const int tile = tile_positions<T>(Dh);
-  const size_t smem = 2 * (size_t)tile * Dh * sizeof(T) +
-                      (size_t)tile * sizeof(long long) +
-                      ((size_t)G * Dh + (size_t)G * tile + 3 * kMaxG) *
-                          sizeof(float);
-  cudaStream_t s = (cudaStream_t)stream;
-  paged_attn_split_kernel<T><<<dim3(B, KVd, n_splits), kThreads, smem, s>>>(
-      (const T*)q, (const T*)k_new, (const T*)v_new, (T*)k_pool, (T*)v_pool,
-      page_table, seq_lens, part_acc, part_ml, KVd, G, Dh, ps, P, scale,
-      window, split_pos, tile);
-  const cudaError_t err = cudaGetLastError();
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster, KVd, B);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem_bytes(G, Dh, sizeof(T), split, ps, stages);
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t err;
+  switch (Dh) {
+#define PAGED_DH(DH)                                                        \
+  case DH:                                                                  \
+    err = launch_dh<T, DH>(cfg, q, k_new, v_new, k_pool, v_pool,            \
+                           page_table, seq_lens, out, KVd, G, ps, P, scale, \
+                           window, split, stages);                          \
+    break;
+    PAGED_DH(16)
+    PAGED_DH(64)
+    PAGED_DH(128)
+    PAGED_DH(256)
+#undef PAGED_DH
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
   if (err != cudaSuccess) return (int)err;
-  paged_attn_combine_kernel<T><<<dim3(B, KVd), kThreads, 0, s>>>(
-      part_acc, part_ml, (T*)out, G, Dh, n_splits);
   return (int)cudaGetLastError();
 }
 
@@ -324,13 +603,12 @@ int launch(const void* q, const void* k_new, const void* v_new, void* k_pool,
 #define PAGED_ATTN_ENTRY(NAME, T)                                             \
   extern "C" int NAME(const void* q, const void* k_new, const void* v_new,  \
                       void* k_pool, void* v_pool, const int* page_table,     \
-                      const int* seq_lens, void* out, float* part_acc,       \
-                      float* part_ml, int B, int KVd, int G, int Dh, int ps, \
-                      int P, float scale, int window, int split_pos,         \
-                      int n_splits, void* stream) {                          \
+                      const int* seq_lens, void* out, int B, int KVd, int G, \
+                      int Dh, int ps, int P, float scale, int window,        \
+                      int cluster, int split, int stages, void* stream) {    \
     return launch<T>(q, k_new, v_new, k_pool, v_pool, page_table, seq_lens,  \
-                     out, part_acc, part_ml, B, KVd, G, Dh, ps, P, scale,    \
-                     window, split_pos, n_splits, stream);                   \
+                     out, B, KVd, G, Dh, ps, P, scale, window, cluster,      \
+                     split, stages, stream);                                 \
   }
 
 PAGED_ATTN_ENTRY(paged_attention_step_bf16, __nv_bfloat16)

@@ -143,15 +143,17 @@ def attention(p, x, cfg: ModelConfig, positions, *, window=0,
 def _chunked_self_attention(q, k, v, positions, window, scale):
     """Block-causal (optionally banded) attention, query-chunked.
 
-    q: [B,S,KVd,G,Dh]; k,v: [B,S,KVd,Dh]."""
+    q: [B,S,KVd,G,Dh]; k,v: [B,S,KVd,Dh]. Chunks of cq = S // nq rows;
+    the last chunk also takes the S - nq * cq remainder rows."""
     S = q.shape[1]
     nq = max(1, S // Q_CHUNK)
     cq = S // nq
     outs = []
     for i in range(nq):
-        q_i = q[:, i * cq:(i + 1) * cq]
-        q_pos = positions[:, i * cq:(i + 1) * cq]
-        kv_hi = min((i + 1) * cq, k.shape[1])
+        q_hi = S if i == nq - 1 else (i + 1) * cq
+        q_i = q[:, i * cq:q_hi]
+        q_pos = positions[:, i * cq:q_hi]
+        kv_hi = min(q_hi, k.shape[1])
         # lowest kv position any query in this chunk can see, chunk-aligned
         kv_lo = max(0, ((i * cq - window + 1) // cq) * cq) if window > 0 else 0
         t_pos = positions[:, kv_lo:kv_hi]

@@ -87,6 +87,128 @@ def test_topk_kernel_matches_plain(dev, V):
     assert torch.equal(got, want)
 
 
+def _paged_check(dev, dtype, KVd, G, Dh, ps, P, lens, window=0, nan=False):
+    """The cluster kernel against its plain version: the KV write bitwise,
+    active rows within the dtype's tolerance, inactive rows 0, o bitwise
+    the same on a second call. With ``nan``, every pool slot that is not
+    a live position of some row (reclaimed pages, the null page, slots
+    past seq_len or before the window) holds NaN for the kernel and 0 for
+    the plain version, which reads them under a mask."""
+    tol = 1e-5 if dtype == torch.float32 else 3e-2
+    q, kn, vn, kp, vp, table, sl = _paged_case(dev, dtype, len(lens), KVd, G,
+                                               Dh, ps, P, lens)
+    if window:                       # reclaim pages fully out of window
+        for b, n in enumerate(lens):
+            for lp in range(n // ps + 1):
+                if (lp + 1) * ps - 1 <= n - window:
+                    table[b, lp] = 0
+    if nan:
+        live = torch.zeros(kp.shape[:2], dtype=torch.bool, device=dev)
+        for b, n in enumerate(lens):
+            lo = max(0, n - window + 1) if window else 0
+            for t in range(lo, n + 1):
+                page = int(table[b, t // ps])
+                if page:
+                    live[page, t % ps] = True
+        dead = ~live[:, :, None, None]
+        kp.masked_fill_(dead, float("nan"))
+        vp.masked_fill_(dead, float("nan"))
+    kp2, vp2 = kp.nan_to_num(0.0), vp.nan_to_num(0.0)
+    kp3, vp3 = kp.clone(), vp.clone()
+    o = paged_attn.paged_attention_step(q, kn, vn, kp, vp, table, sl,
+                                        scale=Dh ** -0.5, window=window)
+    again = paged_attn.paged_attention_step(q, kn, vn, kp3, vp3, table, sl,
+                                            scale=Dh ** -0.5, window=window)
+    want = ref.paged_attn_step_ref(q, kn, vn, kp2, vp2, table, sl,
+                                   scale=Dh ** -0.5, window=window)
+    torch.cuda.synchronize()
+    assert torch.equal(kp.nan_to_num(0.0), kp2)
+    assert torch.equal(vp.nan_to_num(0.0), vp2)
+    assert torch.equal(o, again)                # fixed combine order
+    active = [b for b, n in enumerate(lens) if n]
+    assert bool(torch.isfinite(o).all())
+    assert (o[active].float() - want[active].float()).abs().max().item() \
+        <= tol
+    for b, n in enumerate(lens):
+        if not n:
+            assert o[b].abs().max().item() == 0.0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("positions,lens", [
+    (4096, [0, 4095, 2049, 511, 512, 3000]),      # full clusters of 8
+    (32768, [32767, 20000, 0]),                   # many tiles a warp
+])
+def test_paged_cluster_long_tables(dev, dtype, positions, lens):
+    plan = paged_attn.plan(positions // 16, 16, 4, 128, 2)
+    assert plan.cluster == 8
+    _paged_check(dev, dtype, 2, 4, 128, 16, positions // 16, lens)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_cluster_split_boundaries(dev, dtype):
+    P = 34                                        # the serve path's table
+    split = paged_attn.plan(P, 16, 4, 128, 2).split
+    lens = [split - 1, split, split + 1, 2 * split - 1, 2 * split,
+            2 * split + 1, 1, 0]
+    _paged_check(dev, dtype, 2, 4, 128, 16, P, lens)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G,Dh", [(1, 128), (8, 64), (8, 256)])
+def test_paged_cluster_group_sizes(dev, dtype, G, Dh):
+    _paged_check(dev, dtype, 3, G, Dh, 16, 20, [0, 5, 100, 319, 64])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [0, 37])
+def test_paged_cluster_never_reads_dead_slots(dev, dtype, window):
+    _paged_check(dev, dtype, 4, 4, 128, 16, 34, [0, 140, 270, 400, 530, 31],
+                 window=window, nan=True)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_cluster_equal_lengths(dev, dtype):
+    _paged_check(dev, dtype, 8, 4, 128, 16, 34, [300] * 8)
+
+
+def _topk_case(dev, B, V, k, p, seed=0):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    x = torch.randn(B, V, generator=g) * 3 / 0.8
+    x[::3] = torch.round(x[::3])                  # long tied runs
+    x[1::4, ::7] = -0.0
+    x[1::4, 1::7] = 0.0
+    x = x.to(dev)
+    k = torch.tensor(k, dtype=torch.int32, device=dev)
+    p = torch.tensor(p, dtype=torch.float32, device=dev)
+    got = topk_mask.topk_topp_mask(x, k, p)
+    again = topk_mask.topk_topp_mask(x, k, p)
+    want = ref.topk_topp_mask_ref(x, k, p)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert torch.equal(got > -5e29, want > -5e29)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("V", [200064, 152101, 13313])
+@pytest.mark.parametrize("B", [1, 16])
+def test_topk_cluster_vocab_and_batch(dev, B, V):
+    """200,064: phi4-mini's vocab; 152,101: not a multiple of 4 (the
+    scalar path) with an uneven last slice; 13,313: one entry past a
+    single CTA's slice, a cluster of 2."""
+    plan = topk_mask.plan(V)
+    assert plan.cluster == (2 if V == 13313 else 16)
+    ks = [50, 0, 20, 1, 0, V, 1000, 7] * 2
+    ps = [0.95, 1.0, 0.8, 1.0, 0.5, 0.3, 0.99, 0.9] * 2
+    _topk_case(dev, B, V, ks[:B], ps[:B], seed=V + B)
+
+
+@pytest.mark.parametrize("knobs", ["greedy", "sampled"])
+def test_topk_cluster_uniform_batches(dev, knobs):
+    k, p = (0, 1.0) if knobs == "greedy" else (50, 0.95)
+    _topk_case(dev, 8, 152064, [k] * 8, [p] * 8, seed=3)
+
+
 def _zo_records(dev, steps=3, probes=2, seed=0):
     rng = np.random.default_rng(seed)
     seeds = zo.device_seeds(rng.integers(0, 2**32, steps * probes), dev)

@@ -608,13 +608,16 @@ def check_zo_leaf(zo_perturb, zo_replay, ref, path, shape, dtype):
     return theta, salt, seeds, coeffs
 
 
-def noise_paths(name, kernel, per_iteration):
+def noise_paths(name, kernel, per_iteration, record_op="MUFU", per_record=1,
+                lib=None):
     """(instructions, INT32-pipe instructions) an element of the 16-byte
     grid-stride loop of ``kernel`` (one iteration handles
-    ``per_iteration`` elements), and of one noise record where the loop
-    holds a record loop (the innermost loop with a MUFU), else None:
-    issued along the loop's fast path (sass_fast_path)."""
-    code = sass_code(name, kernel)
+    ``per_iteration`` elements), and an element of one noise record where
+    the loop holds a record loop (the first innermost loop that holds a
+    ``record_op`` instruction, or any for None; its body applies
+    ``per_record`` element-records), else None: issued along the loop's
+    fast path (sass_fast_path). ``lib``: another build of csrc/<name>.cu."""
+    code = sass_code(name, kernel, lib)
     loops = [(tg, a) for a, t in code if (tg := _bra_target(t)) is not None
              and tg < a]
 
@@ -624,15 +627,17 @@ def noise_paths(name, kernel, per_iteration):
                 if any("LDG.E.128" in t for t in body(lo, hi))
                 and any("STG.E.128" in t for t in body(lo, hi)))
     records = [(lo, hi) for lo, hi in loops if main[0] < lo and hi < main[1]
-               and any(_opcode(t) == "MUFU" for t in body(lo, hi))]
+               and (record_op is None
+                    or any(_opcode(t) == record_op for t in body(lo, hi)))]
     inner = [r for r in records
              if not any(r[0] < o[0] and o[1] < r[1] for o in records)]
+    record = inner[0] if inner else None
 
     def mix(lo, hi, per):
         ops = sass_fast_path(code, lo, hi)
         return len(ops) / per, sum(op in ALU_OPS for op in ops) / per
     return mix(*main, per_iteration), \
-        mix(*inner[0], 1) if inner else None
+        mix(*record, per_record) if record else None
 
 
 def check_zo(zo_perturb, zo_replay, ref):
@@ -807,23 +812,24 @@ def _bra_target(text):
     return int(m.group(1), 16) if m else None
 
 
-def sass_functions(name):
+def sass_functions(name, lib=None):
     """{mangled kernel name: SASS text} of the built library of
-    csrc/<name>.cu, from cuobjdump -sass."""
+    csrc/<name>.cu (or of the library ``lib``), from cuobjdump -sass."""
     from repro_torch.kernels import _build
     tool = Path(_build._nvcc()).with_name("cuobjdump")
-    sass = subprocess.run([str(tool), "-sass",
-                           str(_build._target(_build.CSRC / f"{name}.cu"))],
+    lib = lib or _build._target(_build.CSRC / f"{name}.cu")
+    sass = subprocess.run([str(tool), "-sass", str(lib)],
                           capture_output=True, text=True, check=True,
                           timeout=120).stdout
     return {f.split()[0]: f for f in sass.split("Function : ")[1:]}
 
 
-def sass_code(name, kernel):
+def sass_code(name, kernel, lib=None):
     """[(address, instruction)] of ``kernel`` (a substring of its mangled
-    name) in the built library of csrc/<name>.cu."""
+    name) in the built library of csrc/<name>.cu (or ``lib``)."""
     import re
-    body = next(f for fn, f in sass_functions(name).items() if kernel in fn)
+    body = next(f for fn, f in sass_functions(name, lib).items()
+                if kernel in fn)
     return [(int(a, 16), t.strip()) for a, t in
             re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", body)]
 
@@ -922,10 +928,81 @@ def noise_bound_ms(n, itemsize, per_element, hz):
         "bytes" if by_bytes >= by_ops else "operations"
 
 
+# the int8 noise kernels' 16-byte paths: (symbol substring, elements a
+# tile, elements a record-loop iteration); the replay's with psr's
+# 0 < s < 32 form, the one the lanes run (shift 1)
+INT8_SASS = {"int8_perturb": ("int8_perturb_kernelILi16", 16, None),
+             "zo_fused_replay_int8": ("replay_int8_kernelILi16ELi1E", 16, 16)}
+
+
+def int8_sass():
+    """{kernel: (an element at S = P = 1, an element of one more record or
+    None)}, each (instructions, INT32-pipe instructions), of the int8
+    noise kernels' fast paths (noise_paths on each kernel's own symbol)."""
+    out = {}
+    for name, (symbol, per_tile, per_record) in INT8_SASS.items():
+        out[name] = noise_paths(name, symbol, per_tile, record_op=None,
+                                per_record=per_record or 1)
+        if per_record is None:
+            out[name] = out[name][0], None
+        elif out[name][0][0] < out[name][1][0]:
+            raise AssertionError(f"{name}: the S = P = 1 fast path ({out[name]}"
+                                 ") is cheaper than one record: the walk "
+                                 "missed the record loop")
+    return out
+
+
+def check_int8_model(zo_perturb, zo_replay, ref, lenet, seeds, gs,
+                     copies=1):
+    """One launch over all of LeNet-5's int8 leaves for each int8 noise
+    call against the plain version leaf by leaf, bitwise: the perturbation
+    (k = +-1), the update S = 1 P = 1 in place and the catch-up S = 8 x
+    P = 4 (one g = 0), each a single launch whatever the leaf count. With
+    ``copies`` the table holds the leaves that many times, each copy with
+    salts of its own (10 copies take the kernels' 16 elements a thread)."""
+    leaves = [leaf for leaf, _ in lenet.values()] * copies
+    salts = [(salt + 7919 * c) % 2**30 for c in range(copies)
+             for _, salt in lenet.values()]
+    args = (3, 0.33)
+    checks = []
+    for k in (1, -1):
+        n0 = zo_perturb.int8_launches
+        got = zo_perturb.int8_perturb_leaves(leaves, seeds[0, :1], salts, k,
+                                             *args)
+        checks.append((f"int8_perturb k={k:+d}", zo_perturb.int8_launches - n0,
+                       got, [ref.int8_perturb_ref(t, seeds[0, :1], salt, k,
+                                                  *args)
+                             for t, salt in zip(leaves, salts)]))
+    live = [t.clone() for t in leaves]
+    for S, P, outs in ((1, 1, live), (8, 4, None)):
+        n0 = zo_replay.int8_launches
+        got = zo_replay.zo_fused_replay_int8_leaves(
+            live if outs else leaves, seeds[:S, :P], gs[:S, :P], salts, *args,
+            1, outs=outs)
+        checks.append((f"zo_fused_replay_int8 S={S} P={P}"
+                       + (" in place" if outs else ""),
+                       zo_replay.int8_launches - n0, got,
+                       [ref.zo_fused_replay_int8_ref(t, seeds[:S, :P],
+                                                     gs[:S, :P], salt, *args,
+                                                     1)
+                        for t, salt in zip(leaves, salts)]))
+    for what, launches, got, want in checks:
+        differ = sum(int((a != b).sum()) for a, b in zip(got, want))
+        print(f"{what}, one launch for {copies} x LeNet-5's int8 leaves "
+              f"({sum(t.numel() for t in leaves)} elements): {launches} "
+              f"launch(es), {differ} elements differ from the plain version "
+              "leaf by leaf")
+        if launches != 1 or differ:
+            raise AssertionError(f"{what}: the whole-model launch is not one "
+                                 "launch bitwise the plain version")
+
+
 def check_int8_noise(zo_perturb, zo_replay, ref):
     """The int8 noise kernels on every int8 leaf of LeNet-5 (conv1's 150
-    and fc3's 840 elements run the kernels' ragged tail) and on an int8
-    leaf of qwen3-4b's w_gate size, then timed on fc1 and the latter."""
+    and fc3's 840 elements run the kernels' ragged tail), one leaf a launch
+    and all five in one launch, and on an int8 leaf of qwen3-4b's w_gate
+    size; then timed on the latter and on LeNet-5, where one whole-model
+    launch stands beside the per-leaf launches it replaces."""
     from repro_torch.models.lenet import init_lenet5_int8
     w1, lenet = 0, {}
     for layer, q in init_lenet5_int8(0, device="cuda").items():
@@ -933,10 +1010,11 @@ def check_int8_noise(zo_perturb, zo_replay, ref):
             zo_perturb, zo_replay, ref, (layer, "w"), tuple(q["w"].data.shape))
         w1 = max(w1, w)
         lenet[layer] = leaf, leaf_salt
-    fc1, fc1_salt = lenet["fc1"]
     theta, salt, seeds, gs, w2 = check_int8_leaf(
         zo_perturb, zo_replay, ref, ("periods_zo", "blk0", "mlp", "w_gate"),
         INT8_LEAF)
+    for copies in (1, 10):
+        check_int8_model(zo_perturb, zo_replay, ref, lenet, seeds, gs, copies)
     flat, n = theta.reshape(-1), theta.numel()
     seed, sd, g1 = seeds[0, :1], seeds[:1, :1], gs[:1, :1]
     args = (3, 0.33)
@@ -948,15 +1026,20 @@ def check_int8_noise(zo_perturb, zo_replay, ref):
         return call
 
     hz = max_sm_hz()
-    per_element = noise_paths("int8_perturb", "int8_perturb_kernelILi16",
-                              16)[0]
-    total, alu = (16 * c for c in per_element)
+    sass = int8_sass()
+    per_element = {name: c[0] for name, c in sass.items()}
+    record = sass["zo_fused_replay_int8"][1]
+    for name, (el, rec) in sass.items():
+        print(f"{name} SASS fast path (16-byte tile, {INT8_SASS[name][0]}): "
+              f"{el[0]:.2f} instructions an element, {el[1]:.2f} of them on "
+              "the INT32 pipe" + (f"; one more record {rec[0]:.2f} and "
+                                  f"{rec[1]:.2f} an element" if rec else ""))
     out = {}
     ms = event_ms(lambda: zo_perturb.int8_perturb(theta, seed, salt, 1,
                                                    *args), 10)
     plain_ms = event_ms(chunked(lambda lo, hi: ref.int8_perturb_ref(
         flat[lo:hi], seed, salt, 1, *args, lo)), 2)
-    bound, by = noise_bound_ms(n, 1, per_element, hz)
+    bound, by = noise_bound_ms(n, 1, per_element["int8_perturb"], hz)
     out["int8_perturb"] = dict(max_abs_err=float(max(w1, w2)), ms=ms,
                                plain_ms=plain_ms, bound_ms=bound, bound_by=by,
                                library_ms=None)
@@ -964,7 +1047,7 @@ def check_int8_noise(zo_perturb, zo_replay, ref):
         theta, sd, g1, salt, *args, 1), 10)
     plain_ms = event_ms(chunked(lambda lo, hi: ref.zo_fused_replay_int8_ref(
         flat[lo:hi], sd, g1, salt, *args, 1, lo)), 2)
-    bound, by = noise_bound_ms(n, 1, per_element, hz)
+    bound, by = noise_bound_ms(n, 1, per_element["zo_fused_replay_int8"], hz)
     out["zo_fused_replay_int8"] = dict(
         max_abs_err=float(max(w1, w2)), ms=ms, plain_ms=plain_ms,
         bound_ms=bound, bound_by=by, library_ms=None)
@@ -972,37 +1055,61 @@ def check_int8_noise(zo_perturb, zo_replay, ref):
     catch_up_ms = event_ms(lambda: zo_replay.zo_fused_replay_int8(
         theta, seeds, gs, salt, *args, 1), 3)
     catch_up_bound, catch_up_by = noise_bound_ms(
-        n, 1, tuple(live * c for c in per_element), hz)
-    print(f"operation bound at the card's highest SM clock {hz / 1e6:.0f} "
-          f"MHz ({nvidia_smi('clocks.sm')} now): int8_perturb's 16-byte loop "
-          f"runs {total:.0f} SASS instructions, {alu:.0f} of them on the INT32 "
-          f"pipe ({total / 16:.2f} and {alu / 16:.2f} an element); a replay "
-          "record costs at least as much an element (the same noise, psr "
-          "in place of the clamp)")
+        n, 1, tuple(e + (live - 1) * r for e, r in
+                    zip(per_element["zo_fused_replay_int8"], record)), hz)
+    print(f"operation bounds at the card's highest SM clock {hz / 1e6:.0f} "
+          f"MHz ({nvidia_smi('clocks.sm')} now)")
     for name, r in out.items():
         print(f"{name} on the {n}-element int8 leaf: kernel {r['ms']:.4f} "
               f"ms, plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} "
-              f"ms by {r['bound_by']} ({2 * n} bytes)")
+              f"ms by {r['bound_by']} ({2 * n} bytes); kernel at "
+              f"{100 * r['bound_ms'] / r['ms']:.0f}% of its bound")
     print(f"zo_fused_replay_int8 S=8 P=4 ({live} records with g != 0) on the "
           f"same leaf: kernel {catch_up_ms:.4f} ms, bound "
-          f"{catch_up_bound:.4f} ms by {catch_up_by}")
-    # at the path's largest leaf, LeNet-5's fc1 (94,080 elements)
-    small = (device_ms(lambda: zo_perturb.int8_perturb(
-                 fc1, seed, fc1_salt, 1, *args)),
-             device_ms(lambda: zo_replay.zo_fused_replay_int8(
-                 fc1, sd, g1, fc1_salt, *args, 1)))
-    print(f"on LeNet-5's fc1 leaf ({fc1.numel()} elements): int8_perturb "
-          f"{small[0]:.4f} ms, zo_fused_replay_int8 S=1 P=1 {small[1]:.4f} "
-          f"ms, bound {noise_bound_ms(fc1.numel(), 1, per_element, hz)[0]:.5f}"
-          " ms")
-    # one live update (S = 1, P = 1) a launch at every LeNet-5 int8 leaf
-    for layer, (leaf, leaf_salt) in lenet.items():
-        t = device_ms(lambda: zo_replay.zo_fused_replay_int8(
-            leaf, sd, g1, leaf_salt, *args, 1))
-        b, by_ = noise_bound_ms(leaf.numel(), 1, per_element, hz)
-        print(f"  zo_fused_replay_int8 S=1 P=1 on LeNet-5's {layer} "
-              f"({leaf.numel()} elements): {t:.4f} ms a launch, bound "
-              f"{b:.3g} ms by {by_}")
+          f"{catch_up_bound:.4f} ms by {catch_up_by} (the S = P = 1 path and "
+          f"{live - 1} more records an element); kernel at "
+          f"{100 * catch_up_bound / catch_up_ms:.0f}% of its bound")
+    # LeNet-5: each leaf a launch, and all five leaves in one launch
+    leaves = [leaf for leaf, _ in lenet.values()]
+    salts = [s for _, s in lenet.values()]
+    total = sum(t.numel() for t in leaves)
+    one = {"int8_perturb": lambda t, s: zo_perturb.int8_perturb(
+               t, seed, s, 1, *args),
+           "zo_fused_replay_int8": lambda t, s: zo_replay.zo_fused_replay_int8(
+               t, sd, g1, s, *args, 1)}
+    whole = {"int8_perturb": lambda ts, ss: zo_perturb.int8_perturb_leaves(
+                 ts, seed, ss, 1, *args),
+             "zo_fused_replay_int8":
+                 lambda ts, ss: zo_replay.zo_fused_replay_int8_leaves(
+                     ts, sd, g1, ss, *args, 1)}
+    for name in one:
+        mix = per_element[name]
+        for layer, (leaf, leaf_salt) in lenet.items():
+            t = device_ms(lambda: one[name](leaf, leaf_salt))
+            b, by_ = noise_bound_ms(leaf.numel(), 1, mix, hz)
+            print(f"  {name} (S=1 P=1) on LeNet-5's {layer} "
+                  f"({leaf.numel()} elements) alone: {t:.4f} ms a launch, "
+                  f"bound {b:.3g} ms by {by_}")
+        per_leaf = device_ms(lambda: [one[name](t, s)
+                                      for t, s in zip(leaves, salts)])
+        once = device_ms(lambda: whole[name](leaves, salts))
+        b, by_ = noise_bound_ms(total, 1, mix, hz)
+        print(f"{name} on LeNet-5's {len(leaves)} int8 leaves ({total} "
+              f"elements, 4 a thread): one whole-model launch {once:.4f} ms; "
+              f"the {len(leaves)} per-leaf launches it replaces "
+              f"{per_leaf:.4f} ms in all; bound {b:.3g} ms by {by_}")
+        # the kernels take 16 elements a thread from 264 tiles of 4,096 on:
+        # 9 copies of LeNet-5's leaves make 261 (4 a thread), 10 make 290
+        at = {c: device_ms(lambda: whole[name](leaves * c, salts * c))
+              for c in (9, 10)}
+        print(f"{name} where the elements a thread switch: 9 copies of the "
+              f"leaves (4 a thread) {at[9]:.4f} ms, "
+              f"{1e6 * at[9] / (9 * total):.4f} ns an element; 10 copies (16 "
+              f"a thread) {at[10]:.4f} ms, "
+              f"{1e6 * at[10] / (10 * total):.4f} ns an element")
+        if not once < per_leaf:
+            raise AssertionError(f"{name}: one whole-model launch is not "
+                                 "faster than the per-leaf launches")
     return out
 
 
@@ -1385,11 +1492,12 @@ LENET_INT8_JAX_CPU_ACC = {
               "zo_feat_cls2": (None, 0.970703125),
               "zo_feat_cls1": (None, 0.912109375)},
 }
-# launches per step at 1 probe: int8_perturb 2 per ZO leaf,
-# zo_fused_replay_int8 1 per ZO leaf, int8_matmul 5 per forward (two
-# forwards) and 2 per tail FC; the test-set forward adds 5 matmuls a lane
-LENET_INT8_PER_STEP = {"full_zo": (10, 5, 10), "zo_feat_cls2": (6, 3, 14),
-                       "zo_feat_cls1": (8, 4, 12)}
+# launches per step at 1 probe: int8_perturb 2 (one for all ZO leaves a
+# perturbation), zo_fused_replay_int8 1 (all ZO leaves), int8_matmul 5 per
+# forward (two forwards) and 2 per tail FC; the test-set forward adds 5
+# matmuls a lane
+LENET_INT8_PER_STEP = {"full_zo": (2, 1, 10), "zo_feat_cls2": (2, 1, 14),
+                       "zo_feat_cls1": (2, 1, 12)}
 
 
 def check_lenet_int8(zo_perturb, zo_replay, int8_mm, fp32_mem, steps=150,

@@ -40,10 +40,10 @@ How the JAX step maps onto eager PyTorch:
     as JAX's train loop donates it.
 
 The int8 engine follows the same design: probe seeds from the numpy
-threefry twin, the +1/-1 perturbations one ``int8_perturb`` launch per ZO
-leaf each, the ternary g kept on the device as an int32 [1, P] tensor and
-the update one in-place ``zo_fused_replay_int8`` launch per ZO leaf, so
-live == replay bitwise and no step reads g on the host.
+threefry twin, the +1/-1 perturbations one ``int8_perturb`` launch each
+for all ZO leaves, the ternary g kept on the device as an int32 [1, P]
+tensor and the update one in-place ``zo_fused_replay_int8`` launch for all
+ZO leaves, so live == replay bitwise and no step reads g on the host.
 
 ``apply_tail_records`` (the fleet's ledger tail) is not ported yet.
 """
@@ -59,7 +59,7 @@ from ..kernels import ops
 from ..kernels.zo_fused_replay import MAX_RECORDS
 from . import keys, prng, zo
 from .int8 import (QTensor, fc_backward_int8, output_error_int8,
-                   perturb_int8, zo_shift)
+                   perturb_int8, replay_int8, zo_shift)
 from .int_loss import float_loss, int_loss_sign
 
 
@@ -119,22 +119,22 @@ def _paired_value_and_grad(paired_loss_fn: Callable, bp_part, *args):
 
 def _apply_records(zo_part, seeds: np.ndarray, values: np.ndarray, launch):
     """S committed steps x n probe records on every ZO leaf, out of place,
-    at most MAX_RECORDS records a launch. ``launch(path, leaf, seeds,
-    values)`` gets the records as tensors on the leaf's device and returns
-    the new leaf (or the leaf itself for one it does not update)."""
+    at most MAX_RECORDS records a launch. ``launch(tree, seeds, values)``
+    gets the records as tensors on the leaves' device and returns the
+    updated tree."""
     seeds = np.asarray(seeds, np.uint64).astype(np.uint32)
+    leaves = [leaf for _, leaf in zo.leaves_with_path(zo_part)]
+    if not leaves:
+        return zo_part
+    dev = (leaves[0].data if isinstance(leaves[0], QTensor)
+           else leaves[0]).device
     chunk = max(MAX_RECORDS // max(seeds.shape[1], 1), 1)   # steps a launch
     out = zo_part
     for s0 in range(0, seeds.shape[0], chunk):
         sl = slice(s0, s0 + chunk)
-
-        def f(path, leaf, sl=sl):
-            dev = (leaf.data if isinstance(leaf, QTensor) else leaf).device
-            sd = zo.device_seeds(seeds[sl].reshape(-1), dev).reshape(
-                seeds[sl].shape)
-            return launch(path, leaf, sd,
-                          torch.from_numpy(values[sl].copy()).to(dev))
-        out = zo.map_with_path(f, out)
+        sd = zo.device_seeds(seeds[sl].reshape(-1), dev).reshape(
+            seeds[sl].shape)
+        out = launch(out, sd, torch.from_numpy(values[sl].copy()).to(dev))
     return out
 
 
@@ -189,8 +189,9 @@ class Fp32Engine:
         pass (seeds u32 [S, n], coeffs fp32 [S, n]); out of place."""
         return _apply_records(
             zo_part, seeds, np.asarray(coeffs, np.float32),
-            lambda path, leaf, sd, cf: ops.zo_fused_replay(
-                leaf, sd, cf, zo.path_salt(path)))
+            lambda tree, sd, cf: zo.map_with_path(
+                lambda path, leaf: ops.zo_fused_replay(
+                    leaf, sd, cf, zo.path_salt(path)), tree))
 
     # ---- BP-tail update ------------------------------------------------ #
     @staticmethod
@@ -338,36 +339,28 @@ class Int8Engine:
     # ---- ZO update (live) --------------------------------------------- #
     def zo_apply(self, zo_part, seeds: torch.Tensor, gs: torch.Tensor):
         """theta <- clamp(theta - sum_p psr(g_p * z_p, shift), -127, 127) in
-        probe order, IN PLACE: one ``zo_fused_replay_int8`` launch per
-        QTensor leaf with S = 1. seeds int32 [1, P] and gs int32 [1, P] on
-        the leaves' device. Returns ``zo_part``."""
-        for path, leaf in zo.leaves_with_path(zo_part):
-            if isinstance(leaf, QTensor):
-                ops.zo_fused_replay_int8(leaf.data, seeds, gs,
-                                         zo.path_salt(path), self.r_max,
-                                         self.p_zero, self.zo_shift,
-                                         out=leaf.data)
-        return zo_part
+        probe order, IN PLACE: one ``zo_fused_replay_int8`` launch for all
+        QTensor leaves with S = 1. seeds int32 [1, P] and gs int32 [1, P]
+        on the leaves' device. Returns ``zo_part``."""
+        return replay_int8(zo_part, seeds, gs, self.r_max, self.p_zero,
+                           self.zo_shift, in_place=True)
 
     # ---- ZO update (ledger domain) ------------------------------------ #
     def apply_zo_records(self, zo_part, seeds: np.ndarray, gs: np.ndarray):
         """S committed steps x n probes on every int8 QTensor leaf (seeds
-        u32 [S, n], gs int32 [S, n]; masked probes g = 0); out of place."""
-        def launch(path, leaf, sd, g):
-            if not isinstance(leaf, QTensor):
-                return leaf
-            return QTensor(ops.zo_fused_replay_int8(
-                leaf.data, sd, g, zo.path_salt(path), self.r_max,
-                self.p_zero, self.zo_shift), leaf.exp)
-        return _apply_records(zo_part, seeds, np.asarray(gs, np.int32),
-                              launch)
+        u32 [S, n], gs int32 [S, n]; masked probes g = 0); out of place,
+        one launch for all leaves a chunk of MAX_RECORDS records."""
+        return _apply_records(
+            zo_part, seeds, np.asarray(gs, np.int32),
+            lambda tree, sd, g: replay_int8(tree, sd, g, self.r_max,
+                                            self.p_zero, self.zo_shift))
 
     # ---- probe phase --------------------------------------------------- #
     def probe_pair(self, forward: Callable, zo_part, bp_part, batch,
                    seed: torch.Tensor):
         """One probe's Alg. 2 evaluation: the +1 and -1 perturbed copies
-        (one ``int8_perturb`` launch per ZO leaf each, the +1 copy freed
-        before the -1 one), two integer forwards, the ternary loss
+        (one ``int8_perturb`` launch for all ZO leaves each, the +1 copy
+        freed before the -1 one), two integer forwards, the ternary loss
         difference. seed: int32 [1] on the device. Returns (g int32 0-d,
         logits_p, acts_p)."""
         zo_p = perturb_int8(zo_part, seed, +1, self.r_max, self.p_zero)

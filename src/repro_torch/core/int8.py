@@ -99,16 +99,17 @@ def psr_shift(x: torch.Tensor, s) -> torch.Tensor:
     """Round x (int32) right by s bits, pseudo-stochastically. s: an int
     or a 0-d int tensor; every count is taken as XLA takes it (for
     s = 0 the threshold shift is 32 and gives 0; for s >= 32 the base is
-    0 and the result is sign(x) * (|x| > thresh))."""
+    0 and the result is sign(x) * (|x| > thresh)). Every intermediate is
+    the int32 value XLA holds, so |INT_MIN| stays INT_MIN."""
     s = _count(s, x)
     x = x.to(_I64)
-    mag = x.abs()
-    base = shr_logical(mag, s)
-    rem = mag - shl(base, s)
-    h = prng.mul32(rem, _PHI) ^ mag
+    mag = wrap32(x.abs())
+    base = wrap32(shr_logical(mag & prng.MASK32, s))
+    rem = wrap32(mag - shl(base, s))
+    h = prng.mul32(rem & prng.MASK32, _PHI) ^ (mag & prng.MASK32)
     h = h ^ (h >> 16)
     thresh = wrap32(shr_logical(h, (32 - s) & prng.MASK32))
-    out = torch.where(s > 0, base + (thresh < rem).to(_I64), mag)
+    out = torch.where(s > 0, wrap32(base + (thresh < rem).to(_I64)), mag)
     return wrap32(torch.sign(x) * out).to(torch.int32)
 
 
@@ -200,20 +201,29 @@ def int8_noise(seed, salt: int, shape, r_max: int, p_zero,
     return (u * keep).to(torch.int32)
 
 
-def _map_q(fn, params):
-    """``fn(path, leaf)`` over the QTensor leaves of a nested dict."""
+def _q_leaves(params):
+    """(salts, int8 data) of the QTensor leaves of a nested dict, in
+    order."""
+    qs = [(path, leaf) for path, leaf in zo.leaves_with_path(params)
+          if isinstance(leaf, QTensor)]
+    return [zo.path_salt(p) for p, _ in qs], [leaf.data for _, leaf in qs]
+
+
+def _with_data(params, datas):
+    """``params`` with its QTensor leaves' data replaced, in order."""
+    it = iter(datas)
     return zo.map_with_path(
-        lambda path, leaf: fn(path, leaf) if isinstance(leaf, QTensor)
-        else leaf, params)
+        lambda path, leaf: QTensor(next(it), leaf.exp)
+        if isinstance(leaf, QTensor) else leaf, params)
 
 
 def perturb_int8(params, seed: torch.Tensor, k: int, r_max: int, p_zero):
     """theta <- clamp(theta + k*z, -127, 127) on every QTensor leaf, out of
-    place: one ``int8_perturb`` launch per leaf. seed: int32 [1] on the
-    leaves' device."""
-    return _map_q(lambda path, leaf: QTensor(
-        ops.int8_perturb(leaf.data, seed, zo.path_salt(path), k, r_max,
-                         p_zero), leaf.exp), params)
+    place: one ``int8_perturb`` launch for the whole tree. seed: int32 [1]
+    on the leaves' device."""
+    salts, datas = _q_leaves(params)
+    return _with_data(params, ops.int8_perturb_leaves(datas, seed, salts, k,
+                                                      r_max, p_zero))
 
 
 def zo_shift(r_max: int, b_zo: int) -> int:
@@ -221,16 +231,27 @@ def zo_shift(r_max: int, b_zo: int) -> int:
     return max(int(r_max).bit_length() - int(b_zo), 0)
 
 
+def replay_int8(params, seeds: torch.Tensor, gs: torch.Tensor, r_max: int,
+                p_zero, shift: int, *, in_place: bool = False):
+    """S steps x P probes of (seed, g) records on every QTensor leaf: one
+    ``zo_fused_replay_int8`` launch for the whole tree. seeds and gs int32
+    [S, P] on the leaves' device. In place (returns ``params``) or out of
+    place."""
+    salts, datas = _q_leaves(params)
+    new = ops.zo_fused_replay_int8_leaves(datas, seeds, gs, salts, r_max,
+                                          p_zero, shift,
+                                          outs=datas if in_place else None)
+    return params if in_place else _with_data(params, new)
+
+
 def zo_update_int8(params, seed: torch.Tensor, g: torch.Tensor, r_max: int,
                    p_zero, b_zo: int):
     """theta <- clamp(theta - psr(g*z, shift), -127, 127) (Alg. 2 lines
-    23-24), out of place: a one-record ``zo_fused_replay_int8``. seed:
-    int32 [1]; g: int32 0-d or [1], both on the leaves' device."""
-    seeds, gs = seed.reshape(1, 1), g.to(torch.int32).reshape(1, 1)
-    shift = zo_shift(r_max, b_zo)
-    return _map_q(lambda path, leaf: QTensor(
-        ops.zo_fused_replay_int8(leaf.data, seeds, gs, zo.path_salt(path),
-                                 r_max, p_zero, shift), leaf.exp), params)
+    23-24), out of place: a one-record ``replay_int8``. seed: int32 [1];
+    g: int32 0-d or [1], both on the leaves' device."""
+    return replay_int8(params, seed.reshape(1, 1),
+                       g.to(torch.int32).reshape(1, 1), r_max, p_zero,
+                       zo_shift(r_max, b_zo))
 
 
 # ------------------------------------------------------------------ #

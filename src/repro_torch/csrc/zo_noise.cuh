@@ -51,47 +51,6 @@ __device__ __forceinline__ float normal(uint32_t idx, uint32_t seed,
   return __fmul_rn(r, cosf(__fmul_rn(kTwoPi, u2)));
 }
 
-// The int8 lane's sparse uniform noise z = m * u (Alg. 2), op for op
-// src/repro_torch/core/int8.py::int8_noise: u = bits_u mod (2 r_max + 1)
-// - r_max from salt 3s+1, and the keep test float32(bits_m) < keep_thresh
-// from salt 3s+2 (keep_thresh = (1 - p_zero) * 2^32, rounded in f32 by
-// the caller). Salts are below 2^30, so 3s+2 stays below 2^32.
-__device__ __forceinline__ int int8_noise(uint32_t idx, uint32_t seed,
-                                          uint32_t salt, int r_max,
-                                          float keep_thresh) {
-  const uint32_t bu = hash_bits(idx, 3u * salt + 1u, seed);
-  const uint32_t bm = hash_bits(idx, 3u * salt + 2u, seed);
-  const int u = static_cast<int>(bu % static_cast<uint32_t>(2 * r_max + 1)) -
-                r_max;
-  return __uint2float_rn(bm) < keep_thresh ? u : 0;
-}
-
-// Pseudo-stochastic rounding of x right by s bits, op for op
-// src/repro/core/int8.py::psr_shift in int32/uint32, with XLA's rule for
-// shift counts outside [0, 32) (0 for left and logical shifts), which C++
-// leaves undefined: every shift below checks its count first.
-__device__ __forceinline__ int psr_shift(int x, int s) {
-  const uint32_t us = static_cast<uint32_t>(s);
-  const bool in_range = us < 32u;
-  const int mag = x < 0 ? static_cast<int>(0u - static_cast<uint32_t>(x)) : x;
-  const uint32_t umag = static_cast<uint32_t>(mag);
-  const int base = in_range ? static_cast<int>(umag >> us) : 0;
-  const int rem =
-      mag - (in_range ? static_cast<int>(static_cast<uint32_t>(base) << us)
-                      : 0);
-  uint32_t h = (static_cast<uint32_t>(rem) * kPhi) ^ umag;
-  h ^= h >> 16;
-  const uint32_t c = 32u - us;
-  const int thresh = static_cast<int>(c < 32u ? h >> c : 0u);
-  const int out = s > 0 ? base + (thresh < rem ? 1 : 0) : mag;
-  if (x > 0) return out;
-  return x < 0 ? static_cast<int>(0u - static_cast<uint32_t>(out)) : 0;
-}
-
-__device__ __forceinline__ int clamp127(int v) {
-  return v < -127 ? -127 : (v > 127 ? 127 : v);
-}
-
 // Element type: load to f32, store from f32 (bf16 rounds to nearest even,
 // as tensor.to(torch.bfloat16) does), and the per-step cast round trip.
 template <typename T>
@@ -126,18 +85,225 @@ struct alignas(sizeof(T) * VEC) Pack {
 
 constexpr int kThreads = 256;
 
-// Blocks for a grid-stride loop over `items` work items: enough to fill
-// the card's 132 SMs many times over, no more.
-inline unsigned grid_for(size_t items) {
-  size_t blocks = (items + kThreads - 1) / kThreads;
+// Blocks for a grid-stride loop over `blocks` blocks' worth of work:
+// enough to fill the card's 132 SMs many times over, no more.
+inline unsigned grid_cap(size_t blocks) {
   const size_t cap = 132 * 16;
   if (blocks > cap) blocks = cap;
   return blocks ? static_cast<unsigned>(blocks) : 1u;
 }
 
+// Blocks for a grid-stride loop over `items` work items of a thread each.
+inline unsigned grid_for(size_t items) {
+  return grid_cap((items + kThreads - 1) / kThreads);
+}
+
 inline bool aligned16(const void* a, const void* b) {
   return ((reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b)) &
           15u) == 0;
+}
+
+// ---- the int8 lane ------------------------------------------------------
+//
+// The sparse uniform noise z = m * u of Alg. 2, op for op
+// src/repro_torch/core/int8.py::int8_noise: u = bits_u mod (2 r_max + 1)
+// - r_max from salt 3s+1, kept where float32(bits_m) < keep_thresh, bits_m
+// from salt 3s+2 (keep_thresh = (1 - p_zero) * 2^32, rounded in f32). The
+// kernels take both from integers only: the host passes the least uint32
+// T with float32(T) >= keep_thresh (kernels/zo_perturb.py::keep_bound;
+// rounding to nearest is monotone, so the tests agree for every bits_m),
+// and the remainder is Lemire's fastmod. Salts are below 2^30, so 3s+2
+// stays below 2^32.
+
+// h ^ (h >> 16), fmix32's first and last step. A logical shift
+// distributes over xor, so xs16(a ^ b) == xs16(a) ^ xs16(b): the seed's
+// share of hash_bits's first step is taken once a record.
+__device__ __forceinline__ uint32_t xs16(uint32_t h) { return h ^ (h >> 16); }
+
+// hash_bits(idx, salt, seed) from t = xs16(idx * kPhi + salt) ^
+// xs16(seed) and sm2 = seed * kM2: the rest of the first fmix32, the seed
+// added, the second fmix32.
+__device__ __forceinline__ uint32_t hash_tail(uint32_t t, uint32_t sm2) {
+  uint32_t h = t * kM1;
+  h ^= h >> 13;
+  h *= kM2;
+  return fmix32(xs16(h) + sm2);
+}
+
+// The per-launch constants of the int8 noise, from the host.
+struct Int8Noise {
+  uint64_t magic;        // ceil(2^64 / d) mod 2^64 (0 for d = 1)
+  uint32_t d;            // 2 r_max + 1
+  int r_max;
+  uint32_t keep_below;   // keep where bits_m < keep_below ...
+  uint32_t keep_all;     // ... or everywhere (no uint32 reaches keep_thresh)
+};
+
+// a mod d for every uint32 a and 1 <= d < 2^32: ((magic * a mod 2^64) * d)
+// >> 64 (Lemire, Kaser and Kurz, "Faster remainder by direct computation",
+// 2019, Theorem 1 with N = 32 and F = 64), the 96-bit product taken in
+// 32-bit pieces.
+__device__ __forceinline__ uint32_t fastmod(uint32_t a, const Int8Noise& nz) {
+  const uint64_t low = nz.magic * a;
+  const uint64_t q = static_cast<uint64_t>(static_cast<uint32_t>(low >> 32)) *
+                         nz.d +
+                     __umulhi(static_cast<uint32_t>(low), nz.d);
+  return static_cast<uint32_t>(q >> 32);
+}
+
+// c * z of one element from its two hashes, wrapping as int32 does:
+// c * (r - r_max) = c * r - c_rmax where kept, else 0.
+__device__ __forceinline__ int scaled_noise(uint32_t bits_u, uint32_t bits_m,
+                                            uint32_t c, uint32_t c_rmax,
+                                            const Int8Noise& nz) {
+  const uint32_t cz = c * fastmod(bits_u, nz) - c_rmax;
+  return bits_m < nz.keep_below || nz.keep_all ? static_cast<int>(cz) : 0;
+}
+
+// Pseudo-stochastic rounding of x right by s bits, op for op
+// src/repro/core/int8.py::psr_shift in int32 (|INT_MIN| stays INT_MIN),
+// with XLA's rule for shift counts outside [0, 32): 0 for a left or
+// logical shift. The count is the same for a whole launch, so the host
+// picks one of three forms and the kernel is built for each.
+enum PsrMode { kPsrNone = 0, kPsrShift = 1, kPsrWide = 2 };
+
+struct Psr {
+  uint32_t s;        // kPsrShift: the count, 0 < s < 32
+  uint32_t low;      // kPsrShift: 2^s - 1
+  uint32_t c;        // kPsrShift: 32 - s
+  uint32_t wide32;   // kPsrWide: s == 32 (the threshold is h), else s > 32 (0)
+};
+
+template <int MODE>
+__device__ __forceinline__ int psr(int x, const Psr& ps) {
+  if (MODE == kPsrNone) return x;   // s <= 0: out = |x|, times sign(x)
+  const uint32_t mag =
+      x < 0 ? 0u - static_cast<uint32_t>(x) : static_cast<uint32_t>(x);
+  uint32_t out;
+  if (MODE == kPsrShift) {
+    const uint32_t rem = mag & ps.low;            // < 2^31: a signed compare
+    const uint32_t h = xs16((rem * kPhi) ^ mag);  // is an unsigned one
+    out = (mag >> ps.s) + ((h >> ps.c) < rem ? 1u : 0u);
+  } else {                                        // base 0, rem = mag
+    const uint32_t h = xs16((mag * kPhi) ^ mag);
+    const int thresh = ps.wide32 ? static_cast<int>(h) : 0;
+    out = thresh < static_cast<int>(mag) ? 1u : 0u;
+  }
+  return static_cast<int>(x < 0 ? 0u - out : out);   // x == 0 gives out 0
+}
+
+__device__ __forceinline__ int clamp127(int v) {
+  return v < -127 ? -127 : (v > 127 ? 127 : v);
+}
+
+// A table of int8 leaves, passed by value as a kernel parameter, so that
+// one launch covers every leaf of a model. The leaves are cut into tiles
+// of kThreads * VEC elements; leaf i holds tiles [tile0, tile_end), and a
+// block walks tiles in a grid-stride loop, finding each tile's leaf by
+// moving forward through the table. Every element keeps its leaf's flat
+// index and salt.
+constexpr int kMaxLeaves = 64;     // kernels/zo_perturb.py::MAX_LEAVES
+
+struct Leaf {
+  const int8_t* in;
+  int8_t* out;                     // may be `in` itself; leaves do not overlap
+  uint32_t n;
+  uint32_t salt1;                  // 3 * salt + 1 (bits_u; bits_m is + 1)
+  uint32_t tile0, tile_end;
+  uint32_t vec_ok;                 // in and out aligned to VEC bytes
+  uint32_t pad;
+};
+
+struct LeafTable {
+  Leaf leaf[kMaxLeaves];
+  uint32_t tiles;
+};
+
+// Runs f(x, first, step, salt1) on every tile: x[j] is element first + j *
+// step of the tile's leaf (int32, zero past the end; stores past the end are
+// dropped). A whole in-range run of VEC elements of an aligned leaf moves
+// as one VEC-byte access (step 1); a partial run (the ragged tail) or an
+// unaligned leaf goes element by element, step 1 or kThreads (coalesced).
+template <int VEC, class F>
+__device__ __forceinline__ void for_each_tile(const LeafTable& t, F&& f) {
+  using P = Pack<int8_t, VEC>;
+  int l = 0;
+  for (uint32_t tile = blockIdx.x; tile < t.tiles; tile += gridDim.x) {
+    while (tile >= t.leaf[l].tile_end) ++l;
+    const Leaf& L = t.leaf[l];
+    const uint64_t lo = static_cast<uint64_t>(tile - L.tile0) * (kThreads * VEC);
+    const uint64_t first = lo + threadIdx.x * VEC;
+    int x[VEC];
+    if (__builtin_expect(L.vec_ok && first + VEC <= L.n, 1)) {
+      P p = *reinterpret_cast<const P*>(L.in + first);
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) x[j] = p.v[j];
+      f(x, static_cast<uint32_t>(first), 1u, L.salt1);
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) p.v[j] = static_cast<int8_t>(x[j]);
+      *reinterpret_cast<P*>(L.out + first) = p;
+      continue;
+    }
+    const uint64_t base = L.vec_ok ? first : lo + threadIdx.x;
+    const uint32_t step = L.vec_ok ? 1u : static_cast<uint32_t>(kThreads);
+    if (base >= L.n) continue;
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) {
+      const uint64_t e = base + static_cast<uint64_t>(j) * step;
+      x[j] = e < L.n ? L.in[e] : 0;
+    }
+    f(x, static_cast<uint32_t>(base), step, L.salt1);
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) {
+      const uint64_t e = base + static_cast<uint64_t>(j) * step;
+      if (e < L.n) L.out[e] = static_cast<int8_t>(x[j]);
+    }
+  }
+}
+
+// Fills the leaf table from the wrapper's rows (count x {in, out, n,
+// salt}, uint64) and returns the elements a thread takes: 16 where that
+// still gives two tiles to each of the 132 SMs, else 4 (LeNet-5's 107,550
+// elements make 107 tiles of 1,024). Returns 0 for a table that does not
+// fit.
+inline int leaf_table(const uint64_t* rows, int count, LeafTable* t) {
+  if (count < 1 || count > kMaxLeaves) return 0;
+  auto tiles_at = [&](int vec) {
+    uint64_t tiles = 0;
+    for (int i = 0; i < count; ++i)
+      tiles += (rows[4 * i + 2] + kThreads * vec - 1) / (kThreads * vec);
+    return tiles;
+  };
+  const int vec = tiles_at(16) >= 2 * 132 ? 16 : 4;
+  if (tiles_at(vec) >= (1ull << 31)) return 0;
+  uint32_t tiles = 0;
+  for (int i = 0; i < count; ++i) {
+    const uint64_t* r = rows + 4 * i;
+    Leaf& L = t->leaf[i];
+    L.in = reinterpret_cast<const int8_t*>(r[0]);
+    L.out = reinterpret_cast<int8_t*>(r[1]);
+    L.n = static_cast<uint32_t>(r[2]);
+    L.salt1 = 3u * static_cast<uint32_t>(r[3]) + 1u;
+    L.tile0 = tiles;
+    tiles += static_cast<uint32_t>((r[2] + kThreads * vec - 1) /
+                                   (kThreads * vec));
+    L.tile_end = tiles;
+    L.vec_ok = ((r[0] | r[1]) % vec) == 0;
+    L.pad = 0;
+  }
+  t->tiles = tiles;
+  return vec;
+}
+
+inline Int8Noise int8_noise_consts(int r_max, uint64_t magic,
+                                   uint64_t keep_below) {
+  Int8Noise nz;
+  nz.magic = magic;
+  nz.d = 2u * static_cast<uint32_t>(r_max) + 1u;
+  nz.r_max = r_max;
+  nz.keep_below = static_cast<uint32_t>(keep_below);
+  nz.keep_all = keep_below > 0xFFFFFFFFull;
+  return nz;
 }
 
 }  // namespace zo

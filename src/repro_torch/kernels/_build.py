@@ -22,6 +22,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _libs: Dict[str, ctypes.CDLL] = {}
+_fns: Dict[tuple, object] = {}
 
 
 def _nvcc() -> str:
@@ -82,3 +83,16 @@ def load(name: str) -> ctypes.CDLL:
             build_all()
         _libs[name] = ctypes.CDLL(str(out))
     return _libs[name]
+
+
+def function(name: str, symbol: str, argtypes):
+    """The C entry point ``symbol`` of ``csrc/<name>.cu``, its ctypes
+    signature (``argtypes``, an int return) set once, when it is first
+    loaded."""
+    key = (name, symbol)
+    if key not in _fns:
+        fn = getattr(load(name), symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _fns[key] = fn
+    return _fns[key]

@@ -84,31 +84,54 @@ def zo_fused_replay(theta, seeds, coeffs, salt: int, out=None):
     raise ValueError(f"zo_fused_replay: no path for {theta.device}")
 
 
-def int8_perturb(theta, seed, salt: int, k: int, r_max: int, p_zero):
-    """theta' = clamp(theta + k * z, -127, 127) on an int8 leaf, z the int8
-    lane's sparse uniform noise from (seed, salt, flat index). seed: an
-    int32 [1] tensor on theta's device holding the uint32 seed."""
-    if theta.is_cuda:
-        return _perturb.int8_perturb(theta, seed, salt, k, r_max, p_zero)
-    if theta.device.type == "cpu":
-        return ref.int8_perturb_ref(theta, seed, salt, k, r_max, p_zero)
-    raise ValueError(f"int8_perturb: no path for {theta.device}")
+def _leaves_device(name: str, thetas):
+    dev = thetas[0].device
+    if any(t.device != dev for t in thetas):
+        raise ValueError(f"{name}: the leaves are not on one device")
+    return dev
 
 
-def zo_fused_replay_int8(theta, seeds, gs, salt: int, r_max: int, p_zero,
-                         shift: int, out=None):
-    """S steps x P probes of (seed, ternary g) records applied to one int8
-    leaf, int32 accumulate then one clamp per step. seeds int32 [S, P]
-    (uint32 values), gs int32 [S, P], on theta's device. ``out`` may be
-    theta itself (an in-place update)."""
-    if theta.is_cuda:
-        return _replay.zo_fused_replay_int8(theta, seeds, gs, salt, r_max,
-                                            p_zero, shift, out=out)
-    if theta.device.type == "cpu":
-        new = ref.zo_fused_replay_int8_ref(theta, seeds, gs, salt, r_max,
-                                           p_zero, shift)
-        return new if out is None else out.copy_(new)
-    raise ValueError(f"zo_fused_replay_int8: no path for {theta.device}")
+def int8_perturb_leaves(thetas, seed, salts, k: int, r_max: int, p_zero):
+    """theta' = clamp(theta + k * z, -127, 127) on every int8 leaf of
+    ``thetas``, z the int8 lane's sparse uniform noise from (seed, the
+    leaf's salt, the leaf's flat index). seed: an int32 [1] tensor on the
+    leaves' device holding the uint32 seed; k, r_max and p_zero are host
+    numbers shared by all leaves. On the card one launch covers up to
+    ``zo_perturb.MAX_LEAVES`` leaves and the new leaves are views into one
+    buffer; on the CPU each leaf takes the plain version. Returns the new
+    leaves in order."""
+    if not thetas:
+        return []
+    dev = _leaves_device("int8_perturb", thetas)
+    if dev.type == "cuda":
+        return _perturb.int8_perturb_leaves(thetas, seed, salts, k, r_max,
+                                            p_zero)
+    if dev.type == "cpu":
+        return [ref.int8_perturb_ref(t, seed, salt, k, r_max, p_zero)
+                for t, salt in zip(thetas, salts)]
+    raise ValueError(f"int8_perturb: no path for {dev}")
+
+
+def zo_fused_replay_int8_leaves(thetas, seeds, gs, salts, r_max: int, p_zero,
+                                shift: int, outs=None):
+    """S steps x P probes of (seed, ternary g) records applied to every
+    int8 leaf of ``thetas`` (each leaf its own salt), int32 accumulate
+    then one clamp per step. seeds int32 [S, P] (uint32 values), gs int32
+    [S, P], on the leaves' device; one launch on the card as
+    ``int8_perturb_leaves``. ``outs`` may be ``thetas`` itself (an
+    in-place update). Returns the new leaves (or ``outs``) in order."""
+    if not thetas:
+        return []
+    dev = _leaves_device("zo_fused_replay_int8", thetas)
+    if dev.type == "cuda":
+        return _replay.zo_fused_replay_int8_leaves(
+            thetas, seeds, gs, salts, r_max, p_zero, shift, outs=outs)
+    if dev.type == "cpu":
+        new = [ref.zo_fused_replay_int8_ref(t, seeds, gs, salt, r_max, p_zero,
+                                            shift)
+               for t, salt in zip(thetas, salts)]
+        return new if outs is None else [o.copy_(n) for o, n in zip(outs, new)]
+    raise ValueError(f"zo_fused_replay_int8: no path for {dev}")
 
 
 def int8_matmul(a, w):

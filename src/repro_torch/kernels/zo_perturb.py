@@ -3,14 +3,21 @@ csrc/int8_perturb.cu).
 
 The ports of ``repro/kernels/zo_perturb.py``: ``zo_perturb``, theta' =
 cast(theta + scale * z), z regenerated from (seed, salt, flat index); and
-``int8_perturb``, theta' = clamp(theta + k * z, -127, 127) with the int8
-lane's sparse uniform z. ``launches`` and ``int8_launches`` count the
-launches of each kernel and nothing else.
+``int8_perturb_leaves``, theta' = clamp(theta + k * z, -127, 127) with the
+int8 lane's sparse uniform z, on every int8 leaf of a model in one launch
+(``int8_perturb`` is a table of one leaf). ``launches`` and
+``int8_launches`` count the launches of each kernel and nothing else.
+
+The int8 kernels take the noise's keep test and remainder as integer
+constants computed here once a launch: ``keep_bound`` and
+``fastmod_magic``.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
+import numpy as np
 import torch
 
 from . import _build
@@ -19,17 +26,20 @@ launches = 0
 int8_launches = 0
 
 _P = ctypes.c_void_p
+_I = ctypes.c_int
+_U32 = ctypes.c_uint32
+_U64 = ctypes.c_uint64
 _SYMBOLS = {torch.float32: "zo_perturb_f32", torch.bfloat16: "zo_perturb_bf16"}
+_ZO_ARGS = [_P, _P, _P, _U32, ctypes.c_float, _U32, _U32, _P]
+_INT8_ARGS = [_P, _I, _P, _I, _I, _U64, _U64, _P]
 MAX_ELEMENTS = 2**32 - 1        # flat indices are uint32
 MAX_SALT = 2**30                # 2 * salt + 2 must stay below 2**32
+MAX_LEAVES = 64                 # leaf-table entries a launch (csrc/zo_noise.cuh)
+ALIGN = 16                      # bytes: where each new int8 leaf starts
 
 
 def _fn(dtype):
-    fn = getattr(_build.load("zo_perturb"), _SYMBOLS[dtype])
-    fn.argtypes = [_P, _P, _P, ctypes.c_uint32, ctypes.c_float,
-                   ctypes.c_uint32, ctypes.c_uint32, _P]
-    fn.restype = ctypes.c_int
-    return fn
+    return _build.function("zo_perturb", _SYMBOLS[dtype], _ZO_ARGS)
 
 
 def check_leaf(name: str, theta, out, salt: int, dtypes=tuple(_SYMBOLS)):
@@ -84,26 +94,105 @@ def zo_perturb(theta, seed, salt: int, scale: float, offset: int = 0):
     return out
 
 
-def int8_perturb(theta, seed, salt: int, k: int, r_max: int, p_zero):
-    """theta [any] int8 contiguous on a CUDA device; seed an int32 [1]
-    tensor on the same device holding the uint32 seed; k and r_max host
-    ints; p_zero a host float (the keep threshold is rounded in f32 as
-    ``core.int8.keep_threshold`` does). Returns a new tensor."""
-    global int8_launches
+def fastmod_magic(d: int) -> int:
+    """ceil(2**64 / d) mod 2**64, Lemire's fastmod constant: a mod d ==
+    ((magic * a mod 2**64) * d) >> 64 for every uint32 a and 1 <= d <
+    2**32 (``csrc/zo_noise.cuh::fastmod``)."""
+    return ((2**64 - 1) // d + 1) % 2**64
+
+
+@functools.lru_cache(maxsize=None)
+def keep_bound(p_zero) -> int:
+    """The int8 noise's keep test as an integer bound: the least T in [0,
+    2**32] such that ``float32(b) < keep_threshold(p_zero)`` is false for
+    b = T (2**32 where it holds for every uint32). Rounding a uint32 to
+    float32 is monotone, so the test holds exactly where b < T."""
     from ..core.int8 import keep_threshold
-    check_leaf("int8_perturb", theta, None, salt, (torch.int8,))
-    seed = device_ints("int8_perturb seed", seed, theta.device, (1,))
-    out = torch.empty_like(theta)
-    if theta.numel() == 0:
-        return out
-    fn = _build.load("int8_perturb").int8_perturb
-    fn.argtypes = [_P, _P, _P, ctypes.c_uint32, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_float, ctypes.c_uint32, _P]
-    fn.restype = ctypes.c_int
-    stream = torch.cuda.current_stream(theta.device).cuda_stream
-    rc = fn(theta.data_ptr(), out.data_ptr(), seed.data_ptr(), salt, int(k),
-            int(r_max), keep_threshold(p_zero), theta.numel(), stream)
-    if rc:
-        raise RuntimeError(f"int8_perturb: launch failed with CUDA error {rc}")
-    int8_launches += 1
-    return out
+    thresh = np.float32(keep_threshold(p_zero))
+    lo, hi = 0, 2**32
+    while lo < hi:
+        mid = (lo + hi) // 2
+        if np.float32(np.uint32(mid)) < thresh:
+            lo = mid + 1
+        else:
+            hi = mid
+    return lo
+
+
+def int8_noise_args(name: str, r_max: int, p_zero):
+    """(r_max, fastmod magic of 2 r_max + 1, keep bound): the int8
+    kernels' noise constants."""
+    if not 0 <= int(r_max) < 2**31:
+        raise ValueError(f"{name}: r_max {r_max} is outside [0, 2**31)")
+    return int(r_max), fastmod_magic(2 * int(r_max) + 1), keep_bound(p_zero)
+
+
+def new_leaves(thetas):
+    """Tensors shaped like ``thetas``, views into one new int8 buffer, each
+    starting on an ALIGN-byte boundary."""
+    offsets, total = [], 0
+    for t in thetas:
+        offsets.append(total)
+        total += -(-t.numel() // ALIGN) * ALIGN
+    buf = torch.empty(total, dtype=torch.int8, device=thetas[0].device)
+    return [buf[o:o + t.numel()].view(t.shape)
+            for o, t in zip(offsets, thetas)]
+
+
+def leaf_table(name: str, thetas, salts, outs=None):
+    """(rows, outs): the int8 kernels' leaf table after the leaf checks,
+    one row {theta, out, n, salt} (uint64) for each leaf that holds
+    elements, and the outputs (``new_leaves`` where ``outs`` is None).
+    An out may be its theta itself; distinct leaves must not overlap."""
+    if len(thetas) != len(salts) or (outs is not None
+                                     and len(outs) != len(thetas)):
+        raise ValueError(f"{name}: {len(thetas)} leaves and {len(salts)} "
+                         "salts (and as many outs)")
+    dev = thetas[0].device
+    for i, (theta, salt) in enumerate(zip(thetas, salts)):
+        check_leaf(name, theta, None if outs is None else outs[i], salt,
+                   (torch.int8,))
+        if theta.device != dev:
+            raise ValueError(f"{name}: leaves on {dev} and {theta.device}")
+    outs = new_leaves(thetas) if outs is None else list(outs)
+    rows = [(t.data_ptr(), o.data_ptr(), t.numel(), salt)
+            for t, o, salt in zip(thetas, outs, salts) if t.numel()]
+    return np.array(rows, dtype=np.uint64).reshape(-1, 4), outs
+
+
+def launch_leaves(name: str, rows: np.ndarray, launch) -> int:
+    """Calls ``launch(table, count)`` on the rows, at most MAX_LEAVES a
+    call, raising on a CUDA error. Returns the number of launches."""
+    for lo in range(0, len(rows), MAX_LEAVES):
+        table = rows[lo:lo + MAX_LEAVES]
+        rc = launch(table.ctypes.data, len(table))
+        if rc:
+            raise RuntimeError(f"{name}: launch failed with CUDA error {rc}")
+    return -(-len(rows) // MAX_LEAVES)
+
+
+def int8_perturb_leaves(thetas, seed, salts, k: int, r_max: int, p_zero):
+    """int8 leaves ``thetas`` (contiguous, on one CUDA device), each with
+    its salt; seed an int32 [1] tensor on that device holding the uint32
+    seed; k and r_max host ints; p_zero a host float. Returns the new
+    leaves, views into one new buffer (see ``new_leaves``); one launch
+    for every MAX_LEAVES leaves."""
+    global int8_launches
+    if not thetas:
+        return []
+    if not -2**31 <= int(k) < 2**31:
+        raise ValueError(f"int8_perturb: k {k} is outside the int32 range")
+    rows, outs = leaf_table("int8_perturb", thetas, salts)
+    seed = device_ints("int8_perturb seed", seed, thetas[0].device, (1,))
+    r, magic, keep = int8_noise_args("int8_perturb", r_max, p_zero)
+    fn = _build.function("int8_perturb", "int8_perturb", _INT8_ARGS)
+    stream = torch.cuda.current_stream(thetas[0].device).cuda_stream
+    int8_launches += launch_leaves(
+        "int8_perturb", rows, lambda table, count: fn(
+            table, count, seed.data_ptr(), int(k), r, magic, keep, stream))
+    return outs
+
+
+def int8_perturb(theta, seed, salt: int, k: int, r_max: int, p_zero):
+    """``int8_perturb_leaves`` on one leaf. Returns a new tensor."""
+    return int8_perturb_leaves([theta], seed, [salt], k, r_max, p_zero)[0]

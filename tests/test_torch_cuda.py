@@ -489,6 +489,95 @@ def test_int8_noise_kernels_match_plain_bitwise(dev, n, skip):
     assert torch.equal(live, fused)
 
 
+LENET_INT8 = [(5, 5, 1, 6), (5, 5, 6, 16), (784, 120), (120, 84), (84, 10)]
+
+
+def _int8_model(dev, shapes, seed=0):
+    """int8 leaves of ``shapes`` on the card, their salts, and the records
+    of 8 steps x 4 probes with one g = 0."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    leaves = [torch.randint(-127, 128, s, generator=g, dtype=torch.int8)
+              .to(dev) for s in shapes]
+    salts = [(977 * i + 13) % 2**30 for i in range(len(shapes))]
+    seeds, _ = _zo_records(dev, 8, 4)
+    gs = torch.from_numpy(np.random.default_rng(seed).choice(
+        np.array([-1, 1], np.int32), (8, 4))).to(dev)
+    gs[4, 2] = 0
+    return leaves, salts, seeds, gs
+
+
+@pytest.mark.parametrize("copies", [1, 10], ids=["vec4", "vec16"])
+def test_int8_whole_model_launch_matches_per_leaf_plain(dev, copies):
+    """One launch over LeNet-5's five int8 leaves (and a view off 16-byte
+    alignment) equals the plain version leaf by leaf: the perturbation,
+    the update S = 1 in place, and the catch-up S = 8 x P = 4. The kernels
+    take 16 elements a thread where that gives 264 tiles of 4,096: one
+    copy of the leaves makes 30 (so 4 a thread), ten make 291 (16)."""
+    leaves, salts, seeds, gs = _int8_model(dev, LENET_INT8 * copies)
+    buf = torch.randint(-127, 128, (999,), dtype=torch.int8).to(dev)
+    leaves.append(buf[3:3 + 841])
+    salts.append(5)
+    n0 = zo_perturb.int8_launches
+    for k in (1, -1):
+        got = zo_perturb.int8_perturb_leaves(leaves, seeds[0, :1], salts, k,
+                                             3, 0.33)
+        for t, o, salt in zip(leaves, got, salts):
+            assert o.data_ptr() % 16 == 0
+            assert torch.equal(o, ref.int8_perturb_ref(t, seeds[0, :1], salt,
+                                                       k, 3, 0.33))
+    assert zo_perturb.int8_launches == n0 + 2
+    n0 = zo_fused_replay.int8_launches
+    for sd, g in ((seeds[:1, :1], gs[:1, :1]), (seeds, gs)):
+        want = [ref.zo_fused_replay_int8_ref(t, sd, g, salt, 3, 0.33, 1)
+                for t, salt in zip(leaves, salts)]
+        got = zo_fused_replay.zo_fused_replay_int8_leaves(
+            leaves, sd, g, salts, 3, 0.33, 1)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    live = [t.clone() for t in leaves]
+    for s in range(8):
+        zo_fused_replay.zo_fused_replay_int8_leaves(
+            live, seeds[s:s + 1], gs[s:s + 1], salts, 3, 0.33, 1, outs=live)
+    assert all(torch.equal(a, b) for a, b in zip(live, want))
+    assert zo_fused_replay.int8_launches == n0 + 2 + 8
+
+
+def test_int8_table_above_the_cap_splits_launches(dev):
+    n = zo_perturb.MAX_LEAVES + 7
+    shapes = [(17 + 5 * i,) for i in range(n)]
+    leaves, salts, seeds, gs = _int8_model(dev, shapes, seed=1)
+    n0 = (zo_perturb.int8_launches, zo_fused_replay.int8_launches)
+    got = zo_perturb.int8_perturb_leaves(leaves, seeds[0, :1], salts, 1, 3,
+                                         0.33)
+    rep = zo_fused_replay.zo_fused_replay_int8_leaves(leaves, seeds, gs,
+                                                      salts, 3, 0.33, 1)
+    assert (zo_perturb.int8_launches - n0[0],
+            zo_fused_replay.int8_launches - n0[1]) == (2, 2)
+    for t, a, b, salt in zip(leaves, got, rep, salts):
+        assert torch.equal(a, ref.int8_perturb_ref(t, seeds[0, :1], salt, 1,
+                                                   3, 0.33))
+        assert torch.equal(b, ref.zo_fused_replay_int8_ref(
+            t, seeds, gs, salt, 3, 0.33, 1))
+
+
+@pytest.mark.parametrize("r_max,p_zero", [(0, 0.5), (1, 0.0), (7, 1.0),
+                                          (100, 0.33)])
+@pytest.mark.parametrize("shift", [-2, 0, 5, 31, 32, 40])
+def test_int8_replay_every_shift_form_and_large_g(dev, r_max, p_zero, shift):
+    """Each of psr's three forms (s <= 0, 0 < s < 32, s >= 32) with g as
+    large as 2**30, so g * z reaches INT_MIN, at the ends of p_zero."""
+    leaves, salts, seeds, _ = _int8_model(dev, [(4099,), (130, 3)], seed=2)
+    gs = torch.tensor([[1, -1, 2**30, -2**30], [0, 3, -7, 2**29]],
+                      dtype=torch.int32, device=dev)
+    got = zo_fused_replay.zo_fused_replay_int8_leaves(
+        leaves, seeds[:2], gs, salts, r_max, p_zero, shift)
+    for t, o, salt in zip(leaves, got, salts):
+        assert torch.equal(o, ref.zo_fused_replay_int8_ref(
+            t, seeds[:2], gs, salt, r_max, p_zero, shift))
+        assert torch.equal(
+            zo_perturb.int8_perturb(t, seeds[0, :1], salt, 3, r_max, p_zero),
+            ref.int8_perturb_ref(t, seeds[0, :1], salt, 3, r_max, p_zero))
+
+
 @pytest.mark.parametrize("M,K,N,skip", [(37, 25, 6, 0), (50176, 25, 6, 1),
                                         (65, 129, 67, 3), (1, 1, 1, 0),
                                         (256, 784, 120, 0), (8, 0, 5, 0)])

@@ -219,8 +219,8 @@ def test_int8_replay_plain_matches_pallas_and_live_equals_replay():
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     live = _t(theta)
     for s in range(3):
-        ops.zo_fused_replay_int8(live, sd[s:s + 1], g[s:s + 1], 555, R_MAX,
-                                 P_ZERO, 1, out=live)
+        ops.zo_fused_replay_int8_leaves([live], sd[s:s + 1], g[s:s + 1],
+                                        [555], R_MAX, P_ZERO, 1, outs=[live])
     np.testing.assert_array_equal(live.numpy(), got.numpy())
 
 
@@ -425,18 +425,19 @@ def test_int8_lane_matches_jax(jparams, jax_steps, lane_idx, loss_mode):
 
 def test_lenet_int8_launches_per_step():
     """Kernel calls per step at 1 probe (the counts chip_smoke.py asserts
-    on the card): int8_perturb 2 per ZO leaf, zo_fused_replay_int8 1 per
-    ZO leaf, int8_matmul 5 per forward and 2 per tail FC."""
-    calls = dict.fromkeys(("int8_perturb", "zo_fused_replay_int8",
-                           "int8_matmul"), 0)
+    on the card): int8_perturb 2 (one for all ZO leaves a perturbation),
+    zo_fused_replay_int8 1 (all ZO leaves), int8_matmul 5 per forward and
+    2 per tail FC."""
+    calls = dict.fromkeys(("int8_perturb_leaves",
+                           "zo_fused_replay_int8_leaves", "int8_matmul"), 0)
     mp = pytest.MonkeyPatch()
     for name in calls:
         def counted(*a, _fn=getattr(ops, name), _name=name, **k):
             calls[_name] += 1
             return _fn(*a, **k)
         mp.setattr(ops, name, counted)
-    want = {"full_zo": (10, 5, 10), "zo_feat_cls2": (6, 3, 14),
-            "zo_feat_cls1": (8, 4, 12)}
+    want = {"full_zo": (2, 1, 10), "zo_feat_cls2": (2, 1, 14),
+            "zo_feat_cls1": (2, 1, 12)}
     try:
         xs, ys = jglyphs(4, seed=0)
         batch = {"x": q.quant_from_float(_t(xs)), "y": _t(ys)}

@@ -10,9 +10,14 @@ eight requests with qwen3-4b at full width and depth (36 layers, bf16,
 random weights from a seed), trains LeNet-5 in the paper's four fp32
 lanes (Table 1) and in its three ElasticZO-INT8 lanes in both loss modes
 (Table 1's INT8 and INT8* columns, integer arithmetic through the int8
-kernels), and trains qwen3-4b at full width and depth for a few ElasticZO
-steps, unfused and with the fused antithetic probe pair at seq 4096
-(the ZO forwards and the prefill attend through the flash kernel).
+kernels), trains PointNet, the paper's second model, in its four fp32
+lanes (Table 1, then timed at Fig. 6's 1024 points), runs its full-width
+int8 forward against the CPU, runs the paper-table runner
+(``repro_torch.benchmarks.run --fast``) in process, and trains qwen3-4b
+at full width and depth for a few ElasticZO steps, unfused and with the
+fused antithetic probe pair at seq 4096 (the ZO forwards and the prefill
+attend through the flash kernel). The LeNet-5 and PointNet lanes run
+through the package's own harness (``benchmarks/paper_tables.py``).
 
 The last three lines of its output are the card's name and power limit
 (nvidia-smi), a JSON line of per-kernel numbers, and
@@ -155,23 +160,24 @@ def event_ms(fn, iters, flush=None):
 
 
 def kernel_records(fn, calls=3, attempts=5):
-    """{kernel name: records} of ``calls`` fn() calls, profiled after
-    WARM_CALLS discarded calls as device_ms does; a run whose records do
-    not come in whole calls is profiled again."""
+    """{kernel name: (records, device ms)} of ``calls`` fn() calls,
+    profiled after WARM_CALLS discarded calls as device_ms does; a run
+    whose records do not come in whole calls is profiled again."""
     from torch.profiler import ProfilerActivity, profile, schedule
     for _ in range(attempts):
         got = []
         with profile(activities=[ProfilerActivity.CUDA],
                      schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
                      on_trace_ready=lambda p: got.append(
-                         {e.key: e.count for e in p.key_averages()
+                         {e.key: (e.count, e.self_device_time_total / 1e3)
+                          for e in p.key_averages()
                           if str(e.device_type).endswith("CUDA")})) as prof:
             for n in (WARM_CALLS, calls):
                 for _ in range(n):
                     fn()
                     torch.cuda.synchronize()
                 prof.step()
-        if got and got[0] and all(c % calls == 0 for c in got[0].values()):
+        if got and got[0] and all(c % calls == 0 for c, _ in got[0].values()):
             return got[0]
     raise RuntimeError(f"the profiler dropped kernel records in {attempts} "
                        "runs")
@@ -242,8 +248,9 @@ def check_paged(paged_attn, ref, P):
 
     # timing at the main path's case: bf16, full attention
     q, kn, vn, kp, vp, table, sl = paged_case(torch.bfloat16, 0, P)
-    records = kernel_records(lambda: paged_attn.paged_attention_step(
-        q, kn, vn, kp, vp, table, sl, scale=128 ** -0.5))
+    records = {k: c for k, (c, _) in kernel_records(
+        lambda: paged_attn.paged_attention_step(
+            q, kn, vn, kp, vp, table, sl, scale=128 ** -0.5)).items()}
     print(f"paged_attention_step: kernel records per call {records} "
           "(3 calls)")
     if len(records) != 1 or sum(records.values()) != 3:
@@ -1120,6 +1127,12 @@ MM_FORWARD = [(64 * 784, 25, 6), (64 * 196, 150, 16), (64, 784, 120),
               (64, 120, 84), (64, 84, 10)]
 MM_BACKWARD = [(84, 64, 10), (64, 10, 84), (120, 64, 84), (64, 84, 120)]
 MM_ODD = [(1, 1, 1), (65, 129, 67), (1000, 33, 7), (3, 0, 5), (127, 4097, 3)]
+# (M, K, N) of PointNet's int8 forward at full width, batch 32 x 1024
+# points: the five pointwise layers over B*N rows (the first with K = 3;
+# feat1 and feat2 share a shape), then the head's three over B rows
+MM_POINTNET = [(32 * 1024, 3, 64), (32 * 1024, 64, 64), (32 * 1024, 64, 128),
+               (32 * 1024, 128, 1024), (32, 1024, 512), (32, 512, 256),
+               (32, 256, 40)]
 MM_MISALIGNED = [(64 * 784, 25, 6, 1), (1000, 4096, 1000, 1)]
 
 
@@ -1145,7 +1158,8 @@ def check_int8_matmul(int8_mm, ref):
         return a, w
 
     worst = 0
-    for M, K, N in [(4096, 4096, 4096)] + MM_FORWARD + MM_BACKWARD + MM_ODD:
+    for M, K, N in [(4096, 4096, 4096)] + MM_FORWARD + MM_BACKWARD + MM_ODD \
+            + MM_POINTNET:
         a, w = case(M, K, N)
         out, mx = int8_mm.int8_matmul(a, w)
         want, want_mx = ref.int8_matmul_ref(a, w)
@@ -1173,7 +1187,9 @@ def check_int8_matmul(int8_mm, ref):
                                  f"{int(mx)} vs {int(want_mx)}")
     print(f"int8_matmul: out and max|out| bitwise the plain version at "
           f"4096^3, the 5 forward and 4 backward shapes of a batch-64 LeNet-5 "
-          f"step, {len(MM_ODD)} odd shapes, {len(MM_MISALIGNED)} views one "
+          f"step, the {len(MM_POINTNET)} shapes of PointNet's int8 forward "
+          f"(K = 3 first), {len(MM_ODD)} odd shapes, {len(MM_MISALIGNED)} "
+          "views one "
           f"byte off alignment and K = {int8_mm.MAX_K} (MAX_K)")
     a, w = case(4096, 4096, 4096)
     ms = event_ms(lambda: int8_mm.int8_matmul(a, w), 10)
@@ -1201,6 +1217,19 @@ def check_int8_matmul(int8_mm, ref):
               f"ms, bound {b:.5f} ms by {by_}")
     print(f"int8_matmul at the path's 9 shapes: kernel {path_ms:.4f} ms in "
           f"all, plain {path_plain:.4f} ms, bound {path_bound:.5f} ms")
+    # PointNet's 8 forward products (feat1 and feat2 share a shape) timed
+    # as one forward's worth, with CUDA events over 20 back-to-back runs:
+    # 8 launches a run keep the card busier than the host that issues them
+    cases = [case(M, K, N) for M, K, N in MM_POINTNET[:2] + MM_POINTNET[1:]]
+    pn_ms = event_ms(lambda: [int8_mm.int8_matmul(a, w) for a, w in cases],
+                     20)
+    pn_plain = event_ms(lambda: [ref.int8_matmul_ref(a, w)
+                                 for a, w in cases], 20)
+    pn_bound = sum(mm_bound_ms(*mkn)[0]
+                   for mkn in MM_POINTNET[:2] + MM_POINTNET[1:])
+    print(f"int8_matmul at PointNet's 8 forward products (32 x 1024 points, "
+          f"full width): kernel {pn_ms:.4f} ms in all, plain {pn_plain:.4f} "
+          f"ms, bound {pn_bound:.5f} ms (CUDA events over 20 runs)")
     return dict(max_abs_err=float(worst), ms=ms, plain_ms=plain_ms,
                 bound_ms=bound, bound_by=by, library_ms=library_ms)
 
@@ -1393,66 +1422,26 @@ LENET_PERTURB_PER_STEP = {"full_zo": 80, "zo_feat_cls2": 48,
                           "zo_feat_cls1": 64, "full_bp": 0}
 
 
-def lenet_lanes(steps):
-    """benchmarks/paper_tables.py::lenet_lane_configs at its defaults, as
-    the port's LaneConfigs: (name, lane, partition point C)."""
-    from repro_torch.configs import LaneConfig
-    dk = dict(lr_decay_factor=0.8, lr_decay_every=max(steps // 10, 1))
-    zo = dict(learning_rate=5e-3, zo_eps=1e-2, zo_num_probes=4, **dk)
-    return [
-        ("full_zo", LaneConfig(lane="full_zo", **zo), 5),
-        ("zo_feat_cls2", LaneConfig(lane="elastic_zo", tail_learning_rate=0.05,
-                                    **zo), 3),
-        ("zo_feat_cls1", LaneConfig(lane="elastic_zo", tail_learning_rate=0.05,
-                                    **zo), 4),
-        ("full_bp", LaneConfig(lane="full_bp", learning_rate=0.05, **dk), 0),
-    ]
-
-
 def check_lenet(zo_perturb, zo_replay, steps=150, batch=32):
-    """Each lane from the same init (seed 7) and key (11) for ``steps``
-    steps on glyphs(2048, seed=0), evaluated on glyphs(512, seed=1,
-    start=10000): the settings behind BENCH_paper.json's Table 1."""
-    from repro_torch.core import keys
-    from repro_torch.core.elastic import TrainState, make_elastic_step
-    from repro_torch.data.synthetic import glyphs
-    from repro_torch.models import lenet
-    xs, ys = glyphs(2048, seed=0)
-    xte, yte = glyphs(512, seed=1, start=10_000)
-    xte, yte = torch.from_numpy(xte).cuda(), torch.from_numpy(yte).cuda()
+    """Each lane through repro_torch.benchmarks.paper_tables.lenet_lanes,
+    one lane a call so that its launches can be read: from the same init
+    (seed 7) and key (11) for ``steps`` steps on glyphs(2048, seed=0),
+    evaluated on glyphs(512, seed=1, start=10000), the settings behind
+    BENCH_paper.json's Table 1."""
+    from repro_torch.benchmarks.paper_tables import lenet_lanes
     acc, peak, train_mem = {}, {}, {}
-    for name, lane, c in lenet_lanes(steps):
-        part = (lambda p, c=c: lenet.partition_at(p, c)) \
-            if lane.lane == "elastic_zo" else None
-        step = make_elastic_step(lenet.lenet5_loss, lane, partition_fn=part)
-        state = TrainState(lenet.init_lenet5(7, device="cuda"), 0,
-                           keys.key_data(11))
-        mask = np.ones((lane.zo_num_probes,), np.float32)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        base = torch.cuda.memory_allocated()
-        param_bytes = sum(4 * t.numel() for t in _leaves(state.params))
+    for name in LENET_JAX_CPU_ACC:
         zo_perturb.launches = zo_replay.launches = 0
-        t0 = time.perf_counter()
-        for s in range(steps):
-            i0 = (s * batch) % len(xs)
-            state, m = step(state, {
-                "x": torch.from_numpy(xs[i0:i0 + batch]).cuda(),
-                "y": torch.from_numpy(ys[i0:i0 + batch]).cuda()}, mask)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        r = lenet_lanes(steps, batch, lanes=[name])[name]
         n_p, n_r = zo_perturb.launches, zo_replay.launches
-        peak[name] = torch.cuda.max_memory_allocated()
-        train_mem[name] = param_bytes + peak[name] - base
-        loss = float(m["loss"])
-        with torch.no_grad():
-            logits, _ = lenet.lenet5_forward(state.params, xte)
-            acc[name] = float((logits.argmax(-1) == yte).float().mean())
+        acc[name], peak[name], train_mem[name] = \
+            r.acc, r.peak_bytes, r.memory_bytes
+        loss = r.history[-1][1]
         committed, current = LENET_JAX_CPU_ACC[name]
         print(f"lenet {name:13s}: test accuracy {acc[name]:.4f} (JAX on the "
               f"CPU: {committed:.3f} in BENCH_paper.json, {current:.3f} with "
               f"jax 0.9.0), last loss {loss:.4f}, "
-              f"{1e3 * wall / steps:.3f} ms per step, peak device memory "
+              f"{1e3 * r.train_s / steps:.3f} ms per step, peak device memory "
               f"{peak[name]} bytes (training memory {train_mem[name]} "
               f"bytes: parameters plus the loop's peak growth), launches "
               "per step: zo_perturb "
@@ -1472,6 +1461,197 @@ def check_lenet(zo_perturb, zo_replay, steps=150, batch=32):
           "training memory full_bp / full_zo = "
           f"{train_mem['full_bp'] / train_mem['full_zo']:.3f}")
     return train_mem
+
+
+# --------------------------------------------------------------------- #
+# training: PointNet in the paper's four fp32 lanes (Table 1, Fig. 6)
+# --------------------------------------------------------------------- #
+# Test accuracy of the JAX package on the CPU at the benchmarks/run.py
+# --fast setting (100 steps at batch 32, 256 points, 8 classes): as
+# committed in BENCH_paper.json, and as
+# benchmarks/paper_tables.py::pointnet_lanes(steps=100) gives it with
+# jax 0.9.0, the JAX package's current state.
+POINTNET_JAX_CPU_ACC = {"full_zo": (0.125, 0.125),
+                        "zo_feat_cls2": (0.125, 0.125),
+                        "zo_feat_cls1": (0.25, 0.125),
+                        "full_bp": (0.453125, 0.6328125)}
+POINTNET_ACC_TOL = 0.03          # 8 of the 256 test clouds
+# launches per step at 4 probes: zo_perturb 2 a probe and zo_fused_replay 1
+# per ZO leaf (w and b of the 8 / 6 / 7 / 0 ZO layers)
+POINTNET_PER_STEP = {"full_zo": (128, 16), "zo_feat_cls2": (96, 12),
+                     "zo_feat_cls1": (112, 14), "full_bp": (0, 0)}
+PAPER_CLS1_OVERHEAD_PCT = (0.072, 1.7)   # the paper's ElasticZO memory cost
+
+
+def check_pointnet(zo_perturb, zo_replay, steps=100, timed_steps=20):
+    """PointNet's four lanes through
+    repro_torch.benchmarks.paper_tables.pointnet_lanes at the run.py --fast
+    setting, one lane a call: launches a step, accuracy within
+    POINTNET_ACC_TOL of JAX's, full_bp above full_zo. Then each lane timed
+    at the paper's 1024 points, batch 32, over ``timed_steps`` steps after
+    a warm-up step, with its memory beside the analytic Fig. 6 table.
+    Returns the launches of the accuracy runs."""
+    from repro_torch.benchmarks.paper_tables import (pointnet_lanes,
+                                                     pointnet_memory_table)
+    acc, launches = {}, {"zo_perturb": 0, "zo_fused_replay": 0}
+    for name, (committed, current) in POINTNET_JAX_CPU_ACC.items():
+        zo_perturb.launches = zo_replay.launches = 0
+        r = pointnet_lanes(steps, lanes=[name])[name]
+        n_p, n_r = zo_perturb.launches, zo_replay.launches
+        launches["zo_perturb"] += n_p
+        launches["zo_fused_replay"] += n_r
+        acc[name] = r.acc
+        loss = r.history[-1][1]
+        print(f"pointnet {name:13s}: test accuracy {r.acc:.4f} (JAX on the "
+              f"CPU: {committed:.4f} in BENCH_paper.json, {current:.4f} with "
+              f"jax 0.9.0), last loss {loss:.4f}, "
+              f"{1e3 * r.train_s / steps:.3f} ms per step at 256 points, "
+              f"launches per step: zo_perturb {n_p / steps:g}, "
+              f"zo_fused_replay {n_r / steps:g}")
+        want_p, want_r = POINTNET_PER_STEP[name]
+        if (n_p, n_r) != (want_p * steps, want_r * steps):
+            raise AssertionError(f"pointnet {name}: {n_p} zo_perturb and "
+                                 f"{n_r} zo_fused_replay launches in {steps} "
+                                 f"steps, want {want_p} and {want_r} a step")
+        if not np.isfinite(loss):
+            raise AssertionError(f"pointnet {name}: loss {loss}")
+        if abs(r.acc - current) > POINTNET_ACC_TOL + 1e-9:
+            raise AssertionError(f"pointnet {name}: accuracy {r.acc} is more "
+                                 f"than {POINTNET_ACC_TOL} from JAX's "
+                                 f"{current}")
+    if not acc["full_bp"] > acc["full_zo"]:
+        raise AssertionError(f"pointnet: full_bp {acc['full_bp']} is not "
+                             f"above full_zo {acc['full_zo']}")
+    print(f"pointnet: every lane within {POINTNET_ACC_TOL} of JAX's jax "
+          "0.9.0 accuracy; full_bp above full_zo")
+    ms, mem = {}, {}
+    for name in POINTNET_JAX_CPU_ACC:
+        r = pointnet_lanes(timed_steps, num_points=1024, warmup=1,
+                           lanes=[name])[name]
+        ms[name] = 1e3 * r.train_s / timed_steps
+        mem[name] = r.memory_bytes
+        print(f"pointnet {name:13s} at 1024 points, batch 32: "
+              f"{ms[name]:.3f} ms per step ({timed_steps} steps after a "
+              f"warm-up step), peak device memory {r.peak_bytes} bytes, "
+              f"training memory {mem[name]} bytes (parameters plus the "
+              "loop's peak growth)")
+    busy = pointnet_device_ms()
+    for name, dev_ms in busy.items():
+        print(f"pointnet {name:13s} at 1024 points: device time "
+              f"{dev_ms:.3f} ms a step (kernels of one profiled step) = "
+              f"{100 * dev_ms / ms[name]:.1f}% of the timed step's wall "
+              "time")
+    table = pointnet_memory_table(32)
+    fz = table["full_zo"]["fp32_bytes"]
+    print(f"pointnet training memory full_bp / full_zo = "
+          f"{mem['full_bp'] / mem['full_zo']:.4f} (Eqs. 2-4, "
+          f"pointnet_memory_table(32): "
+          f"{table['full_bp']['fp32_bytes'] / fz:.4f}); zo_feat_cls1 over "
+          f"full_zo {100 * (mem['zo_feat_cls1'] / mem['full_zo'] - 1):.3f}% "
+          f"(Eqs. 2-4: {100 * (table['zo_feat_cls1']['fp32_bytes'] / fz - 1):.3f}%"
+          f"; the paper: {PAPER_CLS1_OVERHEAD_PCT[0]}-"
+          f"{PAPER_CLS1_OVERHEAD_PCT[1]}%); 8 classes where the table and "
+          "the paper have ModelNet40's 40")
+    return launches
+
+
+def pointnet_device_ms():
+    """{lane: device ms of one step} at 1024 points, batch 32, 8 classes:
+    each lane's step (from paper_tables.pointnet_lane_configs) after a
+    warm-up step, its kernels' time summed by torch.profiler."""
+    from repro_torch.benchmarks.paper_tables import pointnet_lane_configs
+    from repro_torch.configs.paper_models import PointNetConfig
+    from repro_torch.core.elastic import make_elastic_step
+    from repro_torch.data.synthetic import point_clouds
+    from repro_torch.models import pointnet
+    from repro_torch.train.train_loop import init_state
+    xs, ys = point_clouds(32, 1024, seed=3)
+    batch = {"x": torch.from_numpy(xs).cuda(),
+             "y": torch.from_numpy(ys).cuda()}
+    cfg = PointNetConfig(num_classes=8)
+    out = {}
+    for name, lane, c in pointnet_lane_configs(20):
+        part = (lambda p, c=c: pointnet.partition_at(p, c)) \
+            if lane.lane == "elastic_zo" else None
+        step = make_elastic_step(pointnet.pointnet_loss, lane,
+                                 partition_fn=part)
+        state = [init_state(pointnet.init_pointnet(5, cfg, device="cuda"),
+                            17)]
+        mask = np.ones((lane.zo_num_probes,), np.float32)
+
+        def one():
+            state[0] = step(state[0], batch, mask)[0]
+        out[name] = sum(t for _, t in kernel_records(one, calls=1).values())
+    return out
+
+
+def check_pointnet_int8(int8_mm):
+    """PointNet's int8 forward at full width (the paper's 40 classes) on
+    one batch of 32 clouds of 1024 points quantised by quant_from_float:
+    the logits' int8 data and exponent bitwise the CPU's plain versions,
+    8 int8_matmul launches. Returns the launches."""
+    from repro_torch.configs.paper_models import POINTNET
+    from repro_torch.core.int8 import quant_from_float
+    from repro_torch.data.synthetic import point_clouds
+    from repro_torch.models import pointnet
+    xs, _ = point_clouds(32, 1024, seed=4, start=50_000)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        params = pointnet.init_pointnet_int8(5, POINTNET, device=dev)
+        qx = quant_from_float(torch.from_numpy(xs).to(dev))
+        int8_mm.launches = 0
+        with torch.no_grad():
+            logits, _ = pointnet.pointnet_forward_int8(params, qx)
+        out[dev] = (logits.data.cpu(), int(logits.exp), int8_mm.launches)
+    (d_cpu, e_cpu, _), (d_card, e_card, n) = out["cpu"], out["cuda"]
+    same = torch.equal(d_cpu, d_card) and e_cpu == e_card
+    print(f"pointnet int8 forward, 32 x 1024 points, full width: logits "
+          f"{list(d_card.shape)} exponent {e_card}, bitwise the CPU's: "
+          f"{same}; int8_matmul launches {n}")
+    if not same:
+        diff = int((d_cpu != d_card).sum())
+        raise AssertionError(f"pointnet int8 forward: {diff} logits differ, "
+                             f"exponent {e_card} vs {e_cpu}")
+    if n != 8:
+        raise AssertionError(f"pointnet int8 forward: {n} int8_matmul "
+                             "launches, want 8")
+    params = pointnet.init_pointnet_int8(5, POINTNET, device="cuda")
+    qx = quant_from_float(torch.from_numpy(xs).cuda())
+    with torch.no_grad():
+        times = kernel_records(
+            lambda: pointnet.pointnet_forward_int8(params, qx), calls=1)
+    mm = [(c, t) for k, (c, t) in times.items() if "int8_mma" in k]
+    n_mm = sum(c for c, _ in mm)
+    print(f"pointnet int8 forward on the card: {n_mm} int8_matmul kernel "
+          f"records, {sum(t for _, t in mm):.4f} ms of the forward's "
+          f"{sum(t for _, t in times.values()):.4f} ms device time")
+    if n_mm != 8:
+        raise AssertionError(f"pointnet int8 forward profile: {n_mm} "
+                             "int8_matmul records, want 8")
+    return n
+
+
+def check_paper_tables():
+    """repro_torch.benchmarks.run --fast in this process, written to a
+    temporary file; every section must run. Prints its headline metrics."""
+    import tempfile
+    from repro_torch.benchmarks import run as bench_run
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "BENCH_torch_paper.json"
+        rc = bench_run.main(["--fast", "--out", str(path)])
+        doc = json.loads(path.read_text())
+    m = doc["metrics"]
+    errors = {k: v for k, v in m.items() if k.endswith("_error")}
+    if rc or errors:
+        raise AssertionError(f"benchmarks.run --fast: rc {rc}, {errors}")
+    keys = [k for k in m if k.startswith(("table1_", "table2_", "memory_",
+                                          "int_loss_sign_agreement",
+                                          "steptime_"))]
+    for k in keys:
+        v = m[k]
+        print(f"  {k} = {v:.6g}" if isinstance(v, float) else f"  {k} = {v}")
+    print(f"paper tables: sections {doc['config']['sections']} on "
+          f"{doc['config'].get('card')}")
 
 
 # --------------------------------------------------------------------- #
@@ -1915,6 +2095,18 @@ def main():
     n_int8 = check_lenet_int8(zo_perturb, zo_fused_replay, int8_matmul,
                               fp32_mem)
 
+    phase("train PointNet: Table 1's PointNet column")
+    n_pointnet = check_pointnet(zo_perturb, zo_fused_replay)
+    torch.cuda.empty_cache()
+
+    phase("PointNet INT8 forward: card against CPU")
+    n_pointnet["int8_matmul"] = check_pointnet_int8(int8_matmul)
+    torch.cuda.empty_cache()
+
+    phase("paper tables")
+    check_paper_tables()
+    torch.cuda.empty_cache()
+
     phase("train qwen3-4b")
     n_lm = check_train_lm(zo_perturb, zo_fused_replay, flash_attn)
     n_zo = dict(zip(("zo_perturb", "zo_fused_replay"), n_lm))
@@ -1931,6 +2123,20 @@ def main():
           "one (the kernels line reports the fused run's)")
     phase(None)
 
+    # launches of the kernels on this slice's PointNet path, each counted
+    # from 0 just before its phase
+    paths = {"zo_perturb": {"train qwen3-4b": n_zo["zo_perturb"],
+                            "train PointNet": n_pointnet["zo_perturb"]},
+             "zo_fused_replay": {
+                 "train qwen3-4b": n_zo["zo_fused_replay"],
+                 "train PointNet": n_pointnet["zo_fused_replay"]},
+             "int8_matmul": {
+                 "train LeNet-5 INT8": n_zo["int8_matmul"],
+                 "PointNet INT8 forward": n_pointnet["int8_matmul"]}}
+    for name, by_path in paths.items():
+        if not all(by_path.values()):
+            raise AssertionError(f"{name} was not launched on every path: "
+                                 f"{by_path}")
     kernels = [
         dict(name="paged_attention_step", route="cuda",
              source="src/repro_torch/csrc/paged_attn.cu",
@@ -1949,7 +2155,8 @@ def main():
     ] + [dict(name=name, route="cuda",
               source=f"src/repro_torch/csrc/{name}.cu",
               replaces=f"src/repro/kernels/{where}", launches=n_zo[name],
-              **zo_times[name])
+              **zo_times[name],
+              **({"launches_by_path": paths[name]} if name in paths else {}))
          for name, where in (("zo_perturb", "zo_perturb.py:72"),
                              ("zo_fused_replay", "zo_fused_replay.py:58"),
                              ("int8_perturb", "zo_perturb.py:117"),

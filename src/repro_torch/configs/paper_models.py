@@ -1,8 +1,9 @@
-"""The paper's LeNet-5 configuration.
+"""The paper's own models: LeNet-5 (MNIST-like) and PointNet (point clouds).
 
-A copy of ``LeNet5Config`` from ``repro/configs/paper_models.py`` (the
-port imports nothing of the JAX package). PointNet waits for a later
-slice.
+A copy of ``repro/configs/paper_models.py`` (the port imports nothing of
+the JAX package): the faithful-reproduction targets of Tables 1-2 and
+Figs. 2-7, defined apart from the LM ``ModelConfig`` since they are small
+networks.
 """
 from dataclasses import dataclass
 from typing import Tuple
@@ -21,4 +22,19 @@ class LeNet5Config:
     num_trainable_layers: int = 5
 
 
+@dataclass(frozen=True)
+class PointNetConfig:
+    name: str = "pointnet"
+    num_points: int = 1024
+    # feature extraction: 5 pointwise FC layers (64,64,64,128,1024) + maxpool,
+    # classification head: 3 FC (512, 256, num_classes)   (paper Fig. 1 bottom)
+    feat_dims: Tuple[int, ...] = (64, 64, 64, 128, 1024)
+    head_dims: Tuple[int, ...] = (512, 256)
+    num_classes: int = 40
+    num_trainable_layers: int = 8
+
+
 LENET5 = LeNet5Config()
+POINTNET = PointNetConfig()
+# Smaller synthetic-data variant (8-class parametric shapes) used by tests.
+POINTNET_SYN = PointNetConfig(num_classes=8, num_points=256)

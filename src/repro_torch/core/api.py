@@ -8,6 +8,7 @@ differentiates the tail (``core/elastic.py``).
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
@@ -26,6 +27,24 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError("CUDA is not available; pass device='cpu' to run "
                            "the plain PyTorch versions on the CPU")
     return dev
+
+
+@contextlib.contextmanager
+def f32_products():
+    """Full-f32 products inside: TF32 off for cuBLAS matmuls and cuDNN
+    convolutions (PyTorch leaves cuDNN's on by default), the flags
+    restored on exit. The JAX reference computes LeNet-5 and PointNet in
+    f32, so every benchmark entry point that trains them runs inside
+    this. It only sets flags, so it costs nothing on the CPU."""
+    matmul = torch.backends.cuda.matmul.allow_tf32
+    cudnn = torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = matmul
+        torch.backends.cudnn.allow_tf32 = cudnn
 
 
 def tail_periods(cfg: ModelConfig, lane: LaneConfig) -> int:

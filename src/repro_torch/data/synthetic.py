@@ -1,12 +1,15 @@
 """Deterministic synthetic datasets, pure numpy.
 
-A copy of ``glyphs`` and ``token_batch`` from ``repro/data/synthetic.py``
-(the port imports nothing of the JAX package), so both packages train on
-the same samples:
+A copy of ``glyphs``, ``point_clouds`` and ``token_batch`` from
+``repro/data/synthetic.py`` (the port imports nothing of the JAX package),
+so both packages train on the same samples, bit for bit:
 
 * glyphs      -- 28x28 grayscale 10-class "digit-like" images: each class
                  is a distinct parametric stroke pattern + noise + small
                  affine jitter (LeNet-5, the paper's Table 1).
+* point_clouds-- N x 3 point clouds of 8 parametric shape classes (sphere,
+                 cube, cone, torus, ...) + jitter (PointNet, Table 1 and
+                 Fig. 6).
 * token_batch -- integer LM batches with next-token labels (a Zipf-ish
                  bigram process so losses are compressible).
 
@@ -79,6 +82,61 @@ def _rotate(img: np.ndarray, theta: float) -> np.ndarray:
     y0 = np.clip(ys.round().astype(int), 0, h - 1)
     x0 = np.clip(xs.round().astype(int), 0, w - 1)
     return img[y0, x0]
+
+
+def point_clouds(n: int, num_points: int = 256, *, seed: int = 0,
+                 num_classes: int = 8, start: int = 0):
+    """Returns (x [n,num_points,3] fp32, y [n] int32), each cloud centred
+    and scaled into the unit ball; sample i is a pure function of (seed,
+    start + i), drawn in ``_shape_points``'s order."""
+    xs = np.zeros((n, num_points, 3), np.float32)
+    ys = np.zeros((n,), np.int32)
+    for i in range(n):
+        idx = start + i
+        rng = np.random.default_rng(np.uint64(seed * 999_983 + idx))
+        cls = idx % num_classes
+        pts = _shape_points(cls, num_points, rng)
+        pts -= pts.mean(0, keepdims=True)
+        pts /= max(np.linalg.norm(pts, axis=1).max(), 1e-6)
+        xs[i] = pts
+        ys[i] = cls
+    return xs, ys
+
+
+def _shape_points(cls, n, rng):
+    u = rng.uniform(0, 1, n)
+    v = rng.uniform(0, 1, n)
+    th, ph = 2 * np.pi * u, np.arccos(2 * v - 1)
+    if cls == 0:      # sphere
+        p = np.stack([np.sin(ph) * np.cos(th), np.sin(ph) * np.sin(th),
+                      np.cos(ph)], 1)
+    elif cls == 1:    # cube surface
+        p = rng.uniform(-1, 1, (n, 3))
+        ax = rng.integers(0, 3, n)
+        sgn = rng.choice([-1.0, 1.0], n)
+        p[np.arange(n), ax] = sgn
+    elif cls == 2:    # cone
+        h = rng.uniform(0, 1, n)
+        p = np.stack([(1 - h) * np.cos(th), (1 - h) * np.sin(th), h * 2 - 1], 1)
+    elif cls == 3:    # torus
+        R, r = 1.0, 0.35
+        p = np.stack([(R + r * np.cos(2 * np.pi * v)) * np.cos(th),
+                      (R + r * np.cos(2 * np.pi * v)) * np.sin(th),
+                      r * np.sin(2 * np.pi * v)], 1)
+    elif cls == 4:    # cylinder
+        p = np.stack([np.cos(th), np.sin(th), 2 * v - 1], 1)
+    elif cls == 5:    # plane with ridge
+        p = np.stack([2 * u - 1, 2 * v - 1,
+                      0.3 * np.sin(4 * np.pi * u)], 1)
+    elif cls == 6:    # two spheres
+        p = np.stack([np.sin(ph) * np.cos(th) * 0.5,
+                      np.sin(ph) * np.sin(th) * 0.5, np.cos(ph) * 0.5], 1)
+        p[:, 0] += np.where(rng.uniform(size=n) > 0.5, 0.8, -0.8)
+    else:             # helix
+        t = 4 * np.pi * u
+        p = np.stack([np.cos(t), np.sin(t), (t / (2 * np.pi)) - 1], 1)
+        p += rng.normal(0, 0.05, (n, 3))
+    return (p + rng.normal(0, 0.02, (n, 3))).astype(np.float32)
 
 
 def token_batch(batch: int, seq: int, vocab: int, *, seed: int = 0,

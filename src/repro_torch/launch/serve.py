@@ -4,7 +4,9 @@
 
 Serves ``--batch`` random prompts through ``repro_torch.serve.Engine`` on
 the card (``--device cpu`` runs the plain versions on the CPU; use it with
-``--smoke``). Weights are random, drawn from ``--seed``.
+``--smoke``). Weights are random, drawn from ``--seed``. The flight
+recorder's ``--trace``, ``--metrics``, ``--memory`` and ``--quiet`` flags
+are the JAX launcher's.
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ import time
 import numpy as np
 import torch
 
+from .. import obs
 from ..configs import ServeConfig, get_arch, reduced
 from ..serve import Engine, SamplingParams
 
@@ -40,7 +43,9 @@ def main(argv=None):
     ap.add_argument("--top-p", type=float, default=1.0)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
+    obs.add_observability_args(ap)
     args = ap.parse_args(argv)
+    obs.configure_from_args(args)
 
     cfg = get_arch(args.arch)
     if args.smoke:
@@ -66,13 +71,14 @@ def main(argv=None):
     n_tok = sum(len(o) for o in outs)
     where = torch.cuda.get_device_name(eng.device) \
         if eng.device.type == "cuda" else "cpu"
-    print(f"[serve] paged: {n_tok} tokens across {args.batch} requests in "
-          f"{dt:.2f}s ({n_tok / dt:.1f} tok/s, {eng.steps_run} engine "
-          f"steps) on {where}")
-    print(f"[serve] pages: peak {util['peak_pages']}/{util['total_pages']} "
-          f"({100 * util['peak_util']:.0f}%), mean "
-          f"{100 * util['mean_util']:.0f}%")
-    print(f"[serve] sample: {outs[0][:16]}")
+    obs.log("serve", f"paged: {n_tok} tokens across {args.batch} requests "
+            f"in {dt:.2f}s ({n_tok / dt:.1f} tok/s, {eng.steps_run} engine "
+            f"steps) on {where}")
+    obs.log("serve", f"pages: peak {util['peak_pages']}/"
+            f"{util['total_pages']} ({100 * util['peak_util']:.0f}%), mean "
+            f"{100 * util['mean_util']:.0f}%")
+    obs.log("serve", f"sample: {outs[0][:16]}")
+    obs.write_outputs(args)
 
 
 if __name__ == "__main__":

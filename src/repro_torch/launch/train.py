@@ -4,7 +4,8 @@ Trains ``--arch`` (random weights from seed 0) on the synthetic token
 stream with the ElasticZO step of ``--lane``, on the card unless
 ``--device cpu`` is given (use that with ``--smoke``, the reduced
 same-family config). The flags and defaults are those of
-``repro.launch.train``; ``--mesh``, ``--ckpt-dir`` and
+``repro.launch.train``, the flight recorder's ``--trace``, ``--metrics``,
+``--memory`` and ``--quiet`` included; ``--mesh``, ``--ckpt-dir`` and
 ``--profile-phases`` are not ported yet.
 """
 from __future__ import annotations
@@ -16,6 +17,7 @@ from typing import Any, Callable, Optional
 
 import torch
 
+from .. import obs
 from ..configs import LaneConfig, get_arch, reduced
 from ..core import api
 from ..core.elastic import TrainState
@@ -39,6 +41,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--lr", type=float, default=1e-2)
     ap.add_argument("--eps", type=float, default=1e-3)
     ap.add_argument("--device", default="cuda")
+    obs.add_observability_args(ap)
     return ap.parse_args(argv)
 
 
@@ -86,7 +89,9 @@ def setup(args: argparse.Namespace,
 
 
 def main(argv=None):
-    t = setup(parse_args(argv))
+    args = parse_args(argv)
+    obs.configure_from_args(args)
+    t = setup(args)
     t0 = time.perf_counter()
     state, history = run(t.step_fn, t.state, t.batch_fn, t.loop)
     if t.device.type == "cuda":
@@ -94,8 +99,9 @@ def main(argv=None):
     dt = time.perf_counter() - t0
     where = torch.cuda.get_device_name(t.device) \
         if t.device.type == "cuda" else "cpu"
-    print(f"[train] done at step {state.step}; logged {len(history)} loss "
-          f"points in {dt:.2f}s on {where}")
+    obs.log("train", f"done at step {state.step}; logged {len(history)} "
+            f"loss points in {dt:.2f}s on {where}")
+    obs.write_outputs(args)
     return history
 
 

@@ -16,7 +16,13 @@ is one scheduler iteration:
      them tick by tick, emit stream events and evict finished sequences.
 
 The plan is uploaded once per step, where the JAX package keeps it on the
-device across epoch-stable steps.
+device across epoch-stable steps. The flight recorder's spans, metrics and
+memory tags are the JAX package's (``serve/tick``, ``serve/prefill``,
+``serve/decode``, ``serve/sample``, ``serve/run``; ``serve.decode_token_ms``,
+``serve.decode_tokens``, ``serve.kv_pages_used_bytes``; ``serve.kv_pages``
+and ``serve.params``). With a recorder armed the decode span ends in a
+device synchronise, so it measures the megastep's device time; without
+one nothing waits that would not wait anyway.
 """
 from __future__ import annotations
 
@@ -26,6 +32,7 @@ from typing import Callable, Dict, List, Optional, Sequence as Seq
 import numpy as np
 import torch
 
+from .. import obs
 from ..configs.base import LaneConfig, ModelConfig
 from ..configs.serve import ServeConfig
 from ..core import api
@@ -84,6 +91,18 @@ class Engine:
         self.sched = Scheduler(s, window=cfg.sliding_window or 0)
         self.steps_run = 0
         self.ticks_run = 0          # decode ticks over all megasteps
+        # memory ledger: the page pool is allocated up front and lives as
+        # long as the engine; register the whole block plus the params.
+        # The used share of the pool feeds serve.kv_pages_used_bytes
+        rec = obs.get()
+        self._pool_nbytes = 0
+        if rec.enabled:
+            self._pool_nbytes = obs.memory.tree_nbytes(self.caches)
+            rec.memory.rebind("serve.kv_pages", self._pool_nbytes,
+                              key=("engine", id(self)))
+            rec.memory.rebind("serve.params",
+                              obs.memory.tree_nbytes(self.params),
+                              key=("engine", id(self)))
 
     # ------------------------------------------------------------- #
     def submit(self, prompt: Seq[int],
@@ -186,28 +205,50 @@ class Engine:
     @torch.no_grad()
     def step(self) -> List[StreamEvent]:
         """One engine iteration; returns the stream events it produced."""
-        events: List[StreamEvent] = []
-        waiting = self.sched.poll_admissions()
-        if waiting:
-            seqs, logits_parts = self._admit_wave(waiting)
-            self._sample_admitted(seqs, logits_parts, events)
-        plan = self.sched.prepare_step()
-        if plan is None:
+        rec = obs.get()
+        with rec.span("serve/tick", track="serve"):
+            events: List[StreamEvent] = []
+            with rec.span("serve/prefill", track="serve"):
+                waiting = self.sched.poll_admissions()
+                if waiting:
+                    seqs, logits_parts = self._admit_wave(waiting)
+                    self._sample_admitted(seqs, logits_parts, events)
+            plan = self.sched.prepare_step()
+            if plan is None:
+                return events
+            H = self.sched.steady_horizon()
+            # all-greedy megasteps skip the sampler's filters and noise
+            greedy = not bool(plan.temperature.any())
+            with rec.span("serve/decode", track="serve",
+                          rows=plan.num_active, ticks=H) as dsp:
+                toks_dev = self._megastep(plan, H, greedy)
+                if rec.enabled and toks_dev.is_cuda:
+                    torch.cuda.synchronize(toks_dev.device)
+            with rec.span("serve/sample", track="serve",
+                          rows=plan.num_active):
+                toks = toks_dev.cpu().numpy()   # the megastep's one copy
+            if rec.enabled and plan.num_active:
+                # the decode span waited for the tokens, so its duration
+                # is the megastep's; per row and tick it is the per-token
+                # latency
+                rec.histogram("serve.decode_token_ms").observe(
+                    dsp.dur_ns / 1e6 / (plan.num_active * H))
+                rec.counter("serve.decode_tokens").inc(plan.num_active * H)
+                # occupied slice of the (up-front) pool allocation
+                rec.gauge("serve.kv_pages_used_bytes").set(
+                    self._pool_nbytes * self.sched.pool.used_pages
+                    // max(self.serve.num_pages - 1, 1))
+            for t in range(H):
+                active = list(self.sched.running)
+                done = {s.req.rid for s in self.sched.commit_step(toks[t])}
+                for seq in active:
+                    tok = seq.generated[-1]
+                    events.append(StreamEvent(seq.req.rid, tok,
+                                              self.detok(tok),
+                                              seq.req.rid in done))
+            self.steps_run += 1
+            self.ticks_run += H
             return events
-        H = self.sched.steady_horizon()
-        # all-greedy megasteps skip the sampler's filters and noise
-        greedy = not bool(plan.temperature.any())
-        toks = self._megastep(plan, H, greedy).cpu().numpy()  # one copy
-        for t in range(H):
-            active = list(self.sched.running)
-            done = {s.req.rid for s in self.sched.commit_step(toks[t])}
-            for seq in active:
-                tok = seq.generated[-1]
-                events.append(StreamEvent(seq.req.rid, tok, self.detok(tok),
-                                          seq.req.rid in done))
-        self.steps_run += 1
-        self.ticks_run += H
-        return events
 
     def run(self, callback: Optional[Callable[[StreamEvent], None]] = None,
             max_steps: int = 100_000) -> Dict[int, List[int]]:
@@ -215,14 +256,15 @@ class Engine:
         rid -> generated tokens for requests that finished during THIS
         call; ``callback`` sees every stream event."""
         start = len(self.sched.finished)
-        for _ in range(max_steps):
-            if not self.sched.has_work():
-                break
-            for ev in self.step():
-                if callback is not None:
-                    callback(ev)
-        else:
-            raise RuntimeError("engine did not drain within max_steps")
+        with obs.get().span("serve/run", track="serve"):
+            for _ in range(max_steps):
+                if not self.sched.has_work():
+                    break
+                for ev in self.step():
+                    if callback is not None:
+                        callback(ev)
+            else:
+                raise RuntimeError("engine did not drain within max_steps")
         self.sched.check_invariants()
         return {s.req.rid: list(s.generated)
                 for s in self.sched.finished[start:]}
@@ -233,6 +275,17 @@ class Engine:
         rids = [self.submit(p, sampling, max_new_tokens) for p in prompts]
         out = self.run()
         return [out[r] for r in rids]
+
+    def release_memory_tags(self):
+        """Rebind this engine's ledger registrations to zero. Call when
+        retiring an engine whose process keeps running (a benchmark that
+        builds several engines); live bytes otherwise keep counting the
+        dead pool."""
+        rec = obs.get()
+        if rec.enabled and self._pool_nbytes:
+            rec.memory.rebind("serve.kv_pages", 0, key=("engine", id(self)))
+            rec.memory.rebind("serve.params", 0, key=("engine", id(self)))
+            self._pool_nbytes = 0
 
     def page_utilization(self) -> Dict[str, float]:
         total = self.serve.num_pages - 1

@@ -1,6 +1,9 @@
 """Continuous-batching scheduler: admission, page growth, preemption.
 
-A copy of ``repro/serve/scheduler.py`` without its observability calls.
+A copy of ``repro/serve/scheduler.py``, its flight-recorder calls
+included (``serve.queue_depth``, ``serve.page_reclaims``,
+``serve.admissions``, ``serve.evictions``, ``serve.page_util``,
+``serve.preemptions`` and the ``preempt`` event, ``serve.ttft_ms``).
 Pure host-side state machine (numpy only).
 Sequence lifecycle:
 
@@ -37,6 +40,7 @@ from typing import Deque, List, Optional, Sequence as Seq
 
 import numpy as np
 
+from .. import obs
 from ..configs.serve import ServeConfig
 from .kv_pages import NULL_PAGE, PagePool
 from .sampler import SamplingParams
@@ -65,6 +69,7 @@ class _Sequence:
     generated: List[int] = field(default_factory=list)
     next_token: int = 0              # token to feed at the next decode step
     preemptions: int = 0
+    submit_ns: int = 0               # obs TTFT stamp (0 = recorder off)
 
     @property
     def cached_prompt(self) -> List[int]:
@@ -140,7 +145,10 @@ class Scheduler:
                 f"pages > pool {s.num_pages - 1}; would deadlock")
         req = Request(next(self._rid), list(prompt),
                       sampling or SamplingParams(), max_new, prefix_extra)
-        self.waiting.append(_Sequence(req))
+        rec = obs.get()
+        self.waiting.append(_Sequence(
+            req, submit_ns=obs.perf_ns() if rec.enabled else 0))
+        rec.gauge("serve.queue_depth").set(len(self.waiting))
         return req.rid
 
     # ---------------- SWA reclamation ------------------------------- #
@@ -173,6 +181,7 @@ class Scheduler:
             seq.pages[lp] = NULL_PAGE
         self.plan_epoch += 1
         self.reclaimed_pages += len(dead)
+        obs.get().counter("serve.page_reclaims").inc(len(dead))
 
     def has_work(self) -> bool:
         return bool(self.waiting) or any(self.slots)
@@ -213,11 +222,17 @@ class Scheduler:
             out.append(seq)
         if out:
             self.plan_epoch += 1
+        rec = obs.get()
+        if rec.enabled:
+            rec.gauge("serve.queue_depth").set(len(self.waiting))
+            if out:
+                rec.counter("serve.admissions").inc(len(out))
         return out
 
     # ---------------- per-step assembly ----------------------------- #
     def _evict(self, seq: _Sequence) -> None:
         self.plan_epoch += 1
+        obs.get().counter("serve.evictions").inc()
         self.pool.free([p for p in seq.pages if p != NULL_PAGE])
         seq.pages = []
         self.slots[seq.slot] = None
@@ -287,6 +302,8 @@ class Scheduler:
         self.util_peak = max(self.util_peak, used)
         self.util_sum += used
         self.util_steps += 1
+        obs.get().gauge("serve.page_util").set(
+            used / max(self.serve.num_pages - 1, 1))
         return plan
 
     def steady_horizon(self) -> int:
@@ -316,6 +333,11 @@ class Scheduler:
         victim.pos = 0
         victim.preemptions += 1
         self.waiting.appendleft(victim)
+        rec = obs.get()
+        rec.counter("serve.preemptions").inc()
+        if rec.enabled:
+            rec.event("preempt", track="serve", rid=victim.req.rid,
+                      generated=len(victim.generated))
 
     # ---------------- commit ---------------------------------------- #
     def record_first_token(self, seq: _Sequence, token: int) -> bool:
@@ -337,6 +359,9 @@ class Scheduler:
     def _append(self, seq: _Sequence, token: int) -> bool:
         seq.generated.append(token)
         seq.next_token = token
+        if seq.submit_ns and len(seq.generated) == 1:
+            obs.get().histogram("serve.ttft_ms").observe(
+                (obs.perf_ns() - seq.submit_ns) / 1e6)
         eos = self.serve.eos_id
         if seq.budget_left <= 0 or (eos >= 0 and token == eos):
             self._evict(seq)

@@ -6,8 +6,9 @@ The port's twin of the int8 half of ``benchmarks/paper_tables.py``
 init key 7, state key 13, ``glyphs(2048, seed=0)`` for training and
 ``glyphs(512, seed=1, start=10000)`` for the test, batches quantised one
 at a time and the test set at once, as the JAX harness does. The steps run
-through ``train_loop.run``. The fp32 lanes and a ``BENCH_torch_paper.json``
-are not ported yet.
+through ``train_loop.run``, inside ``core/api.py::f32_products`` like
+every paper-table entry point. ``repro_torch.benchmarks.paper_tables``
+re-exports these names beside the fp32 lanes.
 """
 from __future__ import annotations
 
@@ -18,12 +19,13 @@ from typing import Dict, NamedTuple, Optional, Sequence
 import torch
 
 from ..configs.base import LaneConfig
-from ..core.api import resolve_device
+from ..core.api import f32_products, resolve_device
 from ..core.elastic import TrainState
 from ..core.elastic_int8 import int8_eval, make_int8_elastic_step
 from ..core.int8 import quant_from_float
 from ..data.synthetic import glyphs
 from ..models import lenet
+from ..obs.memory import tree_nbytes
 from .train_loop import LoopConfig, init_state, run
 
 # INT8/INT8* lanes (Alg. 2): (name, partition point C, tail FCs)
@@ -39,12 +41,39 @@ def int8_lane_cfg() -> LaneConfig:
                       int8_b_bp=5)
 
 
-class Int8LaneResult(NamedTuple):
-    acc: float                  # test accuracy
-    history: list               # (step, loss) at the loop's log points
-    train_s: float              # wall time of the step loop
-    memory_bytes: Optional[int]  # training memory on a card (see below)
+class LaneResult(NamedTuple):
+    """One lane's run (fp32 and int8 alike); memory is read on a card
+    only (``measured_run``)."""
+    acc: float                   # test accuracy
+    history: list                # (step, loss) at the loop's log points
+    train_s: float               # wall time of the step loop
+    peak_bytes: Optional[int]    # the allocator's peak in the loop
+    memory_bytes: Optional[int]  # params + the loop's peak growth
     state: TrainState
+
+
+def measured_run(step, state: TrainState, batch_fn, loop: LoopConfig,
+                 device: torch.device):
+    """``train_loop.run`` timed on the host's clock, ending in a
+    synchronise on a card, where memory is read around it: the
+    allocator's peak, and the parameters' bytes plus the peak above what
+    was allocated when the loop started (so memory that other code holds,
+    library workspaces or other models, is not counted). Returns (state,
+    history, train_s, peak_bytes, memory_bytes); the bytes are None on
+    the CPU."""
+    on_card = device.type == "cuda"
+    peak = mem = None
+    if on_card:
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        mem = tree_nbytes(state.params) - torch.cuda.memory_allocated(device)
+    t0 = time.perf_counter()
+    state, history = run(step, state, batch_fn, loop, log=None)
+    if on_card:
+        torch.cuda.synchronize(device)
+        peak = torch.cuda.max_memory_allocated(device)
+        mem += peak
+    return state, history, time.perf_counter() - t0, peak, mem
 
 
 @functools.lru_cache(maxsize=2)
@@ -58,16 +87,11 @@ def _glyph_sets(train_n: int, test_n: int, seed: int):
 def lenet_int8_lanes(steps: int = 600, batch: int = 64, train_n: int = 2048,
                      test_n: int = 512, seed: int = 0, loss_mode: str = "int",
                      *, device=None, lanes: Optional[Sequence[str]] = None,
-                     log_every: int = 0) -> Dict[str, Int8LaneResult]:
+                     log_every: int = 0) -> Dict[str, LaneResult]:
     """Train each int8 lane (all, or those named in ``lanes``) for
-    ``steps`` steps and evaluate it. Runs on the card unless ``device``
-    says otherwise. ``train_s`` is the step loop's wall time (on a card
-    it ends in a synchronise). ``memory_bytes`` is the parameters' bytes
-    plus the loop's peak device memory above what was allocated when it
-    started, so memory that other code holds (library workspaces, other
-    models) is not counted."""
+    ``steps`` steps (``measured_run``) and evaluate it. Runs on the card
+    unless ``device`` says otherwise."""
     device = resolve_device(device)
-    on_card = device.type == "cuda"
     (xs_tr, ys_tr), (xs_te, ys_te) = _glyph_sets(train_n, test_n, seed)
     qx_te = quant_from_float(torch.from_numpy(xs_te).to(device))
     y_te = torch.from_numpy(ys_te).to(device)
@@ -79,30 +103,22 @@ def lenet_int8_lanes(steps: int = 600, batch: int = 64, train_n: int = 2048,
                 "y": torch.from_numpy(ys_tr[i0:i0 + batch]).to(device)}
 
     results = {}
-    for name, c, tail in INT8_LANES:
-        if lanes is not None and name not in lanes:
-            continue
-        lane = int8_lane_cfg()
-        step = make_int8_elastic_step(
-            lenet.lenet5_forward_int8,
-            partition_fn=lambda p, c=c: lenet.partition_at(p, c),
-            tail_fcs=tail, lane=lane, loss_mode=loss_mode)
-        state = init_state(lenet.init_lenet5_int8(7, device=device), 13)
-        cfg = LoopConfig.for_lane(lane, total_steps=steps,
-                                  log_every=log_every)
-        mem = None
-        if on_card:
-            torch.cuda.synchronize(device)
-            torch.cuda.reset_peak_memory_stats(device)
-            mem = sum(v["w"].data.numel() + 4 for v in state.params.values()) \
-                - torch.cuda.memory_allocated(device)
-        t0 = time.perf_counter()
-        state, history = run(step, state, batch_fn, cfg, log=None)
-        if on_card:
-            torch.cuda.synchronize(device)
-            mem += torch.cuda.max_memory_allocated(device)
-        train_s = time.perf_counter() - t0
-        acc = float(int8_eval(lenet.lenet5_forward_int8, state.params, qx_te,
-                              y_te))
-        results[name] = Int8LaneResult(acc, history, train_s, mem, state)
+    with f32_products():
+        for name, c, tail in INT8_LANES:
+            if lanes is not None and name not in lanes:
+                continue
+            lane = int8_lane_cfg()
+            step = make_int8_elastic_step(
+                lenet.lenet5_forward_int8,
+                partition_fn=lambda p, c=c: lenet.partition_at(p, c),
+                tail_fcs=tail, lane=lane, loss_mode=loss_mode)
+            state = init_state(lenet.init_lenet5_int8(7, device=device), 13)
+            cfg = LoopConfig.for_lane(lane, total_steps=steps,
+                                      log_every=log_every)
+            state, history, train_s, peak, mem = measured_run(
+                step, state, batch_fn, cfg, device)
+            acc = float(int8_eval(lenet.lenet5_forward_int8, state.params,
+                                  qx_te, y_te))
+            results[name] = LaneResult(acc, history, train_s, peak, mem,
+                                       state)
     return results

@@ -3,18 +3,24 @@
 The port of ``repro/train/train_loop.py``. Batches are pure functions of
 the step index (``data/synthetic.py``), so the whole restart state is
 (params, step). The loss is read on the host only at log points; between
-them the loop never waits on the device. Checkpointing, the flight
-recorder and explicit per-step masks (``mask_fn``, the fleet reference's)
-are not ported yet.
+them the loop never waits on the device. With a flight recorder armed
+(``repro_torch.obs``) each step is a ``train/step`` span that ends in
+``torch.cuda.synchronize`` (where the JAX package blocks on the
+metrics), feeding ``train.step_ms``, ``train.tokens``,
+``train.tokens_per_s`` and ``train.loss``, and the params and batch are
+tagged in the memory ledger; the default null recorder adds no sync.
+Checkpointing and explicit per-step masks (``mask_fn``, the fleet
+reference's) are not ported yet.
 """
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Optional
 
 import numpy as np
+import torch
 
+from .. import obs
 from ..core import keys
 from ..core.elastic import TrainState
 
@@ -54,29 +60,61 @@ class RunResult:
         return iter((self.state, self.history))
 
 
+def _log_train(msg: str, **fields):
+    obs.log("train", msg, **fields)
+
+
 def run(step_fn: Callable, state: TrainState,
         batch_fn: Callable[[int], Dict[str, Any]], cfg: LoopConfig,
-        log: Optional[Callable[[str], None]] = print) -> RunResult:
+        log: Optional[Callable[..., None]] = _log_train) -> RunResult:
     """Steps ``state.step`` .. ``cfg.total_steps - 1``. batch_fn(step) ->
     a batch on the params' device. ``state`` is consumed (the step
-    updates the ZO leaves in place)."""
+    updates the ZO leaves in place). ``log(msg, step=, loss=)`` takes the
+    progress lines (``obs.log`` on the ``train`` channel; None drops
+    them)."""
     start = state.step
+    rec = obs.get()
+    mem = rec.memory
+    if rec.enabled:
+        # params are rebound (the step replaces them, sizes constant);
+        # the batch is tracked per step below
+        mem.rebind("train.params", obs.memory.tree_nbytes(state.params),
+                   key=("train.params", id(cfg)))
     rng = np.random.default_rng(cfg.seed + 17)
-    t0 = time.perf_counter()
+    t0 = obs.monotonic()
     history = []
     for step in range(start, cfg.total_steps):
         batch = batch_fn(step)
+        if rec.enabled:
+            batch_nbytes = mem.alloc("train.batch",
+                                     obs.memory.tree_nbytes(batch))
         mask = (rng.uniform(size=cfg.n_probes) >=
                 cfg.probe_drop_rate).astype(np.float32)
         if mask.sum() == 0:
             mask[0] = 1.0          # never drop every probe
-        state, metrics = step_fn(state, batch, mask)
+        with rec.span("train/step", track="train", step=step) as sp:
+            state, metrics = step_fn(state, batch, mask)
+            loss_t = metrics["loss"]
+            if rec.enabled and getattr(loss_t, "is_cuda", False):
+                torch.cuda.synchronize(loss_t.device)
+        if rec.enabled:
+            mem.free("train.batch", batch_nbytes)
+            rec.histogram("train.step_ms").observe(sp.dur_ns / 1e6)
+            toks = batch.get("tokens")      # absent for vision batches
+            ntok = toks.numel() if isinstance(toks, torch.Tensor) else 0
+            if ntok and sp.dur_ns:
+                rec.counter("train.tokens").inc(ntok)
+                rec.gauge("train.tokens_per_s").set(ntok / (sp.dur_ns / 1e9))
+            rec.gauge("train.loss").set(float(metrics["loss"]))
         if cfg.log_every and (step % cfg.log_every == 0
                               or step == cfg.total_steps - 1):
+            if rec.enabled:
+                obs.memory.sample()   # reconcile tagged vs the allocator
             loss = float(metrics["loss"])
             history.append((step, loss))
             if log is not None:
-                dt = time.perf_counter() - t0
-                log(f"[train] step {step:6d} loss {loss:.4f} "
-                    f"({dt / max(step - start + 1, 1):.3f}s/step)")
+                dt = obs.monotonic() - t0
+                log(f"step {step:6d} loss {loss:.4f} "
+                    f"({dt / max(step - start + 1, 1):.3f}s/step)",
+                    step=step, loss=loss)
     return RunResult(state, history)

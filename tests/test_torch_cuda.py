@@ -651,3 +651,56 @@ def test_int8_lane_step_on_card_matches_cpu(dev, loss_mode):
                               zo.leaves_with_path(g.state.params)):
         assert torch.equal(a.data, b.data.cpu())
         assert int(a.exp) == int(b.exp)
+
+
+@pytest.mark.parametrize("M,K,N", [(32 * 1024, 3, 64), (2 * 64, 3, 16),
+                                   (7, 3, 5), (32 * 1024, 128, 1024)])
+def test_int8_matmul_k3_pointnet_shapes(dev, M, K, N):
+    """PointNet's first int8 product has K = 3 over B x N rows; the
+    kernel zero-pads its k tile. Also its widest pointwise layer."""
+    g = torch.Generator(device="cpu").manual_seed(M + 3 * K + N)
+    a = torch.randint(-127, 128, (M, K), generator=g, dtype=torch.int8)
+    w = torch.randint(-127, 128, (K, N), generator=g, dtype=torch.int8)
+    a[-1], w[:, -1] = 127, 127
+    out, mx = int8_matmul.int8_matmul(a.to(dev), w.to(dev))
+    want, want_mx = ref.int8_matmul_ref(a, w)
+    assert torch.equal(out.cpu(), want)
+    assert int(mx) == int(want_mx) == 127 * 127 * K
+
+
+@pytest.mark.parametrize("cfg_name", ["reduced", "full"])
+def test_pointnet_int8_forward_on_card_matches_cpu(dev, cfg_name):
+    """PointNet's int8 forward through the int8_matmul kernel equals the
+    plain versions on the CPU bitwise: reduced width at 8 x 32 points,
+    and full width at 2 x 64."""
+    from repro_torch.configs.paper_models import POINTNET, PointNetConfig
+    from repro_torch.core.int8 import quant_from_float
+    from repro_torch.data.synthetic import point_clouds
+    from repro_torch.models import pointnet
+    cfg, B, N = (PointNetConfig(feat_dims=(16, 16, 16, 32, 64),
+                                head_dims=(32, 16), num_classes=8,
+                                num_points=32), 8, 32) \
+        if cfg_name == "reduced" else (POINTNET, 2, 64)
+    xs, _ = point_clouds(B, N, seed=4, start=50_000)
+    out = []
+    for d in ("cpu", dev):
+        params = pointnet.init_pointnet_int8(5, cfg, device=d)
+        with torch.no_grad():
+            logits, _ = pointnet.pointnet_forward_int8(
+                params, quant_from_float(torch.from_numpy(xs).to(d)))
+        out.append((logits.data.cpu(), int(logits.exp)))
+    assert torch.equal(out[0][0], out[1][0]) and out[0][1] == out[1][1]
+
+
+def test_pointnet_lane_on_card_matches_cpu(dev):
+    """Two ZO-Feat-Cls1 steps of PointNet at 64 points: the card (the ZO
+    kernels, cuBLAS with TF32 off) and the CPU agree to float rounding."""
+    from repro_torch.benchmarks.paper_tables import pointnet_lanes
+    c, g = (pointnet_lanes(steps=2, batch=8, train_n=16, test_n=16,
+                           num_points=64, device=d,
+                           lanes=["zo_feat_cls1"])["zo_feat_cls1"]
+            for d in ("cpu", dev))
+    for (_, a), (_, b) in zip(zo.leaves_with_path(c.state.params),
+                              zo.leaves_with_path(g.state.params)):
+        np.testing.assert_allclose(b.cpu().numpy(), a.numpy(), rtol=1e-4,
+                                   atol=2e-5)

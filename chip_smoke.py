@@ -10,7 +10,11 @@ eight requests with qwen3-4b at full width and depth (36 layers, bf16,
 random weights from a seed), trains LeNet-5 in the paper's four fp32
 lanes (Table 1) and in its three ElasticZO-INT8 lanes in both loss modes
 (Table 1's INT8 and INT8* columns, integer arithmetic through the int8
-kernels), trains PointNet, the paper's second model, in its four fp32
+kernels), runs the seed-ledger fleet (``repro_torch.fleet``) on the
+paper's int8 LeNet-5 and on qwen3-4b at full width (two layers), each
+through chaos and a crash whose catch-up replays several ledger steps in
+one launch, every worker and the single-process reference bitwise the
+canon, trains PointNet, the paper's second model, in its four fp32
 lanes (Table 1, then timed at Fig. 6's 1024 points), runs its full-width
 int8 forward against the CPU, runs the paper-table runner
 (``repro_torch.benchmarks.run --fast``) in process, and trains qwen3-4b
@@ -28,13 +32,22 @@ imports nothing of JAX.
 import contextlib
 import dataclasses
 import json
+import math
+import os
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
-import numpy as np
-import torch
+# the fleet's fp32 probes run under torch.use_deterministic_algorithms
+# (core/api.py::deterministic), whose cuBLAS products need a fixed
+# workspace configuration; cuBLAS reads it once, at the process's first
+# product, so it is set before any phase runs
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
@@ -157,6 +170,24 @@ def event_ms(fn, iters, flush=None):
         return start.elapsed_time(end)
     base = run(False) if flush is not None else 0.0
     return (run(True) - base) / iters
+
+
+def graph_ms(fn, calls=100):
+    """Device time of one fn() call in ms, without the profiler, for
+    kernels of a few microseconds: ``calls`` calls captured in one CUDA
+    graph and its replays timed with CUDA events. The host issues one
+    launch for all of them, so its time to issue a call is not counted;
+    the gap between two graph nodes is."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    return event_ms(graph.replay, 5) / calls
 
 
 def kernel_records(fn, calls=3, attempts=5):
@@ -374,7 +405,8 @@ def check_topk(topk_mask, ref, V):
 FLASH_F32_TOL = 1e-5             # f32: the sums differ in order only
 # (label, B, H, Hkv, Sq, Sk, D, dtype, causal, window): (a) the fused
 # train path's forwards, (b) a serve prefill, (c) a sliding window, (d)
-# the reduced model's head dim at ragged lengths
+# the reduced model's head dim at ragged lengths, (i) the qwen3-4b fleet's
+# probe forwards
 FLASH_CASES = [
     ("(a) train, seq 4096", 1, 32, 8, 4096, 4096, 128, torch.bfloat16, True,
      0),
@@ -382,6 +414,8 @@ FLASH_CASES = [
     ("(c) window 512", 1, 32, 8, 2048, 2048, 128, torch.bfloat16, True, 512),
     ("(d) reduced, ragged", 2, 4, 2, 100, 100, 16, torch.float32, True, 0),
     ("(d) reduced, Sq != Sk", 2, 4, 2, 100, 77, 16, torch.float32, False, 0),
+    ("(i) fleet probe, seq 128", 1, 32, 8, 128, 128, 128, torch.bfloat16,
+     True, 0),
 ]
 # the bf16 tensor-core kernel's edge paths: head dims 16 and 64, ragged Sq
 # != Sk, and windows under which rows past Sk + window - 1 see no key
@@ -1127,6 +1161,10 @@ MM_FORWARD = [(64 * 784, 25, 6), (64 * 196, 150, 16), (64, 784, 120),
               (64, 120, 84), (64, 84, 10)]
 MM_BACKWARD = [(84, 64, 10), (64, 10, 84), (120, 64, 84), (64, 84, 120)]
 MM_ODD = [(1, 1, 1), (65, 129, 67), (1000, 33, 7), (3, 0, 5), (127, 4097, 3)]
+# the same products at the fleet's batch 8 (each worker's probe forwards),
+# and the one-FC tail's backward (g = a^T e, e_in = e w^T for fc3)
+MM_FLEET = [(8 * 784, 25, 6), (8 * 196, 150, 16), (8, 784, 120),
+            (8, 120, 84), (8, 84, 10), (84, 8, 10), (8, 10, 84)]
 # (M, K, N) of PointNet's int8 forward at full width, batch 32 x 1024
 # points: the five pointwise layers over B*N rows (the first with K = 3;
 # feat1 and feat2 share a shape), then the head's three over B rows
@@ -1159,7 +1197,7 @@ def check_int8_matmul(int8_mm, ref):
 
     worst = 0
     for M, K, N in [(4096, 4096, 4096)] + MM_FORWARD + MM_BACKWARD + MM_ODD \
-            + MM_POINTNET:
+            + MM_POINTNET + MM_FLEET:
         a, w = case(M, K, N)
         out, mx = int8_mm.int8_matmul(a, w)
         want, want_mx = ref.int8_matmul_ref(a, w)
@@ -1187,7 +1225,8 @@ def check_int8_matmul(int8_mm, ref):
                                  f"{int(mx)} vs {int(want_mx)}")
     print(f"int8_matmul: out and max|out| bitwise the plain version at "
           f"4096^3, the 5 forward and 4 backward shapes of a batch-64 LeNet-5 "
-          f"step, the {len(MM_POINTNET)} shapes of PointNet's int8 forward "
+          f"step, the {len(MM_FLEET)} of a batch-8 fleet probe, the "
+          f"{len(MM_POINTNET)} shapes of PointNet's int8 forward "
           f"(K = 3 first), {len(MM_ODD)} odd shapes, {len(MM_MISALIGNED)} "
           "views one "
           f"byte off alignment and K = {int8_mm.MAX_K} (MAX_K)")
@@ -1206,17 +1245,21 @@ def check_int8_matmul(int8_mm, ref):
           f"({2 * 4096 ** 3 / ms / 1e9:.1f} TOPS), plain {plain_ms:.4f} ms, "
           f"torch._int_mm {lib}, bound {bound:.4f} ms by {by}")
     path_ms = path_plain = path_bound = 0.0
+    # kernel and plain version alike as CUDA graphs of 100 calls: device
+    # time without the host's issue time (the profiler drops the plain
+    # version's small kernels' records at these shapes)
     for M, K, N in MM_FORWARD + MM_BACKWARD:
         a, w = case(M, K, N)
-        t = device_ms(lambda: int8_mm.int8_matmul(a, w), iters=20)
-        p = device_ms(lambda: ref.int8_matmul_ref(a, w), iters=20)
+        t = graph_ms(lambda: int8_mm.int8_matmul(a, w))
+        p = graph_ms(lambda: ref.int8_matmul_ref(a, w))
         b, by_ = mm_bound_ms(M, K, N)
         path_ms, path_plain = path_ms + t, path_plain + p
         path_bound += b
         print(f"  int8_matmul {M}x{K}x{N}: kernel {t:.4f} ms, plain {p:.4f} "
               f"ms, bound {b:.5f} ms by {by_}")
-    print(f"int8_matmul at the path's 9 shapes: kernel {path_ms:.4f} ms in "
-          f"all, plain {path_plain:.4f} ms, bound {path_bound:.5f} ms")
+    print(f"int8_matmul at the path's 9 shapes (CUDA graphs of 100 calls): "
+          f"kernel {path_ms:.4f} ms in all, plain {path_plain:.4f} ms, bound "
+          f"{path_bound:.5f} ms")
     # PointNet's 8 forward products (feat1 and feat2 share a shape) timed
     # as one forward's worth, with CUDA events over 20 back-to-back runs:
     # 8 launches a run keep the card busier than the host that issues them
@@ -1749,6 +1792,326 @@ def check_lenet_int8(zo_perturb, zo_replay, int8_mm, fp32_mem, steps=150,
 
 
 # --------------------------------------------------------------------- #
+# the seed-ledger fleet: LeNet-5 INT8 and qwen3-4b, with a catch-up
+# --------------------------------------------------------------------- #
+LENET_INT8_WEIGHTS = 107_550
+FLEET_INT8 = dict(num_workers=8, probes_per_worker=1, dropout=0.2,
+                  max_delay=2, deadline=1, crashes=((3, 2, 2),),
+                  snapshot_every=10)
+FLEET_INT8_STEPS = 20
+FLEET_LM = dict(num_workers=4, probes_per_worker=1, crashes=((1, 1, 2),),
+                snapshot_every=10)
+FLEET_LM_STEPS = 4
+
+
+@contextlib.contextmanager
+def recording(module, name, counter):
+    """For the block, wraps ``module.<name>``: each call's records shape
+    (S, n) and the kernel launches it made (``counter()`` before and
+    after), and the arguments and result of each call with S > 1."""
+    real = getattr(module, name)
+    calls = []
+
+    def wrapped(*args, **kwargs):
+        n0 = counter()
+        out = real(*args, **kwargs)
+        S, n = args[1].shape
+        calls.append(((S, n), counter() - n0,
+                      (args, kwargs, out) if S > 1 else None))
+        return out
+    setattr(module, name, wrapped)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, real)
+
+
+@contextlib.contextmanager
+def shapes_of(module, name, key):
+    """For the block, wraps ``module.<name>`` and collects ``key(*args,
+    **kwargs)`` of each call in a set."""
+    real = getattr(module, name)
+    seen = set()
+
+    def wrapped(*args, **kwargs):
+        seen.add(key(*args, **kwargs))
+        return real(*args, **kwargs)
+    setattr(module, name, wrapped)
+    try:
+        yield seen
+    finally:
+        setattr(module, name, real)
+
+
+def mm_shape(a, w):
+    return a.shape[0], a.shape[1], w.shape[1]
+
+
+def flash_shape(q, k, v, *, causal=True, window=0, scale=None):
+    """A call's FLASH_CASES entry (without its label); a scale other than
+    the wrapper's default 1 / sqrt(D) is kept, so it matches no entry."""
+    B, H, Sq, D = q.shape
+    return (B, H, k.shape[1], Sq, k.shape[2], D, q.dtype, causal, window) \
+        + (() if scale is None or scale == 1.0 / math.sqrt(D) else (scale,))
+
+
+def check_shapes_held(name, seen, held):
+    """Every shape the path gave the kernel is one that the kernel's own
+    check holds against its plain version."""
+    print(f"{name} shapes on this path: {sorted(map(str, seen))}")
+    if not seen or seen - set(held):
+        raise AssertionError(f"{name} ran at {sorted(map(str, seen - set(held)))}"
+                             ", which its check against the plain version "
+                             "does not cover")
+
+
+def check_catchup(calls, name, S, n, per_call):
+    """Exactly ``per_call`` calls replay S x n records, each one kernel
+    launch; every other call is a live apply (S = 1). Returns the catch-up
+    calls."""
+    catch = [c for c in calls if c[0] == (S, n)]
+    print(f"{name}: {len(calls)} replay calls, {len(catch)} of them the "
+          f"catch-up (S = {S} steps x n = {n} probes), launches "
+          f"{[c[1] for c in catch]}")
+    if len(catch) != per_call or any(c[1] != 1 for c in catch) \
+            or any(c[0] != (1, n) for c in calls if c[0] != (S, n)):
+        raise AssertionError(f"{name}: the catch-up is not one launch of "
+                             f"S = {S} x n = {n} per call: "
+                             f"{sorted(set(c[0] for c in calls))}")
+    return [c[2] for c in catch]
+
+
+def fleet_run(run_fleet, loss_fn, params, lane, cfg, batch_fn, steps,
+              base, **kw):
+    """One timed fleet run (every kernel built already); returns (result,
+    wall s, peak device memory)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = run_fleet(loss_fn, params, lane, cfg, batch_fn, steps=steps,
+                    base_seed=base, **kw)
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+
+
+def check_fleet_canon(res, launch_fleet):
+    """Every live worker bitwise the coordinator's canon."""
+    live = [w for w in res.workers if w.alive]
+    bad = [w.id for w in live
+           if not launch_fleet.trees_equal(w.params, res.params)]
+    print(f"{len(live)}/{len(res.workers)} workers live at the end, "
+          f"{len(live) - len(bad)} bitwise equal to the coordinator")
+    if bad or len(live) != len(res.workers):
+        raise AssertionError(f"workers {bad} differ from the canon")
+
+
+def check_fleet_int8(zo_perturb, zo_replay, int8_mm, ref):
+    """The paper's int8 deployment (LeNet-5, Alg. 2, one FC in the tail)
+    through repro_torch.launch.fleet's assembly on the card: 8 workers x 1
+    probe through dropout, stragglers and worker 3's crash, whose rejoin
+    at step 4 replays steps 0-3 from the step-0 snapshot in one
+    zo_fused_replay_int8 launch (S = 4, n = 8), held against the plain
+    version; every worker and the single-process reference, on the card
+    and on the CPU, bitwise the canon; 9-byte probe entries; every
+    int8_matmul shape of the run one that check_int8_matmul holds bitwise
+    (MM_FLEET). Then the int8 replay's device time at
+    LeNet-5's 107,550 elements for S = 1..8. Returns the launches of the
+    three int8 kernels in the fleet run."""
+    from repro_torch.configs import FleetConfig
+    from repro_torch.core import keys, zo
+    from repro_torch.core.int8 import QTensor
+    from repro_torch.fleet import run_fleet
+    from repro_torch.fleet.coordinator import host_copy
+    from repro_torch.kernels import ops
+    from repro_torch.launch import fleet as launch_fleet
+    params, lane, part, probe_fn, batch_fn = \
+        launch_fleet.lenet_int8_fleet_setup(bp_tail_layers=1, batch=8)
+    qs = [q for q in zo.leaves(params) if isinstance(q, QTensor)]
+    if sum(q.data.numel() for q in qs) != LENET_INT8_WEIGHTS:
+        raise AssertionError("LeNet-5 int8 is not at the paper's size")
+    base = keys.key_data(1)
+    zo_perturb.int8_launches = zo_replay.int8_launches = 0
+    int8_mm.launches = 0
+    with recording(ops, "zo_fused_replay_int8_leaves",
+                   lambda: zo_replay.int8_launches) as calls, \
+            shapes_of(int8_mm, "int8_matmul", mm_shape) as mm_shapes:
+        res, wall, peak = fleet_run(
+            run_fleet, None, params, lane, FleetConfig(**FLEET_INT8),
+            batch_fn, FLEET_INT8_STEPS, base, partition_fn=part,
+            probe_fn=probe_fn)
+    n = {"int8_perturb": zo_perturb.int8_launches,
+         "zo_fused_replay_int8": zo_replay.int8_launches,
+         "int8_matmul": int8_mm.launches}
+    s = res.stats
+    n_rec = sum(len(r) for r in res.ledger.records.values())
+    records = FLEET_INT8_STEPS * 8 - 2          # worker 3 down 2 steps
+    print(f"fleet lenet int8: {FLEET_INT8_STEPS} steps, 8 workers x 1 probe, "
+          f"{1e3 * wall / FLEET_INT8_STEPS:.3f} ms per fleet step "
+          f"({wall:.3f} s), peak device memory {peak} bytes; dropped "
+          f"{s['n_dropped']}, straggled {s['n_straggled']}, rejoins "
+          f"{s['n_catchups']}; ledger {n_rec} records: ZO {s['ledger_bytes_zo']}"
+          f" bytes, tail {s['ledger_bytes_tail']} bytes, host {res.ledger.nbytes}"
+          f" bytes; catch-up slice {s['bytes_catchup']} bytes; launches {n}")
+    want = {"int8_perturb": 2 * records,
+            "zo_fused_replay_int8": FLEET_INT8_STEPS + records + 1,
+            "int8_matmul": 12 * records}
+    if n != want or s["n_catchups"] != 1 or not s["n_dropped"] \
+            or not s["n_straggled"]:
+        raise AssertionError(f"fleet lenet int8: launches {n}, want {want};"
+                             f" stats {s}")
+    some = next(iter(res.ledger.records[0].values()))
+    if some.zo_probe_nbytes != 9:
+        raise AssertionError(f"int8 ZO probe entry {some.zo_probe_nbytes} B")
+    check_shapes_held("int8_matmul", mm_shapes, MM_FLEET)
+    (args, kwargs, out), = check_catchup(calls, "fleet lenet int8", 4, 8, 1)
+    thetas, seeds, gs, salts = args[:4]
+    differ = sum(int((o != ref.zo_fused_replay_int8_ref(t, seeds, gs, salt,
+                                                        *args[4:])).sum())
+                 for t, o, salt in zip(thetas, out, salts))
+    print(f"the catch-up against the plain version leaf by leaf "
+          f"({sum(t.numel() for t in thetas)} elements): {differ} differ")
+    if differ:
+        raise AssertionError("the int8 catch-up differs from the plain "
+                             "version")
+    check_fleet_canon(res, launch_fleet)
+    if not launch_fleet.verify_reference(res, params, probe_fn, None,
+                                         batch_fn, FLEET_INT8_STEPS, base):
+        raise AssertionError("the int8 fleet differs from the "
+                             "single-process reference")
+    print("single-process int8 reference with the realised masks: bitwise "
+          "the canon")
+    # the same reference on the CPU, where every int8 kernel is its plain
+    # version: the lane is exact, so the card's canon must equal it
+    t0 = time.perf_counter()
+    cpu_params, _, _, cpu_probe_fn, cpu_batch_fn = \
+        launch_fleet.lenet_int8_fleet_setup(bp_tail_layers=1, batch=8,
+                                            device="cpu")
+    on_host = types.SimpleNamespace(
+        schema=res.schema, masks=res.masks, arrival_masks=res.arrival_masks,
+        params=host_copy(res.params))
+    if not launch_fleet.verify_reference(on_host, cpu_params, cpu_probe_fn,
+                                         None, cpu_batch_fn,
+                                         FLEET_INT8_STEPS, base):
+        raise AssertionError("the int8 fleet on the card differs from the "
+                             "single-process reference on the CPU")
+    print(f"single-process int8 reference on the CPU (the plain versions): "
+          f"bitwise the card's canon ({time.perf_counter() - t0:.1f} s)")
+    # the replay at LeNet-5's whole-model total, S steps x 8 probes
+    leaves = [q.data for q in qs]
+    salts = [zo.path_salt(p) for p, _ in zo.leaves_with_path(params)]
+    g = torch.Generator().manual_seed(3)
+    sd = torch.randint(-2**31, 2**31, (8, 8), generator=g,
+                       dtype=torch.int64).to(torch.int32).cuda()
+    gg = torch.randint(-1, 2, (8, 8), generator=g, dtype=torch.int32).cuda()
+    r = (lane.int8_r_max, lane.int8_p_zero, 1)
+
+    outs = [torch.empty_like(t) for t in leaves]
+
+    def replay_ms(S):
+        # the profiler dropped this kernel's records after the earlier
+        # phases' profiles (five runs running, twice): a CUDA graph instead
+        return graph_ms(lambda: zo_replay.zo_fused_replay_int8_leaves(
+            leaves, sd[:S], gg[:S], salts, *r, outs=outs))
+    times = {S: replay_ms(S) for S in (1, 2, 4, 8)}
+    print("zo_fused_replay_int8 over LeNet-5's 107,550 int8 weights, S steps "
+          "x n = 8 probes, one launch (a CUDA graph of 100): "
+          + ", ".join(f"S = {S}: {t:.5f} ms ({1e3 * t / S:.3f} us a step)"
+                      for S, t in times.items()))
+    return n
+
+
+def check_fleet_lm(zo_perturb, zo_replay, flash_attn, ref):
+    """The fp32 lane's fleet on qwen3-4b at full width (bf16, random
+    weights from seed 0), depth cut to 2 layers (one ZO, one BP tail):
+    4 workers x 1 probe at batch 1 x seq 128 for 4 steps, worker 1 down
+    at steps 1-2 and back at 3 by replaying steps 0-2 from the step-0
+    snapshot, one zo_fused_replay launch per ZO leaf (S = 3, n = 4) held
+    against the plain version; every worker and the single-process
+    reference (the realised masks) bitwise the canon; every
+    flash_attention shape of the run one of FLASH_CASES. Returns the
+    launches of zo_perturb, zo_fused_replay and flash_attention."""
+    from repro_torch.configs import ARCHS, FleetConfig, LaneConfig
+    from repro_torch.core import api, elastic, keys, zo
+    from repro_torch.data.synthetic import token_batch
+    from repro_torch.fleet import run_fleet
+    from repro_torch.kernels import ops
+    from repro_torch.launch import fleet as launch_fleet
+    cfg = dataclasses.replace(ARCHS["qwen3-4b"], num_layers=2)
+    lane = LaneConfig(lane="elastic_zo", bp_tail_layers=1, zo_num_probes=1,
+                      learning_rate=1e-2, zo_eps=1e-3)
+    dev = torch.device("cuda")
+    params = api.init(cfg, lane, seed=0, device=dev)
+    zo_part, bp_part = elastic.partition(params, lane)
+    n_zo = len(list(zo.leaves_with_path(zo_part)))
+    n_tail = sum(t.numel() for _, t in zo.leaves_with_path(bp_part))
+
+    def loss_fn(p, b):
+        return api.loss_fn(p, cfg, b)
+
+    def batch_fn(step):
+        x, y, m = token_batch(1, 128, cfg.vocab_size, seed=1, step=step)
+        return {k: torch.from_numpy(v).to(dev)
+                for k, v in (("tokens", x), ("labels", y), ("mask", m))}
+
+    base = keys.key_data(1)
+    zo_perturb.launches = zo_replay.launches = flash_attn.launches = 0
+    with recording(ops, "zo_fused_replay", lambda: zo_replay.launches) \
+            as calls, shapes_of(flash_attn, "flash_attention",
+                                flash_shape) as fa_shapes:
+        res, wall, peak = fleet_run(
+            run_fleet, loss_fn, params, lane, FleetConfig(**FLEET_LM),
+            batch_fn, FLEET_LM_STEPS, base)
+    n = {"zo_perturb": zo_perturb.launches,
+         "zo_fused_replay": zo_replay.launches,
+         "flash_attention": flash_attn.launches}
+    s = res.stats
+    n_rec = sum(len(r) for r in res.ledger.records.values())
+    records = FLEET_LM_STEPS * 4 - 2            # worker 1 down 2 steps
+    some = next(iter(res.ledger.records[0].values()))
+    print(f"fleet qwen3-4b (full width, 2 layers, {n_zo} ZO leaves, "
+          f"{n_tail} tail elements): {FLEET_LM_STEPS} steps, 4 workers x 1 "
+          f"probe, {1e3 * wall / FLEET_LM_STEPS:.1f} ms per fleet step "
+          f"({wall:.3f} s), peak device memory {peak} bytes; ZO "
+          f"{some.zo_probe_nbytes} bytes a probe, tail "
+          f"{s['ledger_bytes_tail'] / n_rec:.0f} bytes a record; ledger "
+          f"{n_rec} records, {res.ledger.nbytes} bytes on the host; "
+          f"catch-up slice {s['bytes_catchup']} bytes; launches {n}")
+    want = {"zo_perturb": 2 * n_zo * records,
+            "zo_fused_replay": n_zo * (FLEET_LM_STEPS + records + 1),
+            "flash_attention": 2 * records}
+    if n != want or s["n_catchups"] != 1 or some.zo_probe_nbytes != 12:
+        raise AssertionError(f"fleet qwen3-4b: launches {n}, want {want}; "
+                             f"stats {s}")
+    check_shapes_held("flash_attention", fa_shapes,
+                      [c[1:] for c in FLASH_CASES + FLASH_EDGE_CASES])
+    catch = check_catchup(calls, "fleet qwen3-4b", 3, 4, n_zo)
+    differ = worst = 0
+    for (theta, sd, cf, salt), _, out in catch:
+        flat = theta.reshape(-1)
+        count, far = ulp_diff(out, lambda lo, hi: ref.zo_fused_replay_ref(
+            flat[lo:hi], sd, cf, salt, lo))
+        differ, worst = differ + count, max(worst, far)
+    print(f"the catch-up against the plain version, leaf by leaf "
+          f"({sum(a[0].numel() for a, _, _ in catch)} elements): {differ} "
+          f"differ (largest distance {worst} ulp)")
+    if differ:
+        raise AssertionError("the fp32 catch-up differs from the plain "
+                             "version")
+    del catch, calls
+    check_fleet_canon(res, launch_fleet)
+    for w in res.workers:                 # room for the reference's copies
+        w.params = w.residual = None
+    torch.cuda.empty_cache()
+    if not launch_fleet.verify_reference(res, params, None, loss_fn,
+                                         batch_fn, FLEET_LM_STEPS, base):
+        raise AssertionError("the qwen3-4b fleet differs from the "
+                             "single-process reference")
+    print("single-process reference with the realised masks: bitwise the "
+          "canon")
+    return n
+
+
+# --------------------------------------------------------------------- #
 # training: qwen3-4b at full width and depth
 # --------------------------------------------------------------------- #
 TRAIN_ARGV = ["--arch", "qwen3-4b", "--lane", "elastic_zo",
@@ -2095,6 +2458,15 @@ def main():
     n_int8 = check_lenet_int8(zo_perturb, zo_fused_replay, int8_matmul,
                               fp32_mem)
 
+    phase("fleet LeNet-5 INT8")
+    n_fleet_int8 = check_fleet_int8(zo_perturb, zo_fused_replay, int8_matmul,
+                                    ref)
+    torch.cuda.empty_cache()
+
+    phase("fleet qwen3-4b")
+    n_fleet_lm = check_fleet_lm(zo_perturb, zo_fused_replay, flash_attn, ref)
+    torch.cuda.empty_cache()
+
     phase("train PointNet: Table 1's PointNet column")
     n_pointnet = check_pointnet(zo_perturb, zo_fused_replay)
     torch.cuda.empty_cache()
@@ -2123,16 +2495,31 @@ def main():
           "one (the kernels line reports the fused run's)")
     phase(None)
 
-    # launches of the kernels on this slice's PointNet path, each counted
-    # from 0 just before its phase
+    # launches of the kernels on the PointNet and fleet paths and the
+    # paths before them, each counted from 0 just before its phase
     paths = {"zo_perturb": {"train qwen3-4b": n_zo["zo_perturb"],
-                            "train PointNet": n_pointnet["zo_perturb"]},
+                            "train PointNet": n_pointnet["zo_perturb"],
+                            "fleet qwen3-4b": n_fleet_lm["zo_perturb"]},
              "zo_fused_replay": {
                  "train qwen3-4b": n_zo["zo_fused_replay"],
-                 "train PointNet": n_pointnet["zo_fused_replay"]},
+                 "train PointNet": n_pointnet["zo_fused_replay"],
+                 "fleet qwen3-4b": n_fleet_lm["zo_fused_replay"]},
+             "int8_perturb": {
+                 "train LeNet-5 INT8": n_zo["int8_perturb"],
+                 "fleet LeNet-5 INT8": n_fleet_int8["int8_perturb"]},
+             "zo_fused_replay_int8": {
+                 "train LeNet-5 INT8": n_zo["zo_fused_replay_int8"],
+                 "fleet LeNet-5 INT8": n_fleet_int8["zo_fused_replay_int8"]},
              "int8_matmul": {
                  "train LeNet-5 INT8": n_zo["int8_matmul"],
-                 "PointNet INT8 forward": n_pointnet["int8_matmul"]}}
+                 "PointNet INT8 forward": n_pointnet["int8_matmul"],
+                 "fleet LeNet-5 INT8": n_fleet_int8["int8_matmul"]},
+             "flash_attention": {
+                 "serve qwen3-4b": n_flash_serve,
+                 "train qwen3-4b": n_lm[2],
+                 "train qwen3-4b, fused probes, seq 4096":
+                     n_fused["flash_attention"],
+                 "fleet qwen3-4b": n_fleet_lm["flash_attention"]}}
     for name, by_path in paths.items():
         if not all(by_path.values()):
             raise AssertionError(f"{name} was not launched on every path: "
@@ -2167,7 +2554,8 @@ def main():
              source="src/repro_torch/csrc/flash_attn.cu",
              replaces="src/repro/kernels/flash_attn.py:79",
              launches=n_zo["flash_attention"],
-             **zo_times["flash_attention"])]
+             **zo_times["flash_attention"],
+             launches_by_path=paths["flash_attention"])]
     print(f"chip_smoke: {time.perf_counter() - _PHASE['start']:.1f} s in all")
     print(smi)
     print(json.dumps({"kernels": kernels}))

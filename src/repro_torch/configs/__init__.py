@@ -2,6 +2,7 @@
 from .base import (ATTN, MAMBA, RWKV, LaneConfig, ModelConfig, ShapeConfig,
                    pad_to, reduced)
 from .archs import ARCHS
+from .fleet import ByzantineSpec, FleetConfig, GossipConfig, RobustConfig
 from .serve import ServeConfig
 
 

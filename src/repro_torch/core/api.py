@@ -47,6 +47,29 @@ def f32_products():
         torch.backends.cudnn.allow_tf32 = cudnn
 
 
+@contextlib.contextmanager
+def deterministic():
+    """Deterministic algorithms inside: every op that has a
+    nondeterministic (atomic) path on the card takes its deterministic
+    one, and an op that has none raises. cuBLAS products are
+    deterministic only with a fixed workspace configuration, which
+    cuBLAS reads once, at its first product: the process must set
+    ``CUBLAS_WORKSPACE_CONFIG`` (e.g. ``:4096:8``) before it, as the fleet
+    launcher and ``chip_smoke.py`` do, and a product on the card raises
+    here when it is unset. Uninitialised outputs are not filled. The
+    previous settings are restored on exit."""
+    mode = torch.are_deterministic_algorithms_enabled()
+    warn = torch.is_deterministic_algorithms_warn_only_enabled()
+    fill = torch.utils.deterministic.fill_uninitialized_memory
+    torch.use_deterministic_algorithms(True)
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(mode, warn_only=warn)
+        torch.utils.deterministic.fill_uninitialized_memory = fill
+
+
 def tail_periods(cfg: ModelConfig, lane: LaneConfig) -> int:
     """BP-tail size in periods (>=1, < num_periods)."""
     plen = len(cfg.pattern)

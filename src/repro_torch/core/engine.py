@@ -45,7 +45,9 @@ for all ZO leaves, the ternary g kept on the device as an int32 [1, P]
 tensor and the update one in-place ``zo_fused_replay_int8`` launch for all
 ZO leaves, so live == replay bitwise and no step reads g on the host.
 
-``apply_tail_records`` (the fleet's ledger tail) is not ported yet.
+``apply_tail_records`` is the fleet's ledger tail: the accepted workers'
+tail payloads, decoded from the wire, summed in worker-id order and
+applied once (``fleet/replay.py``).
 """
 from __future__ import annotations
 
@@ -90,20 +92,11 @@ def tail_learning_rate(lane: LaneConfig) -> float:
         else lane.tail_learning_rate
 
 
-def _leaves(tree) -> List[torch.Tensor]:
-    return [leaf for _, leaf in zo.leaves_with_path(tree)]
-
-
-def _rebuild(tree, leaves: Sequence[torch.Tensor]):
-    it = iter(leaves)
-    return zo.map_with_path(lambda _p, _l: next(it), tree)
-
-
 def _value_and_grad(loss_fn: Callable, bp_part, *args):
     """(loss, grads of the tail leaves): the tail is re-leafed with
     ``requires_grad`` (its storage shared), nothing else is."""
-    leaves = [t.detach().requires_grad_(True) for t in _leaves(bp_part)]
-    loss = loss_fn(_rebuild(bp_part, leaves), *args)
+    leaves = [t.detach().requires_grad_(True) for t in zo.leaves(bp_part)]
+    loss = loss_fn(zo.rebuild(bp_part, leaves), *args)
     grads = torch.autograd.grad(loss, leaves)
     return loss.detach(), list(grads)
 
@@ -111,8 +104,8 @@ def _value_and_grad(loss_fn: Callable, bp_part, *args):
 def _paired_value_and_grad(paired_loss_fn: Callable, bp_part, *args):
     """(l+, l-, grads of 0.5 (l+ + l-) over the tail leaves), one
     backward."""
-    leaves = [t.detach().requires_grad_(True) for t in _leaves(bp_part)]
-    lp, lm = paired_loss_fn(_rebuild(bp_part, leaves), *args)
+    leaves = [t.detach().requires_grad_(True) for t in zo.leaves(bp_part)]
+    lp, lm = paired_loss_fn(zo.rebuild(bp_part, leaves), *args)
     grads = torch.autograd.grad(0.5 * (lp + lm), leaves)
     return lp.detach(), lm.detach(), list(grads)
 
@@ -200,12 +193,26 @@ class Fp32Engine:
         leaf order of ``bp_part``; eta a host f32."""
         eta = float(np.float32(eta))
         new = [(p.to(torch.float32) - eta * g.to(torch.float32)).to(p.dtype)
-               for p, g in zip(_leaves(bp_part), grads)]
-        return _rebuild(bp_part, new)
+               for p, g in zip(zo.leaves(bp_part), grads)]
+        return zo.rebuild(bp_part, new)
 
-    def apply_tail_records(self, *args, **kwargs):
-        raise NotImplementedError("apply_tail_records (the fleet's ledger "
-                                  "tail) is not ported yet")
+    def apply_tail_records(self, bp_part, step: int, worker_grads,
+                           valid: np.float32):
+        """Ledger-domain tail: sum the accepted workers' dequantised grad
+        trees (an iterable, worker-id order), divide by ``valid``, apply
+        with eta_tail * decay as a host f32. Out of place."""
+        if not zo.leaves(bp_part):
+            return bp_part
+        acc = None
+        for part in worker_grads:
+            g = zo.leaves(part)
+            acc = g if acc is None else [a + b for a, b in zip(acc, g)]
+        if acc is None:
+            return bp_part
+        valid = float(np.float32(valid))
+        eta = np.float32(tail_learning_rate(self.lane)) \
+            * decay_host(self.lane, step)
+        return self.tail_apply(bp_part, [a / valid for a in acc], eta)
 
     # ---- the train step ------------------------------------------------ #
     def make_step(self, loss_fn: Callable[[Any, Any], torch.Tensor]):
@@ -244,7 +251,7 @@ class Fp32Engine:
                 return loss_fn(merge(zo_pert, bp), batch)
 
             has_tail = bool(bp_part) and lane.lane == "elastic_zo"
-            device = _leaves(zo_part)[0].device
+            device = zo.leaves(zo_part)[0].device
             seeds = zo.device_seeds(
                 [prng.seed_from_key(keys.fold_in(key, i)) for i in range(n)],
                 device)
@@ -417,9 +424,21 @@ class Int8Engine:
             new_bp[name] = {"w": QTensor(d.to(torch.int8), w.exp)}
         return new_bp
 
-    def apply_tail_records(self, *args, **kwargs):
-        raise NotImplementedError("apply_tail_records (the fleet's ledger "
-                                  "tail) is not ported yet")
+    def apply_tail_records(self, bp_part, step: int, worker_upds,
+                           valid=None):
+        """Ledger-domain tail: the int32 sum of the accepted workers' int8
+        payload trees (``{layer: {"w": upd}}``; exact, order-free), then
+        one saturating apply. Out of place."""
+        if not zo.leaves(bp_part):
+            return bp_part
+        acc = None
+        for part in worker_upds:
+            part = {n: sub["w"].to(torch.int32) for n, sub in part.items()}
+            acc = part if acc is None else {n: acc[n] + u
+                                            for n, u in part.items()}
+        if acc is None:
+            return bp_part
+        return self.tail_apply(bp_part, acc)
 
     # ---- the train step ------------------------------------------------ #
     def make_step(self, forward: Callable):

@@ -35,19 +35,40 @@ def path_salt(path: Sequence[str], prefix: str = "") -> int:
 
 
 def map_with_path(fn, tree, path=()):
-    """``fn(path, leaf)`` over a nested dict of tensors, same structure."""
+    """``fn(path, leaf)`` over a nested dict, same structure. ``fn`` is
+    called in ``leaves_with_path``'s order; the result keeps ``tree``'s
+    key order."""
     if isinstance(tree, dict):
-        return {k: map_with_path(fn, v, path + (k,)) for k, v in tree.items()}
+        out = {k: map_with_path(fn, tree[k], path + (k,))
+               for k in sorted(tree)}
+        return {k: out[k] for k in tree}
     return fn(path, tree)
 
 
 def leaves_with_path(tree, path=()):
-    """(path, leaf) for every tensor of a nested dict, in key order."""
+    """(path, leaf) for every leaf of a nested dict (a tensor or a
+    ``QTensor``) in ``jax.tree_util``'s order: keys sorted. The fleet's
+    wire format (a record's tail is a flat list of leaves) and the
+    checkpoint format are defined in this order."""
     if isinstance(tree, dict):
-        for k, v in tree.items():
-            yield from leaves_with_path(v, path + (k,))
+        for k in sorted(tree):
+            yield from leaves_with_path(tree[k], path + (k,))
     else:
         yield path, tree
+
+
+def leaves(tree) -> list:
+    return [leaf for _, leaf in leaves_with_path(tree)]
+
+
+def rebuild(tree, new_leaves):
+    """``tree``'s structure with its leaves replaced by ``new_leaves``,
+    taken in ``leaves_with_path``'s order."""
+    it = iter(new_leaves)
+    out = map_with_path(lambda _p, _l: next(it), tree)
+    if next(it, it) is not it:
+        raise ValueError("rebuild: more leaves than the tree holds")
+    return out
 
 
 def device_seeds(seeds: Sequence[int], device) -> torch.Tensor:

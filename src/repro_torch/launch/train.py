@@ -5,7 +5,9 @@ stream with the ElasticZO step of ``--lane``, on the card unless
 ``--device cpu`` is given (use that with ``--smoke``, the reduced
 same-family config). The flags and defaults are those of
 ``repro.launch.train``, the flight recorder's ``--trace``, ``--metrics``,
-``--memory`` and ``--quiet`` included; ``--mesh``, ``--ckpt-dir`` and
+``--memory`` and ``--quiet`` included. ``--ckpt-dir`` checkpoints every
+50 steps and at the end, and resumes from the newest checkpoint there
+(``train/checkpoint.py``). ``--mesh`` and
 ``--profile-phases`` are not ported yet.
 """
 from __future__ import annotations
@@ -40,6 +42,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--probe-drop", type=float, default=0.0)
     ap.add_argument("--lr", type=float, default=1e-2)
     ap.add_argument("--eps", type=float, default=1e-3)
+    ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--device", default="cuda")
     obs.add_observability_args(ap)
     return ap.parse_args(argv)
@@ -83,7 +86,8 @@ def setup(args: argparse.Namespace,
 
     loop = LoopConfig.for_lane(lane, total_steps=args.steps,
                                log_every=max(args.steps // 10, 1),
-                               probe_drop_rate=args.probe_drop)
+                               probe_drop_rate=args.probe_drop,
+                               ckpt_dir=args.ckpt_dir)
     return Trainer(lane, device, step_fn, init_state(params, seed=0),
                    batch_fn, loop)
 

@@ -1,0 +1,241 @@
+"""Atomic, async, delta-capable checkpoints.
+
+The port of ``repro/train/checkpoint.py``, on the same files:
+
+  <dir>/step_<N>/
+    manifest.json   - step, flat param keys, shapes, dtypes
+    arrays.npz      - one entry per leaf ("0", "1", ... in key order)
+    COMMIT          - written last; a checkpoint without it is ignored
+
+Keys are the ``jax.tree_util.keystr`` paths of the leaves
+(``['layer']['w']``, then ``.data`` / ``.exp`` for a ``QTensor``) in
+JAX's leaf order (``core/zo.py::leaves_with_path``). npz cannot store
+bfloat16: a bf16 leaf is saved as its uint16 bits with ``"bfloat16"`` in
+the manifest, as the JAX package saves it. So a checkpoint written by
+either package restores in the other. The label differs for periodic
+checkpoints: the JAX train loop's step_<N> holds N + 1 steps, this
+package's N (``train_loop.py``), so resuming the port's loop from a
+periodic checkpoint of the JAX loop runs one step twice.
+
+Delta mode (the fleet): ``save_delta`` writes ``ledger.bin``, a
+seed-ledger slice, and a manifest with ``mode: "delta"`` and
+``base_step``. Restoring it restores the full checkpoint at
+``base_step`` and replays the slice through a ``replay_fn``
+(``fleet/replay.py::make_replay_fn``).
+
+Async: ``AsyncCheckpointer.save`` copies the leaves to host memory at
+the call, then writes the files on a background thread.
+
+Restores go onto the template leaves' devices; resharding onto a mesh
+waits for the port's distribution layer.
+"""
+from __future__ import annotations
+
+import json
+import os
+import shutil
+import threading
+import time
+from pathlib import Path
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from .. import obs
+from ..core import zo
+from ..core.int8 import QTensor
+
+
+def _host(leaf) -> Tuple[np.ndarray, str]:
+    """(array to save, logical dtype name) of one leaf."""
+    if isinstance(leaf, torch.Tensor):
+        t = leaf.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
+        a = t.numpy()
+    else:
+        a = np.asarray(leaf)
+    return a, str(a.dtype)
+
+
+def _from_saved(a: np.ndarray, dtype_str: str) -> torch.Tensor:
+    if dtype_str == "bfloat16":
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(np.array(a))
+
+
+def flatten_with_keys(params) -> List[Tuple[str, Any]]:
+    """(``jax.tree_util.keystr`` path, array) pairs in JAX's leaf order;
+    a ``QTensor`` leaf gives two, its ``.data`` and its ``.exp``."""
+    out = []
+    for path, leaf in zo.leaves_with_path(params):
+        key = zo.keystr(path)
+        if isinstance(leaf, QTensor):
+            out += [(key + ".data", leaf.data), (key + ".exp", leaf.exp)]
+        else:
+            out.append((key, leaf))
+    return out
+
+
+def _snapshot(params) -> Dict[str, Tuple[np.ndarray, str]]:
+    return {k: _host(v) for k, v in flatten_with_keys(params)}
+
+
+def _atomic_commit(ckpt_dir: str | Path, step: int, manifest: Dict,
+                   write_payload) -> Path:
+    """The tmp-dir / manifest / COMMIT / rename sequence: readers only
+    ever see complete checkpoints (a leftover ``*.tmp`` dir, even one
+    holding COMMIT, is ignored)."""
+    d = Path(ckpt_dir) / f"step_{step:08d}"
+    tmp = d.with_suffix(".tmp")
+    if tmp.exists():
+        shutil.rmtree(tmp)
+    tmp.mkdir(parents=True)
+    write_payload(tmp)
+    (tmp / "manifest.json").write_text(json.dumps(manifest))
+    (tmp / "COMMIT").write_text("ok")
+    if d.exists():
+        shutil.rmtree(d)
+    os.rename(tmp, d)
+    return d
+
+
+def _array_manifest(step: int, arrays: Dict[str, Tuple[np.ndarray, str]],
+                    extra: Optional[Dict]) -> Dict:
+    return {
+        "step": int(step),
+        "mode": "full",
+        "time": time.time(),            # wall-clock stamp of the manifest
+        "keys": list(arrays.keys()),
+        "shapes": [list(a.shape) for a, _ in arrays.values()],
+        "dtypes": [dt for _, dt in arrays.values()],
+        "extra": extra or {},
+    }
+
+
+def _write_arrays(tmp: Path, arrays: Dict[str, Tuple[np.ndarray, str]]):
+    np.savez(tmp / "arrays.npz",
+             **{str(i): a for i, (a, _) in enumerate(arrays.values())})
+
+
+def save(ckpt_dir: str | Path, step: int, params, extra: Optional[Dict] = None):
+    """Synchronous save with atomic commit."""
+    arrays = _snapshot(params)
+    return _atomic_commit(ckpt_dir, step, _array_manifest(step, arrays, extra),
+                          lambda tmp: _write_arrays(tmp, arrays))
+
+
+def save_delta(ckpt_dir: str | Path, step: int, base_step: int,
+               ledger_bytes: bytes, extra: Optional[Dict] = None):
+    """Checkpoint step ``step`` as (base_step, ledger slice), no arrays.
+
+    The slice covers commits [base_step, step), and a committed full
+    checkpoint must exist at base_step in the same directory (a delta of
+    a delta is not supported).
+    """
+    manifest = {"step": int(step), "mode": "delta",
+                "base_step": int(base_step), "time": time.time(),
+                "extra": extra or {}}
+    led = obs.get().memory
+    if led.armed:
+        led.alloc("ckpt.delta", len(ledger_bytes))
+    return _atomic_commit(ckpt_dir, step, manifest,
+                          lambda tmp: (tmp / "ledger.bin")
+                          .write_bytes(ledger_bytes))
+
+
+class AsyncCheckpointer:
+    """Snapshot on the call, write on a thread; one save in flight."""
+
+    def __init__(self, ckpt_dir: str | Path, keep: int = 3):
+        self.dir = Path(ckpt_dir)
+        self.keep = keep
+        self._thread: Optional[threading.Thread] = None
+
+    def save(self, step: int, params, extra=None):
+        self.wait()
+        snapshot = _snapshot(params)
+        led = obs.get().memory
+        key = ("ckpt.pending", id(self), step)
+        if led.armed:
+            # the host snapshot is live until the writer thread is done
+            led.alloc("ckpt.pending",
+                      sum(a.nbytes for a, _ in snapshot.values()), key=key)
+
+        def _write():
+            try:
+                _atomic_commit(self.dir, step,
+                               _array_manifest(step, snapshot, extra),
+                               lambda tmp: _write_arrays(tmp, snapshot))
+                self._gc()
+            finally:
+                if led.armed:
+                    led.free("ckpt.pending", key=key)
+
+        self._thread = threading.Thread(target=_write, daemon=True)
+        self._thread.start()
+
+    def wait(self):
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+
+    def _gc(self):
+        steps = sorted(p for p in self.dir.glob("step_*")
+                       if not p.name.endswith(".tmp"))
+        for old in steps[:-self.keep]:
+            if (old / "COMMIT").exists():
+                shutil.rmtree(old, ignore_errors=True)
+
+
+def latest_step(ckpt_dir: str | Path) -> Optional[int]:
+    d = Path(ckpt_dir)
+    if not d.exists():
+        return None
+    # only renamed (complete) dirs count, not a step_<N>.tmp with COMMIT
+    steps = [int(p.name.split("_")[1]) for p in d.glob("step_*")
+             if (p / "COMMIT").exists() and not p.name.endswith(".tmp")]
+    return max(steps) if steps else None
+
+
+def restore(ckpt_dir: str | Path, template, step: Optional[int] = None,
+            replay_fn=None) -> Tuple[Any, int]:
+    """Restore into ``template``'s tree structure, each leaf onto its
+    template leaf's device, with the saved dtype. Returns (params, step).
+
+    Delta checkpoints also need ``replay_fn(params, ledger_bytes,
+    base_step, step) -> params``: the full checkpoint at the base is
+    restored first, then the ledger slice is replayed on top.
+    """
+    if step is None:
+        step = latest_step(ckpt_dir)
+        if step is None:
+            raise FileNotFoundError(f"no committed checkpoint under {ckpt_dir}")
+    d = Path(ckpt_dir) / f"step_{step:08d}"
+    manifest = json.loads((d / "manifest.json").read_text())
+    if manifest.get("mode", "full") == "delta":
+        if replay_fn is None:
+            raise ValueError(
+                f"checkpoint at step {step} is a ledger delta (base "
+                f"{manifest['base_step']}); pass replay_fn to restore it")
+        base_step = int(manifest["base_step"])
+        params, _ = restore(ckpt_dir, template, step=base_step)
+        params = replay_fn(params, (d / "ledger.bin").read_bytes(),
+                           base_step, step)
+        return params, int(manifest["step"])
+    with np.load(d / "arrays.npz") as z:
+        arrays = {k: _from_saved(z[str(i)], manifest["dtypes"][i])
+                  for i, k in enumerate(manifest["keys"])}
+    missing = {k for k, _ in flatten_with_keys(template)} - set(arrays)
+    if missing:
+        raise KeyError(f"checkpoint missing keys: {sorted(missing)[:5]} ...")
+
+    def leaf(path, v):
+        key = zo.keystr(path)
+        if isinstance(v, QTensor):
+            return QTensor(arrays[key + ".data"].to(v.data.device),
+                           arrays[key + ".exp"].to(v.exp.device))
+        return arrays[key].to(v.device) if isinstance(v, torch.Tensor) \
+            else arrays[key]
+    return zo.map_with_path(leaf, template), int(manifest["step"])

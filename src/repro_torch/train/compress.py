@@ -1,0 +1,50 @@
+"""Int8 error-feedback compression of the BP tail's gradient.
+
+The port of ``repro/train/compress.py``. The fleet's fp32 lane ships a
+worker's tail gradient as per-tensor-scaled int8 with error feedback:
+the quantisation error is carried in the worker's residual and added
+back the next step. The JAX package computes this outside any Pallas
+kernel, so plain PyTorch on the tensors is the port. The op order is the
+reference's, and so are the bits: x = g + r, scale = max(max|x|, 1e-30)
+/ 127, q = clip(round(x / scale)) (IEEE f32 division, round half to
+even), new_r = x - q * scale.
+
+``compressed_psum``, the multi-device collective, waits for the port's
+distribution layer.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from ..core import zo
+
+
+def int8_compress(g: torch.Tensor, residual: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(g + residual) -> (q int8, scale f32 0-d, new_residual f32)."""
+    x = g.to(torch.float32) + residual
+    # a zero-size leaf has max 0, as JAX's ``initial=0.0``
+    top = x.abs().amax() if x.numel() else x.new_zeros(())
+    scale = torch.clamp(top, min=1e-30) / 127.0
+    q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
+    new_residual = x - q.to(torch.float32) * scale
+    return q, scale, new_residual
+
+
+def int8_decompress(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return q.to(torch.float32) * scale
+
+
+def compress_tree(grads, residuals):
+    """Tree-wise error-feedback int8 compression: (q tree, scale tree,
+    new residual tree), each shaped like ``grads``."""
+    outs = [int8_compress(g, r)
+            for g, r in zip(zo.leaves(grads), zo.leaves(residuals))]
+    return tuple(zo.rebuild(grads, [o[i] for o in outs]) for i in range(3))
+
+
+def decompress_tree(qs, scales):
+    return zo.rebuild(qs, [int8_decompress(q, s)
+                           for q, s in zip(zo.leaves(qs), zo.leaves(scales))])

@@ -9,8 +9,17 @@ them the loop never waits on the device. With a flight recorder armed
 metrics), feeding ``train.step_ms``, ``train.tokens``,
 ``train.tokens_per_s`` and ``train.loss``, and the params and batch are
 tagged in the memory ledger; the default null recorder adds no sync.
-Checkpointing and explicit per-step masks (``mask_fn``, the fleet
-reference's) are not ported yet.
+
+With ``ckpt_dir`` set the loop restores the newest committed checkpoint
+there on start (``train/checkpoint.py``) and saves one every
+``ckpt_every`` steps on a background thread, keeping ``keep``, and one at
+the end. A checkpoint labelled N holds the params after N steps, and a
+resumed run draws the probe-drop masks an uninterrupted one would have
+drawn from there on, so it continues bitwise where the saved one
+stopped. (The JAX loop labels its periodic checkpoints one step early:
+the one it calls N holds the params after N + 1 steps.)
+``mask_fn(step)`` gives explicit per-step probe masks, as the fleet's
+single-process reference takes the realised masks of a fleet run.
 """
 from __future__ import annotations
 
@@ -23,17 +32,25 @@ import torch
 from .. import obs
 from ..core import keys
 from ..core.elastic import TrainState
+from . import checkpoint as ckpt
 
 
 @dataclass
 class LoopConfig:
     total_steps: int = 100
+    ckpt_dir: Optional[str] = None
+    ckpt_every: int = 50
     log_every: int = 10
+    keep: int = 3
     seed: int = 0
     # straggler simulation/mitigation: probability a probe is dropped and
     # masked out instead of waited for
     probe_drop_rate: float = 0.0
     n_probes: int = 1
+    # explicit per-step probe masks (fp32[n_probes]), e.g. the realised
+    # commit masks of a fleet run replayed through the single-process
+    # reference; overrides the drop stream
+    mask_fn: Optional[Callable[[int], Any]] = None
 
     @classmethod
     def for_lane(cls, lane, **kwargs) -> "LoopConfig":
@@ -72,7 +89,17 @@ def run(step_fn: Callable, state: TrainState,
     updates the ZO leaves in place). ``log(msg, step=, loss=)`` takes the
     progress lines (``obs.log`` on the ``train`` channel; None drops
     them)."""
-    start = state.step
+    saver = ckpt.AsyncCheckpointer(cfg.ckpt_dir, cfg.keep) \
+        if cfg.ckpt_dir else None
+    start = first = state.step
+    if cfg.ckpt_dir:
+        last = ckpt.latest_step(cfg.ckpt_dir)
+        if last is not None and last > start:
+            params, last = ckpt.restore(cfg.ckpt_dir, state.params)
+            state = TrainState(params, last, state.seed)
+            start = last
+            if log is not None:
+                log(f"resumed from step {last}", step=last)
     rec = obs.get()
     mem = rec.memory
     if rec.enabled:
@@ -81,6 +108,9 @@ def run(step_fn: Callable, state: TrainState,
         mem.rebind("train.params", obs.memory.tree_nbytes(state.params),
                    key=("train.params", id(cfg)))
     rng = np.random.default_rng(cfg.seed + 17)
+    if cfg.mask_fn is None:
+        for _ in range(first, start):   # the draws of the steps restored
+            rng.uniform(size=cfg.n_probes)
     t0 = obs.monotonic()
     history = []
     for step in range(start, cfg.total_steps):
@@ -88,10 +118,13 @@ def run(step_fn: Callable, state: TrainState,
         if rec.enabled:
             batch_nbytes = mem.alloc("train.batch",
                                      obs.memory.tree_nbytes(batch))
-        mask = (rng.uniform(size=cfg.n_probes) >=
-                cfg.probe_drop_rate).astype(np.float32)
-        if mask.sum() == 0:
-            mask[0] = 1.0          # never drop every probe
+        if cfg.mask_fn is not None:
+            mask = np.asarray(cfg.mask_fn(step), np.float32)
+        else:
+            mask = (rng.uniform(size=cfg.n_probes) >=
+                    cfg.probe_drop_rate).astype(np.float32)
+            if mask.sum() == 0:
+                mask[0] = 1.0      # never drop every probe
         with rec.span("train/step", track="train", step=step) as sp:
             state, metrics = step_fn(state, batch, mask)
             loss_t = metrics["loss"]
@@ -117,4 +150,11 @@ def run(step_fn: Callable, state: TrainState,
                 log(f"step {step:6d} loss {loss:.4f} "
                     f"({dt / max(step - start + 1, 1):.3f}s/step)",
                     step=step, loss=loss)
+        done = step + 1
+        if saver and done % cfg.ckpt_every == 0 and done < cfg.total_steps:
+            saver.save(done, state.params,
+                       extra={"loss": float(metrics["loss"])})
+    if saver:
+        saver.save(cfg.total_steps, state.params)
+        saver.wait()
     return RunResult(state, history)

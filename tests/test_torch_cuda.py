@@ -704,3 +704,62 @@ def test_pointnet_lane_on_card_matches_cpu(dev):
                               zo.leaves_with_path(g.state.params)):
         np.testing.assert_allclose(b.cpu().numpy(), a.numpy(), rtol=1e-4,
                                    atol=2e-5)
+
+
+# ------------------------------------------------------------------ #
+# the fleet (seed ledger) on the card
+# ------------------------------------------------------------------ #
+def test_int8_fleet_with_crash_equals_reference(dev):
+    """A short int8 fleet on the card (LeNet-5, 4 workers, a crash whose
+    catch-up replays 3 steps): every live worker equals the canon and the
+    canon equals the single-process reference, bitwise."""
+    from repro_torch.configs import FleetConfig
+    from repro_torch.core import keys
+    from repro_torch.fleet import run_fleet
+    from repro_torch.launch import fleet as launch_fleet
+    params, lane, part, probe_fn, batch_fn = \
+        launch_fleet.lenet_int8_fleet_setup(1, batch=8, device=dev)
+    base = keys.key_data(1)
+    n0 = zo_fused_replay.int8_launches
+    res = run_fleet(None, params, lane,
+                    FleetConfig(num_workers=4, probes_per_worker=1,
+                                dropout=0.25, max_delay=2, deadline=1,
+                                chaos_seed=1, crashes=((1, 1, 2),)),
+                    batch_fn, steps=5, base_seed=base, partition_fn=part,
+                    probe_fn=probe_fn)
+    # 5 steps x (coordinator + live workers) applies + one catch-up
+    assert zo_fused_replay.int8_launches - n0 == 5 + 4 * 5 - 2 + 1
+    assert res.stats["n_catchups"] == 1
+    for w in res.workers:
+        assert launch_fleet.trees_equal(w.params, res.params), w.id
+    assert launch_fleet.verify_reference(res, params, probe_fn, None,
+                                         batch_fn, 5, base)
+
+
+def test_int8_catchup_s3_n8_matches_plain(dev):
+    """The catch-up shape of an 8-worker fleet, S = 3 steps x n = 8
+    probes with masked (g = 0) records, on LeNet-5's int8 ZO leaves in
+    one launch: bitwise the plain version leaf by leaf."""
+    from repro_torch.core.int8 import replay_int8, zo_shift
+    from repro_torch.models import lenet
+    params = lenet.init_lenet5_int8(0, device=dev)
+    zo_part, _ = lenet.partition_at(params, 4)
+    g = torch.Generator().manual_seed(5)
+    seeds = torch.randint(-2**31, 2**31, (3, 8), generator=g,
+                          dtype=torch.int64).to(torch.int32).to(dev)
+    gs = torch.randint(-1, 2, (3, 8), generator=g,
+                       dtype=torch.int32).to(dev)
+    gs[1, 3] = 0
+    lane = configs.LaneConfig(lane="elastic_zo_int8")
+    shift = zo_shift(lane.int8_r_max, lane.int8_b_zo)
+    n0 = zo_fused_replay.int8_launches
+    got = replay_int8(zo_part, seeds, gs, lane.int8_r_max, lane.int8_p_zero,
+                      shift)
+    assert zo_fused_replay.int8_launches == n0 + 1
+    for name in zo_part:
+        want = ref.zo_fused_replay_int8_ref(
+            zo_part[name]["w"].data, seeds, gs,
+            zo.path_salt((name, "w")), lane.int8_r_max, lane.int8_p_zero,
+            shift)
+        assert torch.equal(got[name]["w"].data, want), name
+        assert torch.equal(got[name]["w"].exp, zo_part[name]["w"].exp)

@@ -455,7 +455,19 @@ def test_lenet_int8_launches_per_step():
 
 
 def test_apply_tail_records_is_not_ported():
+    """The fleet's ledger-domain int8 tail (the name is older than its
+    port): an empty tail or no records is a no-op; the workers' int8
+    payloads sum in int32 and apply once, clamped to +-127, the exponent
+    unchanged. ``tests/test_torch_fleet.py`` holds it against JAX's."""
     eng = engine.engine_for(LaneConfig(lane="elastic_zo_int8"))
     assert isinstance(eng, engine.Int8Engine)
-    with pytest.raises(NotImplementedError):
-        eng.apply_tail_records({}, 0, [])
+    assert eng.apply_tail_records({}, 0, []) == {}
+    w = q.QTensor(torch.tensor([[100, -100], [5, 0]], dtype=torch.int8),
+                  torch.tensor(-3, dtype=torch.int32))
+    bp = {"fc3": {"w": w}}
+    assert eng.apply_tail_records(bp, 0, []) is bp
+    upds = [{"fc3": {"w": torch.tensor(u, dtype=torch.int8)}}
+            for u in ([[-20, 20], [1, -127]], [[-20, 20], [2, -127]])]
+    got = eng.apply_tail_records(bp, 0, upds)["fc3"]["w"]
+    assert got.data.tolist() == [[127, -127], [2, 127]]
+    assert got.data.dtype == torch.int8 and got.exp is w.exp

@@ -5,9 +5,11 @@ Run from the repository root: ``python3 chip_smoke.py``. It builds the
 CUDA kernels from ``src/repro_torch/csrc`` with nvcc and holds each
 kernel against its plain PyTorch version at the shapes its path gives
 it. Then it drives the port's paths and checks that each went through
-its kernels: it checks a small model on the card against the CPU, serves
-eight requests with qwen3-4b at full width and depth (36 layers, bf16,
-random weights from a seed), trains LeNet-5 in the paper's four fp32
+its kernels: it checks small (reduced, f32) qwen3-4b, Jamba, RWKV6 and
+Mixtral models on the card against the CPU, serves eight requests with
+qwen3-4b at full width and depth (36 layers, bf16, random weights from a
+seed), with Jamba at full width and one period of its four (8 layers:
+Mamba, attention and MoE blocks) and with RWKV6-1.6B whole, trains LeNet-5 in the paper's four fp32
 lanes (Table 1) and in its three ElasticZO-INT8 lanes in both loss modes
 (Table 1's INT8 and INT8* columns, integer arithmetic through the int8
 kernels), runs the seed-ledger fleet (``repro_torch.fleet``) on the
@@ -249,12 +251,24 @@ def live_positions(table, lens, ps, window):
     return n
 
 
+def paged_shape(q, k_new, v_new, k_pool, v_pool, page_table, seq_lens, *,
+                scale, window=0):
+    """A paged_attention_step call's shapes: q, the pool, the table's
+    width, the dtype and the window."""
+    return (tuple(q.shape), tuple(k_pool.shape), page_table.shape[1],
+            q.dtype, window)
+
+
 def check_paged(paged_attn, ref, P):
-    out = {}
+    """Returns the kernel's numbers and ``held``, the set of
+    ``paged_shape``s its check holds against the plain version."""
+    out, held = {}, set()
     for dtype, tol in ((torch.float32, PAGED_F32_TOL),
                        (torch.bfloat16, PAGED_BF16_TOL)):
         for window in (0, 64):
             q, kn, vn, kp, vp, table, sl = paged_case(dtype, window, P)
+            held.add(paged_shape(q, kn, vn, kp, vp, table, sl,
+                                 scale=128 ** -0.5, window=window))
             kp2, vp2 = kp.clone(), vp.clone()
             o = paged_attn.paged_attention_step(
                 q, kn, vn, kp, vp, table, sl, scale=128 ** -0.5,
@@ -321,7 +335,7 @@ def check_paged(paged_attn, ref, P):
     return dict(max_abs_err=out[(torch.bfloat16, 0)], ms=ms,
                 plain_ms=plain_ms, bound_ms=bound, library_ms=library_ms,
                 f32_err=max(out[(torch.float32, 0)],
-                            out[(torch.float32, 64)]))
+                            out[(torch.float32, 64)]), held=held)
 
 
 def check_paged_dead_pages(paged_attn, ref, P):
@@ -406,7 +420,8 @@ FLASH_F32_TOL = 1e-5             # f32: the sums differ in order only
 # (label, B, H, Hkv, Sq, Sk, D, dtype, causal, window): (a) the fused
 # train path's forwards, (b) a serve prefill, (c) a sliding window, (d)
 # the reduced model's head dim at ragged lengths, (i) the qwen3-4b fleet's
-# probe forwards
+# probe forwards, (j) the serve phases' prefill groups (two prompts of
+# each length; qwen3-4b's and Jamba's attention have the same heads)
 FLASH_CASES = [
     ("(a) train, seq 4096", 1, 32, 8, 4096, 4096, 128, torch.bfloat16, True,
      0),
@@ -416,7 +431,8 @@ FLASH_CASES = [
     ("(d) reduced, Sq != Sk", 2, 4, 2, 100, 77, 16, torch.float32, False, 0),
     ("(i) fleet probe, seq 128", 1, 32, 8, 128, 128, 128, torch.bfloat16,
      True, 0),
-]
+] + [(f"(j) serve prefill group, seq {n}", 2, 32, 8, n, n, 128,
+      torch.bfloat16, True, 0) for n in (128, 256, 384, 512)]
 # the bf16 tensor-core kernel's edge paths: head dims 16 and 64, ragged Sq
 # != Sk, and windows under which rows past Sk + window - 1 see no key
 FLASH_EDGE_CASES = [
@@ -1316,61 +1332,105 @@ def counting_prefills():
         api.prefill_logits = prefill
 
 
-def check_small_model_on_card_vs_cpu(flash_attn):
-    """Reduced qwen3-4b in f32: the same requests on the card (CUDA
-    kernels, the flash kernel at head dim 16) and on the CPU (plain
-    versions) give the same streams."""
-    from repro_torch import configs
-    from repro_torch.models.transformer import tree_map
-    from repro_torch.serve import Engine, SamplingParams, ServeConfig
-    cfg = configs.reduced(configs.ARCHS["qwen3-4b"], dtype="float32")
-    sc = ServeConfig(page_size=4, num_pages=64, max_batch_slots=4,
-                     max_seq_len=48, max_new_tokens=12, megastep=4)
-    cpu = Engine(cfg, sc, device="cpu", init_seed=3)
-    card = Engine(cfg, sc, device="cuda",
-                  params=tree_map(lambda a: a.cuda(), cpu.params))
-    rng = np.random.default_rng(3)
-    reqs = [(list(rng.integers(0, cfg.vocab_size, n)), sp) for n, sp in
-            ((5, SamplingParams()),
-             (9, SamplingParams(temperature=0.8, top_k=7, seed=11)),
-             (14, SamplingParams(temperature=1.1, top_p=0.9, seed=23)),
-             (8, SamplingParams(temperature=0.7, top_k=20, top_p=0.8,
-                                seed=5)))]
-    a = serve(cpu, reqs, 12)
-    flash_attn.launches = 0
-    with counting_prefills() as prefills:
-        b = serve(card, reqs, 12)
-    if a != b:
-        raise AssertionError(f"card streams {b} != CPU streams {a}")
-    n = flash_attn.launches
-    print(f"small model: card == CPU for {len(a)} streams of 12 tokens; "
-          f"flash_attention (head dim 16) launched {n} times for "
-          f"{len(prefills)} prefills of {cfg.num_layers} layers")
-    if n == 0 or n != cfg.num_layers * len(prefills):
-        raise AssertionError("the small model's prefill missed the flash "
-                             "kernel")
+SMALL_ARCHS = ("qwen3-4b", "jamba-v0.1-52b", "rwkv6-1.6b", "mixtral-8x7b")
+SMALL_LOGIT_TOL = 1e-4           # f32 prefill logits, card against CPU
 
 
-def check_serve(paged_attn, topk_mask, flash_attn):
+def attention_blocks(cfg):
+    """The attention blocks of a stack: one flash launch a prefill and
+    one paged launch a decode tick each."""
+    return cfg.num_periods * cfg.pattern.count("attn")
+
+
+def check_small_model_on_card_vs_cpu(flash_attn, paged_attn):
+    """Reduced qwen3-4b, Jamba (Mamba, attention and MoE blocks, one
+    period), RWKV6 and Mixtral (MoE, sliding window 16) in f32: the same
+    requests on the card (CUDA kernels; the flash kernel at head dim 16)
+    and on the CPU (plain versions) give the same streams, and prefill
+    logits within SMALL_LOGIT_TOL."""
     from repro_torch import configs
     from repro_torch.core import api
-    from repro_torch.serve import Engine, ServeConfig
-    cfg = configs.ARCHS["qwen3-4b"]
-    sc = ServeConfig(page_size=16, max_batch_slots=8, max_seq_len=544)
+    from repro_torch.models.transformer import tree_map
+    from repro_torch.serve import Engine, SamplingParams, ServeConfig
+    sc = ServeConfig(page_size=4, num_pages=64, max_batch_slots=4,
+                     max_seq_len=48, max_new_tokens=12, megastep=4)
+    for arch in SMALL_ARCHS:
+        cfg = configs.reduced(configs.ARCHS[arch], dtype="float32")
+        cpu = Engine(cfg, sc, device="cpu", init_seed=3)
+        card = Engine(cfg, sc, device="cuda",
+                      params=tree_map(lambda a: a.cuda(), cpu.params))
+        rng = np.random.default_rng(3)
+        # 21 tokens pass the reduced Mixtral's window of 16 at prefill
+        reqs = [(list(rng.integers(0, cfg.vocab_size, n)), sp) for n, sp in
+                ((5, SamplingParams()),
+                 (9, SamplingParams(temperature=0.8, top_k=7, seed=11)),
+                 (14, SamplingParams(temperature=1.1, top_p=0.9, seed=23)),
+                 (21, SamplingParams(temperature=0.7, top_k=20, top_p=0.8,
+                                     seed=5)))]
+        a = serve(cpu, reqs, 12)
+        flash_attn.launches = paged_attn.launches = 0
+        with counting_prefills() as prefills:
+            b = serve(card, reqs, 12)
+        if a != b:
+            raise AssertionError(f"{arch}: card streams {b} != CPU streams "
+                                 f"{a}")
+        n, n_paged = flash_attn.launches, paged_attn.launches
+        n_attn = attention_blocks(cfg)
+        toks = torch.tensor([reqs[3][0]])
+        last = torch.tensor([len(reqs[3][0]) - 1])
+        want, _ = api.prefill_logits(cpu.params, cfg, toks, last)
+        got, _ = api.prefill_logits(card.params, cfg, toks.cuda(),
+                                    last.cuda())
+        err = (got.cpu() - want).abs().max().item()
+        print(f"small {arch}: card == CPU for {len(a)} streams of 12 "
+              f"tokens; flash_attention (head dim 16) launched {n} times for "
+              f"{len(prefills)} prefills of {n_attn} attention blocks, "
+              f"paged_attention_step {n_paged} times in {card.ticks_run} "
+              f"ticks; prefill logits max |card - CPU| = {err:.3g} "
+              f"(tolerance {SMALL_LOGIT_TOL})")
+        if n != n_attn * len(prefills) or n_paged != n_attn * card.ticks_run:
+            raise AssertionError(f"{arch}: the small model missed the "
+                                 "attention kernels")
+        if not err <= SMALL_LOGIT_TOL:
+            raise AssertionError(f"{arch}: prefill logits disagree")
+
+
+def serve_config():
+    from repro_torch.serve import ServeConfig
+    return ServeConfig(page_size=16, max_batch_slots=8, max_seq_len=544)
+
+
+def check_serve(cfg, paged_attn, topk_mask, flash_attn, paged_held):
+    """Serves ``requests`` (8 prompts of 128-512 tokens, 32 new; 4
+    sampled) with ``cfg`` at full width (random bf16 weights from seed
+    0). Asserts the launches from the pattern (flash once per attention
+    block a prefill, paged once per attention block a tick, top-k/top-p
+    on sampled ticks), one prefill per prompt length (exact lengths: no
+    bucketing), every flash and paged shape one that its check holds,
+    and a fresh engine reproducing all 8 streams. Prints tok/s cold and
+    warm, ms a tick, peak device memory and the busy share. Returns the
+    launches of paged_attention_step, topk_topp_mask and
+    flash_attention."""
+    from repro_torch.core import api
+    from repro_torch.serve import Engine
+    sc = serve_config()
     t0 = time.perf_counter()
     params = api.init(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in _leaves(params))
-    print(f"qwen3-4b: {cfg.num_layers} layers, d_model {cfg.d_model}, "
-          f"vocab {cfg.padded_vocab}, {n_params} parameters (bf16), init "
-          f"{time.perf_counter() - t0:.2f} s")
+    n_attn = attention_blocks(cfg)
+    print(f"{cfg.name}: {cfg.num_layers} layers ({n_attn} attention), "
+          f"d_model {cfg.d_model}, vocab {cfg.padded_vocab}, {n_params} "
+          f"parameters ({cfg.dtype}), init {time.perf_counter() - t0:.2f} s")
     reqs = requests(cfg, np.random.default_rng(0))
 
     engine = Engine(cfg, sc, params=params)
     torch.cuda.reset_peak_memory_stats()
     paged_attn.launches = topk_mask.launches = flash_attn.launches = 0
     t0 = time.perf_counter()
-    with counting_prefills() as prefills:
+    with counting_prefills() as prefills, \
+            shapes_of(flash_attn, "flash_attention", flash_shape) as fa, \
+            shapes_of(paged_attn, "paged_attention_step", paged_shape) as pa:
         streams = serve(engine, reqs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -1384,14 +1444,21 @@ def check_serve(paged_attn, topk_mask, flash_attn):
     print(f"launches on the main path: paged_attention_step {n_paged}, "
           f"topk_topp_mask {n_topk}, flash_attention {n_flash} "
           f"({len(prefills)} prefills, batches x lengths {prefills})")
-    if n_flash != cfg.num_layers * len(prefills) or n_flash == 0:
+    if len(prefills) != 4:
+        raise AssertionError(f"{len(prefills)} prefills for 4 prompt "
+                             "lengths")
+    if n_flash != n_attn * len(prefills):
         raise AssertionError(f"flash attention launched {n_flash} times, "
-                             f"want {cfg.num_layers} x {len(prefills)}")
-    if n_paged != cfg.num_layers * engine.ticks_run or n_paged == 0:
+                             f"want {n_attn} x {len(prefills)}")
+    if n_paged != n_attn * engine.ticks_run:
         raise AssertionError(f"paged attention launched {n_paged} times, "
-                             f"want {cfg.num_layers} x {engine.ticks_run}")
+                             f"want {n_attn} x {engine.ticks_run}")
     if n_topk == 0:
         raise AssertionError("top-k/top-p kernel never launched")
+    if n_attn:
+        check_shapes_held("flash_attention", fa,
+                          [c[1:] for c in FLASH_CASES])
+        check_shapes_held("paged_attention_step", pa, paged_held)
     # sampled tokens stay in the real vocab; greedy ones are the argmax
     # over the padded vocab, as in the JAX package
     if any(len(s) != 32 or not all(0 <= t < (cfg.padded_vocab if i % 2 == 0
@@ -1424,11 +1491,12 @@ def check_serve(paged_attn, topk_mask, flash_attn):
 
 def profile_serve(engine, reqs, warm_s):
     """Device time by kernel over one more run of the same requests,
-    from torch.profiler; the busy share is against the unprofiled warm
-    run's wall time."""
+    from torch.profiler, device activity only (with every host op
+    recorded as well, RWKV6's tens of thousands of launches kept the
+    profiler busy for over a minute on an H100); the busy share is
+    against the unprofiled warm run's wall time."""
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         serve(engine, reqs)
         torch.cuda.synchronize()
     kernels = [e for e in prof.key_averages()
@@ -2405,7 +2473,7 @@ def main():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.configs import ARCHS, ServeConfig
+    from repro_torch.configs import ARCHS
     from repro_torch.kernels import (_build, flash_attn, int8_matmul,
                                      paged_attn, ref, topk_mask,
                                      zo_fused_replay, zo_perturb)
@@ -2431,9 +2499,10 @@ def main():
     check_cluster_sass()
 
     phase("kernels against their plain versions")
-    P = ServeConfig(page_size=16, max_seq_len=544).max_pages_per_seq
-    paged = check_paged(paged_attn, ref, P)
+    paged = check_paged(paged_attn, ref, serve_config().max_pages_per_seq)
     topk = check_topk(topk_mask, ref, ARCHS["qwen3-4b"].padded_vocab)
+    # Jamba's and RWKV6's vocab, a plan of fewer cluster CTAs
+    topk_65536 = check_topk(topk_mask, ref, ARCHS["rwkv6-1.6b"].padded_vocab)
     zo_times = check_zo(zo_perturb, zo_fused_replay, ref)
     torch.cuda.empty_cache()
     zo_times.update(check_int8_noise(zo_perturb, zo_fused_replay, ref))
@@ -2444,11 +2513,24 @@ def main():
     torch.cuda.empty_cache()
 
     phase("small model: card against CPU")
-    check_small_model_on_card_vs_cpu(flash_attn)
+    check_small_model_on_card_vs_cpu(flash_attn, paged_attn)
 
+    serve_kernels = (paged_attn, topk_mask, flash_attn, paged["held"])
     phase("serve qwen3-4b")
-    n_paged, n_topk, n_flash_serve = check_serve(paged_attn, topk_mask,
-                                                 flash_attn)
+    n_paged, n_topk, n_flash_serve = check_serve(ARCHS["qwen3-4b"],
+                                                 *serve_kernels)
+    torch.cuda.empty_cache()
+
+    # one period of Jamba's four (8 of 32 layers: 7 Mamba blocks, one
+    # attention block, MoE FFNs at positions 1/3/5/7), full width: 26.6 GB
+    # in bf16, where the whole stack's 103 GB does not fit on one card
+    jamba = dataclasses.replace(ARCHS["jamba-v0.1-52b"], num_layers=8)
+    phase("serve jamba-v0.1-52b (1 of 4 periods, full width)")
+    n_jamba = check_serve(jamba, *serve_kernels)
+    torch.cuda.empty_cache()
+
+    phase("serve rwkv6-1.6b")
+    n_rwkv = check_serve(ARCHS["rwkv6-1.6b"], *serve_kernels)
     torch.cuda.empty_cache()
 
     phase("train LeNet-5: the paper's Table 1")
@@ -2495,8 +2577,9 @@ def main():
           "one (the kernels line reports the fused run's)")
     phase(None)
 
-    # launches of the kernels on the PointNet and fleet paths and the
-    # paths before them, each counted from 0 just before its phase
+    # launches of the kernels on the serve, PointNet and fleet paths and
+    # the paths before them, each counted from 0 just before its phase
+    # (RWKV6 runs no attention kernel: its phase asserts 0 launches)
     paths = {"zo_perturb": {"train qwen3-4b": n_zo["zo_perturb"],
                             "train PointNet": n_pointnet["zo_perturb"],
                             "fleet qwen3-4b": n_fleet_lm["zo_perturb"]},
@@ -2514,8 +2597,16 @@ def main():
                  "train LeNet-5 INT8": n_zo["int8_matmul"],
                  "PointNet INT8 forward": n_pointnet["int8_matmul"],
                  "fleet LeNet-5 INT8": n_fleet_int8["int8_matmul"]},
+             "paged_attention_step": {
+                 "serve qwen3-4b": n_paged,
+                 "serve jamba-v0.1-52b": n_jamba[0]},
+             "topk_topp_mask": {
+                 "serve qwen3-4b": n_topk,
+                 "serve jamba-v0.1-52b": n_jamba[1],
+                 "serve rwkv6-1.6b": n_rwkv[1]},
              "flash_attention": {
                  "serve qwen3-4b": n_flash_serve,
+                 "serve jamba-v0.1-52b": n_jamba[2],
                  "train qwen3-4b": n_lm[2],
                  "train qwen3-4b, fused probes, seq 4096":
                      n_fused["flash_attention"],
@@ -2531,14 +2622,17 @@ def main():
              launches=n_paged, max_abs_err=paged["max_abs_err"],
              ms=paged["ms"], plain_ms=paged["plain_ms"],
              bound_ms=paged["bound_ms"], bound_by="bytes",
-             library_ms=paged["library_ms"]),
+             library_ms=paged["library_ms"],
+             launches_by_path=paths["paged_attention_step"]),
         dict(name="topk_topp_mask", route="cuda",
              source="src/repro_torch/csrc/topk_mask.cu",
              replaces="src/repro/kernels/topk_mask.py:94",
              launches=n_topk, max_abs_err=topk["max_abs_err"],
              ms=topk["ms"], plain_ms=topk["plain_ms"],
              bound_ms=topk["bound_ms"], bound_by="bytes",
-             library_ms=topk["library_ms"]),
+             library_ms=topk["library_ms"],
+             at_vocab_65536=topk_65536,
+             launches_by_path=paths["topk_topp_mask"]),
     ] + [dict(name=name, route="cuda",
               source=f"src/repro_torch/csrc/{name}.cu",
               replaces=f"src/repro/kernels/{where}", launches=n_zo[name],

@@ -10,6 +10,8 @@ pair and becomes the port's ``QTensor`` exactly.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
 
@@ -17,11 +19,13 @@ from .core.elastic import TrainState
 from .core.int8 import QTensor
 
 
-def params_from_jax(tree, device, dtype: torch.dtype = torch.float32):
+def params_from_jax(tree, device,
+                    dtype: Optional[torch.dtype] = torch.float32):
     """Nested dicts of numpy arrays (``jax.tree.map(np.asarray, params)``)
     -> the same nested dicts on ``device``: float leaves as ``dtype``
-    tensors, (data, exp) pairs as ``QTensor``s (int8 data, int32 0-d
-    exponent, exactly).
+    tensors, or, when ``dtype`` is None, bf16 leaves as bf16 and every
+    other leaf as f32 (a bf16 model's f32 MoE router stays f32), (data,
+    exp) pairs as ``QTensor``s (int8 data, int32 0-d exponent, exactly).
 
     bf16 arrays reach numpy as ``ml_dtypes.bfloat16``, which
     ``torch.from_numpy`` rejects; every float leaf goes through float32,
@@ -37,8 +41,10 @@ def params_from_jax(tree, device, dtype: torch.dtype = torch.float32):
                        .to(device))
     if isinstance(tree, (tuple, list)):
         return type(tree)(params_from_jax(v, device, dtype) for v in tree)
+    own = torch.bfloat16 if str(np.asarray(tree).dtype) == "bfloat16" \
+        else torch.float32
     return torch.from_numpy(np.array(tree, dtype=np.float32)).to(
-        device=device, dtype=dtype)
+        device=device, dtype=dtype or own)
 
 
 def state_from_jax(params, step, seed, device, dtype: torch.dtype):

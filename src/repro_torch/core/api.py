@@ -1,10 +1,12 @@
-"""Model API: init, the train step, prefill logits and the paged decode step.
+"""Model API: init, the train step, prefill and the decode steps.
 
 The port of ``repro/core/api.py``. Parameters keep the JAX package's
 ElasticZO split: ``periods_zo`` (the zeroth-order head) and
-``periods_bp`` (the back-propagated tail of ``tail_periods`` periods).
-Serving runs both in order; training perturbs the head and
-differentiates the tail (``core/elastic.py``).
+``periods_bp`` (the back-propagated tail of ``tail_periods`` periods;
+empty for a one-period stack). Serving runs both in order, for every
+decoder family the port has (dense, MoE, RWKV6, the Mamba hybrid);
+training perturbs the head and differentiates the tail
+(``core/elastic.py``), for dense attention-only stacks so far.
 """
 from __future__ import annotations
 
@@ -13,9 +15,10 @@ from typing import Optional
 
 import torch
 
-from ..configs.base import LaneConfig, ModelConfig
+from ..configs.base import ATTN, LaneConfig, ModelConfig
 from ..models.transformer import (embed, head_logits, init_lm, lm_loss,
-                                  run_periods, run_periods_paired, tree_map)
+                                  num_periods, run_periods,
+                                  run_periods_paired, tree_map)
 from . import elastic, zo
 
 
@@ -95,13 +98,13 @@ def init(cfg: ModelConfig, lane: Optional[LaneConfig] = None, *,
 
 
 def _backbone(params, cfg: ModelConfig, tokens, positions, mode, *,
-              caches=None, paged=None):
+              caches=None, **kw):
     x = embed(params, tokens)
     x, cz = run_periods(params["periods_zo"], x, cfg, positions=positions,
-                        mode=mode, paged=paged,
+                        mode=mode, **kw,
                         caches=None if caches is None else caches["zo"])
     x, cb = run_periods(params["periods_bp"], x, cfg, positions=positions,
-                        mode=mode, paged=paged,
+                        mode=mode, **kw,
                         caches=None if caches is None else caches["bp"])
     return x, {"zo": cz, "bp": cb}
 
@@ -114,6 +117,14 @@ def _positions(tokens):
 # ---------------------------------------------------------------------- #
 # train
 # ---------------------------------------------------------------------- #
+def _check_trainable(cfg: ModelConfig) -> None:
+    if cfg.is_moe or any(k != ATTN for k in cfg.pattern):
+        raise NotImplementedError(
+            f"{cfg.name}: the port trains dense attention-only stacks; "
+            "training the MoE, SSM and hybrid families is the next slice "
+            "of the port (serving them is ported)")
+
+
 def loss_fn(params, cfg: ModelConfig, batch):
     """Mean next-token cross-entropy of batch {"tokens", "labels", "mask"}
     (each [B, S]). The ZO head is never differentiated: its leaves do not
@@ -132,6 +143,7 @@ def paired_loss(bp_part, zo_part, cfg: ModelConfig, lane: LaneConfig, batch,
     (``run_periods_paired``), then the BP tail and ``lm_loss`` for each
     stream. Bitwise the unfused path's two losses, with no perturbed copy
     of the head. seed: int32 [1] on the params' device."""
+    _check_trainable(cfg)
     tokens = batch["tokens"]
     positions = _positions(tokens)
     rest = {k: v for k, v in zo_part.items() if k != "periods_zo"}
@@ -139,7 +151,7 @@ def paired_loss(bp_part, zo_part, cfg: ModelConfig, lane: LaneConfig, batch,
         xp = embed(zo.perturb(rest, seed, lane.zo_eps), tokens)
         xm = embed(zo.perturb(rest, seed, -lane.zo_eps), tokens)
     periods = zo_part["periods_zo"]
-    n = periods["blk0"]["ln_attn"].shape[0]
+    n = num_periods(periods)
     salts = zo.map_with_path(
         lambda p, _: zo.path_salt(p, "['periods_zo']"), periods)
     sizes = zo.map_with_path(lambda p, a: a.numel() // n, periods)
@@ -160,6 +172,7 @@ def make_train_step(cfg: ModelConfig, lane: LaneConfig):
     (state, batch, probe_mask) -> (state, metrics). With
     ``lane.fused_probes`` an elastic_zo step takes each probe pair through
     ``paired_loss``."""
+    _check_trainable(cfg)
     paired = None
     if lane.fused_probes and lane.lane == "elastic_zo":
         paired = lambda bp, zo_part, batch, seed: paired_loss(  # noqa: E731
@@ -173,25 +186,53 @@ def make_train_step(cfg: ModelConfig, lane: LaneConfig):
 # ---------------------------------------------------------------------- #
 def prefill_logits(params, cfg: ModelConfig, tokens, last_pos):
     """Prefill of tokens [B, S]. Returns (logits [B, Vp] f32 at each row's
-    ``last_pos`` (right-padded prompts are allowed), full-length caches
-    {"zo", "bp"} of [periods, B, S, KV, Dh] for paged admission)."""
+    ``last_pos`` (right-padded prompts are allowed for attention-only
+    stacks; recurrent state absorbs every position), the new caches
+    {"zo", "bp"} for paged admission: full-length attention KV [periods,
+    B, S, KV, Dh] and each row's recurrent state after position S - 1)."""
     B = tokens.shape[0]
-    x, caches = _backbone(params, cfg, tokens, _positions(tokens), "prefill")
+    x, caches = _backbone(params, cfg, tokens, _positions(tokens), "prefill",
+                          full_kv=True)
     xl = x[torch.arange(B, device=x.device), last_pos.to(torch.int64)]
     return head_logits(params, xl[:, None], cfg)[:, 0].float(), caches
 
 
 def decode_step_paged(params, cfg: ModelConfig, tokens, caches, page_table,
                       seq_lens):
-    """One continuous-batching decode step against the paged KV pools.
+    """One continuous-batching decode step against the paged caches.
 
-    tokens [B, 1]; page_table [B, P] int (physical page per logical page,
-    0 = null); seq_lens [B] int (tokens already cached per row, also the
-    write position of this step's token). Rows with seq_len 0 and an
-    all-null table are inactive padding slots. The pools in ``caches``
-    are written in place. Returns logits [B, Vp] f32.
+    tokens [B, 1], one row a decode slot; page_table [B, P] int (physical
+    page per logical page, 0 = null); seq_lens [B] int (tokens already
+    cached per row, also the write position of this step's token). Rows
+    with seq_len 0 and an all-null table are inactive padding slots. The
+    caches are written in place: the KV pools by the paged kernel, each
+    row's recurrent state into its slot. Returns logits [B, Vp] f32.
     """
     positions = seq_lens.to(torch.int64)[:, None]
     x, _ = _backbone(params, cfg, tokens, positions, "decode",
                      caches=caches, paged=(page_table, seq_lens))
     return head_logits(params, x, cfg)[:, 0].float()
+
+
+def prefill_step(params, cfg: ModelConfig, tokens):
+    """The dense baseline's prefill of tokens [B, S], no padding. Returns
+    (the greedy next token [B, 1] int64, caches {"zo", "bp"}: attention KV
+    [periods, B, S, KV, Dh], a window's ring when S exceeds it, and the
+    recurrent state)."""
+    x, caches = _backbone(params, cfg, tokens, _positions(tokens), "prefill")
+    logits = head_logits(params, x[:, -1:], cfg)
+    return torch.argmax(logits.float(), dim=-1), caches
+
+
+def decode_step(params, cfg: ModelConfig, tokens, caches, cache_len: int):
+    """One dense decode step: tokens [B, 1] at position ``cache_len``
+    against caches grown by ``serve.kv_pages.grow_dense_caches``, which
+    are written in place. Returns (the greedy next token [B, 1] int64,
+    caches)."""
+    B = tokens.shape[0]
+    positions = torch.full((B, 1), cache_len, dtype=torch.int64,
+                           device=tokens.device)
+    x, caches = _backbone(params, cfg, tokens, positions, "decode",
+                          caches=caches, cache_len=cache_len)
+    logits = head_logits(params, x, cfg)
+    return torch.argmax(logits.float(), dim=-1), caches

@@ -1,12 +1,16 @@
-"""Serving launcher: the paged continuous-batching engine.
+"""Serving launcher: the paged continuous-batching engine (or the dense
+baseline).
 
 ``python -m repro_torch.launch.serve --arch qwen3-4b --paged``
 
-Serves ``--batch`` random prompts through ``repro_torch.serve.Engine`` on
-the card (``--device cpu`` runs the plain versions on the CPU; use it with
-``--smoke``). Weights are random, drawn from ``--seed``. The flight
-recorder's ``--trace``, ``--metrics``, ``--memory`` and ``--quiet`` flags
-are the JAX launcher's.
+With ``--paged`` it serves ``--batch`` random prompts through
+``repro_torch.serve.Engine``; without it, the dense static-batch greedy
+loop (``dense_generate``) runs, as in the JAX launcher. Any decoder-only
+arch of ``configs.ARCHS`` serves (dense, MoE, RWKV6, the Jamba hybrid),
+at full size or with ``--smoke``. It runs on the card; ``--device cpu``
+runs the plain versions on the CPU (use it with ``--smoke``). Weights
+are random, drawn from ``--seed``. The flight recorder's ``--trace``,
+``--metrics``, ``--memory`` and ``--quiet`` flags are the JAX launcher's.
 """
 from __future__ import annotations
 
@@ -18,7 +22,8 @@ import torch
 
 from .. import obs
 from ..configs import ServeConfig, get_arch, reduced
-from ..serve import Engine, SamplingParams
+from ..core import api
+from ..serve import Engine, SamplingParams, dense_generate
 
 
 def main(argv=None):
@@ -27,8 +32,7 @@ def main(argv=None):
     ap.add_argument("--smoke", action="store_true",
                     help="the reduced same-family config")
     ap.add_argument("--paged", action="store_true",
-                    help="paged serving, the only mode (the JAX launcher's "
-                         "spelling)")
+                    help="serve through the paged continuous-batching engine")
     ap.add_argument("--batch", type=int, default=2,
                     help="number of requests")
     ap.add_argument("--prompt-len", type=int, default=32)
@@ -53,6 +57,24 @@ def main(argv=None):
     total = args.prompt_len + args.tokens
     rng = np.random.default_rng(args.seed)
     prompts = rng.integers(0, cfg.vocab_size, (args.batch, args.prompt_len))
+    dev = api.resolve_device(args.device)
+    where = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+
+    if not args.paged:
+        if args.temperature != 0.0 or args.top_k or args.top_p != 1.0:
+            ap.error("--temperature/--top-k/--top-p require --paged "
+                     "(the dense baseline is greedy-only)")
+        params = api.init(cfg, seed=args.seed, device=dev)
+        t0 = time.perf_counter()
+        out = dense_generate(cfg, params, prompts, args.tokens)
+        dt = time.perf_counter() - t0
+        obs.log("serve", f"dense: {args.tokens} tok/seq x{args.batch} in "
+                f"{dt:.2f}s ({args.batch * args.tokens / dt:.1f} tok/s) on "
+                f"{where}")
+        obs.log("serve", f"sample: {out[0][:16].tolist()}")
+        obs.write_outputs(args)
+        return
+
     slots = args.slots or args.batch
     ps = args.page_size
     num_pages = args.num_pages or (
@@ -60,7 +82,7 @@ def main(argv=None):
     serve = ServeConfig(page_size=ps, num_pages=num_pages,
                         max_batch_slots=slots, max_seq_len=total,
                         max_new_tokens=args.tokens)
-    eng = Engine(cfg, serve, init_seed=args.seed, device=args.device)
+    eng = Engine(cfg, serve, init_seed=args.seed, device=dev)
     sampling = SamplingParams(temperature=args.temperature,
                               top_k=args.top_k, top_p=args.top_p,
                               seed=args.seed)
@@ -69,8 +91,6 @@ def main(argv=None):
     dt = time.perf_counter() - t0
     util = eng.page_utilization()
     n_tok = sum(len(o) for o in outs)
-    where = torch.cuda.get_device_name(eng.device) \
-        if eng.device.type == "cuda" else "cpu"
     obs.log("serve", f"paged: {n_tok} tokens across {args.batch} requests "
             f"in {dt:.2f}s ({n_tok / dt:.1f} tok/s, {eng.steps_run} engine "
             f"steps) on {where}")

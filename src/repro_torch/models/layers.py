@@ -1,4 +1,5 @@
-"""Transformer layers: RMS norm, RoPE, GQA attention, SwiGLU MLP.
+"""Transformer layers: RMS and per-head group norms, RoPE, GQA attention,
+SwiGLU MLP.
 
 The port of ``repro/models/layers.py`` for one device: the attention plan
 is the single-device one (no KV-head duplication, no Q-head padding).
@@ -6,8 +7,10 @@ Attention covers what serving and training run: causal self-attention
 over the whole sequence for prefill and train (the flash kernel where no
 gradient is needed, the JAX package's chunked eager attention where
 autograd differentiates it), and the paged decode step, both through
-``kernels.ops``. Parameter layouts are the JAX package's: wq/wk/wv [d,
-heads, Dh], wo [H, Dh, d].
+``kernels.ops``; and the dense-cache decode step of the static-batch
+baseline (``serve/engine.py::DenseServer``) in plain torch, as the JAX
+package computes it outside any kernel. Parameter layouts are the JAX
+package's: wq/wk/wv [d, heads, Dh], wo [H, Dh, d].
 """
 from __future__ import annotations
 
@@ -40,6 +43,16 @@ def rms_norm(x, scale, eps=1e-5):
     dt = x.dtype
     x = x.float()
     x = x * torch.rsqrt((x * x).mean(dim=-1, keepdim=True) + eps)
+    return (x * scale.float()).to(dt)
+
+
+def group_norm_heads(x, scale, eps=1e-5):
+    """Per-head group norm over the last dim; x: [..., H, Dh]."""
+    dt = x.dtype
+    x = x.float()
+    mu = x.mean(dim=-1, keepdim=True)
+    var = ((x - mu) ** 2).mean(dim=-1, keepdim=True)
+    x = (x - mu) * torch.rsqrt(var + eps)
     return (x * scale.float()).to(dt)
 
 
@@ -92,6 +105,7 @@ def _attend_block(q, k, v, mask, scale):
 
 def attention(p, x, cfg: ModelConfig, positions, *, window=0,
               cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+              cache_len: Optional[int] = None,
               paged: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
     """Returns (y, (k, v)).
 
@@ -104,6 +118,11 @@ def attention(p, x, cfg: ModelConfig, positions, *, window=0,
     Decode (``paged`` = (page_table [B, P], seq_lens [B])): ``cache``
     holds one layer's (k_pool, v_pool) [N_pages, ps, KV, Dh]; the token's
     K/V is written into them in place by the paged step.
+    Dense decode (``paged`` None, ``cache`` given): ``cache`` is (k, v)
+    [B, T, KV, Dh] holding positions 0..cache_len - 1 (a ring of the
+    window's T slots, slot = position mod T, when ``window`` is set); the
+    token's K/V is written at ``cache_len`` in place, and the token
+    attends over the cache (``DenseServer``).
     """
     B, S, _ = x.shape
     H, KV, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -125,6 +144,9 @@ def attention(p, x, cfg: ModelConfig, positions, *, window=0,
         y = ops.paged_attention_step(
             q[:, 0].reshape(B, KV, H // KV, Dh), k[:, 0], v[:, 0], k_pool,
             v_pool, page_table, seq_lens, scale=scale, window=window)[:, None]
+    elif cache is not None:
+        y = _dense_decode(q.reshape(B, S, KV, H // KV, Dh), k, v, cache,
+                          cache_len, window, scale)
     elif not (q.requires_grad or k.requires_grad or v.requires_grad):
         # positions is arange(S) in "prefill" and "train"
         # (core/api.py::_positions), so the kernel's top-left causal and
@@ -138,6 +160,27 @@ def attention(p, x, cfg: ModelConfig, positions, *, window=0,
                                     positions, window, scale)
     out = torch.einsum("bshk,hkd->bsd", y.reshape(B, S, H, Dh), p["wo"])
     return out, (k, v)
+
+
+def _dense_decode(q, k, v, cache, cache_len: int, window: int, scale):
+    """The S = 1 step against a dense cache (``repro/models/layers.py``
+    ``attention``'s cache branch and ``_ring_write``)."""
+    k_cache, v_cache = cache
+    B, S = q.shape[:2]
+    T = k_cache.shape[1]
+    pos_w = cache_len % T if window > 0 else cache_len
+    k_cache[:, pos_w:pos_w + S] = k.to(k_cache.dtype)
+    v_cache[:, pos_w:pos_w + S] = v.to(v_cache.dtype)
+    t_pos = torch.arange(T, device=q.device)
+    if window > 0:
+        # slot t holds absolute position cache_len - ((pos_w - t) mod T)
+        abs_pos = cache_len - torch.remainder(pos_w - t_pos, T)
+        valid = (abs_pos >= 0) & (abs_pos <= cache_len) \
+            & (abs_pos > cache_len - window)
+    else:
+        valid = t_pos <= cache_len
+    mask = valid[None, None, :].expand(B, S, T)
+    return _attend_block(q, k_cache, v_cache, mask, scale)
 
 
 def _chunked_self_attention(q, k, v, positions, window, scale):

@@ -1,30 +1,58 @@
-"""Decoder-only LM stack for dense, attention-only architectures.
+"""Decoder-only LM stacks: dense, MoE, RWKV6 and the Mamba/attention
+hybrid.
 
 The port of ``repro/models/transformer.py`` for what serving and
 training run, the fused antithetic probe pair (``run_periods_paired``)
-included.
-Layout: params = {embed, periods, final_norm, unembed}; ``periods`` holds
-every block's weights stacked over a leading period dim (one period is
-one repetition of ``cfg.pattern``). ``run_periods`` is a Python loop over
-periods where the JAX package scans.
+included; the encoder-decoder (Whisper) and image-token (LLaVA) stacks
+are not ported. Layout: params = {embed, periods, final_norm, unembed};
+``periods`` holds every block's weights stacked over a leading period dim
+(one period is one repetition of ``cfg.pattern``). ``run_periods`` is a
+Python loop over periods where the JAX package scans; it takes zero
+periods too (a one-period stack's empty BP tail).
 """
 from __future__ import annotations
 
 import torch
 
-from ..configs.base import ATTN, ModelConfig
+from ..configs.base import ATTN, MAMBA, RWKV, ModelConfig
 from ..core import zo
 from .layers import attention, dense_init, init_attention, init_mlp, mlp, rms_norm
+from .moe import init_moe, moe_ffn
+from .ssm import (init_mamba_block, init_mamba_state, init_rwkv_block,
+                  init_rwkv_state, mamba_block, rwkv_block)
 
 CE_CHUNKS = 4            # sequence chunks for the cross-entropy epilogue
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.is_moe or cfg.encoder_layers or cfg.num_image_tokens \
-            or any(k != ATTN for k in cfg.pattern) or cfg.rope_theta <= 0:
+    if cfg.encoder_layers or cfg.num_image_tokens or cfg.rope_theta <= 0:
         raise NotImplementedError(
-            f"{cfg.name}: the port runs dense attention-only decoders with "
-            "RoPE; MoE, SSM, encoder-decoder and VLM stacks are not ported")
+            f"{cfg.name}: the port runs decoder-only stacks with RoPE; the "
+            "encoder-decoder and image-token stacks are not ported")
+
+
+def _ffn_is_moe(cfg: ModelConfig, pos_in_period: int) -> bool:
+    return cfg.is_moe and pos_in_period % cfg.moe_every == cfg.moe_offset
+
+
+def init_block(gen, cfg: ModelConfig, kind: str, pos: int, dtype, lead=()):
+    """One pattern position's weights, stacked over ``lead``."""
+    d, dev = cfg.d_model, gen.device
+    lead = tuple(lead)
+    if kind == RWKV:
+        return {"rwkv": init_rwkv_block(gen, cfg, dtype, lead)}
+    p = {}
+    if kind == ATTN:
+        p["ln_attn"] = torch.ones(lead + (d,), dtype=dtype, device=dev)
+        p["attn"] = init_attention(gen, cfg, dtype, lead=lead)
+    else:                                                  # MAMBA
+        p["mamba"] = init_mamba_block(gen, cfg, dtype, lead)
+    p["ln_ffn"] = torch.ones(lead + (d,), dtype=dtype, device=dev)
+    if _ffn_is_moe(cfg, pos):
+        p["moe"] = init_moe(gen, cfg, dtype, lead)
+    else:
+        p["mlp"] = init_mlp(gen, d, cfg.d_ff, dtype, lead=lead)
+    return p
 
 
 def init_lm(cfg: ModelConfig, *, seed: int, device, dtype=None):
@@ -35,14 +63,8 @@ def init_lm(cfg: ModelConfig, *, seed: int, device, dtype=None):
     dtype = dtype or getattr(torch, cfg.dtype)
     gen = torch.Generator(device=device).manual_seed(seed)
     d, Vp, n = cfg.d_model, cfg.padded_vocab, cfg.num_periods
-    periods = {}
-    for i in range(len(cfg.pattern)):
-        periods[f"blk{i}"] = {
-            "ln_attn": torch.ones((n, d), dtype=dtype, device=device),
-            "attn": init_attention(gen, cfg, dtype, lead=(n,)),
-            "ln_ffn": torch.ones((n, d), dtype=dtype, device=device),
-            "mlp": init_mlp(gen, d, cfg.d_ff, dtype, lead=(n,)),
-        }
+    periods = {f"blk{i}": init_block(gen, cfg, kind, i, dtype, lead=(n,))
+               for i, kind in enumerate(cfg.pattern)}
     return {
         "embed": dense_init(gen, (Vp, d), dtype, fan_in=Vp),
         "periods": periods,
@@ -60,48 +82,84 @@ def tree_map(fn, tree):
     return fn(tree)
 
 
-def apply_block(p, x, cfg: ModelConfig, *, positions, mode: str,
-                cache=None, paged=None):
-    """One attention block. Returns (x, cache entry).
+def num_periods(periods) -> int:
+    """The leading (period) dim of a stacked period tree."""
+    while isinstance(periods, dict):
+        periods = next(iter(periods.values()))
+    return periods.shape[0]
 
-    mode "prefill": the entry is this block's full-length {"k", "v"}
-    [B, S, KV, Dh] (the paged pool stores absolute positions and applies
-    a sliding window as a mask). mode "decode": ``cache`` is this layer's
-    {"k", "v"} pool, written in place, and is returned as is. mode
-    "train": the full causal sequence, no cache; the entry is None.
+
+def apply_block(p, x, cfg: ModelConfig, kind: str, *, positions, mode: str,
+                cache=None, cache_len=None, paged=None, full_kv=False):
+    """One block of kind ``kind``. Returns (x, cache entry).
+
+    mode "prefill": the entry is this block's new state: {"k", "v"}
+    [B, S, KV, Dh] for attention (full length with ``full_kv``, which the
+    paged pool needs, as it stores absolute positions and applies a
+    sliding window as a mask; otherwise a window's ring, slot = position
+    mod window, for the dense cache), {"conv", "ssm"} for Mamba,
+    {"tm_shift", "cm_shift", "wkv"} for RWKV6. mode "decode": ``cache``
+    is this block's entry (the paged pools with ``paged``, else the dense
+    cache at ``cache_len``); it is written in place, recurrent state
+    included, and returned. mode "train": the full causal sequence, no
+    cache; the entry is None.
     """
-    h = rms_norm(x, p["ln_attn"], cfg.norm_eps)
-    if mode == "decode":
-        y, _ = attention(p["attn"], h, cfg, positions,
-                         window=cfg.sliding_window,
-                         cache=(cache["k"], cache["v"]), paged=paged)
-        entry = cache
-    elif mode in ("prefill", "train"):
-        y, (k, v) = attention(p["attn"], h, cfg, positions,
-                              window=cfg.sliding_window)
-        entry = {"k": k, "v": v} if mode == "prefill" else None
-    else:
+    if mode not in ("prefill", "decode", "train"):
         raise ValueError(f"unknown mode {mode!r}")
-    x = x + y
+    state = cache if mode == "decode" else None
+    if kind == RWKV:
+        x, new = rwkv_block(p["rwkv"], x, cfg, state)
+        return x, _entry(mode, cache, new)
+    if kind == ATTN:
+        h = rms_norm(x, p["ln_attn"], cfg.norm_eps)
+        window = cfg.sliding_window
+        if mode == "decode":
+            y, _ = attention(p["attn"], h, cfg, positions, window=window,
+                             cache=(cache["k"], cache["v"]),
+                             cache_len=cache_len, paged=paged)
+            new = None                           # written in place
+        else:
+            y, (k, v) = attention(p["attn"], h, cfg, positions,
+                                  window=window)
+            if window and k.shape[1] > window and not full_kv:
+                p0 = k.shape[1] - window             # ring-align the cache
+                k = torch.roll(k[:, -window:], p0 % window, dims=1)
+                v = torch.roll(v[:, -window:], p0 % window, dims=1)
+            new = {"k": k, "v": v}
+        x = x + y
+    else:                                                  # MAMBA
+        x, new = mamba_block(p["mamba"], x, cfg, state)
     h = rms_norm(x, p["ln_ffn"], cfg.norm_eps)
-    return x + mlp(p["mlp"], h), entry
+    y = moe_ffn(p["moe"], h, cfg) if "moe" in p else mlp(p["mlp"], h)
+    return x + y, _entry(mode, cache, new)
+
+
+def _entry(mode: str, cache, new):
+    if mode == "train":
+        return None
+    if mode == "decode":
+        for name, t in (new or {}).items():
+            cache[name].copy_(t)
+        return cache
+    return new
 
 
 def run_periods(periods, x, cfg: ModelConfig, *, positions, mode,
-                caches=None, paged=None):
-    """Run the stacked periods in order. caches: one {"k","v"} dict per
+                caches=None, cache_len=None, paged=None, full_kv=False):
+    """Run the stacked periods in order. caches: one entry (a dict) per
     pattern position, stacked like the params (leading dim = periods).
-    Returns (x, caches): prefill stacks the new full-length caches;
-    decode returns ``caches``, updated in place; train returns None."""
-    n = periods["blk0"]["ln_attn"].shape[0]
+    Returns (x, caches): prefill stacks the new entries (an empty dict
+    per position over zero periods); decode returns ``caches``, updated
+    in place; train returns None."""
     entries = [[] for _ in cfg.pattern]
-    for i in range(n):
-        for j in range(len(cfg.pattern)):
+    for i in range(num_periods(periods)):
+        for j, kind in enumerate(cfg.pattern):
             ci = None if caches is None \
                 else {name: a[i] for name, a in caches[j].items()}
             x, e = apply_block(
-                tree_map(lambda a: a[i], periods[f"blk{j}"]), x, cfg,
-                positions=positions, mode=mode, cache=ci, paged=paged)
+                tree_map(lambda a: a[i], periods[f"blk{j}"]), x, cfg, kind,
+                positions=positions, mode=mode, cache=ci,
+                cache_len=cache_len, paged=paged, full_kv=full_kv)
             if mode == "prefill":
                 entries[j].append(e)
     if mode == "decode":
@@ -109,7 +167,7 @@ def run_periods(periods, x, cfg: ModelConfig, *, positions, mode,
     if mode == "train":
         return x, None
     return x, tuple({name: torch.stack([e[name] for e in es])
-                     for name in es[0]} for es in entries)
+                     for name in (es[0] if es else ())} for es in entries)
 
 
 def run_periods_paired(periods, x_pair, cfg: ModelConfig, *, positions,
@@ -127,14 +185,13 @@ def run_periods_paired(periods, x_pair, cfg: ModelConfig, *, positions,
     before the next is made. seed: int32 [1] on the params' device.
     Returns (hp, hm)."""
     h = list(x_pair)
-    n = periods["blk0"]["ln_attn"].shape[0]
     with torch.no_grad():
-        for i in range(n):
+        for i in range(num_periods(periods)):
             pparams = tree_map(lambda a: a[i], periods)
             for s, scale in enumerate((eps, -eps)):
                 pert = zo.perturb_slice(pparams, salts, sizes, i, seed, scale)
-                for j in range(len(cfg.pattern)):
-                    h[s], _ = apply_block(pert[f"blk{j}"], h[s], cfg,
+                for j, kind in enumerate(cfg.pattern):
+                    h[s], _ = apply_block(pert[f"blk{j}"], h[s], cfg, kind,
                                           positions=positions, mode="train")
                 del pert
     return h[0], h[1]
@@ -171,14 +228,39 @@ def lm_loss(params, x, labels, mask, cfg: ModelConfig):
     return tot / torch.clamp(cnt, min=1.0)
 
 
-def make_paged_caches(cfg: ModelConfig, num_pages: int, page_size: int, *,
-                      device, dtype=None):
-    """Zero paged KV pools, one {"k", "v"} per pattern position, each
-    [periods, num_pages, page_size, KV, Dh] (page 0 is the null page)."""
+def _state_entry(cfg: ModelConfig, kind: str, B: int, dtype, device):
+    make = init_mamba_state if kind == MAMBA else init_rwkv_state
+    return make(cfg, B, dtype, device=device, lead=(cfg.num_periods,))
+
+
+def make_caches(cfg: ModelConfig, B: int, seq_len: int, *, device,
+                dtype=None):
+    """Zero dense caches, one entry per pattern position, stacked
+    [periods, B, ...]: attention {"k", "v"} [periods, B, T, KV, Dh] with
+    T = seq_len capped at the sliding window, recurrent state per row."""
+    _check_supported(cfg)
+    dtype = dtype or getattr(torch, cfg.dtype)
+    T = min(seq_len, cfg.sliding_window) if cfg.sliding_window else seq_len
+    shape = (cfg.num_periods, B, T, cfg.num_kv_heads, cfg.head_dim)
+    return tuple({"k": torch.zeros(shape, dtype=dtype, device=device),
+                  "v": torch.zeros(shape, dtype=dtype, device=device)}
+                 if kind == ATTN else _state_entry(cfg, kind, B, dtype, device)
+                 for kind in cfg.pattern)
+
+
+def make_paged_caches(cfg: ModelConfig, slots: int, num_pages: int,
+                      page_size: int, *, device, dtype=None):
+    """Paged serve caches, the structure of ``make_caches``: attention KV
+    in a page pool {"k", "v"} [periods, num_pages, page_size, KV, Dh]
+    shared by every sequence (page 0 is the null page); recurrent state
+    (Mamba, RWKV6) is fixed-size, so it stays dense per decode slot,
+    [periods, slots, ...]."""
     _check_supported(cfg)
     dtype = dtype or getattr(torch, cfg.dtype)
     shape = (cfg.num_periods, num_pages, page_size, cfg.num_kv_heads,
              cfg.head_dim)
     return tuple({"k": torch.zeros(shape, dtype=dtype, device=device),
                   "v": torch.zeros(shape, dtype=dtype, device=device)}
-                 for _ in cfg.pattern)
+                 if kind == ATTN
+                 else _state_entry(cfg, kind, slots, dtype, device)
+                 for kind in cfg.pattern)

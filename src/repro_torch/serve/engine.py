@@ -5,7 +5,8 @@ is one scheduler iteration:
 
   1. admit waiting requests as a wave: one batched prefill and one pool
      write per distinct (bucketed) prompt length, then one batched call
-     that samples every admission's first token;
+     that samples every admission's first token (recurrent state goes
+     into the admissions' decode slots);
   2. assemble the step (page table, seq lens, per-row sampling knobs),
      preempting newest-first if the pool cannot grow someone's cache;
   3. ask the scheduler how many ticks the plan is provably stable for
@@ -33,7 +34,7 @@ import numpy as np
 import torch
 
 from .. import obs
-from ..configs.base import LaneConfig, ModelConfig
+from ..configs.base import ATTN, LaneConfig, ModelConfig
 from ..configs.serve import ServeConfig
 from ..core import api
 from ..core.prng import MASK32
@@ -83,10 +84,11 @@ class Engine:
                 f"pool of {s.num_pages - 1} usable pages cannot hold one "
                 f"max-length sequence ({worst} pages); raise "
                 "num_pages or lower max_seq_len")
+        self._attn_only = all(k == ATTN for k in cfg.pattern)
         self.params = params if params is not None else api.init(
             cfg, self.lane, seed=init_seed, device=self.device)
-        raw = make_paged_caches(cfg, s.num_pages, s.page_size,
-                                device=self.device)
+        raw = make_paged_caches(cfg, s.max_batch_slots, s.num_pages,
+                                s.page_size, device=self.device)
         self.caches = api.split_caches(raw, cfg, self.lane)
         self.sched = Scheduler(s, window=cfg.sliding_window or 0)
         self.steps_run = 0
@@ -142,7 +144,7 @@ class Engine:
 
     def _prefill_len(self, seq) -> int:
         s_tok = len(seq.cached_prompt)
-        if self.serve.bucket_prompts:
+        if self.serve.bucket_prompts and self._attn_only:
             s_tok = min(_next_pow2(s_tok), self.serve.max_seq_len)
         return s_tok
 
@@ -165,6 +167,7 @@ class Engine:
                 self.params, self.cfg, self._tensor(toks, torch.int64),
                 self._tensor(last, torch.int64))
             kv_pages.admit_prefill(self.caches, dense, self.cfg,
+                                   [q.slot for q in group],
                                    [q.pages for q in group], s.page_size,
                                    table_width=s.max_pages_per_seq)
             ordered.extend(group)
@@ -297,3 +300,45 @@ class Engine:
                 "peak_util": s.util_peak / total,
                 "mean_util": mean / total,
                 "reclaimed_pages": int(s.reclaimed_pages)}
+
+
+# ----------------------------------------------------------------- #
+# dense static-batch baseline
+# ----------------------------------------------------------------- #
+class DenseServer:
+    """Greedy static-batch decode with a dense grown KV cache, the
+    baseline the paged engine is held against (``repro/serve/engine.py``
+    ``DenseServer``). The caches follow the params' device; they are
+    written in place each step."""
+
+    def __init__(self, cfg: ModelConfig, params, batch: int,
+                 prompt_len: int, max_new_tokens: int):
+        self.cfg, self.params = cfg, params
+        self.B, self.Lp = batch, prompt_len
+        self.max_new = max_new_tokens
+        self.total = prompt_len + max_new_tokens
+        self.device = params["embed"].device
+
+    @torch.no_grad()
+    def generate(self, prompts: np.ndarray) -> np.ndarray:
+        """prompts [B, Lp] int -> [B, max_new_tokens] int64."""
+        if prompts.shape != (self.B, self.Lp):
+            raise ValueError(f"prompts shape {prompts.shape} != "
+                             f"{(self.B, self.Lp)}")
+        toks = torch.as_tensor(np.asarray(prompts), dtype=torch.int64,
+                               device=self.device)
+        nxt, caches = api.prefill_step(self.params, self.cfg, toks)
+        caches = kv_pages.grow_dense_caches(caches, self.cfg, self.total)
+        out = [nxt]
+        for cur in range(self.Lp, self.Lp + self.max_new - 1):
+            nxt, caches = api.decode_step(self.params, self.cfg, nxt, caches,
+                                          cur)
+            out.append(nxt)
+        return torch.cat(out, dim=1).cpu().numpy()
+
+
+def dense_generate(cfg: ModelConfig, params, prompts: np.ndarray,
+                   max_new_tokens: int) -> np.ndarray:
+    """One-shot wrapper around ``DenseServer``."""
+    B, Lp = prompts.shape
+    return DenseServer(cfg, params, B, Lp, max_new_tokens).generate(prompts)

@@ -1,16 +1,19 @@
 """Paged KV-cache pool: host-side page allocator + device admission writes.
 
 Every attention layer owns a pool of ``num_pages`` fixed-size pages,
-[periods, num_pages, page_size, KV, Dh]. A sequence's cache is an ordered
-list of physical page ids; the decode step receives the list as a row of
-the [slots, max_pages_per_seq] page table. Page 0 is the reserved **null
-page**: unmapped table entries point at it, inactive batch rows write
-their token into it, and it is never allocated, so nothing that matters
-is read from or lost to it.
+[periods, num_pages, page_size, KV, Dh]; recurrent state (Mamba, RWKV6)
+stays dense per decode slot, [periods, slots, ...]. A sequence's cache
+is an ordered list of physical page ids; the decode step receives the
+list as a row of the [slots, max_pages_per_seq] page table. Page 0 is
+the reserved **null page**: unmapped table entries point at it, inactive
+batch rows write their token into it, and it is never allocated, so
+nothing that matters is read from or lost to it.
 
-The pools are updated **in place**: ``admit_prefill`` writes into them,
-and so does the decode step's KV write (``kernels/ops.py``). The JAX
-package donates the pools and returns new ones instead.
+The caches are updated **in place**: ``admit_prefill`` writes into them,
+and so does the decode step (the KV write in ``kernels/ops.py``, the
+recurrent state in ``models/transformer.py``). The JAX package donates
+the caches and returns new ones instead. ``grow_dense_caches`` serves the
+static-batch baseline (``serve/engine.py::DenseServer``).
 """
 from __future__ import annotations
 
@@ -73,22 +76,40 @@ def _scatter_kv(pool, dense, page_rows, page_size):
 
 
 def admit_prefill(paged_caches, dense_caches, cfg: ModelConfig,
-                  page_ids: Sequence[Sequence[int]], page_size: int,
-                  table_width: int) -> None:
-    """Write a batch-nb prefilled dense cache into the paged pools, in
-    place: one indexed write per KV leaf for the whole admission wave.
+                  slots: Sequence[int], page_ids: Sequence[Sequence[int]],
+                  page_size: int, table_width: int) -> None:
+    """Write a batch-nb prefill's caches into the paged caches, in place:
+    one indexed write per leaf for the whole admission wave.
 
-    Row i of the dense cache goes to ``page_ids[i]``, padded with null
-    pages to ``table_width`` (ServeConfig.max_pages_per_seq).
-    Attention-only stacks have no per-slot state to write.
+    Row i goes to decode slot ``slots[i]`` (recurrent state) and to the
+    pages ``page_ids[i]`` (attention KV), padded with null pages to
+    ``table_width`` (ServeConfig.max_pages_per_seq).
     """
-    if any(kind != ATTN for kind in cfg.pattern):
-        raise NotImplementedError("paged admission of recurrent state is "
-                                  "not ported")
+    dev = next(iter(paged_caches["zo"][0].values())).device
     rows = torch.tensor([list(p) + [NULL_PAGE] * (table_width - len(p))
-                         for p in page_ids], dtype=torch.int64,
-                        device=paged_caches["zo"][0]["k"].device)
+                         for p in page_ids], dtype=torch.int64, device=dev)
+    slots = torch.tensor(list(slots), dtype=torch.int64, device=dev)
     for part in ("zo", "bp"):
-        for pe, de in zip(paged_caches[part], dense_caches[part]):
-            for name in ("k", "v"):
-                _scatter_kv(pe[name], de[name], rows, page_size)
+        for kind, pe, de in zip(cfg.pattern, paged_caches[part],
+                                dense_caches[part]):
+            for name, d in de.items():
+                if kind == ATTN:
+                    _scatter_kv(pe[name], d, rows, page_size)
+                else:
+                    pe[name][:, slots] = d.to(pe[name].dtype)
+
+
+def grow_dense_caches(caches, cfg: ModelConfig, total: int):
+    """Pad a prefill's attention KV ([periods, B, S, KV, Dh]) to ``total``
+    positions, capped at the sliding window (a ring); recurrent and conv
+    state are left as they are. Returns new caches."""
+    tgt = min(total, cfg.sliding_window) if cfg.sliding_window else total
+
+    def grow(leaf):
+        pad = tgt - leaf.shape[2]
+        return F.pad(leaf, (0, 0, 0, 0, 0, pad)) if pad > 0 else leaf
+
+    return {part: tuple({name: grow(a) if kind == ATTN else a
+                         for name, a in e.items()}
+                        for kind, e in zip(cfg.pattern, caches[part]))
+            for part in ("zo", "bp")}

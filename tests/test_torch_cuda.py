@@ -70,7 +70,7 @@ def test_paged_kernel_matches_plain(dev, dtype, tol, window, shape):
     assert o[0].abs().max().item() == 0.0       # inactive row
 
 
-@pytest.mark.parametrize("V", [256, 152064])
+@pytest.mark.parametrize("V", [256, 65536, 152064])
 def test_topk_kernel_matches_plain(dev, V):
     g = torch.Generator(device="cpu").manual_seed(V)
     x = torch.randn(6, V, generator=g) * 3
@@ -459,6 +459,35 @@ def test_engine_on_card_matches_cpu(dev):
         out = eng.run()
         streams.append([out[r] for r in rids])
     assert streams[0] == streams[1]
+
+
+def test_jamba_engine_on_card_matches_cpu(dev):
+    """Reduced Jamba in f32 (Mamba, attention and MoE blocks; one period,
+    so the BP tail is empty): equal streams and prefill logits within
+    1e-4, card against CPU."""
+    cfg = configs.reduced(configs.ARCHS["jamba-v0.1-52b"], dtype="float32")
+    serve = ServeConfig(page_size=4, num_pages=32, max_batch_slots=3,
+                        max_seq_len=32, max_new_tokens=9, megastep=4)
+    cpu = Engine(cfg, serve, device="cpu")
+    card = Engine(cfg, serve, device=dev,
+                  params=tree_map(lambda a: a.to(dev), cpu.params))
+    rng = np.random.default_rng(7)
+    prompts = [list(rng.integers(0, cfg.vocab_size, n)) for n in (4, 8, 5, 7)]
+    knobs = [SamplingParams(),
+             SamplingParams(temperature=0.8, top_k=7, seed=11),
+             SamplingParams(temperature=1.1, top_p=0.9, seed=23),
+             SamplingParams(temperature=0.9, seed=3)]
+    streams = []
+    for eng in (cpu, card):
+        rids = [eng.submit(p, sp, 9) for p, sp in zip(prompts, knobs)]
+        out = eng.run()
+        streams.append([out[r] for r in rids])
+    assert streams[0] == streams[1]
+    toks = torch.tensor([prompts[1]])
+    last = torch.tensor([len(prompts[1]) - 1])
+    want, _ = api.prefill_logits(cpu.params, cfg, toks, last)
+    got, _ = api.prefill_logits(card.params, cfg, toks.to(dev), last.to(dev))
+    assert (got.cpu() - want).abs().max().item() <= 1e-4
 
 
 # ------------------------------------------------------------------ #

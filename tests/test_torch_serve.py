@@ -118,9 +118,9 @@ def test_prefill_and_paged_decode_logits_match_jax():
     jd, _ = jax.jit(jmd.decode_step_paged)(
         jparams, jnp.asarray(nxt), jc, jnp.asarray(pt), jnp.asarray(pos))
 
-    tc = api.split_caches(make_paged_caches(tcfg, 16, 4, device="cpu"),
+    tc = api.split_caches(make_paged_caches(tcfg, 2, 16, 4, device="cpu"),
                           tcfg, tconfigs.LaneConfig())
-    kv_pages.admit_prefill(tc, tdense, tcfg, pages, 4, P)
+    kv_pages.admit_prefill(tc, tdense, tcfg, [0, 1], pages, 4, P)
     td = api.decode_step_paged(tparams, tcfg, torch.from_numpy(nxt), tc,
                                torch.from_numpy(pt), torch.from_numpy(pos))
     assert np.abs(td.numpy() - np.asarray(jd)).max() <= 1e-4

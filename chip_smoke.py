@@ -19,11 +19,18 @@ one launch, every worker and the single-process reference bitwise the
 canon, trains PointNet, the paper's second model, in its four fp32
 lanes (Table 1, then timed at Fig. 6's 1024 points), runs its full-width
 int8 forward against the CPU, runs the paper-table runner
-(``repro_torch.benchmarks.run --fast``) in process, and trains qwen3-4b
-at full width and depth for a few ElasticZO steps, unfused and with the
-fused antithetic probe pair at seq 4096 (the ZO forwards and the prefill
-attend through the flash kernel). The LeNet-5 and PointNet lanes run
-through the package's own harness (``benchmarks/paper_tables.py``).
+(``repro_torch.benchmarks.run --fast``) in process and its Table 2 once
+more (the rows must repeat), trains qwen3-4b at full width and depth for
+a few ElasticZO steps, unfused and with the fused antithetic probe pair
+at seq 4096 (the ZO forwards and the prefill attend through the flash
+kernel), and trains the other families: RWKV6-1.6B whole, Mixtral at
+full width and 8 of its 32 layers, and Jamba at full width and one
+period (unfused, and RWKV6 and Mixtral also with fused probes at seq
+4096 and 4608; launch counts, a moved head and tail, a bitwise rerun),
+reduced Mixtral, RWKV6 and two-period Jamba steps on the card against
+the CPU, and ``launch.train --profile-phases`` on RWKV6-1.6B. The LeNet-5
+and PointNet lanes run through the package's own harness
+(``benchmarks/paper_tables.py``).
 
 The last three lines of its output are the card's name and power limit
 (nvidia-smi), a JSON line of per-kernel numbers, and
@@ -61,6 +68,12 @@ PAGED_BF16_TOL = 3e-2            # a few bf16 ulps of |o| <~ 1 (the plain
 #                                  keeps them in f32)
 PAGED_F32_TOL = 1e-5             # summation order only
 ZO_CHUNK = 1 << 26               # flat elements per plain-version chunk
+# the largest ZO leaf a training phase gives the ZO kernels: the stacked
+# expert w_gate of the Mixtral cut's 7 ZO periods, 7 x 8 x 4096 x 14336 =
+# 3,288,334,336 bf16 elements, whose flat indices pass 2**31 (whole when
+# unfused and in the update, period 6's slice at offset 6 x 469,762,048
+# when fused)
+ZO_LARGE = (7, 8, 4096, 14336)
 INT8_OPS_PER_S = 1979e12         # H100 SXM dense int8 tensor-core peak
 INT32_LANES = 132 * 64           # INT32 (ALU) pipe: 64 lanes a clock an SM
 SCHED_LANES = 132 * 4 * 32       # one warp instruction a clock per scheduler
@@ -192,10 +205,11 @@ def graph_ms(fn, calls=100):
     return event_ms(graph.replay, 5) / calls
 
 
-def kernel_records(fn, calls=3, attempts=5):
+def kernel_records(fn, calls=3, attempts=5, whole=None):
     """{kernel name: (records, device ms)} of ``calls`` fn() calls,
     profiled after WARM_CALLS discarded calls as device_ms does; a run
-    whose records do not come in whole calls is profiled again."""
+    whose records do not come in whole calls, or fail ``whole(records)``
+    where it is given, is profiled again."""
     from torch.profiler import ProfilerActivity, profile, schedule
     for _ in range(attempts):
         got = []
@@ -210,7 +224,8 @@ def kernel_records(fn, calls=3, attempts=5):
                     fn()
                     torch.cuda.synchronize()
                 prof.step()
-        if got and got[0] and all(c % calls == 0 for c, _ in got[0].values()):
+        if got and got[0] and all(c % calls == 0 for c, _ in got[0].values()) \
+                and (whole is None or whole(got[0])):
             return got[0]
     raise RuntimeError(f"the profiler dropped kernel records in {attempts} "
                        "runs")
@@ -421,7 +436,9 @@ FLASH_F32_TOL = 1e-5             # f32: the sums differ in order only
 # train path's forwards, (b) a serve prefill, (c) a sliding window, (d)
 # the reduced model's head dim at ragged lengths, (i) the qwen3-4b fleet's
 # probe forwards, (j) the serve phases' prefill groups (two prompts of
-# each length; qwen3-4b's and Jamba's attention have the same heads)
+# each length; qwen3-4b's and Jamba's attention have the same heads), (k)
+# the family train phases' probe forwards (Mixtral with its 4096 window,
+# past it at seq 4608; Jamba)
 FLASH_CASES = [
     ("(a) train, seq 4096", 1, 32, 8, 4096, 4096, 128, torch.bfloat16, True,
      0),
@@ -432,7 +449,13 @@ FLASH_CASES = [
     ("(i) fleet probe, seq 128", 1, 32, 8, 128, 128, 128, torch.bfloat16,
      True, 0),
 ] + [(f"(j) serve prefill group, seq {n}", 2, 32, 8, n, n, 128,
-      torch.bfloat16, True, 0) for n in (128, 256, 384, 512)]
+      torch.bfloat16, True, 0) for n in (128, 256, 384, 512)] + [
+    ("(k) Mixtral train probe", 4, 32, 8, 128, 128, 128, torch.bfloat16,
+     True, 4096),
+    ("(k) Mixtral fused probe, seq 4608", 1, 32, 8, 4608, 4608, 128,
+     torch.bfloat16, True, 4096),
+    ("(k) Jamba train probe", 4, 32, 8, 128, 128, 128, torch.bfloat16, True,
+     0)]
 # the bf16 tensor-core kernel's edge paths: head dims 16 and 64, ragged Sq
 # != Sk, and windows under which rows past Sk + window - 1 see no key
 FLASH_EDGE_CASES = [
@@ -766,6 +789,48 @@ def check_zo(zo_perturb, zo_replay, ref):
           f"kernel {catch_up_ms:.4f} ms, bound {catch_up_bound:.4f} ms by "
           f"{catch_up_by} (32 records)")
     return out
+
+
+def check_zo_large(zo_perturb, zo_replay, ref):
+    """Both ZO kernels on a bf16 leaf of ZO_LARGE, the flat indices up to
+    its 3.29e9 elements, bitwise their plain versions over every element:
+    zo_perturb whole and at the offset of each period's slice, and the
+    update (zo_fused_replay, S = 1, P = 1). Returns the end of the flat
+    index range held (check_index_held)."""
+    from repro_torch.core import zo
+    path = ("periods_zo", "blk0", "moe", "w_gate")
+    theta = torch.empty(ZO_LARGE, device="cuda", dtype=torch.bfloat16)
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    for part in theta:
+        part.normal_(generator=gen)
+    salt = zo.path_salt(path)
+    seeds, coeffs = zo_records(1, 1)
+    flat, n = theta.reshape(-1), theta.numel()
+    name = f"{zo.keystr(path)} {list(ZO_LARGE)} bfloat16"
+    got = zo_perturb.zo_perturb(theta, seeds[0], salt, 1e-3)
+    count, worst = ulp_diff(got, lambda lo, hi: ref.zo_perturb_ref(
+        flat[lo:hi], seeds[0], salt, 1e-3, lo))
+    size = theta[0].numel()
+    slices = all(torch.equal(zo_perturb.zo_perturb(theta[p], seeds[0], salt,
+                                                   1e-3, p * size), got[p])
+                 for p in range(ZO_LARGE[0]))
+    del got
+    print(f"zo_perturb on {name} (flat indices to {n - 1}, past 2**31 = "
+          f"{2**31}): {count} of {n} elements differ from the plain "
+          f"version, largest distance {worst} ulp; each period's slice at "
+          f"offset p x {size} bitwise the whole leaf's: {slices}")
+    if count or not slices:
+        raise AssertionError("zo_perturb past 2**31 flat indices is not "
+                             "bitwise its plain version")
+    got = zo_replay.zo_fused_replay(theta, seeds, coeffs, salt)
+    count, worst = ulp_diff(got, lambda lo, hi: ref.zo_fused_replay_ref(
+        flat[lo:hi], seeds, coeffs, salt, lo))
+    print(f"zo_fused_replay S=1 P=1 on {name}: {count} of {n} elements "
+          f"differ from the plain version, largest distance {worst} ulp")
+    if count:
+        raise AssertionError("zo_fused_replay past 2**31 flat indices is not "
+                             "bitwise its plain version")
+    return n
 
 
 # --------------------------------------------------------------------- #
@@ -1728,10 +1793,15 @@ def check_pointnet_int8(int8_mm):
                              "launches, want 8")
     params = pointnet.init_pointnet_int8(5, POINTNET, device="cuda")
     qx = quant_from_float(torch.from_numpy(xs).cuda())
+    def mm_records(times):
+        return [(c, t) for k, (c, t) in times.items() if "int8_mma" in k]
     with torch.no_grad():
+        # a run where the profiler dropped some of the forward's records
+        # (seen after the earlier phases) is profiled again
         times = kernel_records(
-            lambda: pointnet.pointnet_forward_int8(params, qx), calls=1)
-    mm = [(c, t) for k, (c, t) in times.items() if "int8_mma" in k]
+            lambda: pointnet.pointnet_forward_int8(params, qx), calls=1,
+            whole=lambda t: sum(c for c, _ in mm_records(t)) == n)
+    mm = mm_records(times)
     n_mm = sum(c for c, _ in mm)
     print(f"pointnet int8 forward on the card: {n_mm} int8_matmul kernel "
           f"records, {sum(t for _, t in mm):.4f} ms of the forward's "
@@ -1742,19 +1812,36 @@ def check_pointnet_int8(int8_mm):
     return n
 
 
-def check_paper_tables():
-    """repro_torch.benchmarks.run --fast in this process, written to a
-    temporary file; every section must run. Prints its headline metrics."""
+def bench_run_fast(*sections):
+    """repro_torch.benchmarks.run --fast in this process (the given
+    sections, or all), written to a temporary file; every section must
+    run. Returns the document."""
     import tempfile
     from repro_torch.benchmarks import run as bench_run
+    argv = ["--fast"] + [a for s in sections for a in ("--section", s)]
     with tempfile.TemporaryDirectory() as tmp:
         path = Path(tmp) / "BENCH_torch_paper.json"
-        rc = bench_run.main(["--fast", "--out", str(path)])
+        rc = bench_run.main(argv + ["--out", str(path)])
         doc = json.loads(path.read_text())
-    m = doc["metrics"]
-    errors = {k: v for k, v in m.items() if k.endswith("_error")}
+    errors = {k: v for k, v in doc["metrics"].items() if k.endswith("_error")}
     if rc or errors:
-        raise AssertionError(f"benchmarks.run --fast: rc {rc}, {errors}")
+        raise AssertionError(f"benchmarks.run {argv}: rc {rc}, {errors}")
+    return doc
+
+
+def table2_rows(metrics):
+    """Table 2's accuracies (its timings left out)."""
+    return {k: v for k, v in metrics.items()
+            if k.startswith("table2_") and "_acc_" in k}
+
+
+def check_paper_tables():
+    """The paper-table runner in this process, every section; prints its
+    headline metrics. Then Table 2 (the finetune section) once more in
+    the same process: its rows must be equal, since every entry point
+    trains under core/api.py::deterministic."""
+    doc = bench_run_fast()
+    m = doc["metrics"]
     keys = [k for k in m if k.startswith(("table1_", "table2_", "memory_",
                                           "int_loss_sign_agreement",
                                           "steptime_"))]
@@ -1763,6 +1850,11 @@ def check_paper_tables():
         print(f"  {k} = {v:.6g}" if isinstance(v, float) else f"  {k} = {v}")
     print(f"paper tables: sections {doc['config']['sections']} on "
           f"{doc['config'].get('card')}")
+    first = table2_rows(m)
+    again = table2_rows(bench_run_fast("finetune")["metrics"])
+    print(f"Table 2 again in the same process: {again}")
+    if len(first) != 10 or again != first:
+        raise AssertionError(f"Table 2 did not repeat: {first} then {again}")
 
 
 # --------------------------------------------------------------------- #
@@ -1931,6 +2023,18 @@ def check_shapes_held(name, seen, held):
         raise AssertionError(f"{name} ran at {sorted(map(str, seen - set(held)))}"
                              ", which its check against the plain version "
                              "does not cover")
+
+
+def check_index_held(name, ends, held):
+    """Every flat index the path gave the kernel (``ends``: offset +
+    elements of each call) lies in the range [0, held) that its check
+    against the plain version covers."""
+    print(f"{name}: largest flat index on this path {max(ends) - 1}, "
+          f"held to {held - 1}")
+    if not ends or max(ends) > held:
+        raise AssertionError(f"{name} ran past flat index {held - 1}, which "
+                             "its check against the plain version does not "
+                             "cover")
 
 
 def check_catchup(calls, name, S, n, per_call):
@@ -2187,11 +2291,11 @@ TRAIN_ARGV = ["--arch", "qwen3-4b", "--lane", "elastic_zo",
               "--seq", "128", "--lr", "1e-2", "--eps", "1e-3", "--steps", "5"]
 
 
-def train_run(trainer, run, LoopConfig):
-    """One warm-up step, then four timed ones, through train_loop.run (the
-    loss read on the host after every step). Returns (state, losses,
-    timed wall s, peak device memory of the timed steps, peak device
-    memory of the first step)."""
+def train_run(trainer, run, LoopConfig, steps=5):
+    """One warm-up step, then ``steps`` - 1 timed ones, through
+    train_loop.run (the loss read on the host after every step). Returns
+    (state, losses, timed wall s, peak device memory of the timed steps,
+    peak device memory of the first step)."""
     def loop(total):
         return LoopConfig.for_lane(trainer.lane, total_steps=total,
                                    log_every=1)
@@ -2203,7 +2307,7 @@ def train_run(trainer, run, LoopConfig):
     peak0 = torch.cuda.max_memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    state, h1 = run(trainer.step_fn, state, trainer.batch_fn, loop(5),
+    state, h1 = run(trainer.step_fn, state, trainer.batch_fn, loop(steps),
                     log=None)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -2468,6 +2572,293 @@ def profile_train_step(trainer, state, run, LoopConfig, step_s):
               f"{e.key[:90]}")
 
 
+# --------------------------------------------------------------------- #
+# training the MoE, RWKV6 and Mamba/hybrid families at full width
+# --------------------------------------------------------------------- #
+def family_argv(arch, batch, seq, steps):
+    return ["--arch", arch, "--lane", "elastic_zo", "--bp-tail-layers", "1",
+            "--probes", "1", "--batch", str(batch), "--seq", str(seq),
+            "--lr", "1e-2", "--eps", "1e-3", "--steps", str(steps)]
+
+
+def family_per_step(trainer, cfg):
+    """Launches a step at 1 probe, from the ZO leaf list: zo_perturb 2 x
+    the ZO leaves (fused: 2 x the leaves outside periods_zo + 2 x the
+    periods_zo leaves x the ZO periods, one slice at a time),
+    zo_fused_replay 1 x the ZO leaves, flash 2 x the ZO head's attention
+    blocks (the BP tail attends without it)."""
+    from repro_torch.core import elastic, zo
+    from repro_torch.models.transformer import num_periods
+    zo_part, _ = elastic.partition(trainer.state.params, trainer.lane)
+    paths = [p for p, _ in zo.leaves_with_path(zo_part)]
+    pz = num_periods(zo_part["periods_zo"])
+    stacked = sum(p[0] == "periods_zo" for p in paths)
+    perturb = 2 * (len(paths) - stacked + stacked * pz) \
+        if trainer.lane.fused_probes else 2 * len(paths)
+    return {"zo_perturb": perturb, "zo_fused_replay": len(paths),
+            "flash_attention": 2 * pz * cfg.pattern.count("attn")}
+
+
+DIGEST_CHUNK = 1 << 26           # elements a digest pass
+
+
+def bits_digest(t):
+    """(sum of every element's bit pattern, sum of each pattern times a
+    hash of its flat index), in int64 with wrap-around, on the tensor's
+    device: equal for equal bits, and a change of any element changes
+    the pair. It compares parameters of a stack too large for a second
+    copy beside a training step (a copy on the host took most of a
+    phase's time)."""
+    ints = {2: torch.int16, 4: torch.int32}[t.element_size()]
+    flat = t.detach().reshape(-1).view(ints)
+    total = weighted = 0
+    for s0 in range(0, flat.numel(), DIGEST_CHUNK):
+        b = flat[s0:s0 + DIGEST_CHUNK].to(torch.int64)
+        w = (torch.arange(s0 + 1, s0 + 1 + b.numel(), device=b.device)
+             * 0x9E3779B1) & 0xFFFFFFFF
+        total += int(b.sum())
+        weighted += int((b * w).sum())
+    return total, weighted
+
+
+def digests(params):
+    """{keystr: bits_digest} of a parameter tree."""
+    from repro_torch.core import zo
+    return {zo.keystr(p): bits_digest(t)
+            for p, t in zo.leaves_with_path(params)}
+
+
+def check_train_family(title, cfg, argv, kernels, held, *, fused=False,
+                       steps=5):
+    """ElasticZO on a full-width family stack through
+    repro_torch.launch.train's own functions, as check_train_lm: launch
+    counts a step (family_per_step), finite losses, a changed ZO head and
+    BP part, and a rerun from the same seed with bitwise equal losses and
+    parameters (two copies of a large stack do not fit beside a step's
+    perturbed head, so the first run's are kept as digests). Prints ms a step,
+    tokens/s, peak device memory and the device-busy share of one
+    profiled step. With ``fused``, one unfused step from the same init
+    follows, whose (l+, l-) must equal the fused first step's. Parameters
+    are compared by ``digests``. Every flat index the run gives the ZO
+    kernels lies below ``held``, the range check_zo_large holds. Returns
+    the first run's launch counts."""
+    from repro_torch.core import elastic, zo
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train.train_loop import LoopConfig, run
+    args = launch_train.parse_args(argv)
+    lane = dataclasses.replace(launch_train.lane_from_args(args),
+                               fused_probes=fused)
+    t0 = time.perf_counter()
+    trainer = launch_train.setup(args, lane, cfg)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in _leaves(trainer.state.params))
+    print(f"{title}: setup (init of {n_params} bf16 parameters, "
+          f"{torch.cuda.memory_allocated()} bytes) "
+          f"{time.perf_counter() - t0:.2f} s")
+    per_step = family_per_step(trainer, cfg)
+    zo_part, bp_part = ([zo.keystr(p) for p, _ in zo.leaves_with_path(t)]
+                        for t in elastic.partition(trainer.state.params,
+                                                   lane))
+    init = digests(trainer.state.params)
+    for k in kernels.values():
+        k.launches = 0
+    with probe_losses() as seen, shapes_of(
+            kernels["flash_attention"], "flash_attention",
+            flash_shape) as fa_shapes, shapes_of(
+            kernels["zo_perturb"], "zo_perturb",
+            lambda theta, seed, salt, scale, offset=0:
+            offset + theta.numel()) as zp_ends, shapes_of(
+            kernels["zo_fused_replay"], "zo_fused_replay",
+            lambda theta, *a, **k: theta.numel()) as zr_ends:
+        state, losses, wall, peak, peak0 = train_run(trainer, run,
+                                                     LoopConfig, steps)
+    n = {name: k.launches for name, k in kernels.items()}
+    pair = [float(x) for x in seen[:2]]
+    timed = steps - 1
+    tokens = args.batch * args.seq
+    print(f"{title}, {'fused' if fused else 'unfused'} probes, batch "
+          f"{args.batch} x seq {args.seq}: losses "
+          f"{[round(v, 4) for v in losses]}; {1e3 * wall / timed:.1f} ms "
+          f"per step, {timed * tokens / wall:.1f} tokens/s over {timed} "
+          f"timed steps; peak device memory {peak0} bytes in the first "
+          f"step, {peak} in the timed ones")
+    want = {k: steps * v for k, v in per_step.items()}
+    print(f"launches on the main path ({steps} steps): {n}, want {want}")
+    if n != want:
+        raise AssertionError(f"{title}: launches {n}, want {want}")
+    if len(losses) != steps or not all(np.isfinite(v) for v in losses):
+        raise AssertionError(f"{title}: losses {losses}")
+    if n["flash_attention"]:
+        check_shapes_held("flash_attention", fa_shapes,
+                          [c[1:] for c in FLASH_CASES])
+    check_index_held("zo_perturb", zp_ends, held)
+    check_index_held("zo_fused_replay", zr_ends, held)
+    final = digests(state.params)
+    del trainer, state
+    torch.cuda.empty_cache()
+    moved = {part: sum(init[k] != final[k] for k in names)
+             for part, names in (("zo", zo_part), ("bp", bp_part))}
+    print(f"leaves changed by training: {moved['zo']} of {len(zo_part)} ZO, "
+          f"{moved['bp']} of {len(bp_part)} BP")
+    if not moved["zo"] or not moved["bp"]:
+        raise AssertionError(f"{title}: training left the ZO head or the BP "
+                             "part as it was")
+    del init
+
+    again = launch_train.setup(args, lane, cfg)
+    state2, losses2, wall2, _, _ = train_run(again, run, LoopConfig, steps)
+    same = digests(state2.params) == final
+    print(f"rerun from the same seed: losses {[round(v, 4) for v in losses2]},"
+          f" {1e3 * wall2 / timed:.1f} ms per step; parameters bitwise "
+          f"equal: {same}")
+    if not same or losses2 != losses:
+        raise AssertionError(f"{title}: a rerun from the same parameters "
+                             "and seed gave other parameters or losses")
+    del final
+    profile_train_step(again, state2, run, LoopConfig, wall2 / timed)
+    del again, state2
+    torch.cuda.empty_cache()
+
+    if fused:
+        unfused = launch_train.setup(args, dataclasses.replace(
+            lane, fused_probes=False), cfg)
+        with probe_losses() as seen:
+            run(unfused.step_fn, unfused.state, unfused.batch_fn,
+                LoopConfig.for_lane(unfused.lane, total_steps=1,
+                                    log_every=1), log=None)
+        pair_u = [float(x) for x in seen[:2]]
+        print(f"first step from the same init: (l+, l-) fused {pair}, "
+              f"unfused {pair_u}")
+        if pair != pair_u:
+            raise AssertionError(f"{title}: the fused pair's losses differ "
+                                 "from the unfused forwards'")
+        del unfused
+        torch.cuda.empty_cache()
+    return n
+
+
+SMALL_TRAIN_TOL = 1e-4           # f32 step, card against CPU, relative to
+#                                  max(1, |value|): matmul summation order,
+#                                  amplified in g by 1 / 2 eps
+SMALL_TAIL_TOL = 1e-4            # a BP leaf's change in the step, card
+#                                  against CPU, beyond one ulp of its new
+#                                  value, relative to the CPU's largest
+#                                  change of that leaf
+SMALL_GRAD_TOL = 1e-4            # a BP leaf's gradient of the +eps
+#                                  probe's loss, card against CPU,
+#                                  relative to the CPU's largest of the leaf
+
+
+def tail_gradients(cfg, params, batch, seed):
+    """The gradient of the +eps probe's loss over each non-empty BP leaf
+    (autograd through the tail's backward), with params' device."""
+    from repro_torch.configs import LaneConfig
+    from repro_torch.core import api, elastic, zo
+    lane = LaneConfig()
+    zo_part, bp_part = elastic.partition(params, lane)
+    with torch.no_grad():
+        head = zo.perturb(zo_part, zo.device_seeds(
+            [seed], next(iter(_leaves(params))).device), lane.zo_eps)
+    bp = zo.map_with_path(lambda _p, t: t.detach().clone().requires_grad_(),
+                          bp_part)
+    leaves = [t for _, t in zo.leaves_with_path(bp) if t.numel()]
+    return torch.autograd.grad(
+        api.loss_fn(elastic.merge(head, bp), cfg, batch), leaves)
+
+
+def check_train_families_small():
+    """Reduced Mixtral, RWKV6 and Jamba at two periods in f32, so that the
+    BP tail holds MoE, RWKV6, Mamba and attention blocks: one elastic_zo
+    step on the card (the ZO and flash kernels; the tail's backward) and
+    one on the CPU (the plain versions) from the same parameters, at
+    batch 2 x seq 24 (past reduced Mixtral's window of 16, not a multiple
+    of the recurrent chunk). Losses, zo_g and every leaf within
+    SMALL_TRAIN_TOL; each BP leaf's change in the step (lr x its tail
+    gradient, a small part of the leaf) within SMALL_TAIL_TOL; each BP
+    leaf's gradient of the +eps probe's loss within SMALL_GRAD_TOL (a
+    change below an ulp of its leaf shows nothing of the gradient)."""
+    from repro_torch import configs
+    from repro_torch.core import api, elastic, zo
+    from repro_torch.data.synthetic import token_batch
+    from repro_torch.models.transformer import tree_map
+    from repro_torch.train.train_loop import init_state
+    for arch, kw in (("mixtral-8x7b", {}), ("rwkv6-1.6b", {}),
+                     ("jamba-v0.1-52b", {"num_layers": 16})):
+        cfg = configs.reduced(configs.ARCHS[arch], dtype="float32", **kw)
+        lane = configs.LaneConfig()
+        step = api.make_train_step(cfg, lane)
+        x, y, m = token_batch(2, 24, cfg.vocab_size, seed=1, step=0)
+        init = api.init(cfg, lane, seed=3, device="cpu")
+        out, grads = [], []
+        for d in ("cpu", "cuda"):
+            params = api.init(cfg, lane, seed=3, device="cpu")
+            batch = {k: torch.from_numpy(v).to(d)
+                     for k, v in (("tokens", x), ("labels", y), ("mask", m))}
+            grads.append(tail_gradients(cfg, tree_map(lambda a: a.to(d),
+                                                      init), batch, 11))
+            state = init_state(tree_map(lambda a: a.to(d), params), seed=0)
+            out.append(step(state, batch, np.ones((1,), np.float32)))
+        (cs, cm), (gs, gm) = out
+        errs = {k: abs(float(cm[k]) - float(gm[k]))
+                / max(1.0, abs(float(cm[k]))) for k in ("loss", "zo_g")}
+        leaves = list(zip(zo.leaves_with_path(init),
+                          zo.leaves_with_path(cs.params),
+                          zo.leaves_with_path(gs.params)))
+        errs["leaves"] = max(
+            ((a - b.cpu()).abs().max() / max(1.0, a.abs().max())).item()
+            for _, (_, a), (_, b) in leaves if a.numel())
+        tail = []
+        for (path, w0), (_, a), (_, b) in leaves:
+            if path[0] in elastic.ZO_GROUPS or not a.numel():
+                continue
+            da, db = a - w0, b.cpu() - w0
+            ulp = torch.nextafter(a.abs(), torch.tensor(math.inf)) - a.abs()
+            tail.append(((db - da).abs() - ulp).max().item()
+                        / da.abs().max().item())
+        grad_err = max(((gc - gg.cpu()).abs().max() / gc.abs().max()).item()
+                       for gc, gg in zip(*grads))
+        print(f"small {arch} at {cfg.num_periods} periods: loss "
+              f"{float(gm['loss']):.6f} card, {float(cm['loss']):.6f} CPU; "
+              f"max relative |card - CPU| {errs} (tolerance "
+              f"{SMALL_TRAIN_TOL}); BP leaves' change in the step, "
+              f"largest excess over one ulp relative to the leaf's largest "
+              f"change {max(tail)} over {len(tail)} leaves (tolerance "
+              f"{SMALL_TAIL_TOL}); their gradients, largest |card - CPU| "
+              f"relative to the leaf's largest {grad_err} (tolerance "
+              f"{SMALL_GRAD_TOL})")
+        if not max(errs.values()) <= SMALL_TRAIN_TOL:
+            raise AssertionError(f"{arch}: the card's step disagrees with "
+                                 "the CPU's")
+        if not max(tail) <= SMALL_TAIL_TOL:
+            raise AssertionError(f"{arch}: the card's tail update disagrees "
+                                 "with the CPU's")
+        if not grad_err <= SMALL_GRAD_TOL:
+            raise AssertionError(f"{arch}: the card's tail gradients "
+                                 "disagree with the CPU's")
+
+
+def check_profile_phases():
+    """launch.train --profile-phases on RWKV6-1.6B at batch 4 x seq 128:
+    the phase table, every phase timed, and the state left bitwise as it
+    was."""
+    from repro_torch.launch import train as launch_train
+    args = launch_train.parse_args(family_argv("rwkv6-1.6b", 4, 128, 5)
+                                   + ["--profile-phases"])
+    trainer = launch_train.setup(args)
+    before = digests(trainer.state.params)
+    phases = launch_train.profile_phases(trainer)
+    for name, us in phases.items():
+        print(f"  phase {name:11s} {us:12.1f} us")
+    want = {"partition", "probe", "loss_diff", "coeff", "zo_update",
+            "bp_tail", "tail_update"}
+    if set(phases) != want or not all(v > 0 for v in phases.values()):
+        raise AssertionError(f"phases {phases}")
+    if digests(trainer.state.params) != before:
+        raise AssertionError("--profile-phases wrote the parameter state")
+    del trainer
+    torch.cuda.empty_cache()
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2575,18 +2966,76 @@ def main():
     print(f"flash_attention launches: {n_flash_serve} serving, {n_lm[2]} in "
           f"the unfused train run, {n_fused['flash_attention']} in the fused "
           "one (the kernels line reports the fused run's)")
+    torch.cuda.empty_cache()
+
+    # the family phases hold every flat index they give the ZO kernels to
+    # this check (check_index_held); it runs here, after the phases that
+    # profile small kernels, whose records the profiler dropped in every
+    # retry when it ran among the kernel checks
+    phase("ZO kernels past 2**31 flat indices (Mixtral's expert leaf)")
+    zo_large = check_zo_large(zo_perturb, zo_fused_replay, ref)
+    torch.cuda.empty_cache()
+
+    train_kernels = {"zo_perturb": zo_perturb,
+                     "zo_fused_replay": zo_fused_replay,
+                     "flash_attention": flash_attn}
+    # RWKV6-1.6B whole: 23 ZO periods and one BP period; no attention, so
+    # each run asserts 0 flash launches (family_per_step)
+    phase("train rwkv6-1.6b")
+    rwkv = ARCHS["rwkv6-1.6b"]
+    n_rwkv_train = check_train_family(
+        "train rwkv6-1.6b", rwkv, family_argv(rwkv.name, 4, 128, 5),
+        train_kernels, zo_large)
+    n_rwkv_fused = check_train_family(
+        "train rwkv6-1.6b", rwkv, family_argv(rwkv.name, 1, 4096, 3),
+        train_kernels, zo_large, fused=True, steps=3)
+    # 8 of Mixtral's 32 layers at full width: 11.9 G parameters, 23.8 GB
+    # in bf16 (the whole stack's ~93 GB does not fit on one card); seq
+    # 4608 passes the sliding window of 4096 in flash and in the tail
+    phase("train mixtral-8x7b (8 of 32 layers, full width)")
+    mixtral = dataclasses.replace(ARCHS["mixtral-8x7b"], num_layers=8)
+    n_mixtral = check_train_family(
+        "train mixtral-8x7b (8 of 32 layers)", mixtral,
+        family_argv(mixtral.name, 4, 128, 5), train_kernels, zo_large)
+    n_mixtral_fused = check_train_family(
+        "train mixtral-8x7b (8 of 32 layers)", mixtral,
+        family_argv(mixtral.name, 1, 4608, 3), train_kernels, zo_large,
+        fused=True, steps=3)
+    # one period: the reference's empty BP-period tail (the BP part is the
+    # final norm and the unembedding)
+    phase("train jamba-v0.1-52b (1 of 4 periods, full width)")
+    n_jamba_train = check_train_family(
+        "train jamba-v0.1-52b (1 of 4 periods)", jamba,
+        family_argv(jamba.name, 4, 128, 5), train_kernels, zo_large)
+
+    phase("train reduced families: card against CPU")
+    check_train_families_small()
+    torch.cuda.empty_cache()
+
+    phase("train rwkv6-1.6b --profile-phases")
+    check_profile_phases()
     phase(None)
 
     # launches of the kernels on the serve, PointNet and fleet paths and
     # the paths before them, each counted from 0 just before its phase
     # (RWKV6 runs no attention kernel: its phase asserts 0 launches)
+    family_runs = {
+        "train rwkv6-1.6b": n_rwkv_train,
+        "train rwkv6-1.6b, fused probes, seq 4096": n_rwkv_fused,
+        "train mixtral-8x7b (8 of 32 layers)": n_mixtral,
+        "train mixtral-8x7b (8 of 32 layers), fused probes, seq 4608":
+            n_mixtral_fused,
+        "train jamba-v0.1-52b (1 of 4 periods)": n_jamba_train}
     paths = {"zo_perturb": {"train qwen3-4b": n_zo["zo_perturb"],
                             "train PointNet": n_pointnet["zo_perturb"],
-                            "fleet qwen3-4b": n_fleet_lm["zo_perturb"]},
+                            "fleet qwen3-4b": n_fleet_lm["zo_perturb"],
+                            **{k: v["zo_perturb"]
+                               for k, v in family_runs.items()}},
              "zo_fused_replay": {
                  "train qwen3-4b": n_zo["zo_fused_replay"],
                  "train PointNet": n_pointnet["zo_fused_replay"],
-                 "fleet qwen3-4b": n_fleet_lm["zo_fused_replay"]},
+                 "fleet qwen3-4b": n_fleet_lm["zo_fused_replay"],
+                 **{k: v["zo_fused_replay"] for k, v in family_runs.items()}},
              "int8_perturb": {
                  "train LeNet-5 INT8": n_zo["int8_perturb"],
                  "fleet LeNet-5 INT8": n_fleet_int8["int8_perturb"]},
@@ -2610,7 +3059,9 @@ def main():
                  "train qwen3-4b": n_lm[2],
                  "train qwen3-4b, fused probes, seq 4096":
                      n_fused["flash_attention"],
-                 "fleet qwen3-4b": n_fleet_lm["flash_attention"]}}
+                 "fleet qwen3-4b": n_fleet_lm["flash_attention"],
+                 **{k: v["flash_attention"] for k, v in family_runs.items()
+                    if "rwkv" not in k}}}
     for name, by_path in paths.items():
         if not all(by_path.values()):
             raise AssertionError(f"{name} was not launched on every path: "

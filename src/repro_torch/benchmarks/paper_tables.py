@@ -12,7 +12,12 @@ init key 5 and state key 17 on ``point_clouds`` (train seed 3, test seed
 
 Every entry point runs on the card unless given ``device="cpu"``, and
 runs inside ``core/api.py::f32_products`` (TF32 off), since the reference
-computes in f32. The steps go through ``train/train_loop.py::run``.
+computes in f32, and inside ``core/api.py::deterministic``, so that a run
+repeats bitwise (cuDNN may otherwise pick a nondeterministic convolution
+algorithm, and Table 2's lanes start from a full-BP pretraining). The
+process must set ``CUBLAS_WORKSPACE_CONFIG`` before its first cuBLAS
+product, as ``benchmarks/run.py`` does. The steps go through
+``train/train_loop.py::run``.
 
 Measured memory has no XLA buffer assignment to read: on the card one
 warm step of each lane is run and measured with the caching allocator's
@@ -30,7 +35,7 @@ import torch
 from ..configs.base import LaneConfig
 from ..configs.paper_models import LeNet5Config, PointNetConfig
 from ..core import keys, prng, zo
-from ..core.api import f32_products, resolve_device
+from ..core.api import deterministic, f32_products, resolve_device
 from ..core.elastic import TrainState, make_elastic_step
 from ..core.elastic_int8 import make_int8_elastic_step
 from ..core.int8 import QTensor, perturb_int8, quant_from_float
@@ -160,7 +165,7 @@ def lenet_lanes(steps=600, batch=32, train_n=2048, test_n=512, seed=0,
                               probes=probes)
     init = (lambda: _clone(init_params)) if init_params is not None \
         else (lambda: lenet.init_lenet5(7, device=device))
-    with f32_products():
+    with f32_products(), deterministic():
         return _train_lanes(cfgs, lenet.lenet5_loss, lenet.lenet5_forward,
                             lenet.partition_at, init, 11, train, test,
                             steps=steps, batch=batch, device=device,
@@ -180,7 +185,7 @@ def lenet_pretrained(steps: int, batch: int = 32, *, device=None):
         return {"x": torch.from_numpy(xs[i0:i0 + batch]).to(device),
                 "y": torch.from_numpy(ys[i0:i0 + batch]).to(device)}
 
-    with f32_products():
+    with f32_products(), deterministic():
         state, _ = run(make_elastic_step(lenet.lenet5_loss, lane),
                        init_state(lenet.init_lenet5(7, device=device), 1),
                        batch_fn,
@@ -194,7 +199,7 @@ def lenet_rotated_accuracy(params, rotate: float, *, device=None) -> float:
     start=20000)`` rotated by ``rotate`` degrees."""
     device = resolve_device(device)
     xs, ys = _glyphs(512, 5, 20_000, float(rotate))
-    with f32_products():
+    with f32_products(), deterministic():
         return accuracy(lenet.lenet5_forward, params,
                         torch.from_numpy(xs).to(device),
                         torch.from_numpy(ys).to(device))
@@ -214,7 +219,7 @@ def pointnet_lanes(steps=400, batch=32, train_n=1024, test_n=256,
     cfg = PointNetConfig(num_classes=classes, num_points=num_points)
     train = _clouds(train_n, num_points, 3, classes, 0)
     test = _clouds(test_n, num_points, 4, classes, 50_000)
-    with f32_products():
+    with f32_products(), deterministic():
         return _train_lanes(
             pointnet_lane_configs(steps), pointnet.pointnet_loss,
             pointnet.pointnet_forward, pointnet.partition_at,
@@ -342,7 +347,7 @@ def lenet_measured_memory(batch: int = 32, *, device=None
     batch_d = {"x": torch.from_numpy(xs).to(device),
                "y": torch.from_numpy(ys).to(device)}
     rows = {}
-    with f32_products():
+    with f32_products(), deterministic():
         for name, lane, c in lenet_lane_configs():
             part = (lambda p, c=c: lenet.partition_at(p, c)) \
                 if lane.lane == "elastic_zo" else None
@@ -368,7 +373,7 @@ def lenet_int8_measured_memory(batch: int = 32, *, device=None
     batch_d = {"x": quant_from_float(torch.from_numpy(xs).to(device)),
                "y": torch.from_numpy(ys).to(device)}
     rows = {}
-    with f32_products():
+    with f32_products(), deterministic():
         for name, c, tail in INT8_LANES:
             step = make_int8_elastic_step(
                 lenet.lenet5_forward_int8,
@@ -418,7 +423,7 @@ def steptime_breakdown(batch=64, iters=20, *, device=None) -> Dict[str, float]:
     out = {}
     seed = zo.device_seeds([prng.seed_from_key(keys.key_data(1))], device)
     step_size = torch.tensor(1e-4, dtype=torch.float32, device=device)
-    with f32_products(), torch.no_grad():
+    with f32_products(), deterministic(), torch.no_grad():
         params = lenet.init_lenet5(0, device=device)
         out["fp32_forward_us"] = t(
             lambda: lenet.lenet5_forward(params, bx)[0]) * 2
@@ -426,7 +431,7 @@ def steptime_breakdown(batch=64, iters=20, *, device=None) -> Dict[str, float]:
             lambda: zo.perturb(params, seed, 1e-3)) * 2
         out["fp32_update_us"] = t(
             lambda: zo.zo_update(params, seed, step_size))
-    with f32_products():
+    with f32_products(), deterministic():
         bp_part = {"fc3": {k: v.clone().requires_grad_(True)
                            for k, v in params["fc3"].items()}}
 

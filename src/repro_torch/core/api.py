@@ -3,10 +3,9 @@
 The port of ``repro/core/api.py``. Parameters keep the JAX package's
 ElasticZO split: ``periods_zo`` (the zeroth-order head) and
 ``periods_bp`` (the back-propagated tail of ``tail_periods`` periods;
-empty for a one-period stack). Serving runs both in order, for every
-decoder family the port has (dense, MoE, RWKV6, the Mamba hybrid);
-training perturbs the head and differentiates the tail
-(``core/elastic.py``), for dense attention-only stacks so far.
+empty for a one-period stack). Serving runs both in order, and training
+perturbs the head and differentiates the tail (``core/elastic.py``), for
+every decoder family the port has (dense, MoE, RWKV6, the Mamba hybrid).
 """
 from __future__ import annotations
 
@@ -15,11 +14,12 @@ from typing import Optional
 
 import torch
 
-from ..configs.base import ATTN, LaneConfig, ModelConfig
-from ..models.transformer import (embed, head_logits, init_lm, lm_loss,
-                                  num_periods, run_periods,
+from ..configs.base import LaneConfig, ModelConfig
+from ..models.transformer import (check_supported, embed, head_logits,
+                                  init_lm, lm_loss, num_periods, run_periods,
                                   run_periods_paired, tree_map)
-from . import elastic, zo
+from . import zo
+from .engine import Fp32Engine
 
 
 def resolve_device(device=None) -> torch.device:
@@ -56,10 +56,9 @@ def deterministic():
     nondeterministic (atomic) path on the card takes its deterministic
     one, and an op that has none raises. cuBLAS products are
     deterministic only with a fixed workspace configuration, which
-    cuBLAS reads once, at its first product: the process must set
-    ``CUBLAS_WORKSPACE_CONFIG`` (e.g. ``:4096:8``) before it, as the fleet
-    launcher and ``chip_smoke.py`` do, and a product on the card raises
-    here when it is unset. Uninitialised outputs are not filled. The
+    cuBLAS reads once, at its first product: importing ``repro_torch``
+    sets ``CUBLAS_WORKSPACE_CONFIG`` to ``:4096:8`` unless the caller set
+    it, and a product on the card raises here when it is unset. Uninitialised outputs are not filled. The
     previous settings are restored on exit."""
     mode = torch.are_deterministic_algorithms_enabled()
     warn = torch.is_deterministic_algorithms_warn_only_enabled()
@@ -74,7 +73,10 @@ def deterministic():
 
 
 def tail_periods(cfg: ModelConfig, lane: LaneConfig) -> int:
-    """BP-tail size in periods (>=1, < num_periods)."""
+    """BP-tail size in periods: ``ceil(bp_tail_layers / len(pattern))``,
+    at least 1, but below ``num_periods``. So a one-period stack (reduced
+    Jamba, or one period of the full one) gets 0: its BP part is the
+    final norm and the unembedding only, as in the reference."""
     plen = len(cfg.pattern)
     k = max(1, -(-lane.bp_tail_layers // plen))          # ceil
     return min(k, cfg.num_periods - 1)
@@ -117,14 +119,6 @@ def _positions(tokens):
 # ---------------------------------------------------------------------- #
 # train
 # ---------------------------------------------------------------------- #
-def _check_trainable(cfg: ModelConfig) -> None:
-    if cfg.is_moe or any(k != ATTN for k in cfg.pattern):
-        raise NotImplementedError(
-            f"{cfg.name}: the port trains dense attention-only stacks; "
-            "training the MoE, SSM and hybrid families is the next slice "
-            "of the port (serving them is ported)")
-
-
 def loss_fn(params, cfg: ModelConfig, batch):
     """Mean next-token cross-entropy of batch {"tokens", "labels", "mask"}
     (each [B, S]). The ZO head is never differentiated: its leaves do not
@@ -143,7 +137,7 @@ def paired_loss(bp_part, zo_part, cfg: ModelConfig, lane: LaneConfig, batch,
     (``run_periods_paired``), then the BP tail and ``lm_loss`` for each
     stream. Bitwise the unfused path's two losses, with no perturbed copy
     of the head. seed: int32 [1] on the params' device."""
-    _check_trainable(cfg)
+    check_supported(cfg)
     tokens = batch["tokens"]
     positions = _positions(tokens)
     rest = {k: v for k, v in zo_part.items() if k != "periods_zo"}
@@ -167,18 +161,26 @@ def paired_loss(bp_part, zo_part, cfg: ModelConfig, lane: LaneConfig, batch,
     return losses[0], losses[1]
 
 
-def make_train_step(cfg: ModelConfig, lane: LaneConfig):
-    """The ElasticZO step of ``lane`` over ``loss_fn``:
-    (state, batch, probe_mask) -> (state, metrics). With
-    ``lane.fused_probes`` an elastic_zo step takes each probe pair through
-    ``paired_loss``."""
-    _check_trainable(cfg)
+def train_engine(cfg: ModelConfig, lane: LaneConfig):
+    """(engine, loss) that ``lane``'s step is built from: the step is
+    ``engine.make_step(loss)``, and ``core/engine.py::
+    profile_step_phases(engine, loss, ...)`` times its phases. With
+    ``lane.fused_probes`` an elastic_zo step takes each probe pair
+    through ``paired_loss``."""
+    check_supported(cfg)
     paired = None
     if lane.fused_probes and lane.lane == "elastic_zo":
         paired = lambda bp, zo_part, batch, seed: paired_loss(  # noqa: E731
             bp, zo_part, cfg, lane, batch, seed)
-    return elastic.make_elastic_step(lambda p, b: loss_fn(p, cfg, b), lane,
-                                     paired_loss_fn=paired)
+    return (Fp32Engine(lane, paired_loss_fn=paired),
+            lambda p, b: loss_fn(p, cfg, b))
+
+
+def make_train_step(cfg: ModelConfig, lane: LaneConfig):
+    """The ElasticZO step of ``lane`` over ``loss_fn``:
+    (state, batch, probe_mask) -> (state, metrics)."""
+    engine, loss = train_engine(cfg, lane)
+    return engine.make_step(loss)
 
 
 # ---------------------------------------------------------------------- #

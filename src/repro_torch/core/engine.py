@@ -92,22 +92,36 @@ def tail_learning_rate(lane: LaneConfig) -> float:
         else lane.tail_learning_rate
 
 
+def _releaf(bp_part):
+    """The tail's leaves re-leafed with ``requires_grad`` (storage
+    shared). An empty leaf (the zero-period ``periods_bp`` of a
+    one-period stack) takes no part in the graph and stays as it is."""
+    return [t.detach().requires_grad_(t.numel() > 0)
+            for t in zo.leaves(bp_part)]
+
+
+def _grads(loss, leaves):
+    """d loss / d leaf for every leaf; an empty leaf's is empty."""
+    live = [t for t in leaves if t.requires_grad]
+    it = iter(torch.autograd.grad(loss, live))
+    return [next(it) if t.requires_grad else torch.zeros_like(t)
+            for t in leaves]
+
+
 def _value_and_grad(loss_fn: Callable, bp_part, *args):
     """(loss, grads of the tail leaves): the tail is re-leafed with
-    ``requires_grad`` (its storage shared), nothing else is."""
-    leaves = [t.detach().requires_grad_(True) for t in zo.leaves(bp_part)]
+    ``requires_grad``, nothing else is."""
+    leaves = _releaf(bp_part)
     loss = loss_fn(zo.rebuild(bp_part, leaves), *args)
-    grads = torch.autograd.grad(loss, leaves)
-    return loss.detach(), list(grads)
+    return loss.detach(), _grads(loss, leaves)
 
 
 def _paired_value_and_grad(paired_loss_fn: Callable, bp_part, *args):
     """(l+, l-, grads of 0.5 (l+ + l-) over the tail leaves), one
     backward."""
-    leaves = [t.detach().requires_grad_(True) for t in zo.leaves(bp_part)]
+    leaves = _releaf(bp_part)
     lp, lm = paired_loss_fn(zo.rebuild(bp_part, leaves), *args)
-    grads = torch.autograd.grad(0.5 * (lp + lm), leaves)
-    return lp.detach(), lm.detach(), list(grads)
+    return lp.detach(), lm.detach(), _grads(0.5 * (lp + lm), leaves)
 
 
 def _apply_records(zo_part, seeds: np.ndarray, values: np.ndarray, launch):
@@ -498,3 +512,104 @@ def engine_for(lane: LaneConfig, partition_fn: Optional[Callable] = None,
     if lane.lane == "elastic_zo_int8":
         return Int8Engine(lane, partition_fn, **kwargs)
     return Fp32Engine(lane, partition_fn, **kwargs)
+
+
+# ------------------------------------------------------------------ #
+# phase profiler (diagnostic path, opt-in)
+# ------------------------------------------------------------------ #
+def _clone_tree(tree):
+    return zo.map_with_path(lambda _p, t: t.clone(), tree)
+
+
+def profile_step_phases(engine: Fp32Engine, loss_fn: Callable, state, batch,
+                        iters: int = 3) -> Dict[str, float]:
+    """Time the canonical phases of an fp32 lane's step one by one;
+    returns {phase: mean_us} (``repro/core/engine.py::
+    profile_step_phases``, whose int8 branch no launcher reaches: the
+    train launcher's lanes are fp32).
+
+    A diagnostic decomposition, separate from the production step, which
+    it leaves as it is: each phase is its own call, run once to warm up
+    and then ``iters`` times, each time between two device syncs (on the
+    card the host would otherwise only time the launches). The phases run
+    the kernels the step runs. The parameter state is never written: the
+    in-place ZO update runs on a fresh copy of the ZO part each time, the
+    copy made outside the timed window. Spans land on the "engine" track
+    of the active recorder, plus ``engine.phase.<name>_ms`` histograms.
+
+    The phases: partition, probe (the ±eps forwards of every probe, the
+    fused pair's when the engine has one), loss_diff, coeff, zo_update,
+    and, for a lane with a BP tail, bp_tail (the tail's gradient at
+    theta) and tail_update (its SGD step); the reference times those two
+    as one ``bp_tail`` phase.
+    """
+    from .. import obs
+    from .elastic import merge
+    rec = obs.get()
+    lane = engine.lane
+    n = lane.zo_num_probes
+    eps = lane.zo_eps
+    params = state.params
+    key = keys.fold_in(state.seed, state.step)
+    device = zo.leaves(params)[0].device
+    seeds = zo.device_seeds(
+        [prng.seed_from_key(keys.fold_in(key, i)) for i in range(n)], device)
+    mask = np.ones((n,), np.float32)
+    out: Dict[str, float] = {}
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    def timed(name, f, prep=lambda: ()):
+        f(*prep())                                  # warm
+        sync()
+        tot = 0.0
+        for _ in range(iters):
+            args = prep()
+            sync()
+            with rec.span(f"engine/{name}", track="engine") as sp:
+                t0 = obs.monotonic()
+                f(*args)
+                sync()
+                tot += obs.monotonic() - t0
+            rec.histogram(f"engine.phase.{name}_ms").observe(sp.dur_ns / 1e6)
+        out[name] = tot / iters * 1e6
+
+    timed("partition", lambda: engine.partition(params))
+    zo_part, bp_part = engine.partition(params)
+    has_tail = bool(zo.leaves(bp_part)) and lane.lane == "elastic_zo"
+    paired = engine.paired_loss_fn if has_tail else None
+
+    def probe():
+        ls = []
+        with torch.no_grad():
+            for i in range(n):
+                seed = seeds[i:i + 1]
+                if paired is not None:
+                    ls.extend(paired(bp_part, zo_part, batch, seed))
+                    continue
+                for scale in (eps, -eps):
+                    ls.append(loss_fn(merge(zo.perturb(zo_part, seed, scale),
+                                            bp_part), batch))
+        return torch.stack(ls)
+    losses = probe().cpu().numpy()
+    timed("probe", probe)
+    lp, lm = losses[0::2], losses[1::2]
+    timed("loss_diff", lambda: np.float32(lp) - np.float32(lm))
+    deltas = np.float32(lp) - np.float32(lm)
+    timed("coeff", lambda: engine.host_coeffs(int(state.step), deltas, mask))
+    coeffs, _ = engine.host_coeffs(int(state.step), deltas, mask)
+    c_dev = torch.from_numpy(np.asarray(coeffs, np.float32)).to(device)
+    timed("zo_update", lambda zp: engine.zo_apply(
+        zp, seeds.reshape(1, n), c_dev.reshape(1, n)),
+        lambda: (_clone_tree(zo_part),))
+    if has_tail:
+        def tail_grad():
+            return _value_and_grad(lambda b: loss_fn(merge(zo_part, b),
+                                                     batch), bp_part)[1]
+        grads = tail_grad()
+        eta = np.float32(tail_learning_rate(lane))
+        timed("bp_tail", tail_grad)
+        timed("tail_update", lambda: engine.tail_apply(bp_part, grads, eta))
+    return out

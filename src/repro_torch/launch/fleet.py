@@ -29,15 +29,9 @@ schedules a temporary split.
 from __future__ import annotations
 
 import argparse
-import os
 import sys
 
-# the fp32 workers' probes run with deterministic algorithms
-# (core/api.py::deterministic), whose cuBLAS products need a fixed
-# workspace configuration set before cuBLAS's first product
-os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
-
-import torch  # noqa: E402
+import torch
 
 from .. import obs
 from ..configs import (FleetConfig, GossipConfig, LaneConfig, RobustConfig,

@@ -24,7 +24,7 @@ from .ssm import (init_mamba_block, init_mamba_state, init_rwkv_block,
 CE_CHUNKS = 4            # sequence chunks for the cross-entropy epilogue
 
 
-def _check_supported(cfg: ModelConfig) -> None:
+def check_supported(cfg: ModelConfig) -> None:
     if cfg.encoder_layers or cfg.num_image_tokens or cfg.rope_theta <= 0:
         raise NotImplementedError(
             f"{cfg.name}: the port runs decoder-only stacks with RoPE; the "
@@ -59,7 +59,7 @@ def init_lm(cfg: ModelConfig, *, seed: int, device, dtype=None):
     """Random parameters drawn from a ``torch.Generator`` seeded with
     ``seed`` on ``device`` (not the JAX package's stream: parity tests
     convert JAX parameters with ``repro_torch.convert``)."""
-    _check_supported(cfg)
+    check_supported(cfg)
     dtype = dtype or getattr(torch, cfg.dtype)
     gen = torch.Generator(device=device).manual_seed(seed)
     d, Vp, n = cfg.d_model, cfg.padded_vocab, cfg.num_periods
@@ -238,7 +238,7 @@ def make_caches(cfg: ModelConfig, B: int, seq_len: int, *, device,
     """Zero dense caches, one entry per pattern position, stacked
     [periods, B, ...]: attention {"k", "v"} [periods, B, T, KV, Dh] with
     T = seq_len capped at the sliding window, recurrent state per row."""
-    _check_supported(cfg)
+    check_supported(cfg)
     dtype = dtype or getattr(torch, cfg.dtype)
     T = min(seq_len, cfg.sliding_window) if cfg.sliding_window else seq_len
     shape = (cfg.num_periods, B, T, cfg.num_kv_heads, cfg.head_dim)
@@ -255,7 +255,7 @@ def make_paged_caches(cfg: ModelConfig, slots: int, num_pages: int,
     shared by every sequence (page 0 is the null page); recurrent state
     (Mamba, RWKV6) is fixed-size, so it stays dense per decode slot,
     [periods, slots, ...]."""
-    _check_supported(cfg)
+    check_supported(cfg)
     dtype = dtype or getattr(torch, cfg.dtype)
     shape = (cfg.num_periods, num_pages, page_size, cfg.num_kv_heads,
              cfg.head_dim)

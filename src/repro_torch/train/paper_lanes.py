@@ -6,8 +6,8 @@ The port's twin of the int8 half of ``benchmarks/paper_tables.py``
 init key 7, state key 13, ``glyphs(2048, seed=0)`` for training and
 ``glyphs(512, seed=1, start=10000)`` for the test, batches quantised one
 at a time and the test set at once, as the JAX harness does. The steps run
-through ``train_loop.run``, inside ``core/api.py::f32_products`` like
-every paper-table entry point. ``repro_torch.benchmarks.paper_tables``
+through ``train_loop.run``, inside ``core/api.py::f32_products`` and
+``deterministic`` like every paper-table entry point. ``repro_torch.benchmarks.paper_tables``
 re-exports these names beside the fp32 lanes.
 """
 from __future__ import annotations
@@ -19,7 +19,7 @@ from typing import Dict, NamedTuple, Optional, Sequence
 import torch
 
 from ..configs.base import LaneConfig
-from ..core.api import f32_products, resolve_device
+from ..core.api import deterministic, f32_products, resolve_device
 from ..core.elastic import TrainState
 from ..core.elastic_int8 import int8_eval, make_int8_elastic_step
 from ..core.int8 import quant_from_float
@@ -103,7 +103,7 @@ def lenet_int8_lanes(steps: int = 600, batch: int = 64, train_n: int = 2048,
                 "y": torch.from_numpy(ys_tr[i0:i0 + batch]).to(device)}
 
     results = {}
-    with f32_products():
+    with f32_products(), deterministic():
         for name, c, tail in INT8_LANES:
             if lanes is not None and name not in lanes:
                 continue

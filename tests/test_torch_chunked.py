@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from test_torch_threads import one_torch_thread  # noqa: E402,F401
 
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.models import layers  # noqa: E402

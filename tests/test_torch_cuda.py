@@ -490,6 +490,29 @@ def test_jamba_engine_on_card_matches_cpu(dev):
     assert (got.cpu() - want).abs().max().item() <= 1e-4
 
 
+def test_moe_tail_step_reruns_bitwise(dev):
+    """Reduced Mixtral in f32 at two periods, so that the BP tail holds an
+    MoE block whose dispatch the backward differentiates: two elastic_zo
+    steps from the same init and seed on the card give bitwise equal
+    parameters. The dispatch's gathers differentiate into an atomic
+    scatter-add, but with top-2 routing a row receives at most two
+    nonzero terms (the rest are exact zeros), and a sum of two floats
+    into zero does not depend on their order."""
+    cfg = configs.reduced(configs.ARCHS["mixtral-8x7b"], dtype="float32")
+    lane = configs.LaneConfig()
+    step = api.make_train_step(cfg, lane)
+    x, y, m = token_batch(4, 64, cfg.vocab_size, seed=1, step=0)
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in (("tokens", x), ("labels", y), ("mask", m))}
+    runs = []
+    for _ in range(2):
+        state = init_state(api.init(cfg, lane, seed=3, device=dev), seed=0)
+        state, _ = step(state, batch, np.ones((1,), np.float32))
+        runs.append(list(zo.leaves_with_path(state.params)))
+    for (path, a), (_, b) in zip(*runs):
+        assert torch.equal(a, b), path
+
+
 # ------------------------------------------------------------------ #
 # the int8 lane's kernels
 # ------------------------------------------------------------------ #

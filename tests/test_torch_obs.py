@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from test_torch_threads import one_torch_thread  # noqa: E402,F401
 
 from repro import obs as jobs  # noqa: E402
 from repro.configs import ServeConfig as JServe  # noqa: E402

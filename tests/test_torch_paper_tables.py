@@ -5,10 +5,12 @@ the analytic memory tables exactly, the sign-agreement rate and count on
 the same numpy stream, the lane configurations field by field; then the
 runner ``python -m repro_torch.benchmarks.run`` on the CPU (schema, the
 measured rows None, exit codes), the precision flags its entry points
-set, and the rule that the port imports neither JAX nor the JAX package.
+set, their deterministic algorithms and a Table 2 that repeats bitwise,
+and the rule that the port imports neither JAX nor the JAX package.
 """
 import dataclasses
 import json
+import os
 import re
 import subprocess
 import sys
@@ -17,6 +19,7 @@ from pathlib import Path
 import pytest
 
 torch = pytest.importorskip("torch")
+from test_torch_threads import one_torch_thread  # noqa: E402,F401
 
 from benchmarks import paper_tables as jpt  # noqa: E402
 from repro_torch.benchmarks import paper_tables as pt  # noqa: E402
@@ -114,6 +117,72 @@ def test_entry_points_compute_in_f32_and_restore_the_flags(monkeypatch):
     assert flags and set(flags) == {(False, False)}
     assert torch.backends.cuda.matmul.allow_tf32
     assert torch.backends.cudnn.allow_tf32
+
+
+def _spy_steps(monkeypatch, module, name, seen):
+    """Wrap ``module.name`` (it makes a train step) so that every step records
+    whether deterministic algorithms are on while it runs."""
+    make = getattr(module, name)
+
+    def spy(*a, **k):
+        step = make(*a, **k)
+
+        def wrapped(state, batch, mask):
+            seen.append(torch.are_deterministic_algorithms_enabled())
+            return step(state, batch, mask)
+        return wrapped
+    monkeypatch.setattr(module, name, spy)
+
+
+def test_training_entry_points_run_deterministic_algorithms(monkeypatch):
+    """Every harness entry point that trains (Table 1's fp32, PointNet and
+    int8 lanes, Table 2's pretraining) steps under
+    ``core/api.py::deterministic``, and the caller's setting comes back."""
+    from repro_torch.train import paper_lanes
+    seen = []
+    _spy_steps(monkeypatch, pt, "make_elastic_step", seen)
+    _spy_steps(monkeypatch, paper_lanes, "make_int8_elastic_step", seen)
+    pt.lenet_lanes(steps=1, batch=4, train_n=8, test_n=8, device="cpu")
+    pt.pointnet_lanes(steps=1, batch=2, train_n=4, test_n=4, num_points=8,
+                      device="cpu")
+    pt.lenet_pretrained(1, batch=4, device="cpu")
+    pt.lenet_int8_lanes(steps=1, batch=4, train_n=8, test_n=8,
+                        device="cpu")
+    assert len(seen) == 4 + 4 + 1 + 3 and all(seen)
+    assert not torch.are_deterministic_algorithms_enabled()
+
+
+def test_importing_the_port_sets_the_cublas_workspace():
+    """Importing ``repro_torch`` sets ``CUBLAS_WORKSPACE_CONFIG``, which
+    deterministic cuBLAS products need before the process's first
+    product, and keeps a value the caller set."""
+    code = ("import os, repro_torch; "
+            "print(os.environ['CUBLAS_WORKSPACE_CONFIG'])")
+    env = {k: v for k, v in os.environ.items()
+           if k != "CUBLAS_WORKSPACE_CONFIG"}
+    env["PYTHONPATH"] = str(ROOT / "src")
+    for given, want in ((None, ":4096:8"), (":16:8", ":16:8")):
+        if given:
+            env["CUBLAS_WORKSPACE_CONFIG"] = given
+        out = subprocess.run([sys.executable, "-c", code], env=env,
+                             capture_output=True, text=True, check=True)
+        assert out.stdout.strip() == want
+
+
+def test_table2_repeats_bitwise():
+    """Table 2's pretraining and then its full_zo lane on rotated glyphs,
+    twice in one process, give bitwise equal parameters."""
+    runs = []
+    for _ in range(2):
+        pre = pt.lenet_pretrained(4, batch=8, device="cpu")
+        res = pt.lenet_lanes(steps=3, batch=8, train_n=16, test_n=16,
+                             rotate=30, init_params=pre, device="cpu",
+                             lanes=["full_zo"])
+        runs.append([pre, res["full_zo"].state.params])
+    for a, b in zip(*runs):
+        for (path, x), (_, y) in zip(pt.zo.leaves_with_path(a),
+                                     pt.zo.leaves_with_path(b)):
+            assert torch.equal(x, y), path
 
 
 def test_steptime_breakdown_has_the_reference_phases():

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from test_torch_threads import one_torch_thread  # noqa: E402,F401
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -328,6 +329,41 @@ def test_train_cli_runs_on_cpu(capsys):
     assert [s for s, _ in history] == [0, 1]
     assert all(np.isfinite(loss) for _, loss in history)
     assert "done at step 2" in capsys.readouterr().out
+
+
+FP32_PHASES = {"partition", "probe", "loss_diff", "coeff", "zo_update",
+               "bp_tail", "tail_update"}
+
+
+def _tree_copy(tree):
+    return {zo.keystr(p): t.clone() for p, t in zo.leaves_with_path(tree)}
+
+
+def test_train_cli_profile_phases(capsys):
+    """``--profile-phases`` logs every phase before the steps run."""
+    launch_train.main(["--arch", "rwkv6-1.6b", "--smoke", "--device", "cpu",
+                       "--steps", "1", "--seq", "24", "--batch", "2",
+                       "--profile-phases"])
+    out = capsys.readouterr().out
+    assert all(f"phase {name}" in out for name in FP32_PHASES)
+    assert "done at step 1" in out
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_profile_phases_leave_the_state(fused):
+    """Every phase is timed, and the parameter state is left bitwise as
+    it was (the in-place ZO update runs on a copy), unfused and with the
+    fused probe pair."""
+    args = launch_train.parse_args(["--arch", "mixtral-8x7b", "--smoke",
+                                    "--device", "cpu", "--seq", "24",
+                                    "--batch", "2"])
+    t = launch_train.setup(args, dataclasses.replace(
+        launch_train.lane_from_args(args), fused_probes=fused))
+    before = _tree_copy(t.state.params)
+    phases = launch_train.profile_phases(t)
+    assert set(phases) == FP32_PHASES and all(v > 0 for v in phases.values())
+    after = _tree_copy(t.state.params)
+    assert all(torch.equal(before[k], v) for k, v in after.items())
 
 
 def test_train_cli_needs_cuda_unless_asked_for_cpu(monkeypatch):

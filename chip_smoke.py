@@ -28,8 +28,12 @@ full width and 8 of its 32 layers, and Jamba at full width and one
 period (unfused, and RWKV6 and Mixtral also with fused probes at seq
 4096 and 4608; launch counts, a moved head and tail, a bitwise rerun),
 reduced Mixtral, RWKV6 and two-period Jamba steps on the card against
-the CPU, and ``launch.train --profile-phases`` on RWKV6-1.6B. The LeNet-5
-and PointNet lanes run through the package's own harness
+the CPU, and ``launch.train --profile-phases`` on RWKV6-1.6B. Then it
+serves and trains Whisper's encoder-decoder (whisper-small whole) and
+LLaVA's image-token prefix (llava-next-34b at full width, 16 of its 60
+layers, 2,880 image tokens before the text), unfused and with fused
+probes, and holds reduced Whisper and LLaVA on the card to the CPU. The
+LeNet-5 and PointNet lanes run through the package's own harness
 (``benchmarks/paper_tables.py``).
 
 The last three lines of its output are the card's name and power limit
@@ -234,14 +238,19 @@ def kernel_records(fn, calls=3, attempts=5, whole=None):
 # --------------------------------------------------------------------- #
 # paged attention at the serve path's shapes
 # --------------------------------------------------------------------- #
-def paged_case(dtype, window, P, seed=0):
-    """B=8 rows of qwen3-4b decode (KV=8 heads, G=4, Dh=128, page 16):
-    row 0 inactive (seq_len 0, all-null table), the others at lengths of
-    the serve mix. With a window, row 6's out-of-window pages are
-    reclaimed (nulled), as the scheduler does."""
+PAGED_LENS = (0, 140, 270, 400, 530, 160, 290, 415)
+
+
+def paged_case(dtype, window, P, seed=0, *, KVd=8, G=4, Dh=128, N=256,
+               lens=PAGED_LENS):
+    """len(lens) rows of decode against a pool of N pages of 16 positions
+    (by default qwen3-4b's: KV=8 heads, G=4, Dh=128, 256 pages): row 0
+    inactive (seq_len 0, all-null table), the others at the given
+    lengths. With a window, row 6's out-of-window pages are reclaimed
+    (nulled), as the scheduler does."""
     dev = torch.device("cuda")
-    B, KVd, G, Dh, ps, N = 8, 8, 4, 128, 16, 256
-    lens = [0, 140, 270, 400, 530, 160, 290, 415]
+    B, ps = len(lens), 16
+    lens = list(lens)
     g = torch.Generator(device="cpu").manual_seed(seed)
     perm = (torch.randperm(N - 1, generator=g) + 1).tolist()
     table = torch.zeros((B, P), dtype=torch.int32)
@@ -353,6 +362,54 @@ def check_paged(paged_attn, ref, P):
                             out[(torch.float32, 64)]), held=held)
 
 
+def check_paged_at(paged_attn, ref, label, cfg, sc, lens):
+    """paged_attention_step at a serve phase's own geometry: ``cfg``'s
+    heads (G = num_heads / num_kv_heads; the kernel computes the next
+    power of two of G, the extra heads zero) and ``sc``'s pool and table
+    width, rows of ``lens`` positions, window 0. f32 and bf16 against the
+    plain version (the KV write bitwise, active rows within tolerance,
+    the inactive row 0), and the bf16 call timed beside its plain
+    version. Returns (held shapes, numbers)."""
+    KVd, Dh = cfg.num_kv_heads, cfg.head_dim
+    G = cfg.num_heads // KVd
+    P, N, scale = sc.max_pages_per_seq, sc.num_pages, Dh ** -0.5
+    held, errs = set(), {}
+    for dtype, tol in ((torch.float32, PAGED_F32_TOL),
+                       (torch.bfloat16, PAGED_BF16_TOL)):
+        case = paged_case(dtype, 0, P, KVd=KVd, G=G, Dh=Dh, N=N, lens=lens)
+        q, kn, vn, kp, vp, table, sl = case
+        held.add(paged_shape(*case, scale=scale))
+        kp2, vp2 = kp.clone(), vp.clone()
+        o = paged_attn.paged_attention_step(q, kn, vn, kp, vp, table, sl,
+                                            scale=scale)
+        want = ref.paged_attn_step_ref(q, kn, vn, kp2, vp2, table, sl,
+                                       scale=scale)
+        torch.cuda.synchronize()
+        err = (o[1:].float() - want[1:].float()).abs().max().item()
+        errs[str(dtype)[6:]] = err
+        print(f"paged_attention_step {label} {str(dtype)[6:]}: KV {KVd} x "
+              f"G {G}, Dh {Dh}, pool {N} pages, table width {P}, lengths "
+              f"{list(lens)}: max |o - plain| over active rows = {err:.3g} "
+              f"(tolerance {tol})")
+        if not (torch.equal(kp, kp2) and torch.equal(vp, vp2)):
+            raise AssertionError(f"paged KV write differs ({label})")
+        if not err <= tol or o[0].abs().max().item() != 0.0:
+            raise AssertionError(f"paged attention {label} disagrees with "
+                                 "its plain version")
+        del case, q, kn, vn, kp, vp, kp2, vp2, o, want
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    q, kn, vn, kp, vp, table, sl = paged_case(
+        torch.bfloat16, 0, P, KVd=KVd, G=G, Dh=Dh, N=N, lens=lens)
+    ms = device_ms(lambda: paged_attn.paged_attention_step(
+        q, kn, vn, kp, vp, table, sl, scale=scale), flush=flush)
+    plain_ms = device_ms(lambda: ref.paged_attn_step_ref(
+        q, kn, vn, kp, vp, table, sl, scale=scale), flush=flush)
+    print(f"paged_attention_step {label} bf16: kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms")
+    return held, dict(max_abs_err=errs["bfloat16"], f32_err=errs["float32"],
+                      ms=ms, plain_ms=plain_ms)
+
+
 def check_paged_dead_pages(paged_attn, ref, P):
     """NaN in every pool page the tables do not reference (the null page
     and the pages reclaimed out of row 6's window) must not reach o: the
@@ -456,6 +513,32 @@ FLASH_CASES = [
      torch.bfloat16, True, 4096),
     ("(k) Jamba train probe", 4, 32, 8, 128, 128, 128, torch.bfloat16, True,
      0)]
+# Whisper's and LLaVA's serve prompts (two of each length) and train
+# shapes (batch x text tokens)
+WHISPER_PROMPTS = (64, 128, 256, 384)
+LLAVA_PROMPTS = (128, 256, 384, 512)
+WHISPER_TRAIN = ((4, 128), (1, 448))            # unfused, fused
+LLAVA_TRAIN = ((2, 128), (1, 128))
+LLAVA_IMAGE = 2880
+# (l) Whisper (12 heads of 64): the encoder, non-causal over its 1,500
+# frames (23 key tiles of 64 and a zero-filled one of 28), at each batch
+# the serve and train phases give it; the decoder's causal self- and
+# non-causal cross-attention at each prefill group and train shape; and
+# the decode tick's cross-attention, one query a slot over 1,500 keys;
+# (m) LLaVA (56 query / 8 KV heads of 128): each prefill group and the
+# probe forwards, 2,880 image tokens before the text
+FLASH_CASES += [
+    (f"(l) Whisper encoder, batch {b}", b, 12, 12, 1500, 1500, 64,
+     torch.bfloat16, False, 0) for b in (1, 2, 4)] + [
+    (f"(l) Whisper {kind}, batch {b}, seq {n}", b, 12, 12, n,
+     n if kind == "self" else 1500, 64, torch.bfloat16, kind == "self", 0)
+    for b, n in [(2, n) for n in WHISPER_PROMPTS] + list(WHISPER_TRAIN)
+    for kind in ("self", "cross")] + [
+    ("(l) Whisper decode cross", 8, 12, 12, 1, 1500, 64, torch.bfloat16,
+     False, 0)] + [
+    (f"(m) LLaVA, batch {b}, seq {LLAVA_IMAGE + n}", b, 56, 8,
+     LLAVA_IMAGE + n, LLAVA_IMAGE + n, 128, torch.bfloat16, True, 0)
+    for b, n in [(2, n) for n in LLAVA_PROMPTS] + [LLAVA_TRAIN[1]]]
 # the bf16 tensor-core kernel's edge paths: head dims 16 and 64, ragged Sq
 # != Sk, and windows under which rows past Sk + window - 1 see no key
 FLASH_EDGE_CASES = [
@@ -604,7 +687,40 @@ def check_flash(flash_attn, ref):
           f"({ops:.4g} on the bf16 tensor cores; the three-term P.V design's "
           f"tensor work is twice that, a {2 * by_tc:.4f} ms floor; bytes "
           f"{by_bytes:.4f} ms)")
+    del q, k, v
+    torch.cuda.empty_cache()
     return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by="bytes" if by_bytes >= by_tc else "operations",
+                library_ms=library_ms,
+                at_whisper_encoder=flash_case_times(
+                    flash_attn, ref, "(l) Whisper encoder, batch 2",
+                    device_ms),
+                at_whisper_decode_cross=flash_case_times(
+                    flash_attn, ref, "(l) Whisper decode cross", graph_ms))
+
+
+def flash_case_times(flash_attn, ref, label, timer):
+    """The kernel, its plain version and SDPA (a yardstick the port never
+    calls) at one FLASH_CASES entry, each timed with ``timer``, and the
+    entry's bound."""
+    _, B, H, Hkv, Sq, Sk, D, dtype, causal, window = next(
+        c for c in FLASH_CASES if c[0] == label)
+    q, k, v = flash_inputs(B, H, Hkv, Sq, Sk, D, dtype)
+    ms = timer(lambda: flash_attn.flash_attention(q, k, v, causal=causal,
+                                                  window=window))
+    plain_ms = timer(lambda: ref.flash_attention_ref(q, k, v, causal=causal,
+                                                     window=window))
+    library_ms = timer(
+        lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, is_causal=causal, enable_gqa=True))
+    ops = 4 * B * H * D * visible_pairs(Sq, Sk, causal, window)
+    nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_tc = ops / BF16_OPS_PER_S * 1e3
+    print(f"flash_attention {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f}"
+          f" ms, SDPA {library_ms:.4f} ms, bound {max(by_bytes, by_tc):.4f} "
+          f"ms (bytes {by_bytes:.4f}, operations {by_tc:.4f})")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=max(by_bytes, by_tc),
                 bound_by="bytes" if by_bytes >= by_tc else "operations",
                 library_ms=library_ms)
 
@@ -1361,12 +1477,12 @@ def check_int8_matmul(int8_mm, ref):
 # --------------------------------------------------------------------- #
 # serving
 # --------------------------------------------------------------------- #
-def requests(cfg, rng):
-    """8 requests, prompts of 128/256/384/512 tokens (two of each), 32
-    new tokens; even ones greedy, odd ones sampled with distinct seeds."""
+def requests(cfg, rng, lengths=(128, 256, 384, 512)):
+    """8 requests, prompts of the four ``lengths`` (two of each), 32 new
+    tokens; even ones greedy, odd ones sampled with distinct seeds."""
     from repro_torch.serve import SamplingParams
     out = []
-    for i, n in enumerate((128, 128, 256, 256, 384, 384, 512, 512)):
+    for i, n in enumerate(n for n in lengths for _ in range(2)):
         sp = SamplingParams() if i % 2 == 0 else SamplingParams(
             temperature=0.8, top_k=50, top_p=0.95, seed=1000 + i)
         out.append((list(rng.integers(0, cfg.vocab_size, n)), sp))
@@ -1407,19 +1523,47 @@ def attention_blocks(cfg):
     return cfg.num_periods * cfg.pattern.count("attn")
 
 
-def check_small_model_on_card_vs_cpu(flash_attn, paged_attn):
-    """Reduced qwen3-4b, Jamba (Mamba, attention and MoE blocks, one
-    period), RWKV6 and Mixtral (MoE, sliding window 16) in f32: the same
-    requests on the card (CUDA kernels; the flash kernel at head dim 16)
-    and on the CPU (plain versions) give the same streams, and prefill
-    logits within SMALL_LOGIT_TOL."""
+def serve_flash_launches(cfg, prefills, ticks):
+    """Flash launches of a serve run: a prefill call's encoder blocks and
+    its decoder's self- and cross-attention blocks, and a decode tick's
+    cross-attention blocks (Whisper; a tick's self-attention is the paged
+    kernel's)."""
+    n_attn, cross = attention_blocks(cfg), bool(cfg.encoder_layers)
+    return prefills * (cfg.encoder_layers + n_attn * (1 + cross)) \
+        + ticks * n_attn * cross
+
+
+def stub_batch(cfg, rows, device, seed=0):
+    """Random frames (Whisper) and image-token embeddings (LLaVA) for a
+    prefill or a train batch, in the config's dtype, so that the encoder
+    and the image prefix do real work."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    dt = getattr(torch, cfg.dtype)
+    out = {}
+    if cfg.encoder_layers:
+        out["frames"] = torch.randn(rows, cfg.encoder_seq, cfg.d_model,
+                                    generator=g).to(device, dt)
+    if cfg.num_image_tokens:
+        out["img"] = torch.randn(rows, cfg.num_image_tokens, cfg.d_model,
+                                 generator=g).to(device, dt)
+    return out
+
+
+def check_small_model_on_card_vs_cpu(flash_attn, paged_attn,
+                                     archs=SMALL_ARCHS):
+    """Reduced ``archs`` in f32 (by default qwen3-4b, Jamba (Mamba,
+    attention and MoE blocks, one period), RWKV6 and Mixtral (MoE,
+    sliding window 16)): the same requests on the card (CUDA kernels; the
+    flash kernel at head dim 16) and on the CPU (plain versions) give the
+    same streams, and prefill logits (random frames or image embeddings
+    where the stack takes them) within SMALL_LOGIT_TOL."""
     from repro_torch import configs
     from repro_torch.core import api
     from repro_torch.models.transformer import tree_map
     from repro_torch.serve import Engine, SamplingParams, ServeConfig
     sc = ServeConfig(page_size=4, num_pages=64, max_batch_slots=4,
                      max_seq_len=48, max_new_tokens=12, megastep=4)
-    for arch in SMALL_ARCHS:
+    for arch in archs:
         cfg = configs.reduced(configs.ARCHS[arch], dtype="float32")
         cpu = Engine(cfg, sc, device="cpu", init_seed=3)
         card = Engine(cfg, sc, device="cuda",
@@ -1442,10 +1586,12 @@ def check_small_model_on_card_vs_cpu(flash_attn, paged_attn):
         n, n_paged = flash_attn.launches, paged_attn.launches
         n_attn = attention_blocks(cfg)
         toks = torch.tensor([reqs[3][0]])
-        last = torch.tensor([len(reqs[3][0]) - 1])
-        want, _ = api.prefill_logits(cpu.params, cfg, toks, last)
+        last = torch.tensor([cfg.num_image_tokens + len(reqs[3][0]) - 1])
+        stubs = stub_batch(cfg, 1, "cpu", seed=3)
+        want, _ = api.prefill_logits(cpu.params, cfg, toks, last, **stubs)
         got, _ = api.prefill_logits(card.params, cfg, toks.cuda(),
-                                    last.cuda())
+                                    last.cuda(), **tree_map(
+                                        lambda a: a.cuda(), stubs))
         err = (got.cpu() - want).abs().max().item()
         print(f"small {arch}: card == CPU for {len(a)} streams of 12 "
               f"tokens; flash_attention (head dim 16) launched {n} times for "
@@ -1453,7 +1599,8 @@ def check_small_model_on_card_vs_cpu(flash_attn, paged_attn):
               f"paged_attention_step {n_paged} times in {card.ticks_run} "
               f"ticks; prefill logits max |card - CPU| = {err:.3g} "
               f"(tolerance {SMALL_LOGIT_TOL})")
-        if n != n_attn * len(prefills) or n_paged != n_attn * card.ticks_run:
+        if n != serve_flash_launches(cfg, len(prefills), card.ticks_run) \
+                or n_paged != n_attn * card.ticks_run:
             raise AssertionError(f"{arch}: the small model missed the "
                                  "attention kernels")
         if not err <= SMALL_LOGIT_TOL:
@@ -1465,12 +1612,39 @@ def serve_config():
     return ServeConfig(page_size=16, max_batch_slots=8, max_seq_len=544)
 
 
-def check_serve(cfg, paged_attn, topk_mask, flash_attn, paged_held):
-    """Serves ``requests`` (8 prompts of 128-512 tokens, 32 new; 4
-    sampled) with ``cfg`` at full width (random bf16 weights from seed
-    0). Asserts the launches from the pattern (flash once per attention
-    block a prefill, paged once per attention block a tick, top-k/top-p
-    on sampled ticks), one prefill per prompt length (exact lengths: no
+def whisper_serve_config():
+    """Whisper's own text context, 448 positions (arXiv:2212.04356): the
+    longest prompt, 384 tokens, and 32 new ones fit."""
+    from repro_torch.serve import ServeConfig
+    return ServeConfig(page_size=16, max_batch_slots=8, max_seq_len=448)
+
+
+def llava_serve_config():
+    """2,880 image tokens, a prompt of up to 512 and 32 new tokens; a pool
+    that holds all 8 slots at that length (215 pages each)."""
+    from repro_torch.serve import ServeConfig
+    n = LLAVA_IMAGE + max(LLAVA_PROMPTS) + 32
+    pages = -(-(n + 1) // 16)
+    return ServeConfig(page_size=16, max_batch_slots=8, max_seq_len=n,
+                       num_pages=1 + 8 * pages)
+
+
+# the paged check's row lengths at the Whisper and LLaVA serve phases'
+# geometries (row 0 inactive; the longest at the last position the
+# phase's max_seq_len allows)
+PAGED_LENS_WHISPER = (0, 70, 140, 200, 270, 330, 390, 447)
+PAGED_LENS_LLAVA = (0, 3010, 3100, 3200, 3300, 3050, 3390, 3423)
+
+
+def check_serve(cfg, paged_attn, topk_mask, flash_attn, paged_held, *,
+                sc=None, lengths=(128, 256, 384, 512)):
+    """Serves ``requests`` (8 prompts of the four ``lengths``, 128-512
+    tokens by default, 32 new; 4 sampled) with ``cfg`` at full width
+    (random bf16 weights from seed 0) through ``sc`` (``serve_config()``
+    by default). Asserts the launches from the pattern (flash once per
+    attention block a prefill, and Whisper's encoder and cross-attention
+    blocks too, paged once per attention block a tick, top-k/top-p on
+    sampled ticks), one prefill per prompt length (exact lengths: no
     bucketing), every flash and paged shape one that its check holds,
     and a fresh engine reproducing all 8 streams. Prints tok/s cold and
     warm, ms a tick, peak device memory and the busy share. Returns the
@@ -1478,16 +1652,16 @@ def check_serve(cfg, paged_attn, topk_mask, flash_attn, paged_held):
     flash_attention."""
     from repro_torch.core import api
     from repro_torch.serve import Engine
-    sc = serve_config()
+    sc = sc or serve_config()
     t0 = time.perf_counter()
-    params = api.init(cfg, seed=0, device="cuda")
+    params = api.init(cfg, seed=0, device="cuda", max_seq=sc.max_seq_len)
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in _leaves(params))
     n_attn = attention_blocks(cfg)
     print(f"{cfg.name}: {cfg.num_layers} layers ({n_attn} attention), "
           f"d_model {cfg.d_model}, vocab {cfg.padded_vocab}, {n_params} "
           f"parameters ({cfg.dtype}), init {time.perf_counter() - t0:.2f} s")
-    reqs = requests(cfg, np.random.default_rng(0))
+    reqs = requests(cfg, np.random.default_rng(0), lengths)
 
     engine = Engine(cfg, sc, params=params)
     torch.cuda.reset_peak_memory_stats()
@@ -1512,9 +1686,10 @@ def check_serve(cfg, paged_attn, topk_mask, flash_attn, paged_held):
     if len(prefills) != 4:
         raise AssertionError(f"{len(prefills)} prefills for 4 prompt "
                              "lengths")
-    if n_flash != n_attn * len(prefills):
+    want_flash = serve_flash_launches(cfg, len(prefills), engine.ticks_run)
+    if n_flash != want_flash:
         raise AssertionError(f"flash attention launched {n_flash} times, "
-                             f"want {n_attn} x {len(prefills)}")
+                             f"want {want_flash}")
     if n_paged != n_attn * engine.ticks_run:
         raise AssertionError(f"paged attention launched {n_paged} times, "
                              f"want {n_attn} x {engine.ticks_run}")
@@ -1532,7 +1707,8 @@ def check_serve(cfg, paged_attn, topk_mask, flash_attn, paged_held):
         raise AssertionError(f"bad streams: {streams}")
     logits, _ = api.prefill_logits(
         params, cfg, torch.tensor([reqs[0][0]], device="cuda"),
-        torch.tensor([len(reqs[0][0]) - 1], device="cuda"))
+        torch.tensor([cfg.num_image_tokens + len(reqs[0][0]) - 1],
+                     device="cuda"), **stub_batch(cfg, 1, "cuda"))
     if not bool(torch.isfinite(logits).all()):
         raise AssertionError("prefill logits are not finite")
     del engine
@@ -2586,7 +2762,8 @@ def family_per_step(trainer, cfg):
     the ZO leaves (fused: 2 x the leaves outside periods_zo + 2 x the
     periods_zo leaves x the ZO periods, one slice at a time),
     zo_fused_replay 1 x the ZO leaves, flash 2 x the ZO head's attention
-    blocks (the BP tail attends without it)."""
+    blocks, Whisper's cross-attention blocks and encoder blocks (the BP
+    tail attends without it)."""
     from repro_torch.core import elastic, zo
     from repro_torch.models.transformer import num_periods
     zo_part, _ = elastic.partition(trainer.state.params, trainer.lane)
@@ -2595,8 +2772,10 @@ def family_per_step(trainer, cfg):
     stacked = sum(p[0] == "periods_zo" for p in paths)
     perturb = 2 * (len(paths) - stacked + stacked * pz) \
         if trainer.lane.fused_probes else 2 * len(paths)
+    cross = 2 if cfg.encoder_layers else 1
     return {"zo_perturb": perturb, "zo_fused_replay": len(paths),
-            "flash_attention": 2 * pz * cfg.pattern.count("attn")}
+            "flash_attention": 2 * (pz * cfg.pattern.count("attn") * cross
+                                    + cfg.encoder_layers)}
 
 
 DIGEST_CHUNK = 1 << 26           # elements a digest pass
@@ -2766,9 +2945,15 @@ def tail_gradients(cfg, params, batch, seed):
         api.loss_fn(elastic.merge(head, bp), cfg, batch), leaves)
 
 
-def check_train_families_small():
-    """Reduced Mixtral, RWKV6 and Jamba at two periods in f32, so that the
-    BP tail holds MoE, RWKV6, Mamba and attention blocks: one elastic_zo
+SMALL_TRAIN_CASES = (("mixtral-8x7b", {}), ("rwkv6-1.6b", {}),
+                     ("jamba-v0.1-52b", {"num_layers": 16}))
+
+
+def check_train_families_small(cases=SMALL_TRAIN_CASES):
+    """Reduced ``cases`` in f32 (by default Mixtral, RWKV6 and Jamba at two
+    periods, so that the BP tail holds MoE, RWKV6, Mamba and attention
+    blocks; Whisper's tail holds cross-attention, over random frames, and
+    LLaVA's batch has random image embeddings before the text): one elastic_zo
     step on the card (the ZO and flash kernels; the tail's backward) and
     one on the CPU (the plain versions) from the same parameters, at
     batch 2 x seq 24 (past reduced Mixtral's window of 16, not a multiple
@@ -2782,18 +2967,19 @@ def check_train_families_small():
     from repro_torch.data.synthetic import token_batch
     from repro_torch.models.transformer import tree_map
     from repro_torch.train.train_loop import init_state
-    for arch, kw in (("mixtral-8x7b", {}), ("rwkv6-1.6b", {}),
-                     ("jamba-v0.1-52b", {"num_layers": 16})):
+    for arch, kw in cases:
         cfg = configs.reduced(configs.ARCHS[arch], dtype="float32", **kw)
         lane = configs.LaneConfig()
         step = api.make_train_step(cfg, lane)
         x, y, m = token_batch(2, 24, cfg.vocab_size, seed=1, step=0)
-        init = api.init(cfg, lane, seed=3, device="cpu")
+        seq = 24 + cfg.num_image_tokens
+        init = api.init(cfg, lane, seed=3, device="cpu", max_seq=seq)
         out, grads = [], []
         for d in ("cpu", "cuda"):
-            params = api.init(cfg, lane, seed=3, device="cpu")
+            params = api.init(cfg, lane, seed=3, device="cpu", max_seq=seq)
             batch = {k: torch.from_numpy(v).to(d)
                      for k, v in (("tokens", x), ("labels", y), ("mask", m))}
+            batch.update(stub_batch(cfg, 2, d, seed=5))
             grads.append(tail_gradients(cfg, tree_map(lambda a: a.to(d),
                                                       init), batch, 11))
             state = init_state(tree_map(lambda a: a.to(d), params), seed=0)
@@ -2889,11 +3075,27 @@ def main():
     check_tensor_core_sass()
     check_cluster_sass()
 
+    # Whisper whole; 16 of LLaVA's 60 layers at full width: 9.84 G
+    # parameters, 19.7 GB in bf16 (the whole stack's 68.8 GB fits the
+    # card, but the init draws its largest leaf, w_gate, in f32 first:
+    # 35.2 GB at 60 layers, 9.4 GB at 16)
+    whisper = ARCHS["whisper-small"]
+    llava = dataclasses.replace(ARCHS["llava-next-34b"], num_layers=16)
+
     phase("kernels against their plain versions")
     paged = check_paged(paged_attn, ref, serve_config().max_pages_per_seq)
+    paged_whisper = check_paged_at(paged_attn, ref, "Whisper decode",
+                                   whisper, whisper_serve_config(),
+                                   PAGED_LENS_WHISPER)
+    paged_llava = check_paged_at(paged_attn, ref, "LLaVA decode", llava,
+                                 llava_serve_config(), PAGED_LENS_LLAVA)
+    torch.cuda.empty_cache()
     topk = check_topk(topk_mask, ref, ARCHS["qwen3-4b"].padded_vocab)
     # Jamba's and RWKV6's vocab, a plan of fewer cluster CTAs
     topk_65536 = check_topk(topk_mask, ref, ARCHS["rwkv6-1.6b"].padded_vocab)
+    # Whisper's (51,865 padded) and LLaVA's vocab
+    topk_51968 = check_topk(topk_mask, ref, whisper.padded_vocab)
+    topk_64000 = check_topk(topk_mask, ref, llava.padded_vocab)
     zo_times = check_zo(zo_perturb, zo_fused_replay, ref)
     torch.cuda.empty_cache()
     zo_times.update(check_int8_noise(zo_perturb, zo_fused_replay, ref))
@@ -2906,7 +3108,8 @@ def main():
     phase("small model: card against CPU")
     check_small_model_on_card_vs_cpu(flash_attn, paged_attn)
 
-    serve_kernels = (paged_attn, topk_mask, flash_attn, paged["held"])
+    serve_kernels = (paged_attn, topk_mask, flash_attn,
+                     paged["held"] | paged_whisper[0] | paged_llava[0])
     phase("serve qwen3-4b")
     n_paged, n_topk, n_flash_serve = check_serve(ARCHS["qwen3-4b"],
                                                  *serve_kernels)
@@ -2922,6 +3125,17 @@ def main():
 
     phase("serve rwkv6-1.6b")
     n_rwkv = check_serve(ARCHS["rwkv6-1.6b"], *serve_kernels)
+    torch.cuda.empty_cache()
+
+    phase("serve whisper-small (whole)")
+    n_whisper = check_serve(whisper, *serve_kernels,
+                            sc=whisper_serve_config(),
+                            lengths=WHISPER_PROMPTS)
+    torch.cuda.empty_cache()
+
+    phase("serve llava-next-34b (16 of 60 layers, full width)")
+    n_llava = check_serve(llava, *serve_kernels, sc=llava_serve_config(),
+                          lengths=LLAVA_PROMPTS)
     torch.cuda.empty_cache()
 
     phase("train LeNet-5: the paper's Table 1")
@@ -3008,8 +3222,40 @@ def main():
         "train jamba-v0.1-52b (1 of 4 periods)", jamba,
         family_argv(jamba.name, 4, 128, 5), train_kernels, zo_large)
 
+    # each train shape is batch x text tokens; LLaVA's --seq counts its
+    # 2,880 image tokens (2 x 3,008 keeps the tail's f32 scores ~4 GB)
+    phase("train whisper-small (whole)")
+    (b, n), (b_f, n_f) = WHISPER_TRAIN
+    n_whisper_train = check_train_family(
+        "train whisper-small", whisper, family_argv(whisper.name, b, n, 5),
+        train_kernels, zo_large)
+    n_whisper_fused = check_train_family(
+        "train whisper-small", whisper,
+        family_argv(whisper.name, b_f, n_f, 3), train_kernels, zo_large,
+        fused=True, steps=3)
+    torch.cuda.empty_cache()
+
+    phase("train llava-next-34b (16 of 60 layers, full width)")
+    (b, n), (b_f, n_f) = LLAVA_TRAIN
+    n_llava_train = check_train_family(
+        "train llava-next-34b (16 of 60 layers)", llava,
+        family_argv(llava.name, b, LLAVA_IMAGE + n, 3), train_kernels,
+        zo_large, steps=3)
+    n_llava_fused = check_train_family(
+        "train llava-next-34b (16 of 60 layers)", llava,
+        family_argv(llava.name, b_f, LLAVA_IMAGE + n_f, 3), train_kernels,
+        zo_large, fused=True, steps=3)
+    torch.cuda.empty_cache()
+
     phase("train reduced families: card against CPU")
     check_train_families_small()
+    torch.cuda.empty_cache()
+
+    phase("reduced whisper and llava: card against CPU")
+    check_small_model_on_card_vs_cpu(flash_attn, paged_attn,
+                                     archs=("whisper-small", "llava-next-34b"))
+    check_train_families_small((("whisper-small", {}),
+                                ("llava-next-34b", {})))
     torch.cuda.empty_cache()
 
     phase("train rwkv6-1.6b --profile-phases")
@@ -3025,7 +3271,11 @@ def main():
         "train mixtral-8x7b (8 of 32 layers)": n_mixtral,
         "train mixtral-8x7b (8 of 32 layers), fused probes, seq 4608":
             n_mixtral_fused,
-        "train jamba-v0.1-52b (1 of 4 periods)": n_jamba_train}
+        "train jamba-v0.1-52b (1 of 4 periods)": n_jamba_train,
+        "train whisper-small": n_whisper_train,
+        "train whisper-small, fused probes, seq 448": n_whisper_fused,
+        "train llava-next-34b (16 of 60 layers)": n_llava_train,
+        "train llava-next-34b (16 of 60 layers), fused probes": n_llava_fused}
     paths = {"zo_perturb": {"train qwen3-4b": n_zo["zo_perturb"],
                             "train PointNet": n_pointnet["zo_perturb"],
                             "fleet qwen3-4b": n_fleet_lm["zo_perturb"],
@@ -3048,14 +3298,20 @@ def main():
                  "fleet LeNet-5 INT8": n_fleet_int8["int8_matmul"]},
              "paged_attention_step": {
                  "serve qwen3-4b": n_paged,
-                 "serve jamba-v0.1-52b": n_jamba[0]},
+                 "serve jamba-v0.1-52b": n_jamba[0],
+                 "serve whisper-small": n_whisper[0],
+                 "serve llava-next-34b": n_llava[0]},
              "topk_topp_mask": {
                  "serve qwen3-4b": n_topk,
                  "serve jamba-v0.1-52b": n_jamba[1],
-                 "serve rwkv6-1.6b": n_rwkv[1]},
+                 "serve rwkv6-1.6b": n_rwkv[1],
+                 "serve whisper-small": n_whisper[1],
+                 "serve llava-next-34b": n_llava[1]},
              "flash_attention": {
                  "serve qwen3-4b": n_flash_serve,
                  "serve jamba-v0.1-52b": n_jamba[2],
+                 "serve whisper-small": n_whisper[2],
+                 "serve llava-next-34b": n_llava[2],
                  "train qwen3-4b": n_lm[2],
                  "train qwen3-4b, fused probes, seq 4096":
                      n_fused["flash_attention"],
@@ -3074,6 +3330,8 @@ def main():
              ms=paged["ms"], plain_ms=paged["plain_ms"],
              bound_ms=paged["bound_ms"], bound_by="bytes",
              library_ms=paged["library_ms"],
+             at_whisper_decode=paged_whisper[1],
+             at_llava_decode=paged_llava[1],
              launches_by_path=paths["paged_attention_step"]),
         dict(name="topk_topp_mask", route="cuda",
              source="src/repro_torch/csrc/topk_mask.cu",
@@ -3082,7 +3340,8 @@ def main():
              ms=topk["ms"], plain_ms=topk["plain_ms"],
              bound_ms=topk["bound_ms"], bound_by="bytes",
              library_ms=topk["library_ms"],
-             at_vocab_65536=topk_65536,
+             at_vocab_65536=topk_65536, at_vocab_51968=topk_51968,
+             at_vocab_64000=topk_64000,
              launches_by_path=paths["topk_topp_mask"]),
     ] + [dict(name=name, route="cuda",
               source=f"src/repro_torch/csrc/{name}.cu",

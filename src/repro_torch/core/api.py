@@ -5,7 +5,16 @@ ElasticZO split: ``periods_zo`` (the zeroth-order head) and
 ``periods_bp`` (the back-propagated tail of ``tail_periods`` periods;
 empty for a one-period stack). Serving runs both in order, and training
 perturbs the head and differentiates the tail (``core/elastic.py``), for
-every decoder family the port has (dense, MoE, RWKV6, the Mamba hybrid).
+every stack the port has: the decoder families (dense, MoE, RWKV6, the
+Mamba hybrid), Whisper's encoder-decoder and LLaVA's image-token prefix.
+
+Whisper's encoder runs on ``frames`` [B, encoder_seq, d] wherever the
+decoder sees a whole sequence (prefill, train); a decode step reads the
+cross-attention's cached keys and values instead. LLaVA's ``img`` [B,
+num_image_tokens, d] goes before the text: positions span the image
+tokens and the text, the loss drops the image rows, and a prefill's
+``last_pos`` counts the image tokens. Both inputs are the stubbed front
+ends' embeddings, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -15,8 +24,8 @@ from typing import Optional
 import torch
 
 from ..configs.base import LaneConfig, ModelConfig
-from ..models.transformer import (check_supported, embed, head_logits,
-                                  init_lm, lm_loss, num_periods, run_periods,
+from ..models.transformer import (embed, head_logits, init_lm, lm_loss,
+                                  num_periods, run_encoder, run_periods,
                                   run_periods_paired, tree_map)
 from . import zo
 from .engine import Fp32Engine
@@ -90,29 +99,69 @@ def split_caches(caches, cfg: ModelConfig, lane: LaneConfig):
 
 
 def init(cfg: ModelConfig, lane: Optional[LaneConfig] = None, *,
-         seed: int = 0, device, dtype=None):
+         seed: int = 0, device, dtype=None, max_seq: Optional[int] = None):
     """Random parameters with the periods split into zo and bp. Each half
-    is a leading-dim slice of one stacked tensor, so it is contiguous."""
-    params = init_lm(cfg, seed=seed, device=device, dtype=dtype)
+    is a leading-dim slice of one stacked tensor, so it is contiguous.
+    ``max_seq``: the rows of a learned ``pos_embed`` (stacks without
+    RoPE); the serve engine takes its ``max_seq_len``, training its
+    sequence length, as the JAX package does."""
+    params = init_lm(cfg, seed=seed, device=device, dtype=dtype,
+                     max_seq=max_seq)
     split = split_caches(params.pop("periods"), cfg, lane or LaneConfig())
     params["periods_zo"], params["periods_bp"] = split["zo"], split["bp"]
     return params
 
 
+def _check_inputs(cfg: ModelConfig, tokens, frames, img):
+    B = tokens.shape[0]
+    if cfg.encoder_layers and (frames is None or tuple(frames.shape) != (
+            B, cfg.encoder_seq, cfg.d_model)):
+        raise ValueError(f"{cfg.name} needs frames [{B}, {cfg.encoder_seq}, "
+                         f"{cfg.d_model}], got "
+                         f"{None if frames is None else tuple(frames.shape)}")
+    n = cfg.num_image_tokens
+    if n and (img is None or tuple(img.shape) != (B, n, cfg.d_model)):
+        raise ValueError(f"{cfg.name} needs img [{B}, {n}, {cfg.d_model}], "
+                         f"got {None if img is None else tuple(img.shape)}")
+
+
+def stub_inputs(cfg: ModelConfig, B: int, device) -> dict:
+    """The zero frame embeddings (Whisper) and image-token embeddings
+    (LLaVA) of a batch of B rows where the front end is a stub (the serve
+    engines and the launchers, as in the JAX package), in the config's
+    dtype; empty for a text-only stack."""
+    dt = getattr(torch, cfg.dtype)
+    out = {}
+    if cfg.encoder_layers:
+        out["frames"] = torch.zeros((B, cfg.encoder_seq, cfg.d_model),
+                                    dtype=dt, device=device)
+    if cfg.num_image_tokens:
+        out["img"] = torch.zeros((B, cfg.num_image_tokens, cfg.d_model),
+                                 dtype=dt, device=device)
+    return out
+
+
 def _backbone(params, cfg: ModelConfig, tokens, positions, mode, *,
-              caches=None, **kw):
-    x = embed(params, tokens)
+              caches=None, frames=None, img=None, **kw):
+    enc_out = None
+    if mode != "decode":
+        _check_inputs(cfg, tokens, frames, img)
+        if cfg.encoder_layers:
+            enc_out = run_encoder(params, frames, cfg)
+    x = embed(params, tokens, positions, img)
     x, cz = run_periods(params["periods_zo"], x, cfg, positions=positions,
-                        mode=mode, **kw,
+                        mode=mode, enc_out=enc_out, **kw,
                         caches=None if caches is None else caches["zo"])
     x, cb = run_periods(params["periods_bp"], x, cfg, positions=positions,
-                        mode=mode, **kw,
+                        mode=mode, enc_out=enc_out, **kw,
                         caches=None if caches is None else caches["bp"])
     return x, {"zo": cz, "bp": cb}
 
 
-def _positions(tokens):
+def _positions(tokens, cfg: ModelConfig):
+    """arange over the image tokens and the text, [B, n_img + S]."""
     B, S = tokens.shape
+    S += cfg.num_image_tokens
     return torch.arange(S, dtype=torch.int64, device=tokens.device).expand(B, S)
 
 
@@ -121,43 +170,58 @@ def _positions(tokens):
 # ---------------------------------------------------------------------- #
 def loss_fn(params, cfg: ModelConfig, batch):
     """Mean next-token cross-entropy of batch {"tokens", "labels", "mask"}
-    (each [B, S]). The ZO head is never differentiated: its leaves do not
-    require grad, so autograd records nothing before ``periods_bp`` (the
-    port's form of the JAX package's ``stop_gradient`` cut)."""
+    (each [B, S]; with "frames" for Whisper, "img" for LLaVA, whose image
+    rows the loss drops). The ZO head is never differentiated: its leaves
+    do not require grad, so autograd records nothing before
+    ``periods_bp`` (the port's form of the JAX package's
+    ``stop_gradient`` cut; Whisper's encoder output, made by ZO leaves,
+    carries no gradient either)."""
     tokens = batch["tokens"]
-    x, _ = _backbone(params, cfg, tokens, _positions(tokens), "train")
+    x, _ = _backbone(params, cfg, tokens, _positions(tokens, cfg), "train",
+                     frames=batch.get("frames"), img=batch.get("img"))
+    x = x[:, cfg.num_image_tokens:]
     return lm_loss(params, x, batch["labels"], batch["mask"], cfg)
 
 
 def paired_loss(bp_part, zo_part, cfg: ModelConfig, lane: LaneConfig, batch,
                 seed):
     """(l+, l-) of one antithetic probe pair, the two ZO-head streams
-    advanced together (``repro/core/api.py`` ``paired_loss``): ``embed``
-    perturbed whole, the ``periods_zo`` stack one period's slice at a time
-    (``run_periods_paired``), then the BP tail and ``lm_loss`` for each
-    stream. Bitwise the unfused path's two losses, with no perturbed copy
-    of the head. seed: int32 [1] on the params' device."""
-    check_supported(cfg)
+    advanced together (``repro/core/api.py`` ``paired_loss``): the
+    leaves outside ``periods_zo`` (``embed``, and ``pos_embed`` and
+    ``encoder`` where the stack has them) perturbed whole, Whisper's
+    encoder run once a sign, the ``periods_zo`` stack one period's slice
+    at a time (``run_periods_paired``), then the BP tail and ``lm_loss``
+    for each stream. Each stream's tail cross-attends to its own
+    encoder's output, as in the unfused step (the JAX package gives both
+    the +eps one). Bitwise the unfused path's two losses, with no
+    perturbed copy of the head. seed: int32 [1] on the params' device."""
     tokens = batch["tokens"]
-    positions = _positions(tokens)
+    frames, img = batch.get("frames"), batch.get("img")
+    _check_inputs(cfg, tokens, frames, img)
+    positions = _positions(tokens, cfg)
     rest = {k: v for k, v in zo_part.items() if k != "periods_zo"}
+    xs, encs = [], []
     with torch.no_grad():
-        xp = embed(zo.perturb(rest, seed, lane.zo_eps), tokens)
-        xm = embed(zo.perturb(rest, seed, -lane.zo_eps), tokens)
+        for scale in (lane.zo_eps, -lane.zo_eps):
+            pert = zo.perturb(rest, seed, scale)
+            encs.append(run_encoder(pert, frames, cfg)
+                        if cfg.encoder_layers else None)
+            xs.append(embed(pert, tokens, positions, img))
+            del pert
     periods = zo_part["periods_zo"]
     n = num_periods(periods)
     salts = zo.map_with_path(
         lambda p, _: zo.path_salt(p, "['periods_zo']"), periods)
     sizes = zo.map_with_path(lambda p, a: a.numel() // n, periods)
-    xp, xm = run_periods_paired(periods, (xp, xm), cfg, positions=positions,
-                                seed=seed, eps=lane.zo_eps, salts=salts,
-                                sizes=sizes)
+    xs = run_periods_paired(periods, xs, cfg, positions=positions,
+                            seed=seed, eps=lane.zo_eps, salts=salts,
+                            sizes=sizes, enc_pair=encs)
     losses = []
-    for x in (xp, xm):
+    for x, enc_out in zip(xs, encs):
         x, _ = run_periods(bp_part["periods_bp"], x, cfg, positions=positions,
-                           mode="train")
-        losses.append(lm_loss(bp_part, x, batch["labels"], batch["mask"],
-                              cfg))
+                           mode="train", enc_out=enc_out)
+        losses.append(lm_loss(bp_part, x[:, cfg.num_image_tokens:],
+                              batch["labels"], batch["mask"], cfg))
     return losses[0], losses[1]
 
 
@@ -167,7 +231,6 @@ def train_engine(cfg: ModelConfig, lane: LaneConfig):
     profile_step_phases(engine, loss, ...)`` times its phases. With
     ``lane.fused_probes`` an elastic_zo step takes each probe pair
     through ``paired_loss``."""
-    check_supported(cfg)
     paired = None
     if lane.fused_probes and lane.lane == "elastic_zo":
         paired = lambda bp, zo_part, batch, seed: paired_loss(  # noqa: E731
@@ -186,15 +249,19 @@ def make_train_step(cfg: ModelConfig, lane: LaneConfig):
 # ---------------------------------------------------------------------- #
 # serve
 # ---------------------------------------------------------------------- #
-def prefill_logits(params, cfg: ModelConfig, tokens, last_pos):
-    """Prefill of tokens [B, S]. Returns (logits [B, Vp] f32 at each row's
-    ``last_pos`` (right-padded prompts are allowed for attention-only
-    stacks; recurrent state absorbs every position), the new caches
-    {"zo", "bp"} for paged admission: full-length attention KV [periods,
-    B, S, KV, Dh] and each row's recurrent state after position S - 1)."""
+def prefill_logits(params, cfg: ModelConfig, tokens, last_pos, frames=None,
+                   img=None):
+    """Prefill of tokens [B, S] (with Whisper's ``frames``, LLaVA's
+    ``img``). Returns (logits [B, Vp] f32 at each row's ``last_pos``, an
+    absolute position that counts the image tokens (right-padded prompts
+    are allowed for attention-only stacks; recurrent state absorbs every
+    position), the new caches {"zo", "bp"} for paged admission:
+    full-length attention KV [periods, B, n_img + S, KV, Dh], Whisper's
+    cross-attention ck / cv and each row's recurrent state after the
+    last position)."""
     B = tokens.shape[0]
-    x, caches = _backbone(params, cfg, tokens, _positions(tokens), "prefill",
-                          full_kv=True)
+    x, caches = _backbone(params, cfg, tokens, _positions(tokens, cfg),
+                          "prefill", frames=frames, img=img, full_kv=True)
     xl = x[torch.arange(B, device=x.device), last_pos.to(torch.int64)]
     return head_logits(params, xl[:, None], cfg)[:, 0].float(), caches
 
@@ -205,10 +272,11 @@ def decode_step_paged(params, cfg: ModelConfig, tokens, caches, page_table,
 
     tokens [B, 1], one row a decode slot; page_table [B, P] int (physical
     page per logical page, 0 = null); seq_lens [B] int (tokens already
-    cached per row, also the write position of this step's token). Rows
-    with seq_len 0 and an all-null table are inactive padding slots. The
-    caches are written in place: the KV pools by the paged kernel, each
-    row's recurrent state into its slot. Returns logits [B, Vp] f32.
+    cached per row, image tokens included, also the write position of
+    this step's token). Rows with seq_len 0 and an all-null table are
+    inactive padding slots. The caches are written in place: the KV pools
+    by the paged kernel, each row's recurrent state into its slot.
+    Returns logits [B, Vp] f32.
     """
     positions = seq_lens.to(torch.int64)[:, None]
     x, _ = _backbone(params, cfg, tokens, positions, "decode",
@@ -216,21 +284,23 @@ def decode_step_paged(params, cfg: ModelConfig, tokens, caches, page_table,
     return head_logits(params, x, cfg)[:, 0].float()
 
 
-def prefill_step(params, cfg: ModelConfig, tokens):
-    """The dense baseline's prefill of tokens [B, S], no padding. Returns
-    (the greedy next token [B, 1] int64, caches {"zo", "bp"}: attention KV
-    [periods, B, S, KV, Dh], a window's ring when S exceeds it, and the
-    recurrent state)."""
-    x, caches = _backbone(params, cfg, tokens, _positions(tokens), "prefill")
+def prefill_step(params, cfg: ModelConfig, tokens, frames=None, img=None):
+    """The dense baseline's prefill of tokens [B, S], no padding (with
+    Whisper's ``frames``, LLaVA's ``img``). Returns (the greedy next
+    token [B, 1] int64, caches {"zo", "bp"}: attention KV [periods, B,
+    n_img + S, KV, Dh], a window's ring when that exceeds it, Whisper's
+    ck / cv, and the recurrent state)."""
+    x, caches = _backbone(params, cfg, tokens, _positions(tokens, cfg),
+                          "prefill", frames=frames, img=img)
     logits = head_logits(params, x[:, -1:], cfg)
     return torch.argmax(logits.float(), dim=-1), caches
 
 
 def decode_step(params, cfg: ModelConfig, tokens, caches, cache_len: int):
     """One dense decode step: tokens [B, 1] at position ``cache_len``
-    against caches grown by ``serve.kv_pages.grow_dense_caches``, which
-    are written in place. Returns (the greedy next token [B, 1] int64,
-    caches)."""
+    (image tokens included) against caches grown by
+    ``serve.kv_pages.grow_dense_caches``, which are written in place.
+    Returns (the greedy next token [B, 1] int64, caches)."""
     B = tokens.shape[0]
     positions = torch.full((B, 1), cache_len, dtype=torch.int64,
                            device=tokens.device)

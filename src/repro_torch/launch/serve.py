@@ -5,9 +5,10 @@ baseline).
 
 With ``--paged`` it serves ``--batch`` random prompts through
 ``repro_torch.serve.Engine``; without it, the dense static-batch greedy
-loop (``dense_generate``) runs, as in the JAX launcher. Any decoder-only
-arch of ``configs.ARCHS`` serves (dense, MoE, RWKV6, the Jamba hybrid),
-at full size or with ``--smoke``. It runs on the card; ``--device cpu``
+loop (``dense_generate``) runs, as in the JAX launcher. Every arch of
+``configs.ARCHS`` serves (dense, MoE, RWKV6, the Jamba hybrid, Whisper's
+encoder-decoder on zero frames, LLaVA behind zero image tokens), at full
+size or with ``--smoke``. It runs on the card; ``--device cpu``
 runs the plain versions on the CPU (use it with ``--smoke``). Weights
 are random, drawn from ``--seed``. The flight recorder's ``--trace``,
 ``--metrics``, ``--memory`` and ``--quiet`` flags are the JAX launcher's.
@@ -54,7 +55,7 @@ def main(argv=None):
     cfg = get_arch(args.arch)
     if args.smoke:
         cfg = reduced(cfg)
-    total = args.prompt_len + args.tokens
+    total = cfg.num_image_tokens + args.prompt_len + args.tokens
     rng = np.random.default_rng(args.seed)
     prompts = rng.integers(0, cfg.vocab_size, (args.batch, args.prompt_len))
     dev = api.resolve_device(args.device)
@@ -64,7 +65,7 @@ def main(argv=None):
         if args.temperature != 0.0 or args.top_k or args.top_p != 1.0:
             ap.error("--temperature/--top-k/--top-p require --paged "
                      "(the dense baseline is greedy-only)")
-        params = api.init(cfg, seed=args.seed, device=dev)
+        params = api.init(cfg, seed=args.seed, device=dev, max_seq=total)
         t0 = time.perf_counter()
         out = dense_generate(cfg, params, prompts, args.tokens)
         dt = time.perf_counter() - t0

@@ -1,15 +1,16 @@
 """LM training launcher: ``python -m repro_torch.launch.train --arch <id>``
 
-Trains ``--arch`` (any decoder-only arch: dense, MoE, RWKV6 or the
-Mamba hybrid; random weights from seed 0) on the synthetic token stream
-with the ElasticZO step of ``--lane``, on the card unless ``--device
-cpu`` is given (use that with ``--smoke``, the reduced same-family
-config). The flags and defaults are those of ``repro.launch.train``, the
-flight recorder's ``--trace``, ``--metrics``, ``--memory`` and
-``--quiet`` included. ``--ckpt-dir`` checkpoints every 50 steps and at
-the end, and resumes from the newest checkpoint there
-(``train/checkpoint.py``). ``--profile-phases`` first times the engine's
-step phases one by one on a copy of the state
+Trains ``--arch`` (any arch: dense, MoE, RWKV6, the Mamba hybrid,
+Whisper's encoder-decoder on zero frames, LLaVA behind zero image tokens,
+whose ``--seq`` counts the image tokens; random weights from seed 0) on
+the synthetic token stream with the ElasticZO step of ``--lane``, on the
+card unless ``--device cpu`` is given (use that with ``--smoke``, the
+reduced same-family config). The flags and defaults are those of
+``repro.launch.train``, the flight recorder's ``--trace``,
+``--metrics``, ``--memory`` and ``--quiet`` included. ``--ckpt-dir``
+checkpoints every 50 steps and at the end, and resumes from the newest
+checkpoint there (``train/checkpoint.py``). ``--profile-phases`` first
+times the engine's step phases one by one on a copy of the state
 (``core/engine.py::profile_step_phases``) and logs them. ``--mesh`` is
 not ported.
 """
@@ -88,13 +89,14 @@ def setup(args: argparse.Namespace, lane: Optional[LaneConfig] = None,
             cfg = reduced(cfg)
     lane = lane or lane_from_args(args)
     engine, loss_fn = api.train_engine(cfg, lane)
-    params = api.init(cfg, lane, seed=0, device=device)
+    params = api.init(cfg, lane, seed=0, device=device, max_seq=args.seq)
 
     def batch_fn(step):
-        x, y, m = token_batch(args.batch, args.seq, cfg.vocab_size, seed=1,
-                              step=step)
-        return {k: torch.from_numpy(v).to(device)
-                for k, v in (("tokens", x), ("labels", y), ("mask", m))}
+        x, y, m = token_batch(args.batch, args.seq - cfg.num_image_tokens,
+                              cfg.vocab_size, seed=1, step=step)
+        return {**{k: torch.from_numpy(v).to(device)
+                   for k, v in (("tokens", x), ("labels", y), ("mask", m))},
+                **api.stub_inputs(cfg, args.batch, device)}
 
     loop = LoopConfig.for_lane(lane, total_steps=args.steps,
                                log_every=max(args.steps // 10, 1),

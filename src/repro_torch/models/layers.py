@@ -3,10 +3,12 @@ SwiGLU MLP.
 
 The port of ``repro/models/layers.py`` for one device: the attention plan
 is the single-device one (no KV-head duplication, no Q-head padding).
-Attention covers what serving and training run: causal self-attention
-over the whole sequence for prefill and train (the flash kernel where no
-gradient is needed, the JAX package's chunked eager attention where
-autograd differentiates it), and the paged decode step, both through
+Attention covers what serving and training run: self-attention over the
+whole sequence for prefill and train (causal; non-causal in Whisper's
+encoder) and cross-attention over external keys and values (Whisper's
+decoder over the encoder output), each through the flash kernel where no
+gradient is needed and the JAX package's chunked eager attention where
+autograd differentiates it; and the paged decode step, both through
 ``kernels.ops``; and the dense-cache decode step of the static-batch
 baseline (``serve/engine.py::DenseServer``) in plain torch, as the JAX
 package computes it outside any kernel. Parameter layouts are the JAX
@@ -103,18 +105,22 @@ def _attend_block(q, k, v, mask, scale):
     return out.to(v.dtype)
 
 
-def attention(p, x, cfg: ModelConfig, positions, *, window=0,
+def attention(p, x, cfg: ModelConfig, positions, *, causal=True, window=0,
               cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
               cache_len: Optional[int] = None,
-              paged: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+              paged: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+              kv_override: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
     """Returns (y, (k, v)).
 
-    Prefill and train (``paged`` None): causal self-attention over
-    positions 0..S-1; (k, v) are this call's full-length [B, S, KV, Dh]
-    keys and values. When none of q, k, v requires grad (the ZO head's
-    probe forwards, serving) it runs the flash kernel, which has no
-    backward; otherwise (the BP tail) the chunked eager attention that
-    autograd differentiates.
+    Prefill, train and encode (``paged`` and ``cache`` None):
+    self-attention over positions 0..S-1, causal unless ``causal`` is
+    False (Whisper's encoder); (k, v) are this call's full-length [B, S,
+    KV, Dh] keys and values. ``kv_override`` = (k, v) [B, T, KV', Dh]
+    attends over those instead (cross-attention; ``causal`` False), with
+    no k_norm and no RoPE on them, as in the JAX package. When none of
+    q, k, v requires grad (the ZO head's probe forwards, serving) it runs
+    the flash kernel, which has no backward; otherwise (the BP tail) the
+    chunked eager attention that autograd differentiates.
     Decode (``paged`` = (page_table [B, P], seq_lens [B])): ``cache``
     holds one layer's (k_pool, v_pool) [N_pages, ps, KV, Dh]; the token's
     K/V is written into them in place by the paged step.
@@ -125,18 +131,23 @@ def attention(p, x, cfg: ModelConfig, positions, *, window=0,
     attends over the cache (``DenseServer``).
     """
     B, S, _ = x.shape
-    H, KV, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    H, Dh = cfg.num_heads, cfg.head_dim
     scale = 1.0 / math.sqrt(Dh)
 
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    if kv_override is None:
+        k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
+        v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    else:
+        k, v = kv_override
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
-        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
-    if cfg.rope_theta > 0:
+        if kv_override is None:
+            k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    if cfg.rope_theta > 0 and kv_override is None:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
+    KV = k.shape[2]
 
     if paged is not None:
         page_table, seq_lens = paged
@@ -153,11 +164,11 @@ def attention(p, x, cfg: ModelConfig, positions, *, window=0,
         # window masks are the model's; head h reads KV head h // G, the
         # grouping of q.reshape(B, S, KV, G, Dh)
         y = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                                v.transpose(1, 2), causal=True,
+                                v.transpose(1, 2), causal=causal,
                                 window=window, scale=scale).transpose(1, 2)
     else:
         y = _chunked_self_attention(q.reshape(B, S, KV, H // KV, Dh), k, v,
-                                    positions, window, scale)
+                                    positions, window, scale, causal=causal)
     out = torch.einsum("bshk,hkd->bsd", y.reshape(B, S, H, Dh), p["wo"])
     return out, (k, v)
 
@@ -183,20 +194,29 @@ def _dense_decode(q, k, v, cache, cache_len: int, window: int, scale):
     return _attend_block(q, k_cache, v_cache, mask, scale)
 
 
-def _chunked_self_attention(q, k, v, positions, window, scale):
-    """Block-causal (optionally banded) attention, query-chunked.
+def _chunked_self_attention(q, k, v, positions, window, scale, *,
+                            causal=True):
+    """Block-causal (optionally banded) attention, query-chunked; with
+    ``causal`` False every query sees all T keys (Whisper's encoder and
+    cross-attention, T = k.shape[1] of its own).
 
-    q: [B,S,KVd,G,Dh]; k,v: [B,S,KVd,Dh]. Chunks of cq = S // nq rows;
+    q: [B,S,KVd,G,Dh]; k,v: [B,T,KVd,Dh]. Chunks of cq = S // nq rows;
     the last chunk also takes the S - nq * cq remainder rows."""
-    S = q.shape[1]
+    B, S = q.shape[:2]
+    T = k.shape[1]
     nq = max(1, S // Q_CHUNK)
     cq = S // nq
     outs = []
     for i in range(nq):
         q_hi = S if i == nq - 1 else (i + 1) * cq
         q_i = q[:, i * cq:q_hi]
+        if not causal:
+            mask = torch.ones((1, q_hi - i * cq, T), dtype=torch.bool,
+                              device=q.device)
+            outs.append(_attend_block(q_i, k, v, mask, scale))
+            continue
         q_pos = positions[:, i * cq:q_hi]
-        kv_hi = min(q_hi, k.shape[1])
+        kv_hi = min(q_hi, T)
         # lowest kv position any query in this chunk can see, chunk-aligned
         kv_lo = max(0, ((i * cq - window + 1) // cq) * cq) if window > 0 else 0
         t_pos = positions[:, kv_lo:kv_hi]

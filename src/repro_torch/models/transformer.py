@@ -1,16 +1,23 @@
-"""Decoder-only LM stacks: dense, MoE, RWKV6 and the Mamba/attention
-hybrid.
+"""LM stacks: decoder-only (dense, MoE, RWKV6 and the Mamba/attention
+hybrid), Whisper's encoder-decoder, and LLaVA's image-token prefix.
 
 The port of ``repro/models/transformer.py`` for what serving and
 training run, the fused antithetic probe pair (``run_periods_paired``)
-included; the encoder-decoder (Whisper) and image-token (LLaVA) stacks
-are not ported. Layout: params = {embed, periods, final_norm, unembed};
-``periods`` holds every block's weights stacked over a leading period dim
-(one period is one repetition of ``cfg.pattern``). ``run_periods`` is a
-Python loop over periods where the JAX package scans; it takes zero
-periods too (a one-period stack's empty BP tail).
+included. Layout: params = {embed, periods, final_norm, unembed [,
+pos_embed, encoder]}; ``periods`` holds every block's weights stacked
+over a leading period dim (one period is one repetition of
+``cfg.pattern``). ``pos_embed`` [max_seq, d] holds the learned absolute
+positions of a stack without RoPE (``rope_theta <= 0``), and ``encoder``
+= {pos_embed [encoder_seq, d], periods, final_norm} Whisper's encoder,
+whose decoder blocks carry cross-attention (``ln_cross``, ``cross``).
+Image tokens arrive as embeddings [B, num_image_tokens, d] and go before
+the text (``embed``). ``run_periods`` is a Python loop over periods
+where the JAX package scans; it takes zero periods too (a one-period
+stack's empty BP tail).
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -24,19 +31,15 @@ from .ssm import (init_mamba_block, init_mamba_state, init_rwkv_block,
 CE_CHUNKS = 4            # sequence chunks for the cross-entropy epilogue
 
 
-def check_supported(cfg: ModelConfig) -> None:
-    if cfg.encoder_layers or cfg.num_image_tokens or cfg.rope_theta <= 0:
-        raise NotImplementedError(
-            f"{cfg.name}: the port runs decoder-only stacks with RoPE; the "
-            "encoder-decoder and image-token stacks are not ported")
-
-
 def _ffn_is_moe(cfg: ModelConfig, pos_in_period: int) -> bool:
     return cfg.is_moe and pos_in_period % cfg.moe_every == cfg.moe_offset
 
 
-def init_block(gen, cfg: ModelConfig, kind: str, pos: int, dtype, lead=()):
-    """One pattern position's weights, stacked over ``lead``."""
+def init_block(gen, cfg: ModelConfig, kind: str, pos: int, dtype, lead=(),
+               cross_attn: bool = False):
+    """One pattern position's weights, stacked over ``lead``; an
+    attention block of Whisper's decoder (``cross_attn``) also holds
+    ``ln_cross`` and the cross-attention's ``cross``."""
     d, dev = cfg.d_model, gen.device
     lead = tuple(lead)
     if kind == RWKV:
@@ -45,6 +48,9 @@ def init_block(gen, cfg: ModelConfig, kind: str, pos: int, dtype, lead=()):
     if kind == ATTN:
         p["ln_attn"] = torch.ones(lead + (d,), dtype=dtype, device=dev)
         p["attn"] = init_attention(gen, cfg, dtype, lead=lead)
+        if cross_attn:
+            p["ln_cross"] = torch.ones(lead + (d,), dtype=dtype, device=dev)
+            p["cross"] = init_attention(gen, cfg, dtype, lead=lead)
     else:                                                  # MAMBA
         p["mamba"] = init_mamba_block(gen, cfg, dtype, lead)
     p["ln_ffn"] = torch.ones(lead + (d,), dtype=dtype, device=dev)
@@ -55,22 +61,49 @@ def init_block(gen, cfg: ModelConfig, kind: str, pos: int, dtype, lead=()):
     return p
 
 
-def init_lm(cfg: ModelConfig, *, seed: int, device, dtype=None):
+def encoder_config(cfg: ModelConfig) -> ModelConfig:
+    """The config Whisper's encoder blocks run under: attention only, no
+    MoE, no window, no RoPE (its positions are learned)."""
+    return dataclasses.replace(cfg, block_pattern=(ATTN,), num_experts=0,
+                               sliding_window=0, rope_theta=0.0)
+
+
+def init_lm(cfg: ModelConfig, *, seed: int, device, dtype=None,
+            max_seq: int = None):
     """Random parameters drawn from a ``torch.Generator`` seeded with
     ``seed`` on ``device`` (not the JAX package's stream: parity tests
-    convert JAX parameters with ``repro_torch.convert``)."""
-    check_supported(cfg)
+    convert JAX parameters with ``repro_torch.convert``). A stack with
+    learned positions (``rope_theta <= 0``) needs ``max_seq``, the rows
+    of ``pos_embed`` (the JAX package's ``shape.seq_len``)."""
     dtype = dtype or getattr(torch, cfg.dtype)
     gen = torch.Generator(device=device).manual_seed(seed)
     d, Vp, n = cfg.d_model, cfg.padded_vocab, cfg.num_periods
-    periods = {f"blk{i}": init_block(gen, cfg, kind, i, dtype, lead=(n,))
+    cross = cfg.encoder_layers > 0
+    periods = {f"blk{i}": init_block(gen, cfg, kind, i, dtype, lead=(n,),
+                                     cross_attn=cross)
                for i, kind in enumerate(cfg.pattern)}
-    return {
+    params = {
         "embed": dense_init(gen, (Vp, d), dtype, fan_in=Vp),
         "periods": periods,
         "final_norm": torch.ones(d, dtype=dtype, device=device),
         "unembed": dense_init(gen, (d, Vp), dtype, fan_in=d),
     }
+    if cfg.rope_theta <= 0:                      # learned absolute positions
+        if not max_seq:
+            raise ValueError(f"{cfg.name} learns its positions: init needs "
+                             "max_seq, the rows of pos_embed")
+        params["pos_embed"] = dense_init(gen, (max_seq, d), dtype,
+                                         fan_in=max_seq)
+    if cross:
+        S = cfg.encoder_seq
+        params["encoder"] = {
+            "pos_embed": dense_init(gen, (S, d), dtype, fan_in=S),
+            "periods": {"blk0": init_block(gen, encoder_config(cfg), ATTN,
+                                           0, dtype,
+                                           lead=(cfg.encoder_layers,))},
+            "final_norm": torch.ones(d, dtype=dtype, device=device),
+        }
+    return params
 
 
 def tree_map(fn, tree):
@@ -90,21 +123,26 @@ def num_periods(periods) -> int:
 
 
 def apply_block(p, x, cfg: ModelConfig, kind: str, *, positions, mode: str,
-                cache=None, cache_len=None, paged=None, full_kv=False):
+                cache=None, cache_len=None, paged=None, full_kv=False,
+                enc_out=None):
     """One block of kind ``kind``. Returns (x, cache entry).
 
     mode "prefill": the entry is this block's new state: {"k", "v"}
     [B, S, KV, Dh] for attention (full length with ``full_kv``, which the
     paged pool needs, as it stores absolute positions and applies a
     sliding window as a mask; otherwise a window's ring, slot = position
-    mod window, for the dense cache), {"conv", "ssm"} for Mamba,
-    {"tm_shift", "cm_shift", "wkv"} for RWKV6. mode "decode": ``cache``
-    is this block's entry (the paged pools with ``paged``, else the dense
-    cache at ``cache_len``); it is written in place, recurrent state
-    included, and returned. mode "train": the full causal sequence, no
-    cache; the entry is None.
+    mod window, for the dense cache), plus {"ck", "cv"} [B, encoder_seq,
+    KV, Dh], the cross-attention's keys and values of ``enc_out``, in
+    Whisper's decoder; {"conv", "ssm"} for Mamba, {"tm_shift",
+    "cm_shift", "wkv"} for RWKV6. mode "decode": ``cache`` is this
+    block's entry (the paged pools with ``paged``, else the dense cache
+    at ``cache_len``; ``ck`` / ``cv`` dense per row either way); it is
+    written in place, recurrent state included, and returned. mode
+    "train": the full causal sequence, no cache; the entry is None. mode
+    "encode": as "train", but the self-attention is not causal
+    (Whisper's encoder blocks).
     """
-    if mode not in ("prefill", "decode", "train"):
+    if mode not in ("prefill", "decode", "train", "encode"):
         raise ValueError(f"unknown mode {mode!r}")
     state = cache if mode == "decode" else None
     if kind == RWKV:
@@ -120,13 +158,23 @@ def apply_block(p, x, cfg: ModelConfig, kind: str, *, positions, mode: str,
             new = None                           # written in place
         else:
             y, (k, v) = attention(p["attn"], h, cfg, positions,
-                                  window=window)
+                                  causal=mode != "encode", window=window)
             if window and k.shape[1] > window and not full_kv:
                 p0 = k.shape[1] - window             # ring-align the cache
                 k = torch.roll(k[:, -window:], p0 % window, dims=1)
                 v = torch.roll(v[:, -window:], p0 % window, dims=1)
             new = {"k": k, "v": v}
         x = x + y
+        if "ln_cross" in p:                      # decoder cross-attention
+            h = rms_norm(x, p["ln_cross"], cfg.norm_eps)
+            if mode == "decode":
+                kv = (cache["ck"], cache["cv"])
+            else:
+                kv = _cross_kv(p["cross"], enc_out)
+                new.update(ck=kv[0], cv=kv[1])
+            y, _ = attention(p["cross"], h, cfg, positions, causal=False,
+                             kv_override=kv)
+            x = x + y
     else:                                                  # MAMBA
         x, new = mamba_block(p["mamba"], x, cfg, state)
     h = rms_norm(x, p["ln_ffn"], cfg.norm_eps)
@@ -134,8 +182,17 @@ def apply_block(p, x, cfg: ModelConfig, kind: str, *, positions, mode: str,
     return x + y, _entry(mode, cache, new)
 
 
+def _cross_kv(p, enc_out):
+    """The cross-attention's keys and values [B, encoder_seq, KV, Dh] of
+    the encoder output."""
+    if enc_out is None:
+        raise ValueError("a cross-attention block needs the encoder output")
+    return (torch.einsum("bsd,dhk->bshk", enc_out, p["wk"]),
+            torch.einsum("bsd,dhk->bshk", enc_out, p["wv"]))
+
+
 def _entry(mode: str, cache, new):
-    if mode == "train":
+    if mode in ("train", "encode"):
         return None
     if mode == "decode":
         for name, t in (new or {}).items():
@@ -145,9 +202,12 @@ def _entry(mode: str, cache, new):
 
 
 def run_periods(periods, x, cfg: ModelConfig, *, positions, mode,
-                caches=None, cache_len=None, paged=None, full_kv=False):
+                caches=None, cache_len=None, paged=None, full_kv=False,
+                enc_out=None):
     """Run the stacked periods in order. caches: one entry (a dict) per
     pattern position, stacked like the params (leading dim = periods).
+    ``enc_out`` [B, encoder_seq, d] is what Whisper's decoder blocks
+    cross-attend to (prefill and train; decode reads the cached ck / cv).
     Returns (x, caches): prefill stacks the new entries (an empty dict
     per position over zero periods); decode returns ``caches``, updated
     in place; train returns None."""
@@ -159,23 +219,26 @@ def run_periods(periods, x, cfg: ModelConfig, *, positions, mode,
             x, e = apply_block(
                 tree_map(lambda a: a[i], periods[f"blk{j}"]), x, cfg, kind,
                 positions=positions, mode=mode, cache=ci,
-                cache_len=cache_len, paged=paged, full_kv=full_kv)
+                cache_len=cache_len, paged=paged, full_kv=full_kv,
+                enc_out=enc_out)
             if mode == "prefill":
                 entries[j].append(e)
     if mode == "decode":
         return x, caches
-    if mode == "train":
+    if mode in ("train", "encode"):
         return x, None
     return x, tuple({name: torch.stack([e[name] for e in es])
                      for name in (es[0] if es else ())} for es in entries)
 
 
 def run_periods_paired(periods, x_pair, cfg: ModelConfig, *, positions,
-                       seed, eps: float, salts, sizes):
+                       seed, eps: float, salts, sizes,
+                       enc_pair=(None, None)):
     """Fused antithetic forward (``repro/models/transformer.py::
     run_periods_paired``): advance the theta + eps z and theta - eps z
     streams through the period stack together, perturbing one period's
     slice at a time, so no perturbed copy of the whole stack exists.
+    ``enc_pair`` holds each stream's own encoder output (Whisper).
 
     Exactness: each slice's noise is the stacked leaf's (``salts`` are the
     stacked leaves' path salts, ``sizes`` the slice sizes, and
@@ -192,13 +255,37 @@ def run_periods_paired(periods, x_pair, cfg: ModelConfig, *, positions,
                 pert = zo.perturb_slice(pparams, salts, sizes, i, seed, scale)
                 for j, kind in enumerate(cfg.pattern):
                     h[s], _ = apply_block(pert[f"blk{j}"], h[s], cfg, kind,
-                                          positions=positions, mode="train")
+                                          positions=positions, mode="train",
+                                          enc_out=enc_pair[s])
                 del pert
     return h[0], h[1]
 
 
-def embed(params, tokens):
-    return params["embed"][tokens.to(torch.int64)]
+def embed(params, tokens, positions=None, img=None):
+    """Token embeddings [B, S, d], after ``img`` [B, n_img, d] (LLaVA's
+    image-token embeddings) when given, plus ``pos_embed[positions]``
+    where the stack learns its positions (positions [B, n_img + S])."""
+    x = params["embed"][tokens.to(torch.int64)]
+    if img is not None:
+        x = torch.cat([img.to(x.dtype), x], dim=1)
+    if "pos_embed" in params:
+        x = x + params["pos_embed"][positions.to(torch.int64)]
+    return x
+
+
+def run_encoder(params, frames, cfg: ModelConfig):
+    """Whisper's encoder over frames [B, encoder_seq, d] (the stubbed
+    front end's frame embeddings): learned positions, then
+    ``encoder_layers`` non-causal attention blocks, then the RMS norm
+    (``repro/models/transformer.py::run_encoder``)."""
+    enc = params["encoder"]
+    B, S = frames.shape[:2]
+    x = (frames + enc["pos_embed"][None, :S]).to(frames.dtype)
+    positions = torch.arange(S, dtype=torch.int64,
+                             device=frames.device).expand(B, S)
+    x, _ = run_periods(enc["periods"], x, encoder_config(cfg),
+                       positions=positions, mode="encode")
+    return rms_norm(x, enc["final_norm"], cfg.norm_eps)
 
 
 def head_logits(params, x, cfg: ModelConfig):
@@ -233,17 +320,30 @@ def _state_entry(cfg: ModelConfig, kind: str, B: int, dtype, device):
     return make(cfg, B, dtype, device=device, lead=(cfg.num_periods,))
 
 
+def _cross_entry(cfg: ModelConfig, rows: int, dtype, device):
+    """Whisper's cross-attention keys and values, dense per row (a batch
+    row, or a decode slot of the paged engine): {"ck", "cv"} [periods,
+    rows, encoder_seq, KV, Dh]; empty for a stack without an encoder."""
+    if not cfg.encoder_layers:
+        return {}
+    shape = (cfg.num_periods, rows, cfg.encoder_seq, cfg.num_kv_heads,
+             cfg.head_dim)
+    return {"ck": torch.zeros(shape, dtype=dtype, device=device),
+            "cv": torch.zeros(shape, dtype=dtype, device=device)}
+
+
 def make_caches(cfg: ModelConfig, B: int, seq_len: int, *, device,
                 dtype=None):
     """Zero dense caches, one entry per pattern position, stacked
     [periods, B, ...]: attention {"k", "v"} [periods, B, T, KV, Dh] with
-    T = seq_len capped at the sliding window, recurrent state per row."""
-    check_supported(cfg)
+    T = seq_len capped at the sliding window (and Whisper's {"ck",
+    "cv"}), recurrent state per row."""
     dtype = dtype or getattr(torch, cfg.dtype)
     T = min(seq_len, cfg.sliding_window) if cfg.sliding_window else seq_len
     shape = (cfg.num_periods, B, T, cfg.num_kv_heads, cfg.head_dim)
     return tuple({"k": torch.zeros(shape, dtype=dtype, device=device),
-                  "v": torch.zeros(shape, dtype=dtype, device=device)}
+                  "v": torch.zeros(shape, dtype=dtype, device=device),
+                  **_cross_entry(cfg, B, dtype, device)}
                  if kind == ATTN else _state_entry(cfg, kind, B, dtype, device)
                  for kind in cfg.pattern)
 
@@ -253,14 +353,15 @@ def make_paged_caches(cfg: ModelConfig, slots: int, num_pages: int,
     """Paged serve caches, the structure of ``make_caches``: attention KV
     in a page pool {"k", "v"} [periods, num_pages, page_size, KV, Dh]
     shared by every sequence (page 0 is the null page); recurrent state
-    (Mamba, RWKV6) is fixed-size, so it stays dense per decode slot,
-    [periods, slots, ...]."""
-    check_supported(cfg)
+    (Mamba, RWKV6) and Whisper's cross-attention keys and values are
+    fixed-size, so they stay dense per decode slot, [periods, slots,
+    ...]."""
     dtype = dtype or getattr(torch, cfg.dtype)
     shape = (cfg.num_periods, num_pages, page_size, cfg.num_kv_heads,
              cfg.head_dim)
     return tuple({"k": torch.zeros(shape, dtype=dtype, device=device),
-                  "v": torch.zeros(shape, dtype=dtype, device=device)}
+                  "v": torch.zeros(shape, dtype=dtype, device=device),
+                  **_cross_entry(cfg, slots, dtype, device)}
                  if kind == ATTN
                  else _state_entry(cfg, kind, slots, dtype, device)
                  for kind in cfg.pattern)

@@ -16,6 +16,11 @@ is one scheduler iteration:
   4. copy the megastep's [horizon, slots] tokens to the host once, commit
      them tick by tick, emit stream events and evict finished sequences.
 
+Whisper and LLaVA requests carry no audio or image: each admission's
+prefill takes zero frame / image embeddings, as in the JAX package (the
+front ends are stubs there too), and a LLaVA request's image tokens
+count in its cache length (``Scheduler.submit``'s ``prefix_extra``).
+
 The plan is uploaded once per step, where the JAX package keeps it on the
 device across epoch-stable steps. The flight recorder's spans, metrics and
 memory tags are the JAX package's (``serve/tick``, ``serve/prefill``,
@@ -86,7 +91,8 @@ class Engine:
                 "num_pages or lower max_seq_len")
         self._attn_only = all(k == ATTN for k in cfg.pattern)
         self.params = params if params is not None else api.init(
-            cfg, self.lane, seed=init_seed, device=self.device)
+            cfg, self.lane, seed=init_seed, device=self.device,
+            max_seq=s.max_seq_len)
         raw = make_paged_caches(cfg, s.max_batch_slots, s.num_pages,
                                 s.page_size, device=self.device)
         self.caches = api.split_caches(raw, cfg, self.lane)
@@ -111,7 +117,8 @@ class Engine:
                sampling: Optional[SamplingParams] = None,
                max_new_tokens: Optional[int] = None) -> int:
         return self.sched.submit(prompt, sampling or SamplingParams(),
-                                 max_new_tokens)
+                                 max_new_tokens,
+                                 prefix_extra=self.cfg.num_image_tokens)
 
     def _tensor(self, values, dtype) -> torch.Tensor:
         return torch.as_tensor(np.asarray(values), dtype=dtype,
@@ -143,9 +150,13 @@ class Engine:
                                       finished))
 
     def _prefill_len(self, seq) -> int:
+        """The prefill's text length: the prompt's, or with bucketing its
+        next power of two, capped so that the image tokens and the text
+        fit ``max_seq_len``."""
         s_tok = len(seq.cached_prompt)
         if self.serve.bucket_prompts and self._attn_only:
-            s_tok = min(_next_pow2(s_tok), self.serve.max_seq_len)
+            s_tok = min(_next_pow2(s_tok), self.serve.max_seq_len
+                        - self.cfg.num_image_tokens)
         return s_tok
 
     def _admit_wave(self, seqs):
@@ -162,10 +173,11 @@ class Engine:
             for i, seq in enumerate(group):
                 prompt = seq.cached_prompt
                 toks[i, :len(prompt)] = prompt
-            last = [seq.pos - 1 for seq in group]
+            last = [seq.pos - 1 for seq in group]   # counts image tokens
             logits, dense = api.prefill_logits(
                 self.params, self.cfg, self._tensor(toks, torch.int64),
-                self._tensor(last, torch.int64))
+                self._tensor(last, torch.int64),
+                **api.stub_inputs(self.cfg, len(group), self.device))
             kv_pages.admit_prefill(self.caches, dense, self.cfg,
                                    [q.slot for q in group],
                                    [q.pages for q in group], s.page_size,
@@ -309,14 +321,15 @@ class DenseServer:
     """Greedy static-batch decode with a dense grown KV cache, the
     baseline the paged engine is held against (``repro/serve/engine.py``
     ``DenseServer``). The caches follow the params' device; they are
-    written in place each step."""
+    written in place each step. A LLaVA prompt's cache holds its image
+    tokens before the text, so ``total`` counts them."""
 
     def __init__(self, cfg: ModelConfig, params, batch: int,
                  prompt_len: int, max_new_tokens: int):
         self.cfg, self.params = cfg, params
         self.B, self.Lp = batch, prompt_len
         self.max_new = max_new_tokens
-        self.total = prompt_len + max_new_tokens
+        self.total = cfg.num_image_tokens + prompt_len + max_new_tokens
         self.device = params["embed"].device
 
     @torch.no_grad()
@@ -325,14 +338,17 @@ class DenseServer:
         if prompts.shape != (self.B, self.Lp):
             raise ValueError(f"prompts shape {prompts.shape} != "
                              f"{(self.B, self.Lp)}")
+        cfg = self.cfg
         toks = torch.as_tensor(np.asarray(prompts), dtype=torch.int64,
                                device=self.device)
-        nxt, caches = api.prefill_step(self.params, self.cfg, toks)
-        caches = kv_pages.grow_dense_caches(caches, self.cfg, self.total)
+        nxt, caches = api.prefill_step(self.params, cfg, toks,
+                                       **api.stub_inputs(cfg, self.B,
+                                                         self.device))
+        caches = kv_pages.grow_dense_caches(caches, cfg, self.total)
         out = [nxt]
-        for cur in range(self.Lp, self.Lp + self.max_new - 1):
-            nxt, caches = api.decode_step(self.params, self.cfg, nxt, caches,
-                                          cur)
+        start = cfg.num_image_tokens + self.Lp
+        for cur in range(start, start + self.max_new - 1):
+            nxt, caches = api.decode_step(self.params, cfg, nxt, caches, cur)
             out.append(nxt)
         return torch.cat(out, dim=1).cpu().numpy()
 
@@ -342,3 +358,4 @@ def dense_generate(cfg: ModelConfig, params, prompts: np.ndarray,
     """One-shot wrapper around ``DenseServer``."""
     B, Lp = prompts.shape
     return DenseServer(cfg, params, B, Lp, max_new_tokens).generate(prompts)
+

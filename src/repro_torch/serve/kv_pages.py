@@ -2,7 +2,8 @@
 
 Every attention layer owns a pool of ``num_pages`` fixed-size pages,
 [periods, num_pages, page_size, KV, Dh]; recurrent state (Mamba, RWKV6)
-stays dense per decode slot, [periods, slots, ...]. A sequence's cache
+and Whisper's cross-attention keys and values (``ck`` / ``cv``) stay
+dense per decode slot, [periods, slots, ...]. A sequence's cache
 is an ordered list of physical page ids; the decode step receives the
 list as a row of the [slots, max_pages_per_seq] page table. Page 0 is
 the reserved **null page**: unmapped table entries point at it, inactive
@@ -25,6 +26,7 @@ import torch.nn.functional as F
 from ..configs.base import ATTN, ModelConfig
 
 NULL_PAGE = 0
+SELF_KV = ("k", "v")     # an attention entry's names that grow with the text
 
 
 class PagePool:
@@ -81,9 +83,9 @@ def admit_prefill(paged_caches, dense_caches, cfg: ModelConfig,
     """Write a batch-nb prefill's caches into the paged caches, in place:
     one indexed write per leaf for the whole admission wave.
 
-    Row i goes to decode slot ``slots[i]`` (recurrent state) and to the
-    pages ``page_ids[i]`` (attention KV), padded with null pages to
-    ``table_width`` (ServeConfig.max_pages_per_seq).
+    Row i goes to decode slot ``slots[i]`` (recurrent state, Whisper's
+    ck / cv) and to the pages ``page_ids[i]`` (self-attention KV), padded
+    with null pages to ``table_width`` (ServeConfig.max_pages_per_seq).
     """
     dev = next(iter(paged_caches["zo"][0].values())).device
     rows = torch.tensor([list(p) + [NULL_PAGE] * (table_width - len(p))
@@ -93,23 +95,25 @@ def admit_prefill(paged_caches, dense_caches, cfg: ModelConfig,
         for kind, pe, de in zip(cfg.pattern, paged_caches[part],
                                 dense_caches[part]):
             for name, d in de.items():
-                if kind == ATTN:
+                if kind == ATTN and name in SELF_KV:
                     _scatter_kv(pe[name], d, rows, page_size)
                 else:
                     pe[name][:, slots] = d.to(pe[name].dtype)
 
 
 def grow_dense_caches(caches, cfg: ModelConfig, total: int):
-    """Pad a prefill's attention KV ([periods, B, S, KV, Dh]) to ``total``
-    positions, capped at the sliding window (a ring); recurrent and conv
-    state are left as they are. Returns new caches."""
+    """Pad a prefill's self-attention KV ([periods, B, S, KV, Dh]) to
+    ``total`` positions, capped at the sliding window (a ring); Whisper's
+    cross-attention ck / cv, recurrent and conv state are left as they
+    are. Returns new caches."""
     tgt = min(total, cfg.sliding_window) if cfg.sliding_window else total
 
     def grow(leaf):
         pad = tgt - leaf.shape[2]
         return F.pad(leaf, (0, 0, 0, 0, 0, pad)) if pad > 0 else leaf
 
-    return {part: tuple({name: grow(a) if kind == ATTN else a
+    return {part: tuple({name: grow(a) if kind == ATTN and name in SELF_KV
+                         else a
                          for name, a in e.items()}
                         for kind, e in zip(cfg.pattern, caches[part]))
             for part in ("zo", "bp")}

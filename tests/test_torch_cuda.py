@@ -70,7 +70,7 @@ def test_paged_kernel_matches_plain(dev, dtype, tol, window, shape):
     assert o[0].abs().max().item() == 0.0       # inactive row
 
 
-@pytest.mark.parametrize("V", [256, 65536, 152064])
+@pytest.mark.parametrize("V", [256, 51968, 64000, 65536, 152064])
 def test_topk_kernel_matches_plain(dev, V):
     g = torch.Generator(device="cpu").manual_seed(V)
     x = torch.randn(6, V, generator=g) * 3
@@ -165,6 +165,18 @@ def test_paged_cluster_group_sizes(dev, dtype, G, Dh):
 def test_paged_cluster_never_reads_dead_slots(dev, dtype, window):
     _paged_check(dev, dtype, 4, 4, 128, 16, 34, [0, 140, 270, 400, 530, 31],
                  window=window, nan=True)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("KVd,G,Dh,P,lens", [
+    (12, 1, 64, 29, [0, 70, 140, 200, 270, 330, 390, 447]),       # Whisper
+    (8, 7, 128, 215, [0, 3010, 3100, 3200, 3300, 3050, 3390, 3423]),
+], ids=["whisper", "llava"])
+def test_paged_cluster_encdec_geometries(dev, dtype, KVd, G, Dh, P, lens):
+    """The serve decode steps of whisper-small (12 KV heads, one query
+    head each, Dh 64, 448 positions) and LLaVA (G = 7, which the kernel
+    computes as 8 with a zero head, behind 2,880 image tokens)."""
+    _paged_check(dev, dtype, KVd, G, Dh, 16, P, lens)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -283,6 +295,17 @@ FLASH_CASES = [
 ]
 
 
+# Whisper (12 heads of 64): the encoder over 1,500 frames, the prefill's
+# cross-attention, the decode tick's one query a slot; LLaVA's prefill
+# (56 / 8 heads of 128) behind 2,880 image tokens
+FLASH_ENCDEC_CASES = [
+    (1, 12, 12, 1500, 1500, 64, False, 0),
+    (2, 12, 12, 128, 1500, 64, False, 0),
+    (8, 12, 12, 1, 1500, 64, False, 0),
+    (1, 56, 8, 3008, 3008, 128, True, 0),
+]
+
+
 def _bf16_ulp_close(got, want):
     """Both round one f32 result to bf16 once; the f32 sums differ only in
     order, so the two differ by at most one bf16 ulp of |o|."""
@@ -308,6 +331,24 @@ def test_flash_kernel_matches_plain(dev, dtype, case):
     torch.cuda.synchronize()
     assert got.shape == want.shape and got.dtype == dtype
     assert got.stride() == q.stride()         # q's layout, no copy back
+    if dtype == torch.float32:
+        assert (got - want).abs().max().item() <= 1e-5
+    else:
+        assert _bf16_ulp_close(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FLASH_ENCDEC_CASES)
+def test_flash_kernel_matches_plain_encdec_shapes(dev, dtype, case):
+    B, H, Hkv, Sq, Sk, D, causal, window = case
+    g = torch.Generator(device="cpu").manual_seed(Sq + Sk)
+    q, k, v = (torch.randn(B, S, heads, D, generator=g).to(dev, dtype)
+               .transpose(1, 2) for heads, S in ((H, Sq), (Hkv, Sk),
+                                                 (Hkv, Sk)))
+    got = flash_attn.flash_attention(q, k, v, causal=causal, window=window)
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert got.stride() == q.stride()
     if dtype == torch.float32:
         assert (got - want).abs().max().item() <= 1e-5
     else:
@@ -488,6 +529,76 @@ def test_jamba_engine_on_card_matches_cpu(dev):
     want, _ = api.prefill_logits(cpu.params, cfg, toks, last)
     got, _ = api.prefill_logits(card.params, cfg, toks.to(dev), last.to(dev))
     assert (got.cpu() - want).abs().max().item() <= 1e-4
+
+
+def _stubs(cfg, rows, device, seed=0):
+    """Random frames (Whisper) or image embeddings (LLaVA)."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    out = {}
+    if cfg.encoder_layers:
+        out["frames"] = torch.randn(rows, cfg.encoder_seq, cfg.d_model,
+                                    generator=g).to(device)
+    if cfg.num_image_tokens:
+        out["img"] = torch.randn(rows, cfg.num_image_tokens, cfg.d_model,
+                                 generator=g).to(device)
+    return out
+
+
+@pytest.mark.parametrize("arch", ["whisper-small", "llava-next-34b"])
+def test_encdec_engine_on_card_matches_cpu(dev, arch):
+    """Reduced Whisper and LLaVA in f32: equal streams (4 requests over 3
+    slots, greedy and sampled), and prefill logits over random frames or
+    image embeddings within 1e-4, card against CPU."""
+    cfg = configs.reduced(configs.ARCHS[arch], dtype="float32")
+    serve = ServeConfig(page_size=4, num_pages=32, max_batch_slots=3,
+                        max_seq_len=40, max_new_tokens=9, megastep=4)
+    cpu = Engine(cfg, serve, device="cpu")
+    card = Engine(cfg, serve, device=dev,
+                  params=tree_map(lambda a: a.to(dev), cpu.params))
+    rng = np.random.default_rng(7)
+    prompts = [list(rng.integers(0, cfg.vocab_size, n)) for n in (4, 8, 5, 7)]
+    knobs = [SamplingParams(),
+             SamplingParams(temperature=0.8, top_k=7, seed=11),
+             SamplingParams(temperature=1.1, top_p=0.9, seed=23),
+             SamplingParams(temperature=0.9, seed=3)]
+    streams = []
+    for eng in (cpu, card):
+        rids = [eng.submit(p, sp, 9) for p, sp in zip(prompts, knobs)]
+        out = eng.run()
+        streams.append([out[r] for r in rids])
+    assert streams[0] == streams[1]
+    toks = torch.tensor([prompts[1]])
+    last = torch.tensor([cfg.num_image_tokens + len(prompts[1]) - 1])
+    stubs = _stubs(cfg, 1, "cpu")
+    want, _ = api.prefill_logits(cpu.params, cfg, toks, last, **stubs)
+    got, _ = api.prefill_logits(card.params, cfg, toks.to(dev), last.to(dev),
+                                **tree_map(lambda a: a.to(dev), stubs))
+    assert (got.cpu() - want).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("arch", ["whisper-small", "llava-next-34b"])
+def test_encdec_train_step_on_card_matches_cpu(dev, arch, fused):
+    """One elastic_zo step of reduced Whisper and LLaVA in f32 over random
+    frames / image embeddings, unfused and fused: loss and every leaf
+    within 1e-4, card against CPU."""
+    cfg = configs.reduced(configs.ARCHS[arch], dtype="float32")
+    lane = configs.LaneConfig(fused_probes=fused)
+    step = api.make_train_step(cfg, lane)
+    x, y, m = token_batch(2, 16, cfg.vocab_size, seed=1, step=0)
+    out = []
+    for d in ("cpu", dev):
+        params = api.init(cfg, lane, seed=3, device="cpu", max_seq=16)
+        state = init_state(tree_map(lambda a: a.to(d), params), seed=0)
+        batch = {k: torch.from_numpy(v).to(d)
+                 for k, v in (("tokens", x), ("labels", y), ("mask", m))}
+        batch.update(_stubs(cfg, 2, d))
+        out.append(step(state, batch, np.ones((1,), np.float32)))
+    (cs, cm), (gs, gm) = out
+    assert abs(float(cm["loss"]) - float(gm["loss"])) <= 1e-4
+    for (_, a), (_, b) in zip(zo.leaves_with_path(cs.params),
+                              zo.leaves_with_path(gs.params)):
+        assert (a - b.cpu()).abs().max().item() <= 1e-4
 
 
 def test_moe_tail_step_reruns_bitwise(dev):

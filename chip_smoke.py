@@ -34,7 +34,15 @@ LLaVA's image-token prefix (llava-next-34b at full width, 16 of its 60
 layers, 2,880 image tokens before the text), unfused and with fused
 probes, and holds reduced Whisper and LLaVA on the card to the CPU. The
 LeNet-5 and PointNet lanes run through the package's own harness
-(``benchmarks/paper_tables.py``).
+(``benchmarks/paper_tables.py``); the LeNet-5 lanes' training memory over
+a loop is held to the step's memory account
+(``core/engine.py::step_memory_analysis``), after a phase shows the
+one-time workspace that the process's first backward allocates. It also
+trains qwen3-4b through the launcher's prefetching data pipeline
+(``data/pipeline.py``) with a checkpoint and an elastic resume
+(``train/elastic_runtime.py``), bytes-equal to a straight run, holds the
+optimizers (``train/optimizer.py``) on the card to the CPU, and runs the
+four examples (``repro_torch.examples``) at their JAX twins' defaults.
 
 The last three lines of its output are the card's name and power limit
 (nvidia-smi), a JSON line of per-kernel numbers, and
@@ -87,6 +95,8 @@ SCHED_LANES = 132 * 4 * 32       # one warp instruction a clock per scheduler
 ALU_OPS = {"LOP3", "SHF", "IADD3", "ISETP", "VIMNMX", "IMNMX", "VIADD",
            "SEL", "PRMT", "IABS", "LEA"}
 WARM_CALLS = 8                   # device_ms's discarded calls a profile
+MEMORY_AGREE = 0.01              # a loop's training memory against the
+#                                  step's memory account, relative
 INT8_LEAF = (35, 2560, 9728)     # qwen3-4b's w_gate count, 871,628,800
 
 
@@ -1774,13 +1784,35 @@ LENET_PERTURB_PER_STEP = {"full_zo": 80, "zo_feat_cls2": 48,
                           "zo_feat_cls1": 64, "full_bp": 0}
 
 
+def check_memory_agrees(title, loop_mem, step_rows):
+    """Each lane's training memory over a loop (parameters plus the
+    loop's peak growth, ``paper_lanes.measured_run``) beside the step's
+    memory account (``core/engine.py::step_memory_analysis``): they must
+    agree within MEMORY_AGREE of the step's peak."""
+    for name, mem in loop_mem.items():
+        r = step_rows[name]
+        off = mem - r["peak_bytes"]
+        print(f"{title} {name:13s}: step_memory_analysis peak "
+              f"{r['peak_bytes']} bytes (argument {r['argument_bytes']}, "
+              f"output {r['output_bytes']}, temp {r['temp_bytes']}, alias "
+              f"{r['alias_bytes']}); the loop's training memory {mem} bytes "
+              f"({off:+d}, {100 * off / r['peak_bytes']:+.3f}%)")
+        if abs(off) > MEMORY_AGREE * r["peak_bytes"]:
+            raise AssertionError(f"{title} {name}: the loop's memory {mem} "
+                                 "and the step's peak "
+                                 f"{r['peak_bytes']} disagree")
+
+
 def check_lenet(zo_perturb, zo_replay, steps=150, batch=32):
     """Each lane through repro_torch.benchmarks.paper_tables.lenet_lanes,
     one lane a call so that its launches can be read: from the same init
     (seed 7) and key (11) for ``steps`` steps on glyphs(2048, seed=0),
     evaluated on glyphs(512, seed=1, start=10000), the settings behind
-    BENCH_paper.json's Table 1."""
-    from repro_torch.benchmarks.paper_tables import lenet_lanes
+    BENCH_paper.json's Table 1 (the harness runs one warm step more, on a
+    copy of the state). Then each lane's training memory beside the
+    step's memory account at the same batch."""
+    from repro_torch.benchmarks.paper_tables import (lenet_lanes,
+                                                     lenet_measured_memory)
     acc, peak, train_mem = {}, {}, {}
     for name in LENET_JAX_CPU_ACC:
         zo_perturb.launches = zo_replay.launches = 0
@@ -1797,11 +1829,12 @@ def check_lenet(zo_perturb, zo_replay, steps=150, batch=32):
               f"{peak[name]} bytes (training memory {train_mem[name]} "
               f"bytes: parameters plus the loop's peak growth), launches "
               "per step: zo_perturb "
-              f"{n_p / steps:g}, zo_fused_replay {n_r / steps:g}")
+              f"{n_p / (steps + 1):g}, zo_fused_replay "
+              f"{n_r / (steps + 1):g}")
         want = LENET_PERTURB_PER_STEP[name]
-        if n_p != want * steps or n_r != want // 8 * steps:
+        if n_p != want * (steps + 1) or n_r != want // 8 * (steps + 1):
             raise AssertionError(f"lenet {name}: {n_p} zo_perturb and {n_r} "
-                                 f"zo_fused_replay launches in {steps} "
+                                 f"zo_fused_replay launches in {steps} + 1 "
                                  f"steps, want {want} and {want // 8} a step")
         if not np.isfinite(loss):
             raise AssertionError(f"lenet {name}: loss {loss}")
@@ -1812,6 +1845,7 @@ def check_lenet(zo_perturb, zo_replay, steps=150, batch=32):
           f"full_bp / full_zo = {peak['full_bp'] / peak['full_zo']:.3f}, "
           "training memory full_bp / full_zo = "
           f"{train_mem['full_bp'] / train_mem['full_zo']:.3f}")
+    check_memory_agrees("lenet", train_mem, lenet_measured_memory(batch))
     return train_mem
 
 
@@ -1858,13 +1892,15 @@ def check_pointnet(zo_perturb, zo_replay, steps=100, timed_steps=20):
               f"CPU: {committed:.4f} in BENCH_paper.json, {current:.4f} with "
               f"jax 0.9.0), last loss {loss:.4f}, "
               f"{1e3 * r.train_s / steps:.3f} ms per step at 256 points, "
-              f"launches per step: zo_perturb {n_p / steps:g}, "
-              f"zo_fused_replay {n_r / steps:g}")
+              f"launches per step: zo_perturb {n_p / (steps + 1):g}, "
+              f"zo_fused_replay {n_r / (steps + 1):g}")
         want_p, want_r = POINTNET_PER_STEP[name]
-        if (n_p, n_r) != (want_p * steps, want_r * steps):
+        # the harness's warm step on a copy of the state (measured_run)
+        if (n_p, n_r) != (want_p * (steps + 1), want_r * (steps + 1)):
             raise AssertionError(f"pointnet {name}: {n_p} zo_perturb and "
                                  f"{n_r} zo_fused_replay launches in {steps} "
-                                 f"steps, want {want_p} and {want_r} a step")
+                                 f"+ 1 steps, want {want_p} and {want_r} a "
+                                 "step")
         if not np.isfinite(loss):
             raise AssertionError(f"pointnet {name}: loss {loss}")
         if abs(r.acc - current) > POINTNET_ACC_TOL + 1e-9:
@@ -2066,6 +2102,7 @@ def check_lenet_int8(zo_perturb, zo_replay, int8_mm, fp32_mem, steps=150,
     counts, the int-mode accuracies equal to JAX's, ZO-Feat above Full-ZO,
     a bitwise rerun, and the peak memory of 5 steps at batch 32 beside the
     fp32 lane's. Returns the launches of each kernel over the 6 runs."""
+    from repro_torch.benchmarks.paper_tables import lenet_int8_measured_memory
     from repro_torch.core import zo
     from repro_torch.train.paper_lanes import INT8_LANES, lenet_int8_lanes
     total = dict.fromkeys(("int8_perturb", "zo_fused_replay_int8",
@@ -2089,14 +2126,15 @@ def check_lenet_int8(zo_perturb, zo_replay, int8_mm, fp32_mem, steps=150,
                   f"BENCH_paper.json, {current} with jax 0.9.0); "
                   f"{1e3 * r.train_s / steps:.3f} ms per step, training "
                   f"memory {r.memory_bytes} bytes; launches per step: "
-                  f"int8_perturb {n[0] / steps:g}, zo_fused_replay_int8 "
-                  f"{n[1] / steps:g}, int8_matmul {(n[2] - 5) / steps:g} "
-                  "(+5 for the test set)")
+                  f"int8_perturb {n[0] / (steps + 1):g}, "
+                  f"zo_fused_replay_int8 {n[1] / (steps + 1):g}, int8_matmul "
+                  f"{(n[2] - 5) / (steps + 1):g} (+5 for the test set)")
             p, u, m = LENET_INT8_PER_STEP[name]
-            if n != (p * steps, u * steps, m * steps + 5):
+            # the harness's warm step on a copy of the state (measured_run)
+            want = (p * (steps + 1), u * (steps + 1), m * (steps + 1) + 5)
+            if n != want:
                 raise AssertionError(
-                    f"lenet int8 {mode} {name}: launches {n}, want "
-                    f"{(p * steps, u * steps, m * steps + 5)}")
+                    f"lenet int8 {mode} {name}: launches {n}, want {want}")
             if mode == "int" and r.acc != current:
                 raise AssertionError(f"lenet int8 {name}: accuracy {r.acc} "
                                      f"!= JAX's {current}")
@@ -2118,12 +2156,16 @@ def check_lenet_int8(zo_perturb, zo_replay, int8_mm, fp32_mem, steps=150,
           f"bitwise equal: {same}")
     if not same:
         raise AssertionError("an int8 rerun from the same seed differs")
+    int8_mem = {}
     for name, _, _ in INT8_LANES:
         mem = lenet_int8_lanes(5, 32, lanes=[name])[name].memory_bytes
+        int8_mem[name] = mem
         print(f"lenet {name:13s} training memory (parameters plus the loop's "
               f"peak growth), 5 steps at batch 32: int8 {mem} bytes, fp32 "
               f"{fp32_mem[name]} bytes (150 steps, 4 probes): fp32 / int8 = "
               f"{fp32_mem[name] / mem:.3f}")
+    check_memory_agrees("lenet int8", int8_mem,
+                        lenet_int8_measured_memory(32))
     return total
 
 
@@ -2469,24 +2511,29 @@ TRAIN_ARGV = ["--arch", "qwen3-4b", "--lane", "elastic_zo",
 
 def train_run(trainer, run, LoopConfig, steps=5):
     """One warm-up step, then ``steps`` - 1 timed ones, through
-    train_loop.run (the loss read on the host after every step). Returns
-    (state, losses, timed wall s, peak device memory of the timed steps,
-    peak device memory of the first step)."""
+    train_loop.run fed by the launcher's Prefetcher
+    (``launch.train.prefetched``, as ``launch.train.main`` feeds it; the
+    loss read on the host after every step). Returns (state, losses,
+    timed wall s, peak device memory of the timed steps, peak device
+    memory of the first step)."""
+    from repro_torch.launch.train import prefetched
+
     def loop(total):
         return LoopConfig.for_lane(trainer.lane, total_steps=total,
                                    log_every=1)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    state, h0 = run(trainer.step_fn, trainer.state, trainer.batch_fn,
-                    loop(1), log=None)
-    torch.cuda.synchronize()
-    peak0 = torch.cuda.max_memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    state, h1 = run(trainer.step_fn, state, trainer.batch_fn, loop(steps),
-                    log=None)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    with prefetched(trainer) as batch_fn:
+        state, h0 = run(trainer.step_fn, trainer.state, batch_fn, loop(1),
+                        log=None)
+        torch.cuda.synchronize()
+        peak0 = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, h1 = run(trainer.step_fn, state, batch_fn, loop(steps),
+                        log=None)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     return state, [loss for _, loss in h0 + h1], wall, \
         torch.cuda.max_memory_allocated(), peak0
 
@@ -2557,6 +2604,310 @@ def check_train_lm(zo_perturb, zo_replay, flash_attn):
     del final, state
     profile_train_step(again, state2, run, LoopConfig, wall2 / 4)
     return n_p, n_r, n_f, peak0
+
+
+# --------------------------------------------------------------------- #
+# training: qwen3-4b through the pipeline, a checkpoint and a resume
+# --------------------------------------------------------------------- #
+CKPT_DIR = ROOT / "_ckpt_smoke"  # listed in .gitignore; removed after use
+
+
+def timed_run(trainer, state, batch_fn, run, LoopConfig, total):
+    """``train_loop.run`` from ``state`` to step ``total``, the loss read
+    after every step; returns (state, losses, wall s)."""
+    loop = LoopConfig.for_lane(trainer.lane, total_steps=total, log_every=1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, hist = run(trainer.step_fn, state, batch_fn, loop, log=None)
+    torch.cuda.synchronize()
+    return state, [loss for _, loss in hist], time.perf_counter() - t0
+
+
+FEED_ROUNDS = 2                  # ABBA rounds of the two feeds a config
+
+
+def feed_pairs(title, trainer, state, run, LoopConfig, steps=4,
+               rounds=FEED_ROUNDS):
+    """ms a step of the trainer's plain batch function and of the
+    launcher's Prefetcher (``launch.train.prefetched``) in one process,
+    in ABBA order (plain, prefetched, prefetched, plain, ``rounds``
+    times) so that neither feed always runs first or last. Each run
+    continues from the last: one warm step (the prefetcher's start),
+    then ``steps`` timed. Prints each feed's times and medians; returns
+    (state, {feed: median ms})."""
+    from statistics import median
+    from repro_torch.launch.train import prefetched
+    ms = {"plain": [], "prefetched": []}
+    for feed in ("plain", "prefetched", "prefetched", "plain") * rounds:
+        trainer.state = state
+        with (prefetched(trainer) if feed == "prefetched"
+              else contextlib.nullcontext(trainer.batch_fn)) as batch_fn:
+            state, _, _ = timed_run(trainer, state, batch_fn, run,
+                                    LoopConfig, state.step + 1)
+            state, _, wall = timed_run(trainer, state, batch_fn, run,
+                                       LoopConfig, state.step + steps)
+        ms[feed].append(1e3 * wall / steps)
+    med = {k: median(v) for k, v in ms.items()}
+    print(f"{title}, the two feeds in ABBA order ({steps} timed steps a "
+          f"run): plain {[round(v, 1) for v in ms['plain']]} ms a step, "
+          f"median {med['plain']:.1f}; prefetched "
+          f"{[round(v, 1) for v in ms['prefetched']]}, median "
+          f"{med['prefetched']:.1f} "
+          f"({100 * (med['prefetched'] / med['plain'] - 1):+.1f}%)")
+    return state, med
+
+
+def check_train_resume(zo_perturb, zo_replay, flash_attn, steps=8):
+    """qwen3-4b at full width and depth through repro_torch.launch.train's
+    own functions, twice from the same seed: ``steps`` steps fed by the
+    plain batch function, and the same steps fed by the launcher's
+    Prefetcher (``launch.train.prefetched``), interrupted half way by
+    ``checkpoint.save`` and a resume through
+    ``elastic_runtime.resume_on_mesh`` (``setup`` with ``--ckpt-dir``).
+    The losses must be bitwise equal and the final parameters bytes-equal
+    (bit digests); the launches are check_train_lm's a step. Prints ms a
+    step of each feed after each run's first step (the allocator keeps
+    the first run's blocks for the second), the save's and the restore's
+    seconds and bytes, and the device peak of the restore; then the two
+    feeds' ms a step in ABBA order (``feed_pairs``, after the counts are
+    read). Returns the launches."""
+    import shutil
+    from repro_torch.launch import train as launch_train
+    from repro_torch.obs.memory import tree_nbytes
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.train_loop import LoopConfig, run
+    half = steps // 2
+    argv = TRAIN_ARGV[:-1] + [str(steps)]
+    args = launch_train.parse_args(argv)
+    zo_perturb.launches = zo_replay.launches = flash_attn.launches = 0
+    plain = launch_train.setup(args)
+    state, losses_a, _ = timed_run(plain, plain.state, plain.batch_fn, run,
+                                   LoopConfig, 1)
+    state, more, wall_plain = timed_run(plain, state, plain.batch_fn, run,
+                                        LoopConfig, steps)
+    losses_a += more
+    want = digests(state.params)
+    nbytes = tree_nbytes(state.params)
+    del plain, state
+
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    try:
+        first = launch_train.setup(args)
+        with launch_train.prefetched(first) as batch_fn:
+            state, losses_b, _ = timed_run(first, first.state, batch_fn, run,
+                                           LoopConfig, 1)
+            state, more, wall_pf = timed_run(first, state, batch_fn, run,
+                                             LoopConfig, half)
+        losses_b += more
+        t0 = time.perf_counter()
+        path = ckpt.save(CKPT_DIR, half, state.params)
+        save_s = time.perf_counter() - t0
+        disk = sum(f.stat().st_size for f in path.iterdir())
+        del first, state
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        resumed = launch_train.setup(launch_train.parse_args(
+            argv + ["--ckpt-dir", str(CKPT_DIR)]))
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        restore_peak = torch.cuda.max_memory_allocated() - base
+    finally:
+        shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    if resumed.state.step != half:
+        raise AssertionError(f"resumed at step {resumed.state.step}, want "
+                             f"{half}")
+    with launch_train.prefetched(resumed) as batch_fn:
+        state, more, wall_resumed = timed_run(resumed, resumed.state,
+                                              batch_fn, run, LoopConfig,
+                                              steps)
+    losses_b += more
+    got = digests(state.params)
+    n_p, n_r, n_f = (zo_perturb.launches, zo_replay.launches,
+                     flash_attn.launches)
+    print(f"train qwen3-4b, batch {args.batch} x seq {args.seq}: plain feed "
+          f"{1e3 * wall_plain / (steps - 1):.1f} ms a step (steps 1-"
+          f"{steps - 1}), prefetched {1e3 * wall_pf / (half - 1):.1f} ms a "
+          f"step (steps 1-{half - 1}), prefetched after the resume "
+          f"{1e3 * wall_resumed / (steps - half):.1f} ms a step (steps "
+          f"{half}-{steps - 1})")
+    print(f"checkpoint of {nbytes} parameter bytes: save {save_s:.2f} s "
+          f"({disk} bytes on disk, {nbytes / save_s / 1e9:.2f} GB/s); "
+          f"resume_on_mesh {restore_s:.2f} s ({nbytes / restore_s / 1e9:.2f}"
+          f" GB/s), device peak during the restore {restore_peak} bytes "
+          f"({restore_peak / nbytes:.4f} x the parameters)")
+    print(f"losses, plain feed: {losses_a}")
+    print(f"losses, prefetched, saved at step {half} and resumed: "
+          f"{losses_b}")
+    print(f"launches (2 x {steps} steps): zo_perturb {n_p}, zo_fused_replay "
+          f"{n_r}, flash_attention {n_f}")
+    if (n_p, n_r, n_f) != (2 * steps * 24, 2 * steps * 12, 2 * steps * 70):
+        raise AssertionError("want 24 zo_perturb, 12 zo_fused_replay and 70 "
+                             "flash launches a step")
+    if losses_b != losses_a or not all(np.isfinite(losses_a)):
+        raise AssertionError("the prefetched and resumed losses differ from "
+                             "the plain run's")
+    same = got == want
+    print(f"parameters after {half} + {steps - half} resumed steps "
+          f"bytes-equal to {steps} straight ones: {same} ({len(got)} "
+          "leaves)")
+    if not same:
+        raise AssertionError("the resumed run's parameters differ")
+    feed_pairs("train qwen3-4b", resumed, state, run, LoopConfig)
+    del resumed, state
+    torch.cuda.empty_cache()
+    return {"zo_perturb": n_p, "zo_fused_replay": n_r,
+            "flash_attention": n_f}
+
+
+def check_autograd_workspace():
+    """The one-time allocation of the process's first backward: cuBLAS
+    keeps a workspace a (handle, stream), and the autograd engine's
+    device thread takes its own handle, so its first product allocates
+    one more workspace of CUBLAS_WORKSPACE_CONFIG's size (:4096:8 is 8 x
+    4 MiB). Run before any backward of the process: a product on this
+    thread first, then a product's backward; prints the allocator's
+    growth and the 32 MiB blocks of memory_snapshot."""
+    from repro_torch.core.api import deterministic
+    size = 8 * 4096 * 1024
+    a = torch.randn(64, 64, device="cuda")
+    with deterministic():
+        (a @ a).sum()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        blocks0 = _blocks_of(size)
+        w = a.clone().requires_grad_(True)
+        torch.autograd.grad((w @ a).sum(), w)
+        torch.cuda.synchronize()
+        grown = torch.cuda.memory_allocated() - before
+    blocks = _blocks_of(size)
+    print(f"first backward of the process: the allocator grew {grown} bytes "
+          f"and holds {blocks} live blocks of {size} bytes ({blocks0} "
+          "before it)")
+    if blocks != blocks0 + 1 or grown < size:
+        raise AssertionError("the autograd thread's first backward did not "
+                             f"allocate one {size}-byte workspace")
+
+
+def _blocks_of(size):
+    return sum(1 for seg in torch.cuda.memory_snapshot()
+               for b in seg["blocks"]
+               if b["size"] == size and b["state"] == "active_allocated")
+
+
+ADAM_CARD_ULP = 2                # an adam update, card against CPU (f32)
+
+
+def check_optimizers():
+    """train/optimizer.py on the card against the CPU: 20 updates of a
+    512 x 2560 leaf and a 2560 bias (a slice of a qwen3-4b tail leaf: the
+    CPU side of the whole 2560 x 9728 takes minutes), bf16 and f32, at a
+    constant learning rate and host steps (the train loop's): sgd,
+    momentum and Nesterov bitwise (updates, state, params); adam's state
+    bitwise and every update within ADAM_CARD_ULP (its bias corrections
+    are divided on the leaf's device), its params bitwise where the
+    updates are (a few ulp of an update can move a parameter that crosses
+    zero by millions of its own, so they are not held in ulps). Then the
+    schedules at a device step counter, at step 0, the warmups' ends, mid
+    and the end, within 1 ulp of the CPU's (pow and cos are each device's
+    own)."""
+    from repro_torch.benchmarks.bench_util import ulps
+    from repro_torch.core import zo
+    from repro_torch.train import optimizer as opt
+    g = torch.Generator().manual_seed(0)
+    p0 = {"w": torch.randn(512, 2560, generator=g) * 0.02,
+          "b": torch.randn(2560, generator=g)}
+    grads = [{k: torch.randn(v.shape, generator=g) for k, v in p0.items()}
+             for _ in range(20)]
+    makers = {"sgd": lambda: opt.sgd(1e-2),
+              "momentum": lambda: opt.sgd(1e-2, momentum=0.9),
+              "nesterov": lambda: opt.sgd(1e-2, momentum=0.9, nesterov=True),
+              "adam": lambda: opt.adam(1e-3)}
+    for dtype in (torch.bfloat16, torch.float32):
+        for name, make in makers.items():
+            runs = {d: make() for d in ("cpu", "cuda")}
+            p = {d: {k: v.to(d, dtype) for k, v in p0.items()}
+                 for d in runs}
+            st = {d: o.init(p[d]) for d, o in runs.items()}
+            du = 0
+            for s, gr in enumerate(grads):
+                upd = {}
+                for d, o in runs.items():
+                    upd[d], st[d] = o.update(
+                        {k: v.to(d, dtype) for k, v in gr.items()}, st[d], s)
+                    p[d] = opt.apply_updates(p[d], upd[d])
+                du = max([du] + [ulps(upd["cuda"][k], upd["cpu"][k])
+                                 for k in p0])
+            dp = max(ulps(p["cuda"][k], p["cpu"][k]) for k in p0)
+            diff = max(float((p["cuda"][k].cpu().float()
+                              - p["cpu"][k].float()).abs().max())
+                       for k in p0)
+            ds = max([0] + [ulps(a, b) for a, b in
+                            zip(zo.leaves(st["cuda"]), zo.leaves(st["cpu"]))]
+                     if st["cpu"] != () else [0])
+            print(f"optimizer {name:8s} {str(dtype)[6:]:8s}: card against "
+                  f"CPU over 20 updates: updates {du} ulp (f32), state "
+                  f"{ds} ulp, params {dp} ulp, max |difference| {diff:.3g} "
+                  f"(largest |param| "
+                  f"{max(float(v.abs().max()) for v in p['cpu'].values()):.3g})")
+            if ds or du > (ADAM_CARD_ULP if name == "adam" else 0) \
+                    or (du == 0 and dp):
+                raise AssertionError(f"optimizer {name} {dtype}: updates "
+                                     f"{du}, state {ds}, params {dp} ulp")
+    worst = {}
+    for name, f in (("step_decay", opt.step_decay(0.05, 0.8, 10)),
+                    ("cosine", opt.cosine(0.3, 100, warmup=10)),
+                    ("cosine_floor", opt.cosine(0.3, 100, warmup=7,
+                                                floor=0.1))):
+        worst[name] = max(ulps(f(torch.tensor(s, device="cuda")), f(s))
+                          for s in (0, 7, 10, 25, 55, 60, 100, 130))
+    print(f"schedules, card against CPU at steps 0-130: {worst} ulp")
+    if max(worst.values()) > 1:
+        raise AssertionError(f"schedules: {worst} ulp")
+
+
+# --------------------------------------------------------------------- #
+# the four examples at their JAX twins' defaults
+# --------------------------------------------------------------------- #
+# the kernels each example's path goes through on the card
+EXAMPLE_KERNELS = {
+    "quickstart": ("zo_perturb", "zo_fused_replay", "flash_attention"),
+    "finetune_rotated": ("zo_perturb", "zo_fused_replay"),
+    "int8_ondevice": ("int8_perturb", "zo_fused_replay_int8", "int8_matmul"),
+    "lm_zo_finetune": ("zo_perturb", "zo_fused_replay", "flash_attention"),
+}
+
+
+def _brief(v):
+    """A long list as its first and last items, in nested dicts too."""
+    if isinstance(v, dict):
+        return {k: _brief(x) for k, x in v.items()}
+    if isinstance(v, list) and len(v) > 4:
+        return [v[0], f"... {len(v) - 2} more ...", v[-1]]
+    return v
+
+
+def check_examples(counters):
+    """repro_torch.examples.<name>.main() on the card at the JAX
+    examples' defaults, each with its own assertions; prints their
+    numbers and each example's launches, counted from 0 before it (each
+    must launch its path's kernels). ``counters``: {kernel: (module,
+    counter attribute)}."""
+    import importlib
+    for name, used in EXAMPLE_KERNELS.items():
+        mod = importlib.import_module(f"repro_torch.examples.{name}")
+        for m, attr in counters.values():
+            setattr(m, attr, 0)
+        t0 = time.perf_counter()
+        out = mod.main()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = {k: getattr(m, attr) for k, (m, attr) in counters.items()}
+        shown = {k: _brief(v) for k, v in out.items() if k != "state"}
+        print(f"example {name}: {dt:.1f} s wall, {shown}; launches {counts}")
+        if not all(counts[k] for k in used):
+            raise AssertionError(f"example {name} did not launch {used}")
 
 
 # --------------------------------------------------------------------- #
@@ -2808,7 +3159,7 @@ def digests(params):
 
 
 def check_train_family(title, cfg, argv, kernels, held, *, fused=False,
-                       steps=5):
+                       steps=5, feeds=False):
     """ElasticZO on a full-width family stack through
     repro_torch.launch.train's own functions, as check_train_lm: launch
     counts a step (family_per_step), finite losses, a changed ZO head and
@@ -2819,8 +3170,10 @@ def check_train_family(title, cfg, argv, kernels, held, *, fused=False,
     profiled step. With ``fused``, one unfused step from the same init
     follows, whose (l+, l-) must equal the fused first step's. Parameters
     are compared by ``digests``. Every flat index the run gives the ZO
-    kernels lies below ``held``, the range check_zo_large holds. Returns
-    the first run's launch counts."""
+    kernels lies below ``held``, the range check_zo_large holds. With
+    ``feeds``, the rerun's trainer then times the plain and the
+    prefetched feed (``feed_pairs``, ``steps`` - 1 timed steps a run).
+    Returns the first run's launch counts."""
     from repro_torch.core import elastic, zo
     from repro_torch.launch import train as launch_train
     from repro_torch.train.train_loop import LoopConfig, run
@@ -2894,6 +3247,8 @@ def check_train_family(title, cfg, argv, kernels, held, *, fused=False,
         raise AssertionError(f"{title}: a rerun from the same parameters "
                              "and seed gave other parameters or losses")
     del final
+    if feeds:
+        state2, _ = feed_pairs(title, again, state2, run, LoopConfig, timed)
     profile_train_step(again, state2, run, LoopConfig, wall2 / timed)
     del again, state2
     torch.cuda.empty_cache()
@@ -3138,6 +3493,11 @@ def main():
                           lengths=LLAVA_PROMPTS)
     torch.cuda.empty_cache()
 
+    # no phase before this one runs a backward (the kernel and serve
+    # phases are inference), so it sees the process's first
+    phase("the process's first backward: the autograd thread's workspace")
+    check_autograd_workspace()
+
     phase("train LeNet-5: the paper's Table 1")
     fp32_mem = check_lenet(zo_perturb, zo_fused_replay)
 
@@ -3166,11 +3526,28 @@ def main():
     check_paper_tables()
     torch.cuda.empty_cache()
 
+    phase("optimizers and schedules: card against CPU")
+    check_optimizers()
+    torch.cuda.empty_cache()
+
+    phase("the four examples at their JAX defaults")
+    check_examples({"zo_perturb": (zo_perturb, "launches"),
+                    "zo_fused_replay": (zo_fused_replay, "launches"),
+                    "int8_perturb": (zo_perturb, "int8_launches"),
+                    "zo_fused_replay_int8": (zo_fused_replay,
+                                             "int8_launches"),
+                    "int8_matmul": (int8_matmul, "launches"),
+                    "flash_attention": (flash_attn, "launches")})
+    torch.cuda.empty_cache()
+
     phase("train qwen3-4b")
     n_lm = check_train_lm(zo_perturb, zo_fused_replay, flash_attn)
     n_zo = dict(zip(("zo_perturb", "zo_fused_replay"), n_lm))
     n_zo.update(n_int8)
     torch.cuda.empty_cache()
+
+    phase("train qwen3-4b: prefetched batches, checkpoint and elastic resume")
+    n_resume = check_train_resume(zo_perturb, zo_fused_replay, flash_attn)
 
     phase("train qwen3-4b, fused probes, seq 4096")
     n_fused = check_train_fused({"zo_perturb": zo_perturb,
@@ -3228,7 +3605,7 @@ def main():
     (b, n), (b_f, n_f) = WHISPER_TRAIN
     n_whisper_train = check_train_family(
         "train whisper-small", whisper, family_argv(whisper.name, b, n, 5),
-        train_kernels, zo_large)
+        train_kernels, zo_large, feeds=True)
     n_whisper_fused = check_train_family(
         "train whisper-small", whisper,
         family_argv(whisper.name, b_f, n_f, 3), train_kernels, zo_large,
@@ -3240,7 +3617,7 @@ def main():
     n_llava_train = check_train_family(
         "train llava-next-34b (16 of 60 layers)", llava,
         family_argv(llava.name, b, LLAVA_IMAGE + n, 3), train_kernels,
-        zo_large, steps=3)
+        zo_large, steps=3, feeds=True)
     n_llava_fused = check_train_family(
         "train llava-next-34b (16 of 60 layers)", llava,
         family_argv(llava.name, b_f, LLAVA_IMAGE + n_f, 3), train_kernels,
@@ -3276,13 +3653,16 @@ def main():
         "train whisper-small, fused probes, seq 448": n_whisper_fused,
         "train llava-next-34b (16 of 60 layers)": n_llava_train,
         "train llava-next-34b (16 of 60 layers), fused probes": n_llava_fused}
+    resumed = "train qwen3-4b, prefetched and resumed"
     paths = {"zo_perturb": {"train qwen3-4b": n_zo["zo_perturb"],
+                            resumed: n_resume["zo_perturb"],
                             "train PointNet": n_pointnet["zo_perturb"],
                             "fleet qwen3-4b": n_fleet_lm["zo_perturb"],
                             **{k: v["zo_perturb"]
                                for k, v in family_runs.items()}},
              "zo_fused_replay": {
                  "train qwen3-4b": n_zo["zo_fused_replay"],
+                 resumed: n_resume["zo_fused_replay"],
                  "train PointNet": n_pointnet["zo_fused_replay"],
                  "fleet qwen3-4b": n_fleet_lm["zo_fused_replay"],
                  **{k: v["zo_fused_replay"] for k, v in family_runs.items()}},
@@ -3313,6 +3693,7 @@ def main():
                  "serve whisper-small": n_whisper[2],
                  "serve llava-next-34b": n_llava[2],
                  "train qwen3-4b": n_lm[2],
+                 resumed: n_resume["flash_attention"],
                  "train qwen3-4b, fused probes, seq 4096":
                      n_fused["flash_attention"],
                  "fleet qwen3-4b": n_fleet_lm["flash_attention"],

@@ -14,7 +14,8 @@ benchmark-supplied table such as run.py's measured-vs-analytic lanes).
 A run on the card records the card's name and power limit in
 ``config["card"]``, as ``nvidia-smi --query-gpu=name,power.limit
 --format=csv,noheader`` gives them, since a card set below its maximum
-power runs slower under load.
+power runs slower under load. ``ulps`` is the distance the checks hold
+an f32 or bf16 result to its reference by.
 """
 from __future__ import annotations
 
@@ -37,6 +38,19 @@ def card_name_and_power(device) -> str:
     lines = [line.strip() for line in out.splitlines() if line.strip()]
     index = torch.device(device).index
     return lines[index if index is not None else torch.cuda.current_device()]
+
+
+def ulps(a: torch.Tensor, b: torch.Tensor) -> int:
+    """Largest distance in ulps of the dtype (f32 or bf16) between two
+    tensors of one dtype, in sign-magnitude order (+0 and -0 are one)."""
+    bits, view = (16, torch.int16) if a.dtype == torch.bfloat16 \
+        else (32, torch.int32)
+
+    def order(t):
+        i = t.detach().cpu().view(view).to(torch.int64) & ((1 << bits) - 1)
+        mag = i & ((1 << (bits - 1)) - 1)
+        return torch.where(i >> (bits - 1) == 1, -mag, mag)
+    return int((order(a) - order(b)).abs().max()) if a.numel() else 0
 
 
 def write_bench(name: str, config: dict, metrics: dict,

@@ -20,8 +20,10 @@ product, as ``benchmarks/run.py`` does. The steps go through
 ``train/train_loop.py::run``.
 
 Measured memory has no XLA buffer assignment to read: on the card one
-warm step of each lane is run and measured with the caching allocator's
-peak (``lenet_measured_memory``); on the CPU the measured rows are None.
+warm step of each lane is run and the next measured with the caching
+allocator's peak (``lenet_measured_memory``, through
+``core/engine.py::step_memory_analysis``); on the CPU the measured rows
+are None.
 """
 from __future__ import annotations
 
@@ -36,13 +38,13 @@ from ..configs.base import LaneConfig
 from ..configs.paper_models import LeNet5Config, PointNetConfig
 from ..core import keys, prng, zo
 from ..core.api import deterministic, f32_products, resolve_device
-from ..core.elastic import TrainState, make_elastic_step
+from ..core.elastic import make_elastic_step
 from ..core.elastic_int8 import make_int8_elastic_step
+from ..core.engine import step_memory_analysis
 from ..core.int8 import QTensor, perturb_int8, quant_from_float
 from ..core.int_loss import float_loss, int_loss_sign
 from ..data.synthetic import glyphs, point_clouds
 from ..models import lenet, pointnet
-from ..obs.memory import tree_nbytes
 from ..train.paper_lanes import (INT8_LANES, LaneResult,  # noqa: F401
                                  int8_lane_cfg, lenet_int8_lanes,
                                  measured_run)
@@ -313,33 +315,13 @@ def pointnet_memory_table(batch: int, num_points=1024):
 # ------------------------------------------------------------------ #
 # measured memory: one warm step of each lane on the card
 # ------------------------------------------------------------------ #
-def step_memory(step, state: TrainState, batch, mask, device
-                ) -> Dict[str, int]:
-    """One warm step (kernels built, workspaces allocated), then one
-    measured step after ``reset_peak_memory_stats``: ``temp_bytes`` is
-    the allocator's peak above what was allocated before the step,
-    ``argument_bytes`` the state's parameters, ``peak_bytes`` their sum.
-    The reference's output and alias bytes (XLA donation) have no
-    counterpart: the step writes the ZO leaves in place."""
-    state, _ = step(state, batch, mask)
-    torch.cuda.synchronize(device)
-    torch.cuda.reset_peak_memory_stats(device)
-    before = torch.cuda.memory_allocated(device)
-    state, _ = step(state, batch, mask)
-    torch.cuda.synchronize(device)
-    temp = torch.cuda.max_memory_allocated(device) - before
-    arg = tree_nbytes(state.params)
-    return {"argument_bytes": arg, "temp_bytes": temp,
-            "peak_bytes": arg + temp}
-
-
 def lenet_measured_memory(batch: int = 32, *, device=None
                           ) -> Optional[Dict[str, Dict[str, int]]]:
     """MEASURED per-lane step footprint of the four fp32 paper lanes
-    (``step_memory`` of each), next to ``lenet_memory_table``'s Eq. 2-4
-    values in benchmarks/run.py. None on the CPU, which has no allocator
-    to read: the measured rows stay empty there rather than take a
-    number from elsewhere."""
+    (``core/engine.py::step_memory_analysis`` of each), next to
+    ``lenet_memory_table``'s Eq. 2-4 values in benchmarks/run.py. None on
+    the CPU, which has no allocator to read: the measured rows stay empty
+    there rather than take a number from elsewhere."""
     device = resolve_device(device)
     if device.type != "cuda":
         return None
@@ -354,9 +336,9 @@ def lenet_measured_memory(batch: int = 32, *, device=None
             step = make_elastic_step(lenet.lenet5_loss, lane,
                                      partition_fn=part)
             state = init_state(lenet.init_lenet5(7, device=device), 11)
-            rows[name] = step_memory(
-                step, state, batch_d,
-                np.ones((lane.zo_num_probes,), np.float32), device)
+            rows[name] = step_memory_analysis(
+                step, state, batch_d, np.ones((lane.zo_num_probes,),
+                                              np.float32))
     return rows
 
 
@@ -380,8 +362,8 @@ def lenet_int8_measured_memory(batch: int = 32, *, device=None
                 partition_fn=lambda p, c=c: lenet.partition_at(p, c),
                 tail_fcs=tail, lane=int8_lane_cfg(), loss_mode="int")
             state = init_state(lenet.init_lenet5_int8(7, device=device), 13)
-            rows[name] = step_memory(step, state, batch_d,
-                                     np.ones((1,), np.float32), device)
+            rows[name] = step_memory_analysis(step, state, batch_d,
+                                              np.ones((1,), np.float32))
     return rows
 
 

@@ -128,8 +128,10 @@ def section_memory(_fast: bool, device) -> Dict:
     meas8 = pt.lenet_int8_measured_memory(mb, device=device)
     MEMORY_DOC.clear()
     MEMORY_DOC.update({"model": "lenet5", "batch": mb,
-                       "instrument": "torch.cuda.max_memory_allocated over "
-                                     "one warm step (state + peak growth)",
+                       "instrument": "core/engine.py::step_memory_analysis:"
+                                     " a warm step, then one measured with "
+                                     "torch.cuda.max_memory_allocated "
+                                     "(params and batch + peak growth)",
                        "lanes": {}, "int8_lanes": {}})
     if meas is None:
         print("# Fig4/5 measured: not measured (no card: the CPU has no "

@@ -112,6 +112,19 @@ def init(cfg: ModelConfig, lane: Optional[LaneConfig] = None, *,
     return params
 
 
+def abstract_params(cfg: ModelConfig, lane: Optional[LaneConfig] = None, *,
+                    max_seq: Optional[int] = None):
+    """``init``'s tree with ``meta`` tensors of its shapes and dtypes: a
+    restore template that holds no memory (the reference's
+    ``abstract_params``, a ``jax.eval_shape`` of the init). The init runs
+    under a fake-tensor mode, which draws nothing."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    with FakeTensorMode():
+        params = init(cfg, lane, seed=0, device="cpu", max_seq=max_seq)
+    return tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype,
+                                          device="meta"), params)
+
+
 def _check_inputs(cfg: ModelConfig, tokens, frames, img):
     B = tokens.shape[0]
     if cfg.encoder_layers and (frames is None or tuple(frames.shape) != (

@@ -517,8 +517,11 @@ def engine_for(lane: LaneConfig, partition_fn: Optional[Callable] = None,
 # ------------------------------------------------------------------ #
 # phase profiler (diagnostic path, opt-in)
 # ------------------------------------------------------------------ #
-def _clone_tree(tree):
-    return zo.map_with_path(lambda _p, t: t.clone(), tree)
+def clone_tree(tree):
+    """A copy of a param tree, every tensor cloned (a ``QTensor``'s two)."""
+    return zo.map_with_path(
+        lambda _p, t: QTensor(t.data.clone(), t.exp.clone())
+        if isinstance(t, QTensor) else t.clone(), tree)
 
 
 def profile_step_phases(engine: Fp32Engine, loss_fn: Callable, state, batch,
@@ -603,7 +606,7 @@ def profile_step_phases(engine: Fp32Engine, loss_fn: Callable, state, batch,
     c_dev = torch.from_numpy(np.asarray(coeffs, np.float32)).to(device)
     timed("zo_update", lambda zp: engine.zo_apply(
         zp, seeds.reshape(1, n), c_dev.reshape(1, n)),
-        lambda: (_clone_tree(zo_part),))
+        lambda: (clone_tree(zo_part),))
     if has_tail:
         def tail_grad():
             return _value_and_grad(lambda b: loss_fn(merge(zo_part, b),
@@ -613,3 +616,27 @@ def profile_step_phases(engine: Fp32Engine, loss_fn: Callable, state, batch,
         timed("bp_tail", tail_grad)
         timed("tail_update", lambda: engine.tail_apply(bp_part, grads, eta))
     return out
+
+
+# ------------------------------------------------------------------ #
+# step memory analysis (diagnostic path, opt-in)
+# ------------------------------------------------------------------ #
+def step_memory_analysis(step_fn: Callable, state, batch,
+                         probe_mask) -> Optional[Dict[str, int]]:
+    """The measured device footprint of ONE train step: argument, output,
+    temp, alias and peak bytes (``obs/memory.py::step_footprint``), the
+    measured twin of the paper's memory model (Eqs. 2-4 / 13-15); None
+    on the CPU.
+
+    The reference compiles the step and reads XLA's buffer assignment
+    without running it. Here the step runs, twice (a warm step, then the
+    measured one), on a copy of ``state``'s params, so the caller's state
+    is left as it was; the copy is made before the measurement and is
+    not counted."""
+    from ..obs.memory import step_footprint
+    from .elastic import TrainState
+    params = clone_tree(state.params)
+    first = zo.leaves(params)[0]
+    device = (first.data if isinstance(first, QTensor) else first).device
+    return step_footprint(step_fn, TrainState(params, state.step, state.seed),
+                          batch, np.asarray(probe_mask, np.float32), device)

@@ -7,29 +7,35 @@ the synthetic token stream with the ElasticZO step of ``--lane``, on the
 card unless ``--device cpu`` is given (use that with ``--smoke``, the
 reduced same-family config). The flags and defaults are those of
 ``repro.launch.train``, the flight recorder's ``--trace``,
-``--metrics``, ``--memory`` and ``--quiet`` included. ``--ckpt-dir``
-checkpoints every 50 steps and at the end, and resumes from the newest
-checkpoint there (``train/checkpoint.py``). ``--profile-phases`` first
-times the engine's step phases one by one on a copy of the state
+``--metrics``, ``--memory`` and ``--quiet`` included. The batches come
+from ``data/pipeline.py::lm_batch_fn`` (seed 1) and reach the device
+through its ``Prefetcher``. ``--ckpt-dir`` checkpoints every 50 steps and
+at the end, and resumes from the newest checkpoint there
+(``train/elastic_runtime.py::resume_on_mesh``). ``--profile-phases``
+first times the engine's step phases one by one on a copy of the state
 (``core/engine.py::profile_step_phases``) and logs them. ``--mesh`` is
-not ported.
+not ported: the port runs on one device until its distribution slice
+(ROADMAP.md).
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import time
 from dataclasses import dataclass
-from typing import Any, Callable, Optional
+from typing import Any, Callable, Dict, Optional
 
 import torch
 
 from .. import obs
-from ..configs import LaneConfig, ModelConfig, get_arch, reduced
+from ..configs import LaneConfig, ModelConfig, ShapeConfig, get_arch, reduced
 from ..core import api
 from ..core.elastic import TrainState
 from ..core.engine import profile_step_phases
-from ..data.synthetic import token_batch
-from ..train.train_loop import LoopConfig, init_state, run
+from ..data.pipeline import (HostBatch, Prefetcher, device_put_batch,
+                             lm_batch_fn, stub_dtypes)
+from ..train.elastic_runtime import resume_on_mesh
+from ..train.train_loop import LoopConfig, run
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -65,8 +71,10 @@ class Trainer:
     loss_fn: Callable
     step_fn: Callable
     state: TrainState
-    batch_fn: Callable[[int], Any]
+    batch_fn: Callable[[int], Any]          # step -> batch on the device
     loop: LoopConfig
+    host_batch_fn: Callable[[int], HostBatch]
+    dtypes: Dict[str, torch.dtype]
 
 
 def lane_from_args(args: argparse.Namespace) -> LaneConfig:
@@ -77,8 +85,11 @@ def lane_from_args(args: argparse.Namespace) -> LaneConfig:
 
 def setup(args: argparse.Namespace, lane: Optional[LaneConfig] = None,
           cfg: Optional[ModelConfig] = None) -> Trainer:
-    """Everything ``main`` runs, from parsed flags; the weights are drawn
-    from seed 0 on ``--device``. ``lane`` replaces the flags' lane (as
+    """Everything ``main`` runs, from parsed flags: the state from
+    ``resume_on_mesh`` (the newest checkpoint under ``--ckpt-dir``, else
+    weights drawn from seed 0 on ``--device``) and the batches of
+    ``lm_batch_fn(cfg, shape, seed=1)``, whose ``frames`` / ``img`` stay
+    in the config's dtype. ``lane`` replaces the flags' lane (as
     ``repro.launch.dryrun`` builds ``LaneConfig(fused_probes=True)``; the
     CLI has no fused-probe flag), and ``cfg`` the config that ``--arch``
     and ``--smoke`` name (a stack cut in depth, say)."""
@@ -88,22 +99,42 @@ def setup(args: argparse.Namespace, lane: Optional[LaneConfig] = None,
         if args.smoke:
             cfg = reduced(cfg)
     lane = lane or lane_from_args(args)
-    engine, loss_fn = api.train_engine(cfg, lane)
-    params = api.init(cfg, lane, seed=0, device=device, max_seq=args.seq)
+    shape = ShapeConfig("train", seq_len=args.seq, global_batch=args.batch,
+                        kind="train")
+    state, model, step_fn = resume_on_mesh(args.ckpt_dir, cfg, shape, lane,
+                                           seed=0, device=device)
+    host_batch_fn = lm_batch_fn(cfg, shape, seed=1)
+    dtypes = stub_dtypes(cfg)
 
     def batch_fn(step):
-        x, y, m = token_batch(args.batch, args.seq - cfg.num_image_tokens,
-                              cfg.vocab_size, seed=1, step=step)
-        return {**{k: torch.from_numpy(v).to(device)
-                   for k, v in (("tokens", x), ("labels", y), ("mask", m))},
-                **api.stub_inputs(cfg, args.batch, device)}
+        return device_put_batch(host_batch_fn(step), device, dtypes)
 
     loop = LoopConfig.for_lane(lane, total_steps=args.steps,
                                log_every=max(args.steps // 10, 1),
                                probe_drop_rate=args.probe_drop,
                                ckpt_dir=args.ckpt_dir)
-    return Trainer(lane, device, engine, loss_fn, engine.make_step(loss_fn),
-                   init_state(params, seed=0), batch_fn, loop)
+    return Trainer(lane, device, model.engine, model.loss_fn, step_fn, state,
+                   batch_fn, loop, host_batch_fn, dtypes)
+
+
+@contextlib.contextmanager
+def prefetched(t: Trainer):
+    """A ``batch_fn`` for ``train_loop.run`` that takes the batches from a
+    ``Prefetcher`` started at the trainer's state's step; it raises if
+    the loop asks for another step than the next one. The worker is
+    joined on exit."""
+    pf = Prefetcher(t.host_batch_fn, t.state.step, t.device, t.dtypes)
+
+    def batch_fn(step):
+        got, batch = pf.get()
+        if got != step:
+            raise RuntimeError(f"the prefetcher holds step {got}, the loop "
+                               f"asked for step {step}")
+        return batch
+    try:
+        yield batch_fn
+    finally:
+        pf.close()
 
 
 def profile_phases(t: Trainer):
@@ -122,7 +153,8 @@ def main(argv=None):
     if args.profile_phases:
         profile_phases(t)
     t0 = time.perf_counter()
-    state, history = run(t.step_fn, t.state, t.batch_fn, t.loop)
+    with prefetched(t) as batch_fn:
+        state, history = run(t.step_fn, t.state, batch_fn, t.loop)
     if t.device.type == "cuda":
         torch.cuda.synchronize(t.device)
     dt = time.perf_counter() - t0

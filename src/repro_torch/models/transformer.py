@@ -106,13 +106,15 @@ def init_lm(cfg: ModelConfig, *, seed: int, device, dtype=None,
     return params
 
 
-def tree_map(fn, tree):
-    """Apply ``fn`` to every tensor of a nested dict/tuple/list."""
+def tree_map(fn, tree, *rest):
+    """Apply ``fn`` to every tensor of a nested dict/tuple/list, and to
+    the same-placed leaves of the same-shaped trees ``rest``."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
     if isinstance(tree, (tuple, list)):
-        return type(tree)(tree_map(fn, v) for v in tree)
-    return fn(tree)
+        return type(tree)(tree_map(fn, *xs) for xs in zip(tree, *rest))
+    return fn(tree, *rest)
 
 
 def num_periods(periods) -> int:

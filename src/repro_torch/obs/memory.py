@@ -22,10 +22,14 @@ Names: the reference's ``jax_live_bytes`` (a walk of
 dict and in the ``memory.torch_live_bytes`` gauge; ``memory.tagged_bytes``
 and ``memory.untagged_bytes`` keep the reference's names. On the CPU
 there is no allocator to read, so ``torch_live_bytes`` and
-``untagged_bytes`` are None and only the tagged gauge is set. The
-reference's ``compiled_footprint`` (XLA's buffer assignment of a compiled
-step) has no counterpart: the per-lane peak of a step is measured by
-running it (``benchmarks/paper_tables.py::lenet_measured_memory``).
+``untagged_bytes`` are None and only the tagged gauge is set.
+
+The reference's ``compiled_footprint`` reads XLA's buffer assignment of
+a compiled step without running it. Eager PyTorch has no such plan, so
+its counterpart, ``step_footprint``, runs the step: one warm step, then
+one step measured with the caching allocator's peak, reported under the
+reference's keys (``core/engine.py::step_memory_analysis`` calls it; the
+paper harness puts it beside Eqs. 2-4 / 13-15).
 
 Like every recorder primitive the ledger is numerics-inert: it reads
 tensor metadata only (``numel``, ``element_size`` -- never a device
@@ -37,29 +41,40 @@ from __future__ import annotations
 import threading
 from typing import Any, Dict, Hashable, Optional
 
-__all__ = ["MemoryLedger", "NullMemoryLedger", "tree_nbytes",
-           "device_memory_stats", "sample"]
+__all__ = ["MemoryLedger", "NullMemoryLedger", "tree_nbytes", "tree_tensors",
+           "device_memory_stats", "sample", "step_footprint"]
+
+
+def _leaves(tree):
+    """The leaves of nested dicts, lists and tuples (a ``QTensor`` is a
+    tuple of its data and exponent)."""
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def tree_tensors(tree):
+    """The torch tensors of a nested structure, in walk order."""
+    import torch
+    return (t for t in _leaves(tree) if isinstance(t, torch.Tensor))
 
 
 def tree_nbytes(tree) -> int:
     """Total bytes of the tensors and arrays in a nested structure.
 
-    Walks dicts, lists and tuples (a ``QTensor`` is a tuple of its data
-    and exponent); a torch tensor counts ``numel * element_size``, a numpy
-    array its ``nbytes``. Reads metadata only, so it is safe on the hot
-    path. Other leaves (python scalars, None) contribute 0.
+    A torch tensor counts ``numel * element_size``, a numpy array its
+    ``nbytes``. Reads metadata only, so it is safe on the hot path. Other
+    leaves (python scalars, None) contribute 0.
     """
     import numpy as np
-    import torch
-    if isinstance(tree, dict):
-        return sum(tree_nbytes(v) for v in tree.values())
-    if isinstance(tree, (list, tuple)):
-        return sum(tree_nbytes(v) for v in tree)
-    if isinstance(tree, torch.Tensor):
-        return tree.numel() * tree.element_size()
-    if isinstance(tree, np.ndarray):
-        return int(tree.nbytes)
-    return 0
+    return (sum(t.numel() * t.element_size() for t in tree_tensors(tree))
+            + sum(int(a.nbytes) for a in _leaves(tree)
+                  if isinstance(a, np.ndarray)))
 
 
 def _card(device=None):
@@ -84,6 +99,55 @@ def device_memory_stats(device=None) -> Optional[Dict[str, int]]:
     st = torch.cuda.memory_stats(dev)
     return {k: int(v) for k, v in st.items()
             if "bytes" in k and isinstance(v, (int, float))}
+
+
+def step_footprint(step, state, batch, mask, device
+                   ) -> Optional[Dict[str, int]]:
+    """The device memory of one train step, measured on the card; None on
+    the CPU, which has no allocator to read (as ``compiled_footprint``
+    returns None where a backend has no memory analysis).
+
+    ``step(state, batch, mask) -> (state, metrics)`` runs twice and
+    consumes ``state`` (the ZO leaves are written in place). The first
+    step is a warm-up: kernels built, and one-time workspaces allocated,
+    such as the cuBLAS workspace of the autograd engine's thread at its
+    first backward (32 MiB under ``CUBLAS_WORKSPACE_CONFIG=:4096:8``).
+    Then ``reset_peak_memory_stats`` and the measured step. The keys are
+    the reference's, read on the card as:
+
+      * ``argument_bytes`` -- the step's inputs on the device: the
+        state's params and the batch's device tensors;
+      * ``output_bytes`` -- its outputs: the new params and the metrics;
+      * ``alias_bytes`` -- outputs that are inputs' storage: the ZO
+        leaves updated in place (XLA's donation credit);
+      * ``temp_bytes`` -- the allocator's peak above what was allocated
+        before the step, less the outputs it allocated: the
+        intermediates live at the peak (activations, the perturbed
+        copies, tail gradients);
+      * ``peak_bytes`` -- argument + output + temp - alias: the inputs
+        plus the step's peak growth, what the device must hold to run
+        one step.
+    """
+    import torch
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return None
+    state, _ = step(state, batch, mask)
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = torch.cuda.memory_allocated(dev)
+    inputs = [t for t in tree_tensors((state.params, batch)) if t.is_cuda]
+    arg = tree_nbytes(inputs)
+    held = {t.data_ptr() for t in inputs}
+    state, metrics = step(state, batch, mask)
+    torch.cuda.synchronize(dev)
+    growth = torch.cuda.max_memory_allocated(dev) - before
+    outputs = [t for t in tree_tensors((state.params, metrics)) if t.is_cuda]
+    out = tree_nbytes(outputs)
+    alias = tree_nbytes([t for t in outputs if t.data_ptr() in held])
+    temp = max(growth - (out - alias), 0)
+    return {"argument_bytes": arg, "output_bytes": out, "temp_bytes": temp,
+            "alias_bytes": alias, "peak_bytes": arg + out + temp - alias}
 
 
 class _Region:

@@ -26,8 +26,9 @@ seed-ledger slice, and a manifest with ``mode: "delta"`` and
 Async: ``AsyncCheckpointer.save`` copies the leaves to host memory at
 the call, then writes the files on a background thread.
 
-Restores go onto the template leaves' devices; resharding onto a mesh
-waits for the port's distribution layer.
+Restores go onto a given device or the template leaves' devices, one
+leaf at a time; resharding onto a mesh waits for the port's distribution
+slice.
 """
 from __future__ import annotations
 
@@ -48,21 +49,28 @@ from ..core.int8 import QTensor
 
 
 def _host(leaf) -> Tuple[np.ndarray, str]:
-    """(array to save, logical dtype name) of one leaf."""
+    """(array to save, logical dtype name) of one leaf: a host copy, so
+    that an in-place update of the leaf after the call (the next step's
+    ZO update) cannot reach a snapshot that a writer thread has yet to
+    write."""
     if isinstance(leaf, torch.Tensor):
-        t = leaf.detach().cpu()
+        t = leaf.detach()
+        t = t.clone() if t.device.type == "cpu" else t.cpu()
         if t.dtype == torch.bfloat16:
             return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
         a = t.numpy()
     else:
-        a = np.asarray(leaf)
+        a = np.array(leaf)
     return a, str(a.dtype)
 
 
 def _from_saved(a: np.ndarray, dtype_str: str) -> torch.Tensor:
+    """The tensor of an array read from a checkpoint (its own memory: no
+    copy unless it is read-only)."""
+    a = a if a.flags.writeable else a.copy()
     if dtype_str == "bfloat16":
-        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
-    return torch.from_numpy(np.array(a))
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
 
 
 def flatten_with_keys(params) -> List[Tuple[str, Any]]:
@@ -200,9 +208,12 @@ def latest_step(ckpt_dir: str | Path) -> Optional[int]:
 
 
 def restore(ckpt_dir: str | Path, template, step: Optional[int] = None,
-            replay_fn=None) -> Tuple[Any, int]:
-    """Restore into ``template``'s tree structure, each leaf onto its
-    template leaf's device, with the saved dtype. Returns (params, step).
+            replay_fn=None, device=None) -> Tuple[Any, int]:
+    """Restore into ``template``'s tree structure with the saved dtypes,
+    each leaf onto ``device`` when given, else onto its template leaf's
+    device. Returns (params, step). A template of ``meta`` tensors (shapes
+    only, ``core/api.py::abstract_params``) needs ``device``. The leaves
+    are read one at a time, so the host holds one leaf at most.
 
     Delta checkpoints also need ``replay_fn(params, ledger_bytes,
     base_step, step) -> params``: the full checkpoint at the base is
@@ -220,22 +231,32 @@ def restore(ckpt_dir: str | Path, template, step: Optional[int] = None,
                 f"checkpoint at step {step} is a ledger delta (base "
                 f"{manifest['base_step']}); pass replay_fn to restore it")
         base_step = int(manifest["base_step"])
-        params, _ = restore(ckpt_dir, template, step=base_step)
+        params, _ = restore(ckpt_dir, template, step=base_step,
+                            device=device)
         params = replay_fn(params, (d / "ledger.bin").read_bytes(),
                            base_step, step)
         return params, int(manifest["step"])
-    with np.load(d / "arrays.npz") as z:
-        arrays = {k: _from_saved(z[str(i)], manifest["dtypes"][i])
-                  for i, k in enumerate(manifest["keys"])}
-    missing = {k for k, _ in flatten_with_keys(template)} - set(arrays)
+    index = {k: i for i, k in enumerate(manifest["keys"])}
+    missing = {k for k, _ in flatten_with_keys(template)} - set(index)
     if missing:
         raise KeyError(f"checkpoint missing keys: {sorted(missing)[:5]} ...")
 
-    def leaf(path, v):
-        key = zo.keystr(path)
-        if isinstance(v, QTensor):
-            return QTensor(arrays[key + ".data"].to(v.data.device),
-                           arrays[key + ".exp"].to(v.exp.device))
-        return arrays[key].to(v.device) if isinstance(v, torch.Tensor) \
-            else arrays[key]
-    return zo.map_with_path(leaf, template), int(manifest["step"])
+    with np.load(d / "arrays.npz") as z:
+        def load(key, like):
+            i = index[key]
+            t = _from_saved(z[str(i)], manifest["dtypes"][i])
+            if not isinstance(like, torch.Tensor):
+                return t
+            dev = torch.device(device) if device is not None else like.device
+            if dev.type == "meta":
+                raise ValueError("a template of meta tensors needs a device "
+                                 "to restore onto")
+            return t.to(dev)
+
+        def leaf(path, v):
+            key = zo.keystr(path)
+            if isinstance(v, QTensor):
+                return QTensor(load(key + ".data", v.data),
+                               load(key + ".exp", v.exp))
+            return load(key, v)
+        return zo.map_with_path(leaf, template), int(manifest["step"])

@@ -16,16 +16,18 @@ import functools
 import time
 from typing import Dict, NamedTuple, Optional, Sequence
 
+import numpy as np
 import torch
 
 from ..configs.base import LaneConfig
 from ..core.api import deterministic, f32_products, resolve_device
 from ..core.elastic import TrainState
 from ..core.elastic_int8 import int8_eval, make_int8_elastic_step
+from ..core.engine import clone_tree
 from ..core.int8 import quant_from_float
 from ..data.synthetic import glyphs
 from ..models import lenet
-from ..obs.memory import tree_nbytes
+from ..obs.memory import tree_nbytes, tree_tensors
 from .train_loop import LoopConfig, init_state, run
 
 # INT8/INT8* lanes (Alg. 2): (name, partition point C, tail FCs)
@@ -56,23 +58,42 @@ def measured_run(step, state: TrainState, batch_fn, loop: LoopConfig,
                  device: torch.device):
     """``train_loop.run`` timed on the host's clock, ending in a
     synchronise on a card, where memory is read around it: the
-    allocator's peak, and the parameters' bytes plus the peak above what
-    was allocated when the loop started (so memory that other code holds,
-    library workspaces or other models, is not counted). Returns (state,
-    history, train_s, peak_bytes, memory_bytes); the bytes are None on
-    the CPU."""
+    allocator's peak, and the training memory, the parameters' bytes
+    plus the loop's peak above what was allocated when it started (so
+    memory that other code holds, library workspaces or other models, is
+    not counted). On a card one warm step runs first, on a copy of the
+    state and the loop's first batch, outside the timed and measured
+    window: it builds the kernels and allocates the one-time workspaces
+    (the autograd thread's cuBLAS workspace, 32 MiB, at the process's
+    first backward). The caller's reference to ``state`` keeps the
+    leaves that the steps replace (the BP leaves; the ZO leaves are
+    updated in place) alive from the second step on; they are not the
+    steps' memory and are left out. So the training memory is one step's
+    own, as ``core/engine.py::step_memory_analysis`` measures it.
+    Returns (state, history, train_s, peak_bytes, memory_bytes); the
+    bytes are None on the CPU."""
     on_card = device.type == "cuda"
     peak = mem = None
     if on_card:
+        warm = TrainState(clone_tree(state.params), state.step, state.seed)
+        step(warm, batch_fn(state.step),
+             np.ones((loop.n_probes,), np.float32))
+        del warm
         torch.cuda.synchronize(device)
         torch.cuda.reset_peak_memory_stats(device)
         mem = tree_nbytes(state.params) - torch.cuda.memory_allocated(device)
+        start = {t.data_ptr(): t.numel() * t.element_size()
+                 for t in tree_tensors(state.params)}
+    steps = loop.total_steps - state.step
     t0 = time.perf_counter()
     state, history = run(step, state, batch_fn, loop, log=None)
     if on_card:
         torch.cuda.synchronize(device)
         peak = torch.cuda.max_memory_allocated(device)
-        mem += peak
+        kept = {t.data_ptr() for t in tree_tensors(state.params)}
+        held = sum(n for p, n in start.items() if p not in kept) \
+            if steps > 1 else 0
+        mem += peak - held
     return state, history, time.perf_counter() - t0, peak, mem
 
 

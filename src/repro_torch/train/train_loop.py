@@ -13,10 +13,12 @@ tagged in the memory ledger; the default null recorder adds no sync.
 With ``ckpt_dir`` set the loop restores the newest committed checkpoint
 there on start (``train/checkpoint.py``) and saves one every
 ``ckpt_every`` steps on a background thread, keeping ``keep``, and one at
-the end. A checkpoint labelled N holds the params after N steps, and a
-resumed run draws the probe-drop masks an uninterrupted one would have
-drawn from there on, so it continues bitwise where the saved one
-stopped. (The JAX loop labels its periodic checkpoints one step early:
+the end. A checkpoint labelled N holds the params after N steps. The
+probe-drop mask of step s is the s-th draw of the loop's stream, so a run
+that starts from a state at step k (restored here, or by
+``elastic_runtime.resume_on_mesh``) draws the masks an uninterrupted one
+would have drawn from there on, and continues bitwise where the saved
+one stopped. (The JAX loop labels its periodic checkpoints one step early:
 the one it calls N holds the params after N + 1 steps.)
 ``mask_fn(step)`` gives explicit per-step probe masks, as the fleet's
 single-process reference takes the realised masks of a fleet run.
@@ -91,7 +93,7 @@ def run(step_fn: Callable, state: TrainState,
     them)."""
     saver = ckpt.AsyncCheckpointer(cfg.ckpt_dir, cfg.keep) \
         if cfg.ckpt_dir else None
-    start = first = state.step
+    start = state.step
     if cfg.ckpt_dir:
         last = ckpt.latest_step(cfg.ckpt_dir)
         if last is not None and last > start:
@@ -109,7 +111,7 @@ def run(step_fn: Callable, state: TrainState,
                    key=("train.params", id(cfg)))
     rng = np.random.default_rng(cfg.seed + 17)
     if cfg.mask_fn is None:
-        for _ in range(first, start):   # the draws of the steps restored
+        for _ in range(start):          # the draws of the earlier steps
             rng.uniform(size=cfg.n_probes)
     t0 = obs.monotonic()
     history = []

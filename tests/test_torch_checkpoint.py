@@ -181,3 +181,28 @@ def test_train_loop_resume_keeps_the_probe_drop_stream(tmp_path):
     resumed = go(4, ckpt_dir=str(tmp_path))
     assert resumed.step == 4
     assert torch.equal(resumed.params["w"]["w"], straight.params["w"]["w"])
+
+
+def test_async_snapshot_is_taken_at_the_call(tmp_path, monkeypatch):
+    """The writer thread is held until the leaves have been updated in
+    place (as the next step's ZO update does): the checkpoint still holds
+    the values at the save call, f32 and bf16 alike."""
+    import threading
+    go = threading.Event()
+    write = ckpt._write_arrays
+
+    def held_write(tmp, arrays):
+        go.wait(10)
+        write(tmp, arrays)
+    monkeypatch.setattr(ckpt, "_write_arrays", held_write)
+    params = {"w": torch.zeros(64), "e": torch.zeros(8, dtype=torch.bfloat16)}
+    saver = ckpt.AsyncCheckpointer(tmp_path)
+    saver.save(1, params)
+    for t in params.values():
+        t.add_(1)
+    go.set()
+    saver.wait()
+    back, at = ckpt.restore(tmp_path, params)
+    assert at == 1
+    for k, t in back.items():
+        assert t.dtype == params[k].dtype and not t.any(), k

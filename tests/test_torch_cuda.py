@@ -10,6 +10,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch import configs  # noqa: E402
+from repro_torch.benchmarks.bench_util import ulps  # noqa: E402
 from repro_torch.core import api, zo  # noqa: E402
 from repro_torch.data.synthetic import token_batch  # noqa: E402
 from repro_torch.kernels import (flash_attn, int8_matmul,  # noqa: E402
@@ -926,3 +927,122 @@ def test_int8_catchup_s3_n8_matches_plain(dev):
             shift)
         assert torch.equal(got[name]["w"].data, want), name
         assert torch.equal(got[name]["w"].exp, zo_part[name]["w"].exp)
+
+
+# ------------------------------------------------------------------ #
+# the training infrastructure: optimizers, the Prefetcher, step memory
+# ------------------------------------------------------------------ #
+@pytest.mark.parametrize("name", ["sgd", "momentum", "nesterov", "adam"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_optimizers_on_card_match_cpu(dev, name, dtype):
+    """20 updates at a constant learning rate and host steps (the train
+    loop's), the same gradients on the card and on the CPU. sgd, momentum
+    and Nesterov: the updates, the state and the params bitwise (one
+    rounding an op on both). adam: its state (m, v: products and sums)
+    bitwise, and every step's update within 2 f32 ulp (its bias
+    corrections are host scalars, divided on the leaf's device); its
+    params bitwise where every update was (an update a few ulp off can
+    move a parameter that crosses zero by many of its own)."""
+    from repro_torch.train import optimizer as opt
+    make = {"sgd": lambda: opt.sgd(0.05),
+            "momentum": lambda: opt.sgd(0.05, momentum=0.9),
+            "nesterov": lambda: opt.sgd(0.05, momentum=0.9, nesterov=True),
+            "adam": lambda: opt.adam(0.01)}[name]
+    g = torch.Generator().manual_seed(3)
+    p0 = {"a": {"w": torch.randn(16, 8, generator=g),
+                "b": torch.randn(8, generator=g)},
+          "c": torch.randn(4, 4, 2, generator=g)}
+    grads = [tree_map(lambda t: torch.randn(t.shape, generator=g), p0)
+             for _ in range(20)]
+    out = {}
+    for d in ("cpu", dev):
+        o = make()
+        params = tree_map(lambda t: t.to(d, dtype), p0)
+        state = o.init(params)
+        upds = []
+        for s, gr in enumerate(grads):
+            upd, state = o.update(tree_map(lambda t: t.to(d, dtype), gr),
+                                  state, s)
+            params = opt.apply_updates(params, upd)
+            upds.append(zo.leaves(upd))
+        out[d] = (zo.leaves(params), upds, zo.leaves(state)
+                  if state != () else [])
+    (pc, uc, sc), (pd, ud, sd) = out["cpu"], out[dev]
+    for a, b in zip(sc, sd):
+        assert torch.equal(b.cpu(), a)
+    worst = 0
+    for step_c, step_d in zip(uc, ud):
+        for a, b in zip(step_c, step_d):
+            assert b.is_cuda and b.dtype == torch.float32
+            worst = max(worst, ulps(b, a))
+    assert worst <= (2 if name == "adam" else 0)
+    for a, b in zip(pc, pd):
+        assert b.is_cuda and b.dtype == dtype and torch.isfinite(b).all()
+        if worst == 0:
+            assert torch.equal(b.cpu(), a)
+
+
+def test_schedules_on_card_match_cpu(dev):
+    """step_decay and cosine at a device step counter, at step 0, the
+    warmup's end, mid and the end, within 1 ulp of the CPU's (pow and cos
+    are the card's own)."""
+    from repro_torch.train import optimizer as opt
+    for f in (opt.step_decay(0.05, 0.8, 10), opt.cosine(0.3, 100, warmup=10),
+              opt.cosine(0.3, 100, warmup=7, floor=0.1)):
+        for s in (0, 7, 10, 25, 55, 60, 100, 130):
+            got = f(torch.tensor(s, device=dev))
+            assert got.device.type == "cuda" and got.dtype == torch.float32
+            assert ulps(got, f(s)) <= 1, s
+
+
+@pytest.mark.parametrize("arch", ["qwen3-4b", "whisper-small",
+                                  "llava-next-34b"])
+def test_prefetcher_on_card_matches_device_put_batch(dev, arch):
+    """The side-stream copies of pinned batches, read on the current
+    stream, bitwise the blocking device_put_batch (frames / img in the
+    config's dtype)."""
+    from repro_torch.data.pipeline import (Prefetcher, device_put_batch,
+                                           lm_batch_fn, stub_dtypes)
+    cfg = configs.reduced(configs.get_arch(arch))
+    shape = configs.ShapeConfig("t", seq_len=24, global_batch=3,
+                                kind="train")
+    fn = lm_batch_fn(cfg, shape, seed=2)
+    dts = stub_dtypes(cfg)
+    with Prefetcher(fn, 4, dev, dts) as pf:
+        for s in range(4, 12):
+            got, batch = pf.get()
+            assert got == s
+            # work on the current stream between the handover and the read
+            torch.ones(1 << 20, device=dev).sum()
+            want = device_put_batch(fn(s), dev, dts)
+            assert sorted(batch) == sorted(want)
+            for k, v in want.items():
+                assert batch[k].device == v.device
+                assert batch[k].dtype == v.dtype and torch.equal(batch[k], v)
+
+
+def test_step_memory_analysis_of_lenet_lanes(dev):
+    """The step's memory account of LeNet-5's four fp32 lanes and three
+    INT8* lanes at batch 32: every key read, peak = argument + output +
+    temp - alias, full_zo's params all updated in place, full_bp's none,
+    and zo_feat_cls2 under 4 MB (its loop once read 35.9 MB with the
+    autograd thread's one-time cuBLAS workspace in it)."""
+    from repro_torch.benchmarks import paper_tables as pt
+    from repro_torch.models import lenet
+    from repro_torch.obs.memory import tree_nbytes
+    fp = pt.lenet_measured_memory(32, device=dev)
+    i8 = pt.lenet_int8_measured_memory(32, device=dev)
+    keys = {"argument_bytes", "output_bytes", "temp_bytes", "alias_bytes",
+            "peak_bytes"}
+    assert sorted(fp) == sorted(["full_zo", "zo_feat_cls2", "zo_feat_cls1",
+                                 "full_bp"])
+    assert sorted(i8) == sorted(["full_zo", "zo_feat_cls2", "zo_feat_cls1"])
+    for r in list(fp.values()) + list(i8.values()):
+        assert set(r) == keys and all(v >= 0 for v in r.values())
+        assert r["peak_bytes"] == (r["argument_bytes"] + r["output_bytes"]
+                                   + r["temp_bytes"] - r["alias_bytes"])
+    fp32_params = tree_nbytes(lenet.init_lenet5(7, device=dev))
+    assert fp["full_zo"]["alias_bytes"] == fp32_params
+    assert fp["full_bp"]["alias_bytes"] == 0
+    assert fp["zo_feat_cls2"]["peak_bytes"] < 4_000_000
+    assert fp["full_bp"]["peak_bytes"] > fp["full_zo"]["peak_bytes"]

@@ -43,6 +43,15 @@ trains qwen3-4b through the launcher's prefetching data pipeline
 (``train/elastic_runtime.py``), bytes-equal to a straight run, holds the
 optimizers (``train/optimizer.py``) on the card to the CPU, and runs the
 four examples (``repro_torch.examples``) at their JAX twins' defaults.
+Then it trains across a mesh (``launch/train.py --mesh``): the shard
+forms of the two fp32 ZO kernels against their plain versions and a
+2-D shard of w_gate against the whole leaf's noise, qwen3-4b (8 of 36
+layers, full width) on a 2x2 mesh of four spawned ranks sharing the
+card over gloo (each shard's noise bitwise the one-device kernels'
+sliced, the coefficients bitwise across ranks every step, losses
+against one device's, reduced f32 qwen3-4b card against CPU), and whole
+qwen3-4b on a 1x1 mesh over NCCL, bitwise the one-device run (with four
+cards, also 2x2 over NCCL).
 
 The last three lines of its output are the card's name and power limit
 (nvidia-smi), a JSON line of per-kernel numbers, and
@@ -55,6 +64,7 @@ import dataclasses
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -342,7 +352,26 @@ def check_paged(paged_attn, ref, P):
         q, kn, vn, kp, vp, table, sl, scale=scale), flush=flush)
     plain_ms = device_ms(lambda: ref.paged_attn_step_ref(
         q, kn, vn, kp, vp, table, sl, scale=scale), flush=flush)
-    # yardstick: SDPA on the already-gathered cache (not used by the port)
+    library_ms, bound, nbytes, live = paged_sdpa_and_bound(
+        q, kn, vn, kp, vp, table, sl, flush)
+    print(f"paged_attention_step bf16 B=8 live positions {live}: kernel "
+          f"{ms:.4f} ms ({name[:60]}), plain {plain_ms:.4f} ms, SDPA on "
+          f"gathered cache {library_ms:.4f} ms, bound {bound:.4f} ms "
+          f"({nbytes} bytes); kernel / SDPA {ms / library_ms:.2f}")
+    return dict(max_abs_err=out[(torch.bfloat16, 0)], ms=ms,
+                plain_ms=plain_ms, bound_ms=bound, library_ms=library_ms,
+                f32_err=max(out[(torch.float32, 0)],
+                            out[(torch.float32, 64)]), held=held)
+
+
+def paged_sdpa_and_bound(q, kn, vn, kp, vp, table, sl, flush):
+    """(SDPA's ms on the already-gathered cache, the bound ms, its bytes,
+    the live positions) of a bf16 paged decode step without a window.
+    SDPA is the yardstick, not used by the port. The bound: each input
+    read once (the live cache positions' K and V, the new token's, q,
+    the table and lengths), the new K / V and o written once, over the
+    card's memory rate, or the Q.K and P.V multiply-adds of the live
+    positions over its bf16 rate, whichever is larger."""
     B, KVd, G, Dh = q.shape
     ps = kp.shape[1]
     k = kp[table.long()].reshape(B, -1, KVd, Dh).transpose(1, 2)
@@ -352,8 +381,9 @@ def check_paged(paged_attn, ref, P):
     mask = (t[None, :] <= sl[:, None]) & \
         (table != 0).repeat_interleave(ps, 1)
     qh = q.reshape(B, KVd * G, 1, Dh)
-    library_ms = device_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        qh, k, v, attn_mask=mask[:, None, None, :]), flush=flush)
+    library_ms = device_ms(
+        lambda: torch.nn.functional.scaled_dot_product_attention(
+            qh, k, v, attn_mask=mask[:, None, None, :]), flush=flush)
     live = live_positions(table, sl, ps, 0)
     isz = 2
     nbytes = (q.numel() + kn.numel() + vn.numel()) * isz \
@@ -362,14 +392,7 @@ def check_paged(paged_attn, ref, P):
         + table.numel() * 4 + sl.numel() * 4 + q.numel() * isz
     ops = live * KVd * 4 * G * Dh
     bound = max(nbytes / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S) * 1e3
-    print(f"paged_attention_step bf16 B=8 live positions {live}: kernel "
-          f"{ms:.4f} ms ({name[:60]}), plain {plain_ms:.4f} ms, SDPA on "
-          f"gathered cache {library_ms:.4f} ms, bound {bound:.4f} ms "
-          f"({nbytes} bytes); kernel / SDPA {ms / library_ms:.2f}")
-    return dict(max_abs_err=out[(torch.bfloat16, 0)], ms=ms,
-                plain_ms=plain_ms, bound_ms=bound, library_ms=library_ms,
-                f32_err=max(out[(torch.float32, 0)],
-                            out[(torch.float32, 64)]), held=held)
+    return library_ms, bound, nbytes, live
 
 
 def check_paged_at(paged_attn, ref, label, cfg, sc, lens):
@@ -414,10 +437,16 @@ def check_paged_at(paged_attn, ref, label, cfg, sc, lens):
         q, kn, vn, kp, vp, table, sl, scale=scale), flush=flush)
     plain_ms = device_ms(lambda: ref.paged_attn_step_ref(
         q, kn, vn, kp, vp, table, sl, scale=scale), flush=flush)
-    print(f"paged_attention_step {label} bf16: kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms")
+    library_ms, bound, nbytes, live = paged_sdpa_and_bound(
+        q, kn, vn, kp, vp, table, sl, flush)
+    print(f"paged_attention_step {label} bf16 (live positions {live}): "
+          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA on the "
+          f"gathered cache {library_ms:.4f} ms, bound {bound:.5f} ms "
+          f"({nbytes} bytes); kernel at {100 * bound / ms:.0f}% of its bound")
     return held, dict(max_abs_err=errs["bfloat16"], f32_err=errs["float32"],
-                      ms=ms, plain_ms=plain_ms)
+                      ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                      bound_by="bytes" if nbytes / HBM_BYTES_PER_S * 1e3
+                      >= bound else "operations", library_ms=library_ms)
 
 
 def check_paged_dead_pages(paged_attn, ref, P):
@@ -914,6 +943,117 @@ def check_zo(zo_perturb, zo_replay, ref):
     print(f"zo_fused_replay S=8 P=4 (ledger catch-up) on the same leaf: "
           f"kernel {catch_up_ms:.4f} ms, bound {catch_up_bound:.4f} ms by "
           f"{catch_up_by} (32 records)")
+    return out
+
+
+# a rank's shard of a sharded leaf: (global shape, dtype, spec, mesh
+# sizes, the rank's coordinates); together they cover one-, two- and
+# three-level index maps, runs whose length the 16-byte vector does and
+# does not divide, and an innermost stride above 1
+ZO_MAP_CASES = [
+    ((6, 40, 24), torch.float32, (None, "data", "model"),
+     {"data": 2, "model": 2}, {"data": 1, "model": 1}),
+    ((6, 40, 24), torch.bfloat16, (None, "data", "model"),
+     {"data": 2, "model": 2}, {"data": 1, "model": 0}),
+    ((64, 48), torch.bfloat16, ("model", "data"),
+     {"data": 2, "model": 2}, {"data": 1, "model": 1}),
+    ((64, 48), torch.float32, (None, "model"),
+     {"data": 1, "model": 4}, {"data": 0, "model": 3}),
+    ((4, 8, 2), torch.float32, (None, None, "model"),
+     {"data": 1, "model": 2}, {"data": 0, "model": 1}),
+    ((8, 64), torch.bfloat16, ("data", None),
+     {"data": 4, "model": 1}, {"data": 2, "model": 0}),
+]
+# w_gate of qwen3-4b's 35 ZO periods, 2-D sharded at 2x2 (rank (1, 1))
+ZO_MAP_LARGE = ((35, 2560, 9728), (None, "data", "model"),
+                {"data": 2, "model": 2}, {"data": 1, "model": 1})
+
+
+def check_zo_maps(zo_perturb, zo_replay, ref):
+    """The shard forms of both fp32 ZO kernels (an index map of up to
+    three levels, sharding/params.py::shard_desc) bitwise their plain
+    versions on ZO_MAP_CASES (perturb; replay at S = 1, P = 1 and S = 8,
+    P = 4), and on a 2-D shard of qwen3-4b's w_gate bitwise the
+    contiguous kernels' output on the whole leaf sliced and bitwise the
+    plain versions at the shard's index map (S = P = 1); then that shard
+    timed against the contiguous kernels on a leaf of as many elements.
+    Returns {kernel: {"shard_ms", "contiguous_ms", "elements",
+    "levels"}}."""
+    from repro_torch.core import zo
+    from repro_torch.sharding.params import shard_desc
+    seeds, coeffs = zo_records(8, 4)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    salt = zo.path_salt(("periods_zo", "blk0", "mlp", "w_gate"))
+    for shape, dtype, spec, sizes, coords in ZO_MAP_CASES:
+        d = shard_desc(shape, spec, coords, sizes)
+        theta = torch.randn(d.local_shape, generator=gen, device="cuda",
+                            dtype=dtype)
+        name = (f"{list(shape)} {str(dtype)[6:]} spec {spec} rank {coords}: "
+                f"{d.index}")
+        got = zo_perturb.zo_perturb(theta, seeds[0, :1], salt, 1e-3,
+                                    index=d.index)
+        want = ref.zo_perturb_ref(theta, seeds[0, :1], salt, 1e-3,
+                                  index=d.index)
+        ok = [torch.equal(got, want)]
+        for S, P in ((1, 1), (8, 4)):
+            ok.append(torch.equal(
+                zo_replay.zo_fused_replay(theta, seeds[:S, :P],
+                                          coeffs[:S, :P], salt,
+                                          index=d.index),
+                ref.zo_fused_replay_ref(theta, seeds[:S, :P],
+                                        coeffs[:S, :P], salt,
+                                        index=d.index)))
+        print(f"shard form on {name}: perturb, replay S=1 P=1, S=8 P=4 "
+              f"bitwise their plain versions: {ok}")
+        if not all(ok):
+            raise AssertionError(f"a ZO kernel's shard form differs on {name}")
+    shape, spec, sizes, coords = ZO_MAP_LARGE
+    d = shard_desc(shape, spec, coords, sizes)
+    whole = torch.empty(shape, device="cuda", dtype=torch.bfloat16)
+    for part in whole:
+        part.normal_(generator=gen)
+    shard = whole[d.slices].contiguous()
+    seed, sd, cf = seeds[0, :1], seeds[:1, :1], coeffs[:1, :1]
+    got_p = zo_perturb.zo_perturb(shard, seed, salt, 1e-3, index=d.index)
+    got_r = zo_replay.zo_fused_replay(shard, sd, cf, salt, index=d.index)
+    same = (torch.equal(got_p, zo_perturb.zo_perturb(whole, seed, salt,
+                                                     1e-3)[d.slices]),
+            torch.equal(got_r, zo_replay.zo_fused_replay(whole, sd, cf,
+                                                         salt)[d.slices]))
+    del whole
+    plain = (torch.equal(got_p, ref.zo_perturb_ref(shard, seed, salt, 1e-3,
+                                                   index=d.index)),
+             torch.equal(got_r, ref.zo_fused_replay_ref(shard, sd, cf, salt,
+                                                        index=d.index)))
+    del got_p, got_r
+    torch.cuda.empty_cache()
+    print(f"shard {list(d.local_shape)} of {list(shape)} at 2x2 ({d.index}):"
+          f" perturb and replay bitwise the whole leaf's kernel output "
+          f"sliced: {same}; bitwise their plain versions at the shard's "
+          f"index map: {plain}")
+    if not all(same):
+        raise AssertionError("a shard's noise is not the whole leaf's")
+    if not all(plain):
+        raise AssertionError("a shard form differs from its plain version "
+                             "on the 2x2 shard")
+    flat = shard.reshape(-1)               # the same count, one run
+    n = shard.numel()
+    out = {"zo_perturb": dict(
+        shard_ms=event_ms(lambda: zo_perturb.zo_perturb(
+            shard, seed, salt, 1e-3, index=d.index), 10),
+        contiguous_ms=event_ms(lambda: zo_perturb.zo_perturb(
+            flat, seed, salt, 1e-3), 10))}
+    out["zo_fused_replay"] = dict(
+        shard_ms=event_ms(lambda: zo_replay.zo_fused_replay(
+            shard, sd, cf, salt, index=d.index), 10),
+        contiguous_ms=event_ms(lambda: zo_replay.zo_fused_replay(
+            flat, sd, cf, salt), 10))
+    for name, r in out.items():
+        r.update(elements=n, levels=len(d.index.levels))
+        print(f"{name} on the {n}-element shard: shard form "
+              f"{r['shard_ms']:.4f} ms, contiguous form on as many elements "
+              f"{r['contiguous_ms']:.4f} ms "
+              f"({100 * (r['shard_ms'] / r['contiguous_ms'] - 1):+.1f}%)")
     return out
 
 
@@ -2538,74 +2678,6 @@ def train_run(trainer, run, LoopConfig, steps=5):
         torch.cuda.max_memory_allocated(), peak0
 
 
-def check_train_lm(zo_perturb, zo_replay, flash_attn):
-    """ElasticZO on qwen3-4b through repro_torch.launch.train's own
-    functions; launch counts (the flash kernel in the 35 ZO periods of
-    each probe forward, none in the BP tail), finite losses, a changed
-    head and tail, and a bitwise rerun. Returns the launch counts of the
-    first run."""
-    from repro_torch.core import elastic, zo
-    from repro_torch.launch import train as launch_train
-    from repro_torch.train.train_loop import LoopConfig, run
-    args = launch_train.parse_args(TRAIN_ARGV)
-    t0 = time.perf_counter()
-    trainer = launch_train.setup(args)
-    torch.cuda.synchronize()
-    print(f"train setup (init of {sum(p.numel() for p in _leaves(trainer.state.params))} "
-          f"bf16 parameters) {time.perf_counter() - t0:.2f} s")
-    zo_part, bp_part = ([zo.keystr(p) for p, _ in zo.leaves_with_path(t)]
-                        for t in elastic.partition(trainer.state.params,
-                                                   trainer.lane))
-    zo_perturb.launches = zo_replay.launches = flash_attn.launches = 0
-    state, losses, wall, peak, peak0 = train_run(trainer, run, LoopConfig)
-    n_p, n_r, n_f = (zo_perturb.launches, zo_replay.launches,
-                     flash_attn.launches)
-    tokens = args.batch * args.seq
-    print(f"train qwen3-4b elastic_zo, 1 probe, batch {args.batch} x seq "
-          f"{args.seq}: losses {[round(v, 4) for v in losses]}; "
-          f"{1e3 * wall / 4:.1f} ms per step, {4 * tokens / wall:.1f} tokens/s "
-          f"over 4 timed steps; peak device memory {peak} bytes ({peak0} in "
-          "the first step)")
-    print(f"launches on the main path (5 steps): zo_perturb {n_p}, "
-          f"zo_fused_replay {n_r}, flash_attention {n_f}")
-    zo_periods = trainer.state.params["periods_zo"]["blk0"]["ln_attn"].shape[0]
-    if n_p != 24 * 5 or n_r != 12 * 5 or len(zo_part) != 12 \
-            or n_f != 2 * zo_periods * 5 or zo_periods != 35:
-        raise AssertionError(f"{len(zo_part)} ZO leaves, {n_p} zo_perturb, "
-                             f"{n_r} zo_fused_replay and {n_f} flash "
-                             "launches in 5 steps, want 12, 24 a step, 12 a "
-                             "step and 70 a step (35 ZO periods x 2)")
-    if len(losses) != 5 or not all(np.isfinite(v) for v in losses):
-        raise AssertionError(f"losses {losses}")
-    del trainer
-    torch.cuda.empty_cache()
-
-    again = launch_train.setup(args)
-    final = dict((zo.keystr(p), t) for p, t in
-                 zo.leaves_with_path(state.params))
-    fresh = dict((zo.keystr(p), t) for p, t in
-                 zo.leaves_with_path(again.state.params))
-    moved = {part: sum(not torch.equal(fresh[k], final[k]) for k in names)
-             for part, names in (("zo", zo_part), ("bp", bp_part))}
-    print(f"leaves changed by training: {moved['zo']} of {len(zo_part)} ZO, "
-          f"{moved['bp']} of {len(bp_part)} BP-tail")
-    if not moved["zo"] or not moved["bp"]:
-        raise AssertionError("training left the ZO head or the tail as it was")
-    del fresh
-    state2, losses2, wall2, _, _ = train_run(again, run, LoopConfig)
-    same = all(torch.equal(t, final[zo.keystr(p)])
-               for p, t in zo.leaves_with_path(state2.params))
-    print(f"rerun from the same seed: losses {[round(v, 4) for v in losses2]},"
-          f" {1e3 * wall2 / 4:.1f} ms per step; parameters bitwise equal: "
-          f"{same}")
-    if not same or losses2 != losses:
-        raise AssertionError("a rerun from the same parameters and seed gave "
-                             "other parameters or losses")
-    del final, state
-    profile_train_step(again, state2, run, LoopConfig, wall2 / 4)
-    return n_p, n_r, n_f, peak0
-
-
 # --------------------------------------------------------------------- #
 # training: qwen3-4b through the pipeline, a checkpoint and a resume
 # --------------------------------------------------------------------- #
@@ -2664,14 +2736,20 @@ def check_train_resume(zo_perturb, zo_replay, flash_attn, steps=8):
     Prefetcher (``launch.train.prefetched``), interrupted half way by
     ``checkpoint.save`` and a resume through
     ``elastic_runtime.resume_on_mesh`` (``setup`` with ``--ckpt-dir``).
-    The losses must be bitwise equal and the final parameters bytes-equal
-    (bit digests); the launches are check_train_lm's a step. Prints ms a
-    step of each feed after each run's first step (the allocator keeps
-    the first run's blocks for the second), the save's and the restore's
-    seconds and bytes, and the device peak of the restore; then the two
-    feeds' ms a step in ABBA order (``feed_pairs``, after the counts are
-    read). Returns the launches."""
+    The first run's launch counts (the flash kernel in the 35 ZO periods
+    of each probe forward, none in the BP tail), finite losses, a
+    changed head and tail (bit digests before and after); the second
+    run's losses must be the first's bitwise and its final parameters
+    bytes-equal (a bitwise rerun across a save and a resume). Prints ms
+    a step of each feed after each run's first step (the allocator keeps
+    the first run's blocks for the second), the device peak of the first
+    and the timed steps, the save's and the restore's seconds and bytes,
+    and the device peak of the restore; then the two feeds' ms a step in
+    ABBA order (``feed_pairs``, after the counts are read) and the
+    step's device time by kernel. Returns the launches, the first step's
+    peak and the plain run's losses."""
     import shutil
+    from repro_torch.core import elastic, zo
     from repro_torch.launch import train as launch_train
     from repro_torch.obs.memory import tree_nbytes
     from repro_torch.train import checkpoint as ckpt
@@ -2680,13 +2758,37 @@ def check_train_resume(zo_perturb, zo_replay, flash_attn, steps=8):
     argv = TRAIN_ARGV[:-1] + [str(steps)]
     args = launch_train.parse_args(argv)
     zo_perturb.launches = zo_replay.launches = flash_attn.launches = 0
+    t0 = time.perf_counter()
     plain = launch_train.setup(args)
+    torch.cuda.synchronize()
+    print(f"train setup (init of "
+          f"{sum(p.numel() for p in _leaves(plain.state.params))} bf16 "
+          f"parameters) {time.perf_counter() - t0:.2f} s")
+    parts = [[zo.keystr(p) for p, _ in zo.leaves_with_path(t)]
+             for t in elastic.partition(plain.state.params, plain.lane)]
+    zo_periods = plain.state.params["periods_zo"]["blk0"]["ln_attn"].shape[0]
+    start = digests(plain.state.params)
+    torch.cuda.reset_peak_memory_stats()
     state, losses_a, _ = timed_run(plain, plain.state, plain.batch_fn, run,
                                    LoopConfig, 1)
+    peak0 = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     state, more, wall_plain = timed_run(plain, state, plain.batch_fn, run,
                                         LoopConfig, steps)
+    peak = torch.cuda.max_memory_allocated()
     losses_a += more
     want = digests(state.params)
+    moved = [sum(start[k] != want[k] for k in names) for names in parts]
+    print(f"train qwen3-4b elastic_zo, 1 probe: peak device memory {peak} "
+          f"bytes over steps 1-{steps - 1} ({peak0} in the first step); "
+          f"leaves changed by training: {moved[0]} of {len(parts[0])} ZO, "
+          f"{moved[1]} of {len(parts[1])} BP-tail")
+    if not moved[0] or not moved[1] or len(parts[0]) != 12 \
+            or zo_periods != 35:
+        raise AssertionError("training left the ZO head or the tail as it "
+                             f"was, or {len(parts[0])} ZO leaves and "
+                             f"{zo_periods} ZO periods (want 12 and 35)")
+    del start
     nbytes = tree_nbytes(state.params)
     del plain, state
 
@@ -2754,11 +2856,351 @@ def check_train_resume(zo_perturb, zo_replay, flash_attn, steps=8):
           "leaves)")
     if not same:
         raise AssertionError("the resumed run's parameters differ")
-    feed_pairs("train qwen3-4b", resumed, state, run, LoopConfig)
+    state, med = feed_pairs("train qwen3-4b", resumed, state, run,
+                            LoopConfig)
+    profile_train_step(resumed, state, run, LoopConfig,
+                       med["prefetched"] / 1e3)
     del resumed, state
     torch.cuda.empty_cache()
     return {"zo_perturb": n_p, "zo_fused_replay": n_r,
-            "flash_attention": n_f}
+            "flash_attention": n_f}, peak0, losses_a
+
+
+# --------------------------------------------------------------------- #
+# training across a mesh (torch.distributed; ranks sharing the card)
+# --------------------------------------------------------------------- #
+MESH_AXES = ("data", "model")
+MESH_LAYERS = 8                  # of qwen3-4b's 36, at full width
+MESH_STEPS = 3
+MESH_LOSS_RTOL = 2e-3            # bf16 losses of a sharded run against one
+#                                  device's: the row-parallel and
+#                                  vocab-parallel sums round apart. Seen on
+#                                  the H100: 1.5e-5, 1.1e-4, 3.4e-4 at steps
+#                                  0-2; a step moves the loss by 2.2e-3 and
+#                                  5.9e-3, so a lost update fails
+MESH_SMALL_TOL = 1e-4            # reduced f32 qwen3-4b at 2x2, card against
+#                                  CPU (losses and params, relative)
+GLOO_PROBE_OPS = ("all_reduce", "broadcast", "all_gather", "reduce_scatter")
+
+
+def gloo_cuda_probe(rank, world):
+    """Each collective straight on CUDA tensors over the world group (the
+    ranks sharing the card under gloo): {op: True where it ran and gave
+    the right values, else what it raised}."""
+    import torch.distributed as dist
+    got = {}
+    x = torch.full((4,), float(rank + 1), device="cuda")
+    tri = world * (world + 1) / 2
+    calls = {
+        "all_reduce": lambda: (dist.all_reduce(y := x.clone()), y)[1],
+        "broadcast": lambda: (dist.broadcast(y := x.clone(), 0), y)[1],
+        "all_gather": lambda: (dist.all_gather_into_tensor(
+            y := torch.empty(4 * world, device="cuda"), x), y)[1],
+        "reduce_scatter": lambda: (dist.reduce_scatter_tensor(
+            y := torch.empty(4, device="cuda"),
+            torch.cat([x * (r + 1) for r in range(world)])), y)[1]}
+    want = {"all_reduce": [tri] * 4, "broadcast": [1.0] * 4,
+            "all_gather": [float(r + 1) for r in range(world)
+                           for _ in range(4)],
+            "reduce_scatter": [tri * (rank + 1)] * 4}
+    for op in GLOO_PROBE_OPS:
+        try:
+            got[op] = calls[op]().cpu().tolist() == want[op]
+        except Exception as e:          # recorded: what this build refuses
+            got[op] = f"{type(e).__name__}: {str(e)[:120]}"
+    return got
+
+
+def check_gloo_probe(got):
+    """Which collectives this build's gloo runs on CUDA tensors (the 2x2
+    phase's ranks, sharing the card): the ones the port calls on them
+    (sharding/collectives.py::GLOO_CUDA_OPS) must run and give the right
+    values, since the port sends them straight to gloo."""
+    from repro_torch.sharding import collectives
+    print(f"gloo on CUDA tensors, this build (torch {torch.__version__}): "
+          f"{got}; the port calls {list(collectives.GLOO_CUDA_OPS)} on them")
+    for op in collectives.GLOO_CUDA_OPS:
+        if got.get(op) is not True:
+            raise AssertionError(f"gloo's {op} on CUDA tensors: {got.get(op)}")
+
+
+def mesh_per_step(cfg):
+    """Launches a rank makes a step (elastic_zo, 1 probe, unfused): 2
+    zo_perturb and 1 zo_fused_replay a ZO leaf (embed and the 11
+    periods_zo leaves: every rank holds a shard of each), 2 flash a ZO
+    period (the rank's heads)."""
+    zo_periods = cfg.num_layers - 1
+    return {"zo_perturb": 24, "zo_fused_replay": 12,
+            "flash_attention": 2 * zo_periods}
+
+
+def _mesh_noise(trainer, zo_perturb, zo_replay):
+    """Every ZO leaf's shard perturbed and updated at its index map,
+    against the one-device kernels on a whole leaf sliced (a leaf of the
+    global shape holding the shard at its place: the elements elsewhere
+    do not reach the slice); returns the number of leaves held."""
+    from repro_torch.core import elastic, zo
+    run = trainer.run
+    zo_part, _ = elastic.partition(trainer.state.params, trainer.lane)
+    seeds = zo.device_seeds([977, 1301], trainer.device)
+    coeffs = torch.tensor([[1e-3, -2e-3]], device=trainer.device)
+    n = 0
+    for path, leaf in zo.leaves_with_path(zo_part):
+        salt = zo.path_salt(path)
+        d = run.desc_of(path, run.rank)
+        whole = torch.zeros(d.global_shape, dtype=leaf.dtype,
+                            device=leaf.device)
+        whole[d.slices] = leaf
+        ok = torch.equal(zo_perturb.zo_perturb(leaf, seeds[:1], salt, 1e-3,
+                                               index=d.index),
+                         zo_perturb.zo_perturb(whole, seeds[:1], salt,
+                                               1e-3)[d.slices])
+        ok &= torch.equal(
+            zo_replay.zo_fused_replay(leaf, seeds.reshape(1, 2), coeffs,
+                                      salt, index=d.index),
+            zo_replay.zo_fused_replay(whole, seeds.reshape(1, 2), coeffs,
+                                      salt)[d.slices])
+        del whole
+        if not ok:
+            raise AssertionError(f"rank {run.rank}: {zo.keystr(path)}'s "
+                                 "shard noise is not the whole leaf's sliced")
+        n += 1
+    return n
+
+
+def mesh_train(trainer, steps):
+    """``steps`` steps of a trainer through train_loop.run fed by the
+    launcher's Prefetcher, after one warm step; returns (losses, ms a
+    timed step, device peak of the timed steps, launch counts of all
+    steps)."""
+    from repro_torch.kernels import flash_attn, zo_fused_replay, zo_perturb
+    from repro_torch.launch.train import prefetched
+    from repro_torch.train.train_loop import LoopConfig, run
+
+    def loop(total):
+        return LoopConfig.for_lane(trainer.lane, total_steps=total,
+                                   log_every=1)
+    zo_perturb.launches = zo_fused_replay.launches = flash_attn.launches = 0
+    torch.cuda.synchronize()
+    with prefetched(trainer) as batch_fn:
+        state, h0 = run(trainer.step_fn, trainer.state, batch_fn, loop(1),
+                        log=None, param_shardings=trainer.run)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, h1 = run(trainer.step_fn, state, batch_fn, loop(steps),
+                        log=None, param_shardings=trainer.run)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    trainer.state = state
+    counts = {"zo_perturb": zo_perturb.launches,
+              "zo_fused_replay": zo_fused_replay.launches,
+              "flash_attention": flash_attn.launches}
+    return ([loss for _, loss in h0 + h1], 1e3 * wall / (steps - 1),
+            torch.cuda.max_memory_allocated(), counts)
+
+
+def _mesh_small(mesh):
+    """Reduced f32 qwen3-4b, 2 elastic_zo and 2 full_bp steps on this
+    mesh on the card and on the CPU from the same shards (the CPU init's:
+    the two devices' generators draw apart): {lane: (worst relative loss
+    distance, worst relative param distance)}."""
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.core import zo
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train.train_loop import LoopConfig, run
+    from repro_torch.core.elastic import TrainState
+    cfg = reduced(ARCHS["qwen3-4b"], dtype="float32")
+    out = {}
+    for lane in ("elastic_zo", "full_bp"):
+        got, init = {}, None
+        for dev in ("cpu", "cuda"):
+            t = launch_train.setup(launch_train.parse_args(
+                ["--arch", "qwen3-4b", "--smoke", "--device", dev, "--lane",
+                 lane, "--batch", "2", "--seq", "16", "--steps", "2"]),
+                cfg=cfg, mesh=mesh)
+            if init is None:        # the CPU's draws, on both devices
+                init = zo.map_with_path(lambda p, x: x.clone(),
+                                        t.state.params)
+            # a copy each run: the step updates the ZO leaves in place
+            t.state = TrainState(zo.map_with_path(
+                lambda p, x: x.clone().to(t.device), init), 0, t.state.seed)
+            state, hist = run(t.step_fn, t.state, t.batch_fn,
+                              LoopConfig.for_lane(t.lane, total_steps=2,
+                                                  log_every=1),
+                              log=None, param_shardings=t.run)
+            got[dev] = ([h[1] for h in hist],
+                        [t.run.gather_leaf(p, leaf).cpu() for p, leaf in
+                         zo.leaves_with_path(state.params)])
+        (lc, pc), (lh, ph) = got["cuda"], got["cpu"]
+        out[lane] = (max(abs(a - b) / max(abs(b), 1.0)
+                         for a, b in zip(lc, lh)),
+                     max(float((a - b).abs().max()
+                               / max(float(b.abs().max()), 1.0))
+                         for a, b in zip(pc, ph)))
+    return out
+
+
+def _mesh_rank(rank, world, shape, backend, store, out_dir, layers, steps,
+               small):
+    """One rank of the mesh phase: qwen3-4b cut to ``layers`` at full
+    width on ``shape``, through the launcher's setup: the shard noise of
+    every ZO leaf, ``steps`` steps (the engine asserts each step's
+    coefficients bitwise across ranks), the replicated leaves bitwise
+    across ranks after them, and (``small``) reduced qwen3-4b card
+    against CPU on the same mesh. Writes its numbers to out_dir."""
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.set_num_threads(2)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import zo_fused_replay, zo_perturb
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import train as launch_train
+    mesh_lib.init_ranks(backend, "cuda", rank, world, store)
+    try:
+        probe = gloo_cuda_probe(rank, world) if backend == "gloo" else None
+        mesh = mesh_lib.make_mesh(shape, MESH_AXES)
+        cfg = dataclasses.replace(ARCHS["qwen3-4b"], num_layers=layers)
+        t0 = time.perf_counter()
+        trainer = launch_train.setup(launch_train.parse_args(
+            TRAIN_ARGV[:-1] + [str(steps)]), cfg=cfg, mesh=mesh)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        noise = _mesh_noise(trainer, zo_perturb, zo_fused_replay)
+        torch.cuda.empty_cache()
+        losses, ms, peak, counts = mesh_train(trainer, steps)
+        held = trainer.run.check_replicas(trainer.state.params)
+        res = dict(rank=rank, probe=probe, device=str(trainer.device),
+                   setup_s=setup_s,
+                   noise_leaves=noise, losses=losses, ms=ms, peak=peak,
+                   counts=counts, replica_pairs=held,
+                   shard_bytes=sum(t.numel() * t.element_size()
+                                   for t in _leaves(trainer.state.params)))
+        del trainer
+        torch.cuda.empty_cache()
+        if small:
+            res["small"] = _mesh_small(mesh)
+        Path(out_dir, f"rank{rank}.json").write_text(json.dumps(res))
+    finally:
+        dist.destroy_process_group()
+
+
+def check_mesh(shape, backend, want_losses, small=True,
+               layers=MESH_LAYERS, steps=MESH_STEPS):
+    """The mesh phase on ``prod(shape)`` spawned ranks: prints each
+    rank's numbers and asserts the launches a step, equal counts and
+    losses on every rank, the losses within MESH_LOSS_RTOL of one
+    device's (``want_losses``), and (``small``) the reduced model card
+    == CPU. Returns rank 0's launch counts."""
+    import tempfile
+    from repro_torch.launch import mesh as mesh_lib
+    world = math.prod(shape)
+    d = tempfile.mkdtemp(prefix="mesh_smoke_")
+    t0 = time.perf_counter()
+    try:
+        store = "file://" + os.path.join(d, "store")
+        mesh_lib.spawn(_mesh_rank, world, (world, shape, backend, store, d,
+                                           layers, steps, small))
+        res = [json.loads(Path(d, f"rank{r}.json").read_text())
+               for r in range(world)]
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    if backend == "gloo":
+        check_gloo_probe(res[0]["probe"])
+    cfg = types.SimpleNamespace(num_layers=layers)
+    per_step = mesh_per_step(cfg)
+    name = "x".join(map(str, shape))
+    for r in res:
+        print(f"{name} over {backend}, rank {r['rank']} on {r['device']}: "
+              f"setup {r['setup_s']:.2f} s ({r['shard_bytes']} bytes of "
+              f"shards); {r['noise_leaves']} ZO leaves' shard noise bitwise "
+              f"the whole leaf's sliced; losses "
+              f"{[round(v, 5) for v in r['losses']]}; {r['ms']:.1f} ms a "
+              f"step; device peak {r['peak']} bytes; launches "
+              f"{r['counts']} in {steps} steps; {r['replica_pairs']} "
+              "replicated (leaf, rank) pairs bitwise; coefficients bitwise "
+              "across ranks every step (asserted in the step)")
+        if r["counts"] != {k: v * steps for k, v in per_step.items()}:
+            raise AssertionError(f"rank {r['rank']}: launches {r['counts']}, "
+                                 f"want {per_step} a step")
+        if r["losses"] != res[0]["losses"]:
+            raise AssertionError("the ranks' losses differ")
+        if "small" in r:
+            print(f"  reduced f32 qwen3-4b at {name}, card against CPU "
+                  f"(worst relative loss, param distance): {r['small']}")
+            if max(max(v) for v in r["small"].values()) > MESH_SMALL_TOL:
+                raise AssertionError("reduced qwen3-4b on the mesh: card "
+                                     "and CPU differ")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(res[0]["losses"],
+                                                   want_losses))
+    print(f"{name} losses against one device's of the same cut "
+          f"{[round(v, 5) for v in want_losses]}: worst relative distance "
+          f"{rel:.3g} (tolerance {MESH_LOSS_RTOL}); the phase took "
+          f"{wall:.1f} s with the ranks' start")
+    if rel > MESH_LOSS_RTOL:
+        raise AssertionError("the sharded losses left one device's")
+    return res[0]["counts"]
+
+
+def check_train_mesh():
+    """qwen3-4b cut to MESH_LAYERS at full width: one device's losses
+    (this process), then the 2x2 mesh of 4 ranks sharing the card over
+    gloo. Returns (rank 0's launches, the one-device run's)."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch import train as launch_train
+    cfg = dataclasses.replace(ARCHS["qwen3-4b"], num_layers=MESH_LAYERS)
+    one = launch_train.setup(launch_train.parse_args(
+        TRAIN_ARGV[:-1] + [str(MESH_STEPS)]), cfg=cfg)
+    want, ms, peak, counts = mesh_train(one, MESH_STEPS)
+    print(f"qwen3-4b ({MESH_LAYERS} of 36 layers) on one device: losses "
+          f"{[round(v, 5) for v in want]}, {ms:.1f} ms a step, peak {peak} "
+          f"bytes, launches {counts}")
+    del one
+    torch.cuda.empty_cache()
+    return check_mesh((2, 2), "gloo", want), want
+
+
+def check_train_mesh_nccl(want_losses, cut_losses):
+    """Whole qwen3-4b on a 1x1 mesh over NCCL in this process (world size
+    1; the coefficient check all-gathers through NCCL every step),
+    against the one-device run's losses (``want_losses``, the resume
+    phase's plain run): bitwise, since a group of one rank is the
+    identity. Then, where the machine has four cards, the 2x2 phase over
+    NCCL, a card a rank, against one device's ``cut_losses``. Returns (the 1x1 run's launches, whether the
+    four-card run ran)."""
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import train as launch_train
+    store = tempfile.mkdtemp(prefix="nccl_smoke_")
+    mesh_lib.init_ranks("nccl", "cuda", 0, 1,
+                        "file://" + os.path.join(store, "store"))
+    try:
+        trainer = launch_train.setup(launch_train.parse_args(
+            TRAIN_ARGV[:-1] + [str(MESH_STEPS)]),
+            mesh=mesh_lib.make_mesh((1, 1), MESH_AXES))
+        losses, ms, peak, counts = mesh_train(trainer, MESH_STEPS)
+        del trainer
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    torch.cuda.empty_cache()
+    same = losses == want_losses[:MESH_STEPS]
+    print(f"whole qwen3-4b, 1x1 mesh over NCCL: losses {losses}, {ms:.1f} ms"
+          f" a step, peak {peak} bytes, launches {counts}; bitwise the "
+          f"one-device run's {want_losses[:MESH_STEPS]}: {same}")
+    if not same or counts != {"zo_perturb": 24 * MESH_STEPS,
+                              "zo_fused_replay": 12 * MESH_STEPS,
+                              "flash_attention": 70 * MESH_STEPS}:
+        raise AssertionError("the 1x1 mesh over NCCL left the one-device run")
+    four = torch.cuda.device_count() >= 4
+    if four:                # the cut's losses: check_train_mesh's one device
+        check_mesh((2, 2), "nccl", cut_losses, small=False)
+    print(f"2x2 over NCCL on four cards: {'ran' if four else 'not run'} "
+          f"({torch.cuda.device_count()} card(s) here)")
+    return counts, four
 
 
 def check_autograd_workspace():
@@ -3161,7 +3603,7 @@ def digests(params):
 def check_train_family(title, cfg, argv, kernels, held, *, fused=False,
                        steps=5, feeds=False):
     """ElasticZO on a full-width family stack through
-    repro_torch.launch.train's own functions, as check_train_lm: launch
+    repro_torch.launch.train's own functions, as check_train_resume: launch
     counts a step (family_per_step), finite losses, a changed ZO head and
     BP part, and a rerun from the same seed with bitwise equal losses and
     parameters (two copies of a large stack do not fit beside a step's
@@ -3198,10 +3640,12 @@ def check_train_family(title, cfg, argv, kernels, held, *, fused=False,
             kernels["flash_attention"], "flash_attention",
             flash_shape) as fa_shapes, shapes_of(
             kernels["zo_perturb"], "zo_perturb",
-            lambda theta, seed, salt, scale, offset=0:
-            offset + theta.numel()) as zp_ends, shapes_of(
+            lambda theta, seed, salt, scale, offset=0, index=None:
+            offset + theta.numel() if index is None
+            else index.max_index + 1) as zp_ends, shapes_of(
             kernels["zo_fused_replay"], "zo_fused_replay",
-            lambda theta, *a, **k: theta.numel()) as zr_ends:
+            lambda theta, *a, index=None, **k: theta.numel()
+            if index is None else index.max_index + 1) as zr_ends:
         state, losses, wall, peak, peak0 = train_run(trainer, run,
                                                      LoopConfig, steps)
     n = {name: k.launches for name, k in kernels.items()}
@@ -3453,6 +3897,10 @@ def main():
     topk_64000 = check_topk(topk_mask, ref, llava.padded_vocab)
     zo_times = check_zo(zo_perturb, zo_fused_replay, ref)
     torch.cuda.empty_cache()
+    for name, shard in check_zo_maps(zo_perturb, zo_fused_replay,
+                                     ref).items():
+        zo_times[name]["at_shard_2x2"] = shard
+    torch.cuda.empty_cache()
     zo_times.update(check_int8_noise(zo_perturb, zo_fused_replay, ref))
     torch.cuda.empty_cache()
     zo_times["int8_matmul"] = check_int8_matmul(int8_matmul, ref)
@@ -3540,23 +3988,34 @@ def main():
                     "flash_attention": (flash_attn, "launches")})
     torch.cuda.empty_cache()
 
-    phase("train qwen3-4b")
-    n_lm = check_train_lm(zo_perturb, zo_fused_replay, flash_attn)
-    n_zo = dict(zip(("zo_perturb", "zo_fused_replay"), n_lm))
+    # one phase carries the unfused qwen3-4b checks (launches, a moved
+    # head and tail, a bitwise rerun) and the pipeline, checkpoint and
+    # resume ones: both stepped the whole model at 4 x 128
+    phase("train qwen3-4b: prefetched batches, checkpoint and elastic resume")
+    n_resume, peak0, whole_losses = check_train_resume(
+        zo_perturb, zo_fused_replay, flash_attn)
+    n_zo = {k: n_resume[k] for k in ("zo_perturb", "zo_fused_replay")}
     n_zo.update(n_int8)
     torch.cuda.empty_cache()
-
-    phase("train qwen3-4b: prefetched batches, checkpoint and elastic resume")
-    n_resume = check_train_resume(zo_perturb, zo_fused_replay, flash_attn)
 
     phase("train qwen3-4b, fused probes, seq 4096")
     n_fused = check_train_fused({"zo_perturb": zo_perturb,
                                  "zo_fused_replay": zo_fused_replay,
-                                 "flash_attention": flash_attn}, n_lm[3])
+                                 "flash_attention": flash_attn}, peak0)
     n_zo["flash_attention"] = n_fused["flash_attention"]
-    print(f"flash_attention launches: {n_flash_serve} serving, {n_lm[2]} in "
-          f"the unfused train run, {n_fused['flash_attention']} in the fused "
-          "one (the kernels line reports the fused run's)")
+    print(f"flash_attention launches: {n_flash_serve} serving, "
+          f"{n_resume['flash_attention']} in the unfused train runs, "
+          f"{n_fused['flash_attention']} in the fused one (the kernels line "
+          "reports the fused run's)")
+    torch.cuda.empty_cache()
+
+    phase("train qwen3-4b on a 2x2 mesh (4 ranks sharing the card over "
+          "gloo)")
+    n_mesh, cut_losses = check_train_mesh()
+    torch.cuda.empty_cache()
+
+    phase("train qwen3-4b on a 1x1 mesh over NCCL")
+    n_nccl, _ = check_train_mesh_nccl(whole_losses, cut_losses)
     torch.cuda.empty_cache()
 
     # the family phases hold every flat index they give the ZO kernels to
@@ -3653,16 +4112,21 @@ def main():
         "train whisper-small, fused probes, seq 448": n_whisper_fused,
         "train llava-next-34b (16 of 60 layers)": n_llava_train,
         "train llava-next-34b (16 of 60 layers), fused probes": n_llava_fused}
-    resumed = "train qwen3-4b, prefetched and resumed"
-    paths = {"zo_perturb": {"train qwen3-4b": n_zo["zo_perturb"],
-                            resumed: n_resume["zo_perturb"],
+    resumed = "train qwen3-4b, plain, then prefetched and resumed"
+    mesh_2x2 = (f"train qwen3-4b ({MESH_LAYERS} of 36 layers), 2x2 mesh over "
+                "gloo, rank 0")
+    mesh_1x1 = "train qwen3-4b, 1x1 mesh over NCCL"
+    mesh_paths = {k: {mesh_2x2: n_mesh[k], mesh_1x1: n_nccl[k]}
+                  for k in n_mesh}
+    paths = {"zo_perturb": {resumed: n_resume["zo_perturb"],
+                            **mesh_paths["zo_perturb"],
                             "train PointNet": n_pointnet["zo_perturb"],
                             "fleet qwen3-4b": n_fleet_lm["zo_perturb"],
                             **{k: v["zo_perturb"]
                                for k, v in family_runs.items()}},
              "zo_fused_replay": {
-                 "train qwen3-4b": n_zo["zo_fused_replay"],
                  resumed: n_resume["zo_fused_replay"],
+                 **mesh_paths["zo_fused_replay"],
                  "train PointNet": n_pointnet["zo_fused_replay"],
                  "fleet qwen3-4b": n_fleet_lm["zo_fused_replay"],
                  **{k: v["zo_fused_replay"] for k, v in family_runs.items()}},
@@ -3692,8 +4156,8 @@ def main():
                  "serve jamba-v0.1-52b": n_jamba[2],
                  "serve whisper-small": n_whisper[2],
                  "serve llava-next-34b": n_llava[2],
-                 "train qwen3-4b": n_lm[2],
                  resumed: n_resume["flash_attention"],
+                 **mesh_paths["flash_attention"],
                  "train qwen3-4b, fused probes, seq 4096":
                      n_fused["flash_attention"],
                  "fleet qwen3-4b": n_fleet_lm["flash_attention"],

@@ -8,6 +8,13 @@ perturbs the head and differentiates the tail (``core/elastic.py``), for
 every stack the port has: the decoder families (dense, MoE, RWKV6, the
 Mamba hybrid), Whisper's encoder-decoder and LLaVA's image-token prefix.
 
+On a mesh (a ``sharding/collectives.py::MeshRun``, ``run=``) the params
+are the rank's shards: ``init`` draws one leaf at a time and keeps the
+rank's slice, ``loss_fn`` runs the sharded forward on the rank's rows of
+the batch (``batch_shardings`` says which), and the train step perturbs
+and updates each shard at its global flat indices
+(``core/engine.py``).
+
 Whisper's encoder runs on ``frames`` [B, encoder_seq, d] wherever the
 decoder sees a whole sequence (prefill, train); a decode step reads the
 cross-attention's cached keys and values instead. LLaVA's ``img`` [B,
@@ -99,16 +106,60 @@ def split_caches(caches, cfg: ModelConfig, lane: LaneConfig):
 
 
 def init(cfg: ModelConfig, lane: Optional[LaneConfig] = None, *,
-         seed: int = 0, device, dtype=None, max_seq: Optional[int] = None):
+         seed: int = 0, device, dtype=None, max_seq: Optional[int] = None,
+         run=None):
     """Random parameters with the periods split into zo and bp. Each half
     is a leading-dim slice of one stacked tensor, so it is contiguous.
     ``max_seq``: the rows of a learned ``pos_embed`` (stacks without
     RoPE); the serve engine takes its ``max_seq_len``, training its
-    sequence length, as the JAX package does."""
-    params = init_lm(cfg, seed=seed, device=device, dtype=dtype,
-                     max_seq=max_seq)
+    sequence length, as the JAX package does. On a mesh (``run``) each
+    leaf is drawn whole, in the same order from the same generator, and
+    only the rank's shard is kept before the next is drawn: bitwise the
+    one-device init's slice, with one leaf's draw at a time on top of
+    the shards."""
+    if run is None:
+        params = init_lm(cfg, seed=seed, device=device, dtype=dtype,
+                         max_seq=max_seq)
+    else:
+        params = _init_shards(cfg, seed, device, dtype, max_seq, run)
     split = split_caches(params.pop("periods"), cfg, lane or LaneConfig())
     params["periods_zo"], params["periods_bp"] = split["zo"], split["bp"]
+    return params
+
+
+def _init_shards(cfg: ModelConfig, seed, device, dtype, max_seq, run):
+    """``init_lm`` keeping the rank's shard of each drawn leaf. The draw
+    order and each draw's leaf come from a run of the init under a fake
+    tensor mode (no memory, no draws); the leaves the init does not draw
+    (norm scales, ones) are replicated."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from ..models import layers
+    from ..models.transformer import check_mesh_stack
+    from ..sharding.params import (map_dict, param_shardings, shard_desc,
+                                   shard_leaf)
+    check_mesh_stack(cfg)
+    drawn = []
+    with FakeTensorMode(), layers.draw_hook(lambda w: drawn.append(w) or w):
+        fake = init_lm(cfg, seed=seed, device="cpu", dtype=dtype,
+                       max_seq=max_seq)
+    where = {}
+    map_dict(lambda names, t: where.setdefault(id(t), names), fake)
+    specs = param_shardings(fake, run.rules)
+    order = []
+    for w in drawn:
+        names = where[id(w)]
+        spec = specs
+        for k in names:
+            spec = spec[k]
+        order.append(shard_desc(tuple(w.shape), spec, run.coords, run.sizes))
+    del fake, drawn
+    descs = iter(order)
+    with layers.draw_hook(lambda w: shard_leaf(w, next(descs))):
+        params = init_lm(cfg, seed=seed, device=device, dtype=dtype,
+                         max_seq=max_seq)
+    if next(descs, None) is not None:
+        raise AssertionError("the sharded init drew fewer leaves than the "
+                             "fake one")
     return params
 
 
@@ -155,18 +206,18 @@ def stub_inputs(cfg: ModelConfig, B: int, device) -> dict:
 
 
 def _backbone(params, cfg: ModelConfig, tokens, positions, mode, *,
-              caches=None, frames=None, img=None, **kw):
+              caches=None, frames=None, img=None, run=None, **kw):
     enc_out = None
     if mode != "decode":
         _check_inputs(cfg, tokens, frames, img)
         if cfg.encoder_layers:
             enc_out = run_encoder(params, frames, cfg)
-    x = embed(params, tokens, positions, img)
+    x = embed(params, tokens, positions, img, run=run)
     x, cz = run_periods(params["periods_zo"], x, cfg, positions=positions,
-                        mode=mode, enc_out=enc_out, **kw,
+                        mode=mode, enc_out=enc_out, run=run, **kw,
                         caches=None if caches is None else caches["zo"])
     x, cb = run_periods(params["periods_bp"], x, cfg, positions=positions,
-                        mode=mode, enc_out=enc_out, **kw,
+                        mode=mode, enc_out=enc_out, run=run, **kw,
                         caches=None if caches is None else caches["bp"])
     return x, {"zo": cz, "bp": cb}
 
@@ -181,19 +232,21 @@ def _positions(tokens, cfg: ModelConfig):
 # ---------------------------------------------------------------------- #
 # train
 # ---------------------------------------------------------------------- #
-def loss_fn(params, cfg: ModelConfig, batch):
+def loss_fn(params, cfg: ModelConfig, batch, run=None):
     """Mean next-token cross-entropy of batch {"tokens", "labels", "mask"}
     (each [B, S]; with "frames" for Whisper, "img" for LLaVA, whose image
     rows the loss drops). The ZO head is never differentiated: its leaves
     do not require grad, so autograd records nothing before
     ``periods_bp`` (the port's form of the JAX package's
     ``stop_gradient`` cut; Whisper's encoder output, made by ZO leaves,
-    carries no gradient either)."""
+    carries no gradient either). On a mesh (``run``): the rank's shards
+    and rows, the global mean on every rank."""
     tokens = batch["tokens"]
     x, _ = _backbone(params, cfg, tokens, _positions(tokens, cfg), "train",
-                     frames=batch.get("frames"), img=batch.get("img"))
+                     frames=batch.get("frames"), img=batch.get("img"),
+                     run=run)
     x = x[:, cfg.num_image_tokens:]
-    return lm_loss(params, x, batch["labels"], batch["mask"], cfg)
+    return lm_loss(params, x, batch["labels"], batch["mask"], cfg, run=run)
 
 
 def paired_loss(bp_part, zo_part, cfg: ModelConfig, lane: LaneConfig, batch,
@@ -238,25 +291,58 @@ def paired_loss(bp_part, zo_part, cfg: ModelConfig, lane: LaneConfig, batch,
     return losses[0], losses[1]
 
 
-def train_engine(cfg: ModelConfig, lane: LaneConfig):
+def train_engine(cfg: ModelConfig, lane: LaneConfig, run=None):
     """(engine, loss) that ``lane``'s step is built from: the step is
     ``engine.make_step(loss)``, and ``core/engine.py::
     profile_step_phases(engine, loss, ...)`` times its phases. With
     ``lane.fused_probes`` an elastic_zo step takes each probe pair
-    through ``paired_loss``."""
+    through ``paired_loss``. On a mesh (``run``) the engine perturbs and
+    updates shards and the loss is the sharded one; fused probes raise
+    there (ROADMAP.md queue 1)."""
     paired = None
     if lane.fused_probes and lane.lane == "elastic_zo":
+        if run is not None:
+            raise NotImplementedError(
+                "fused probes under a mesh wait for a later distribution "
+                "slice (ROADMAP.md queue 1)")
         paired = lambda bp, zo_part, batch, seed: paired_loss(  # noqa: E731
             bp, zo_part, cfg, lane, batch, seed)
-    return (Fp32Engine(lane, paired_loss_fn=paired),
-            lambda p, b: loss_fn(p, cfg, b))
+    if run is not None:
+        from ..models.transformer import check_mesh_stack
+        check_mesh_stack(cfg)
+    return (Fp32Engine(lane, paired_loss_fn=paired, run=run),
+            lambda p, b: loss_fn(p, cfg, b, run=run))
 
 
-def make_train_step(cfg: ModelConfig, lane: LaneConfig):
+def make_train_step(cfg: ModelConfig, lane: LaneConfig, run=None):
     """The ElasticZO step of ``lane`` over ``loss_fn``:
     (state, batch, probe_mask) -> (state, metrics)."""
-    engine, loss = train_engine(cfg, lane)
+    engine, loss = train_engine(cfg, lane, run)
     return engine.make_step(loss)
+
+
+def batch_shardings(specs, rules):
+    """The spec of each entry of a train batch (``specs``: {name: shape
+    or anything with ``shape``}; ``repro/core/api.py::batch_shardings``):
+    rows over the batch axes, ``probe_mask`` / ``cache_len`` replicated,
+    and an entry whose rows the batch axes do not divide replicated (a
+    tiny batch). Every entry None without a mesh."""
+    from ..sharding.rules import axes_size
+    if rules.mesh is None:
+        return {k: None for k in specs}
+    out = {}
+    for k, v in specs.items():
+        shape = tuple(getattr(v, "shape", v))
+        if k in ("probe_mask", "cache_len"):
+            out[k] = ()
+        elif len(shape) == 3:
+            out[k] = (rules.batch, None, None)
+        else:
+            out[k] = (rules.batch, None)
+        bsize = axes_size(rules.sizes, rules.batch) if rules.batch else 1
+        if shape and shape[0] % max(bsize, 1) != 0:
+            out[k] = (None,) * len(shape)
+    return out
 
 
 # ---------------------------------------------------------------------- #

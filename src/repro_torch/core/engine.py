@@ -39,6 +39,14 @@ How the JAX step maps onto eager PyTorch:
     launch per leaf with S = 1): the state passed to a step is consumed,
     as JAX's train loop donates it.
 
+On a mesh (``run``, a ``sharding/collectives.py::MeshRun``) each rank
+holds its shards: the probes perturb them and the update replays at each
+shard's global flat indices, with no communication; the loss (and so
+every coefficient) is the global one on every rank, which the step
+asserts bitwise; the tail's gradients reach each rank's shards through
+the sharded forward's collectives (reduce-scatter over `data` for FSDP
+shards).
+
 The int8 engine follows the same design: probe seeds from the numpy
 threefry twin, the +1/-1 perturbations one ``int8_perturb`` launch each
 for all ZO leaves, the ternary g kept on the device as an int32 [1, P]
@@ -157,10 +165,12 @@ class Fp32Engine:
 
     def __init__(self, lane: LaneConfig,
                  partition_fn: Optional[Callable] = None,
-                 paired_loss_fn: Optional[Callable] = None):
+                 paired_loss_fn: Optional[Callable] = None, run=None):
         self.lane = lane
         self.paired_loss_fn = paired_loss_fn
         self.partition = _partition_for(lane, partition_fn)
+        self.run = run
+        self.maps = None if run is None else run.index_maps()
 
     # ---- coeff transform (ledger domain, strict fp32) ----------------- #
     def host_coeffs(self, step: int, deltas: np.ndarray, mask: np.ndarray):
@@ -178,15 +188,17 @@ class Fp32Engine:
 
     # ---- ZO update (live) --------------------------------------------- #
     @staticmethod
-    def zo_apply(zo_part, seeds: torch.Tensor, coeffs: torch.Tensor):
+    def zo_apply(zo_part, seeds: torch.Tensor, coeffs: torch.Tensor,
+                 maps=None):
         """theta <- cast(theta_f32 - sum_p coeff_p * z_p), in probe order,
         IN PLACE: one ``zo_fused_replay`` launch per leaf with S = 1.
         seeds int32 [1, P] and coeffs f32 [1, P] on the leaves' device.
         In place is safe: every element is read and then written by the
-        same thread. Returns ``zo_part``."""
+        same thread. ``maps``: each shard's index map on a mesh. Returns
+        ``zo_part``."""
         for path, leaf in zo.leaves_with_path(zo_part):
             ops.zo_fused_replay(leaf, seeds, coeffs, zo.path_salt(path),
-                                out=leaf)
+                                out=leaf, index=zo._at(maps, path))
         return zo_part
 
     # ---- ZO update (ledger domain) ------------------------------------ #
@@ -240,6 +252,7 @@ class Fp32Engine:
         base_eta_tail = tail_learning_rate(lane)
         eps = lane.zo_eps
         paired_loss_fn = self.paired_loss_fn
+        run, all_maps = self.run, self.maps
 
         def step(state: TrainState, batch, probe_mask):
             probe_mask = np.asarray(probe_mask, np.float32)
@@ -252,6 +265,7 @@ class Fp32Engine:
             eta_zo = float(np.float32(lane.learning_rate) * decay)
             eta_tail = np.float32(base_eta_tail) * decay
             zo_part, bp_part = self.partition(state.params)
+            maps = None if all_maps is None else self.partition(all_maps)[0]
             key = keys.fold_in(state.seed, state.step)
 
             if lane.lane == "full_bp":
@@ -280,10 +294,10 @@ class Fp32Engine:
                     lp, lm, g_tail = _paired_value_and_grad(
                         paired_loss_fn, bp_part, zo_part, batch, seed)
                 elif has_tail:
-                    zp = zo.perturb(zo_part, seed, eps)
+                    zp = zo.perturb(zo_part, seed, eps, maps)
                     lp, gp = _value_and_grad(tail_loss, bp_part, zp)
                     del zp                  # free +eps before -eps
-                    zm = zo.perturb(zo_part, seed, -eps)
+                    zm = zo.perturb(zo_part, seed, -eps, maps)
                     lm, gm = _value_and_grad(tail_loss, bp_part, zm)
                     del zm
                     if lane.bp_grad_mode == "clean":
@@ -294,10 +308,10 @@ class Fp32Engine:
                     del gp, gm
                 else:
                     with torch.no_grad():
-                        zp = zo.perturb(zo_part, seed, eps)
+                        zp = zo.perturb(zo_part, seed, eps, maps)
                         lp = loss_fn(merge(zp, bp_part), batch)
                         del zp
-                        zm = zo.perturb(zo_part, seed, -eps)
+                        zm = zo.perturb(zo_part, seed, -eps, maps)
                         lm = loss_fn(merge(zm, bp_part), batch)
                         del zm
                 if has_tail:
@@ -309,8 +323,11 @@ class Fp32Engine:
                 loss_acc = loss_acc + 0.5 * (lp + lm) * m
                 g_acc = g_acc + torch.abs(g)
 
-            new_zo = self.zo_apply(zo_part, seeds.reshape(1, n),
-                                   torch.stack(coeffs).reshape(1, n))
+            coeffs = torch.stack(coeffs).reshape(1, n)
+            if run is not None:
+                run.same_on_all_ranks(coeffs, "the ZO coefficients")
+            new_zo = self.zo_apply(zo_part, seeds.reshape(1, n), coeffs,
+                                   maps)
             if has_tail:
                 tail_grad = [g / valid for g in tail_grad]
                 new_bp = self.tail_apply(bp_part, tail_grad, eta_tail)

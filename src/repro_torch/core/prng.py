@@ -36,8 +36,63 @@ def _fmix32(h: torch.Tensor) -> torch.Tensor:
     return h ^ (h >> 16)
 
 
+class IndexMap:
+    """Where a tensor's elements sit in a larger leaf's flat index space:
+    element i (row-major over ``levels``' extents) is at ``base + sum_k
+    i_k * stride_k``, (extent_k, stride_k) from outer to inner. A whole
+    leaf of n elements is ``IndexMap(0, ((n, 1),))``, a period's slice of
+    a stacked leaf one level at base p * size, a rank's shard of a
+    sharded leaf up to three levels (``sharding/params.py::
+    shard_desc``). Every index stays below 2**32."""
+
+    def __init__(self, base: int, levels):
+        self.base = int(base)
+        self.levels = tuple((int(e), int(s)) for e, s in levels)
+        if self.base < 0 or any(e < 0 or s < 0 for e, s in self.levels):
+            raise ValueError(f"index map {self}: negative base or level")
+        if self.numel and self.max_index > MASK32:
+            raise ValueError(f"index map {self}: indices up to "
+                             f"{self.max_index} pass 2**32 - 1 (flat "
+                             "indices are uint32)")
+
+    @property
+    def numel(self) -> int:
+        n = 1
+        for e, _ in self.levels:
+            n *= e
+        return n
+
+    @property
+    def max_index(self) -> int:
+        return self.base + sum((e - 1) * s for e, s in self.levels)
+
+    @property
+    def is_contiguous(self) -> bool:
+        """One run of consecutive indices (the offset form)."""
+        live = [(e, s) for e, s in self.levels if e != 1]
+        return not live or (len(live) == 1 and live[0][1] == 1)
+
+    def flat_indices(self, device=None) -> torch.Tensor:
+        """The int64 index of every element, row-major."""
+        idx = torch.full((), self.base, dtype=torch.int64, device=device)
+        for e, s in self.levels:
+            idx = idx[..., None] + torch.arange(
+                e, dtype=torch.int64, device=device) * s
+        return idx.reshape(-1)
+
+    def __eq__(self, other):
+        return isinstance(other, IndexMap) and (
+            self.base, self.levels) == (other.base, other.levels)
+
+    def __hash__(self):
+        return hash((self.base, self.levels))
+
+    def __repr__(self):
+        return f"IndexMap(base={self.base}, levels={self.levels})"
+
+
 def uniform_bits(seed, salt: int, shape, offset: int = 0, *,
-                 device=None) -> torch.Tensor:
+                 device=None, index: "IndexMap" = None) -> torch.Tensor:
     """uint32 hash bits (as int64) for every element of ``shape``.
 
     seed: a Python int or an int64 tensor of uint32 values. A tensor seed
@@ -45,6 +100,8 @@ def uniform_bits(seed, salt: int, shape, offset: int = 0, *,
     batched form of the JAX package's per-row ``vmap``).
     offset: flat-index offset, ``bits(shape, off)[i] ==
     bits(bigger_shape)[off + i]``.
+    index: an ``IndexMap`` of ``prod(shape)`` elements, in place of
+    ``offset``: element i draws at the map's i-th index.
     """
     shape = tuple(int(d) for d in shape)
     if isinstance(seed, torch.Tensor):
@@ -56,8 +113,14 @@ def uniform_bits(seed, salt: int, shape, offset: int = 0, *,
     n = 1
     for d in shape:
         n *= d
-    idx = (torch.arange(n, dtype=torch.int64, device=device)
-           + (int(offset) & MASK32)) & MASK32
+    if index is not None:
+        if index.numel != n:
+            raise ValueError(f"{index} holds {index.numel} elements, the "
+                             f"shape {shape} {n}")
+        idx = index.flat_indices(device)
+    else:
+        idx = (torch.arange(n, dtype=torch.int64, device=device)
+               + (int(offset) & MASK32)) & MASK32
     h = (mul32(idx, _PHI) + (int(salt) & MASK32)) & MASK32
     h = h.reshape(shape)
     s = seed.reshape(seed.shape + (1,) * len(shape))
@@ -66,14 +129,17 @@ def uniform_bits(seed, salt: int, shape, offset: int = 0, *,
 
 
 def normal(seed, salt: int, shape, offset: int = 0, *,
-           device=None) -> torch.Tensor:
+           device=None, index: "IndexMap" = None) -> torch.Tensor:
     """Standard normal float32 via Box-Muller on two hashed streams (salts
     2*salt+1 and 2*salt+2), op for op ``repro/core/prng.py::normal``:
     u1 = (b1 >> 8) * 2**-24 + 2**-25 in (0, 1], u2 = (b2 >> 8) * 2**-24,
     z = sqrt(-2 log u1) * cos(float32(2 pi) * u2). Every multiply and add
-    is its own rounded f32 op. ``seed`` as in ``uniform_bits``."""
-    b1 = uniform_bits(seed, 2 * int(salt) + 1, shape, offset, device=device)
-    b2 = uniform_bits(seed, 2 * int(salt) + 2, shape, offset, device=device)
+    is its own rounded f32 op. ``seed``, ``offset`` and ``index`` as in
+    ``uniform_bits``."""
+    b1 = uniform_bits(seed, 2 * int(salt) + 1, shape, offset, device=device,
+                      index=index)
+    b2 = uniform_bits(seed, 2 * int(salt) + 2, shape, offset, device=device,
+                      index=index)
     u1 = (b1 >> 8).to(torch.float32) * 2.0 ** -24 + 2.0 ** -25
     u2 = (b2 >> 8).to(torch.float32) * 2.0 ** -24
     r = torch.sqrt(-2.0 * torch.log(u1))

@@ -88,13 +88,16 @@ def leaf_noise(seed, path, leaf: torch.Tensor) -> torch.Tensor:
     return prng.normal(seed, path_salt(path), leaf.shape, device=leaf.device)
 
 
-def perturb(params, seed: torch.Tensor, scale: float):
+def perturb(params, seed: torch.Tensor, scale: float, maps=None):
     """theta + scale * z for every leaf, out of place (theta is needed
     again for the other probes and the update). seed: int32 [1] on the
-    params' device."""
+    params' device. ``maps``: on a mesh, a tree like ``params`` of each
+    shard's ``prng.IndexMap`` (its global flat indices), so every rank
+    perturbs its shards with no communication and draws the one-device
+    z of its elements."""
     return map_with_path(
-        lambda path, leaf: ops.zo_perturb(leaf, seed, path_salt(path), scale),
-        params)
+        lambda path, leaf: ops.zo_perturb(leaf, seed, path_salt(path), scale,
+                                          index=_at(maps, path)), params)
 
 
 def perturb_slice(pparams, salts, sizes, p_idx: int, seed: torch.Tensor,
@@ -112,20 +115,26 @@ def perturb_slice(pparams, salts, sizes, p_idx: int, seed: torch.Tensor,
 
 
 def _at(tree, path):
+    """The leaf of ``tree`` at ``path`` (None for a None tree)."""
+    if tree is None:
+        return None
     for k in path:
         tree = tree[k]
     return tree
 
 
-def zo_update(params, seed: torch.Tensor, step_size: torch.Tensor):
+def zo_update(params, seed: torch.Tensor, step_size: torch.Tensor,
+              maps=None):
     """theta - step_size * z (z replayed from ``seed``): one-record
     ``zo_fused_replay``. step_size: an f32 scalar tensor on the params'
-    device, so the update needs no device-to-host read."""
+    device, so the update needs no device-to-host read. ``maps`` as in
+    ``perturb``."""
     seeds = seed.reshape(1, 1)
     coeffs = step_size.to(torch.float32).reshape(1, 1)
     return map_with_path(
         lambda path, leaf: ops.zo_fused_replay(leaf, seeds, coeffs,
-                                               path_salt(path)),
+                                               path_salt(path),
+                                               index=_at(maps, path)),
         params)
 
 

@@ -25,6 +25,10 @@
 // a grid-stride loop. In place (out == theta) is allowed: every element
 // is read and written by the same thread.
 //
+// A rank's shard of a sharded leaf replays at its global flat indices:
+// zo_fused_replay_map_* take the shard's index map (zo_noise.cuh::Map3)
+// as zo_perturb_map_* do, one fastdiv pair a 16-byte vector.
+//
 // C interface (ctypes): returns cudaGetLastError() after the launch.
 #include <cstdint>
 
@@ -86,6 +90,75 @@ __global__ void __launch_bounds__(zo::kThreads)
   }
 }
 
+// The shard form: element e replays at map_index(e). VEC > 1 only where
+// VEC divides the run length e2; UNIT: the innermost stride is 1.
+template <typename T, int VEC, bool UNIT>
+__global__ void __launch_bounds__(zo::kThreads)
+    zo_replay_map_kernel(const T* theta, T* out, const uint32_t* seeds,
+                         const float* coeffs, int S, int P, uint32_t salt,
+                         zo::Map3 m, uint32_t n) {
+  using E = zo::Elt<T>;
+  using Pk = zo::Pack<T, VEC>;
+  extern __shared__ uint32_t smem[];
+  uint32_t* s_seed = smem;
+  float* s_coef = reinterpret_cast<float*>(smem + S * P);
+  for (int r = threadIdx.x; r < S * P; r += blockDim.x) {
+    s_seed[r] = seeds[r];
+    s_coef[r] = coeffs[r];
+  }
+  __syncthreads();
+  const size_t nvec = n / VEC;
+  const size_t stride = static_cast<size_t>(gridDim.x) * blockDim.x;
+  const size_t tid = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  for (size_t i = tid; i < nvec; i += stride) {
+    Pk p = reinterpret_cast<const Pk*>(theta)[i];
+    const uint32_t g = zo::map_index(static_cast<uint32_t>(i * VEC), m);
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) {
+      p.v[j] = E::store(replay_one<T>(E::load(p.v[j]),
+                                      g + j * (UNIT ? 1u : m.s2), s_seed,
+                                      s_coef, S, P, salt));
+    }
+    reinterpret_cast<Pk*>(out)[i] = p;
+  }
+}
+
+template <typename T, int VEC, bool UNIT>
+cudaError_t launch_map_vec(const T* t, T* o, const uint32_t* seeds,
+                           const float* coeffs, int S, int P, uint32_t salt,
+                           const zo::Map3& m, uint32_t n,
+                           cudaStream_t stream) {
+  const size_t smem = static_cast<size_t>(S) * P * 8;
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        zo_replay_map_kernel<T, VEC, UNIT>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+  }
+  zo_replay_map_kernel<T, VEC, UNIT><<<zo::grid_for(n / VEC), zo::kThreads,
+                                       smem, stream>>>(t, o, seeds, coeffs, S,
+                                                       P, salt, m, n);
+  return cudaGetLastError();
+}
+
+template <typename T>
+int launch_map(const void* theta, void* out, const uint32_t* seeds,
+               const float* coeffs, int S, int P, uint32_t salt,
+               const zo::Map3& m, uint32_t n, cudaStream_t stream) {
+  constexpr int kVec = 16 / sizeof(T);
+  const T* t = static_cast<const T*>(theta);
+  T* o = static_cast<T*>(out);
+  if (zo::aligned16(theta, out) && m.e2 % kVec == 0) {
+    if (m.s2 == 1)      // a run of consecutive indices: the usual shard
+      return static_cast<int>(launch_map_vec<T, kVec, true>(
+          t, o, seeds, coeffs, S, P, salt, m, n, stream));
+    return static_cast<int>(launch_map_vec<T, kVec, false>(
+        t, o, seeds, coeffs, S, P, salt, m, n, stream));
+  }
+  return static_cast<int>(launch_map_vec<T, 1, false>(t, o, seeds, coeffs, S,
+                                                      P, salt, m, n, stream));
+}
+
 template <typename T, int VEC>
 cudaError_t launch_vec(const T* t, T* o, const uint32_t* seeds,
                        const float* coeffs, int S, int P, uint32_t salt,
@@ -132,4 +205,22 @@ extern "C" int zo_fused_replay_bf16(const void* theta, void* out,
                                     cudaStream_t stream) {
   return launch<__nv_bfloat16>(theta, out, seeds, coeffs, S, P, salt, n,
                                stream);
+}
+
+extern "C" int zo_fused_replay_map_f32(const void* theta, void* out,
+                                       const uint32_t* seeds,
+                                       const float* coeffs, int S, int P,
+                                       uint32_t salt, const zo::Map3* map,
+                                       uint32_t n, cudaStream_t stream) {
+  return launch_map<float>(theta, out, seeds, coeffs, S, P, salt, *map, n,
+                           stream);
+}
+
+extern "C" int zo_fused_replay_map_bf16(const void* theta, void* out,
+                                        const uint32_t* seeds,
+                                        const float* coeffs, int S, int P,
+                                        uint32_t salt, const zo::Map3* map,
+                                        uint32_t n, cudaStream_t stream) {
+  return launch_map<__nv_bfloat16>(theta, out, seeds, coeffs, S, P, salt,
+                                   *map, n, stream);
 }

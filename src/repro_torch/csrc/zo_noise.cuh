@@ -103,6 +103,40 @@ inline bool aligned16(const void* a, const void* b) {
           15u) == 0;
 }
 
+// ---- a shard's global flat indices ---------------------------------------
+//
+// A rank's shard of a sharded leaf holds elements whose global flat indices
+// are strided: local element e (row-major over extents e0 x e1 x e2) sits
+// at base + i0 * s0 + i1 * s1 + i2 * s2 (src/repro_torch/core/prng.py::
+// IndexMap, at most three levels after contiguous dims merge). The kernels
+// split a local index into (run, column) with Lemire's 32-bit fastdiv
+// (one 64-bit high multiply a division, no division instruction), once
+// per 16-byte vector: a vector never crosses a run, since the wrapper takes
+// the vector path only where VEC divides e2. Every global index is below
+// 2^32 (the wrapper holds the map's largest), so the sums cannot wrap.
+struct Map3 {
+  uint64_t m1, m2;     // ceil(2^64 / e1), ceil(2^64 / e2) mod 2^64 (0: e = 1)
+  uint32_t e1, e2;     // the inner two extents (e0 = n / (e1 * e2))
+  uint32_t s0, s1, s2;
+  uint32_t base;
+};
+
+// floor(a / d) for every uint32 a and 1 <= d < 2^32, from m = ceil(2^64 /
+// d) mod 2^64 (Lemire, Kaser and Kurz 2019: a 64-bit m is exact for a
+// 32-bit numerator); m = 0 stands for d = 1.
+__device__ __forceinline__ uint32_t fastdiv(uint32_t a, uint64_t m) {
+  return m ? static_cast<uint32_t>(__umul64hi(m, a)) : a;
+}
+
+// The global flat index of local element e.
+__device__ __forceinline__ uint32_t map_index(uint32_t e, const Map3& m) {
+  const uint32_t r = fastdiv(e, m.m2);
+  const uint32_t c = e - r * m.e2;
+  const uint32_t i0 = fastdiv(r, m.m1);
+  const uint32_t i1 = r - i0 * m.e1;
+  return m.base + i0 * m.s0 + i1 * m.s1 + c * m.s2;
+}
+
 // ---- the int8 lane ------------------------------------------------------
 //
 // The sparse uniform noise z = m * u of Alg. 2, op for op

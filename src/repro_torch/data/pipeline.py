@@ -15,7 +15,9 @@ stream (``record_stream``), so that the caching allocator does not hand
 its block to the side stream again before the step that reads it is
 done. A failure in the worker is raised from ``get`` (the reference's
 ``get`` would block forever). The reference's ``shardings`` argument is
-a ``device`` here: the mesh waits for the port's distribution slice.
+a ``device`` here; on a mesh each rank makes the same global batch (a
+function of the step) and keeps its rows (``lm_batch_fn(..., rows=)``,
+``rank_rows``).
 """
 from __future__ import annotations
 
@@ -33,13 +35,29 @@ from . import synthetic
 HostBatch = Dict[str, np.ndarray]
 
 
-def lm_batch_fn(cfg: ModelConfig, shape: ShapeConfig, seed: int = 0
-                ) -> Callable[[int], HostBatch]:
+def rank_rows(shape: ShapeConfig, rules, coords) -> slice:
+    """This rank's rows of the global batch (``core/api.py::
+    batch_shardings``: over the rules' batch axes, every row for a batch
+    those axes do not divide), at mesh ``coords``."""
+    from ..core.api import batch_shardings
+    from ..sharding.collectives import rows_slice
+    B = shape.global_batch
+    spec = batch_shardings({"tokens": (B, shape.seq_len)}, rules)["tokens"]
+    return rows_slice(B, spec[0] if spec else None, coords, rules.sizes)
+
+
+def lm_batch_fn(cfg: ModelConfig, shape: ShapeConfig, seed: int = 0,
+                rows: Optional[slice] = None) -> Callable[[int], HostBatch]:
     """step -> host batch dict for the LM train step: ``tokens``,
     ``labels`` (int32 [B, S_tok]) and ``mask`` (f32), with f32 zero
     ``frames`` [B, encoder_seq, d] for an encoder and ``img`` [B,
     num_image_tokens, d] for image tokens; ``S_tok = seq_len -
-    num_image_tokens``."""
+    num_image_tokens``. ``rows``: keep these rows of the global batch (a
+    rank's, ``rank_rows``)."""
+    if rows is not None:
+        whole = lm_batch_fn(cfg, shape, seed)
+        return lambda step: {k: np.ascontiguousarray(v[rows])
+                             for k, v in whole(step).items()}
     S_tok = shape.seq_len - (cfg.num_image_tokens or 0)
 
     def fn(step: int) -> HostBatch:

@@ -59,27 +59,32 @@ def topk_topp_mask(logits, k, p):
     raise ValueError(f"topk_topp_mask: no path for {logits.device}")
 
 
-def zo_perturb(theta, seed, salt: int, scale: float, offset: int = 0):
+def zo_perturb(theta, seed, salt: int, scale: float, offset: int = 0,
+               index=None):
     """theta' = cast(theta + scale * z(seed, salt, offset + flat index)).
     seed: an int32 [1] tensor on theta's device holding the uint32 seed;
     ``offset`` places theta inside a larger leaf (a period's slice of a
-    stacked leaf draws that leaf's noise)."""
+    stacked leaf draws that leaf's noise); ``index`` (a
+    ``core/prng.py::IndexMap``) places a rank's shard of a sharded leaf
+    at its global flat indices."""
     if theta.is_cuda:
-        return _perturb.zo_perturb(theta, seed, salt, scale, offset)
+        return _perturb.zo_perturb(theta, seed, salt, scale, offset, index)
     if theta.device.type == "cpu":
-        return ref.zo_perturb_ref(theta, seed, salt, scale, offset)
+        return ref.zo_perturb_ref(theta, seed, salt, scale, offset, index)
     raise ValueError(f"zo_perturb: no path for {theta.device}")
 
 
-def zo_fused_replay(theta, seeds, coeffs, salt: int, out=None):
+def zo_fused_replay(theta, seeds, coeffs, salt: int, out=None, index=None):
     """S steps x P probes of (seed, coeff) records applied to one leaf,
     accumulate-then-cast per step. seeds int32 [S, P] (uint32 values),
     coeffs f32 [S, P], on theta's device. ``out`` may be theta itself
-    (an in-place update)."""
+    (an in-place update); ``index`` as in ``zo_perturb``."""
     if theta.is_cuda:
-        return _replay.zo_fused_replay(theta, seeds, coeffs, salt, out=out)
+        return _replay.zo_fused_replay(theta, seeds, coeffs, salt, out=out,
+                                       index=index)
     if theta.device.type == "cpu":
-        new = ref.zo_fused_replay_ref(theta, seeds, coeffs, salt)
+        new = ref.zo_fused_replay_ref(theta, seeds, coeffs, salt,
+                                      index=index)
         return new if out is None else out.copy_(new)
     raise ValueError(f"zo_fused_replay: no path for {theta.device}")
 

@@ -156,28 +156,30 @@ def _scalar_seed(seed):
 
 
 def zo_perturb_ref(theta: torch.Tensor, seed, salt: int, scale: float,
-                   offset: int = 0) -> torch.Tensor:
+                   offset: int = 0, index=None) -> torch.Tensor:
     """theta + scale * z with z over the flat index ``offset + i``
     (``repro/kernels/ref.py::zo_perturb_ref``; offset lets a caller check
-    a large leaf chunk by chunk). seed: a Python int or a one-element int
+    a large leaf chunk by chunk), or at ``index``'s indices (a rank's
+    shard's ``prng.IndexMap``). seed: a Python int or a one-element int
     tensor holding the uint32 seed; scale is rounded to f32."""
     flat = theta.reshape(-1)
     z = prng.normal(_scalar_seed(seed), salt, flat.shape, offset,
-                    device=theta.device)
+                    device=theta.device, index=index)
     out = flat.to(torch.float32) + float(np.float32(scale)) * z
     return out.reshape(theta.shape).to(theta.dtype)
 
 
 def zo_fused_replay_ref(theta: torch.Tensor, seeds: torch.Tensor,
                         coeffs: torch.Tensor, salt: int,
-                        offset: int = 0) -> torch.Tensor:
+                        offset: int = 0, index=None) -> torch.Tensor:
     """S steps of P (seed, coeff) records on one leaf
     (``repro/kernels/ref.py::zo_fused_replay_ref``): per step, sum
     coeff * z in probe order in f32 starting from 0, subtract once, cast
     to the leaf dtype; the next step starts from the cast value. seeds
     int [S, P] (uint32 values), coeffs f32 [S, P]. Separate eager mul and
     add kernels, so no FMA contraction; S single steps equal one S-step
-    call bitwise."""
+    call bitwise. z over the flat index ``offset + i``, or at ``index``'s
+    indices (a rank's shard's ``prng.IndexMap``)."""
     S, P = seeds.shape
     shape, dtype = theta.shape, theta.dtype
     n = theta.numel()
@@ -186,7 +188,7 @@ def zo_fused_replay_ref(theta: torch.Tensor, seeds: torch.Tensor,
         inner = torch.zeros_like(x)
         for p in range(P):
             z = prng.normal(seeds[s, p], salt, (n,), offset,
-                            device=theta.device)
+                            device=theta.device, index=index)
             inner = inner + coeffs[s, p] * z
         x = (x - inner).to(dtype).to(torch.float32)
     return x.reshape(shape).to(dtype)

@@ -9,7 +9,9 @@ pass, with the per-step accumulate-then-cast order of
 accumulating in int32 and clamping once a step
 (``ref.zo_fused_replay_int8_ref``; ``zo_fused_replay_int8`` is a table of
 one leaf). ``launches`` and ``int8_launches`` count the launches of each
-kernel and nothing else.
+kernel and nothing else. ``zo_fused_replay`` given an ``index`` (a
+rank's shard's ``core/prng.py::IndexMap``) replays at the shard's global
+flat indices through the kernel's shard form.
 """
 from __future__ import annotations
 
@@ -18,8 +20,8 @@ import ctypes
 import torch
 
 from . import _build
-from .zo_perturb import (check_leaf, device_ints, int8_noise_args,
-                         launch_leaves, leaf_table)
+from .zo_perturb import (Map3, check_leaf, device_ints, int8_noise_args,
+                         launch_leaves, leaf_table, map_args)
 
 launches = 0
 int8_launches = 0
@@ -30,6 +32,10 @@ _U64 = ctypes.c_uint64
 _SYMBOLS = {torch.float32: "zo_fused_replay_f32",
             torch.bfloat16: "zo_fused_replay_bf16"}
 _ARGS = [_P, _P, _P, _P, _I, _I, ctypes.c_uint32, ctypes.c_uint32, _P]
+_MAP_SYMBOLS = {torch.float32: "zo_fused_replay_map_f32",
+                torch.bfloat16: "zo_fused_replay_map_bf16"}
+_MAP_ARGS = [_P, _P, _P, _P, _I, _I, ctypes.c_uint32, ctypes.POINTER(Map3),
+             ctypes.c_uint32, _P]
 _INT8_ARGS = [_P, _I, _P, _P, _I, _I, _I, _U64, _U64, _I, _P]
 MAX_RECORDS = 227 * 1024 // 8   # S * P seeds and coeffs in the f32 kernel's
 #                                 shared memory; the int8 one takes as many
@@ -39,10 +45,12 @@ def _fn(dtype):
     return _build.function("zo_fused_replay", _SYMBOLS[dtype], _ARGS)
 
 
-def zo_fused_replay(theta, seeds, coeffs, salt: int, out=None):
+def zo_fused_replay(theta, seeds, coeffs, salt: int, out=None, index=None):
     """theta [any] f32/bf16 contiguous on a CUDA device; seeds int32 [S, P]
-    (uint32 values) and coeffs f32 [S, P] on the same device. Returns a
-    new tensor, or writes ``out`` (which may be theta itself)."""
+    (uint32 values) and coeffs f32 [S, P] on the same device; z at the
+    flat indices 0..n-1, or at ``index``'s (an ``IndexMap`` of theta's
+    elements). Returns a new tensor, or writes ``out`` (which may be
+    theta itself)."""
     global launches
     check_leaf("zo_fused_replay", theta, out, salt)
     if seeds.dim() != 2:
@@ -61,8 +69,16 @@ def zo_fused_replay(theta, seeds, coeffs, salt: int, out=None):
     if theta.numel() == 0:
         return out
     stream = torch.cuda.current_stream(theta.device).cuda_stream
-    rc = _fn(theta.dtype)(theta.data_ptr(), out.data_ptr(), seeds.data_ptr(),
-                          coeffs.data_ptr(), S, P, salt, theta.numel(), stream)
+    args = (theta.data_ptr(), out.data_ptr(), seeds.data_ptr(),
+            coeffs.data_ptr(), S, P, salt)
+    m = None if index is None else map_args("zo_fused_replay", index,
+                                            theta.numel())
+    if m is None or (index.is_contiguous and index.base == 0):
+        rc = _fn(theta.dtype)(*args, theta.numel(), stream)
+    else:             # the offset form has no offset: the shard form
+        rc = _build.function("zo_fused_replay", _MAP_SYMBOLS[theta.dtype],
+                             _MAP_ARGS)(*args, ctypes.byref(m),
+                                        theta.numel(), stream)
     if rc:
         raise RuntimeError(f"zo_fused_replay: launch failed with CUDA error "
                            f"{rc}")

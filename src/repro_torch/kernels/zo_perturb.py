@@ -8,6 +8,12 @@ int8 lane's sparse uniform z, on every int8 leaf of a model in one launch
 (``int8_perturb`` is a table of one leaf). ``launches`` and
 ``int8_launches`` count the launches of each kernel and nothing else.
 
+``zo_perturb`` draws z at ``offset + i`` (a whole leaf, a period's slice
+of a stacked one), or, given ``index``, at a rank's shard's global flat
+indices (``core/prng.py::IndexMap``, up to three levels): such a map goes
+to the shard form of the kernel (``map_args`` packs it), one of one
+contiguous run to the offset form.
+
 The int8 kernels take the noise's keep test and remainder as integer
 constants computed here once a launch: ``keep_bound`` and
 ``fastmod_magic``.
@@ -31,6 +37,19 @@ _U32 = ctypes.c_uint32
 _U64 = ctypes.c_uint64
 _SYMBOLS = {torch.float32: "zo_perturb_f32", torch.bfloat16: "zo_perturb_bf16"}
 _ZO_ARGS = [_P, _P, _P, _U32, ctypes.c_float, _U32, _U32, _P]
+_MAP_SYMBOLS = {torch.float32: "zo_perturb_map_f32",
+                torch.bfloat16: "zo_perturb_map_bf16"}
+
+
+class Map3(ctypes.Structure):
+    """``csrc/zo_noise.cuh::Map3``: a shard's index map for the kernels."""
+    _fields_ = [("m1", ctypes.c_uint64), ("m2", ctypes.c_uint64),
+                ("e1", ctypes.c_uint32), ("e2", ctypes.c_uint32),
+                ("s0", ctypes.c_uint32), ("s1", ctypes.c_uint32),
+                ("s2", ctypes.c_uint32), ("base", ctypes.c_uint32)]
+
+
+_MAP_ARGS = [_P, _P, _P, _U32, ctypes.c_float, ctypes.POINTER(Map3), _U32, _P]
 _INT8_ARGS = [_P, _I, _P, _I, _I, _U64, _U64, _P]
 MAX_ELEMENTS = 2**32 - 1        # flat indices are uint32
 MAX_SALT = 2**30                # 2 * salt + 2 must stay below 2**32
@@ -71,13 +90,40 @@ def device_ints(name: str, t, device, shape):
     return t.contiguous()
 
 
-def zo_perturb(theta, seed, salt: int, scale: float, offset: int = 0):
+def map_args(name: str, index, n: int) -> "Map3":
+    """The kernels' ``Map3`` of an ``IndexMap`` of ``n`` elements: its
+    levels padded to three at the outer side, the inner two extents'
+    fastdiv constants (``fastmod_magic``: ceil(2**64 / e), 0 for e = 1)."""
+    if index.numel != n:
+        raise ValueError(f"{name}: {index} holds {index.numel} elements, the "
+                         f"leaf {n}")
+    if len(index.levels) > 3:
+        raise ValueError(f"{name}: {index} has more than three levels")
+    if index.max_index > MAX_ELEMENTS:
+        raise ValueError(f"{name}: {index} reaches flat index "
+                         f"{index.max_index}, past 2**32 - 1")
+    (e0, s0), (e1, s1), (e2, s2) = ((1, 0),) * (3 - len(index.levels)) \
+        + index.levels
+    return Map3(fastmod_magic(e1), fastmod_magic(e2), e1, e2, s0, s1, s2,
+                index.base)
+
+
+def zo_perturb(theta, seed, salt: int, scale: float, offset: int = 0,
+               index=None):
     """theta [any] f32/bf16 contiguous on a CUDA device; seed an int32 [1]
     tensor on the same device holding the uint32 seed; scale a host float
-    (rounded to f32); z is drawn over the flat indices offset + i, which
-    must stay below 2**32. Returns a new tensor."""
+    (rounded to f32); z is drawn over the flat indices offset + i, or at
+    ``index``'s (an ``IndexMap`` of theta's elements, in place of
+    ``offset``), which must stay below 2**32. Returns a new tensor."""
     global launches
     check_leaf("zo_perturb", theta, None, salt)
+    m = None
+    if index is not None:
+        if offset:
+            raise ValueError("zo_perturb: an offset and an index map")
+        m = map_args("zo_perturb", index, theta.numel())
+        if index.is_contiguous:         # one run: the offset form
+            offset, m = index.base, None
     if not 0 <= offset <= 2**32 - theta.numel():
         raise ValueError(f"zo_perturb: offset {offset} + {theta.numel()} "
                          "elements passes 2**32 (flat indices are uint32)")
@@ -86,8 +132,14 @@ def zo_perturb(theta, seed, salt: int, scale: float, offset: int = 0):
     if theta.numel() == 0:
         return out
     stream = torch.cuda.current_stream(theta.device).cuda_stream
-    rc = _fn(theta.dtype)(theta.data_ptr(), out.data_ptr(), seed.data_ptr(),
-                          salt, float(scale), offset, theta.numel(), stream)
+    args = (theta.data_ptr(), out.data_ptr(), seed.data_ptr(), salt,
+            float(scale))
+    if m is None:
+        rc = _fn(theta.dtype)(*args, offset, theta.numel(), stream)
+    else:
+        rc = _build.function("zo_perturb", _MAP_SYMBOLS[theta.dtype],
+                             _MAP_ARGS)(*args, ctypes.byref(m),
+                                        theta.numel(), stream)
     if rc:
         raise RuntimeError(f"zo_perturb: launch failed with CUDA error {rc}")
     launches += 1

@@ -1,8 +1,13 @@
 """Transformer layers: RMS and per-head group norms, RoPE, GQA attention,
 SwiGLU MLP.
 
-The port of ``repro/models/layers.py`` for one device: the attention plan
-is the single-device one (no KV-head duplication, no Q-head padding).
+The port of ``repro/models/layers.py``. On one device the attention plan
+is the single-device one (no KV-head duplication, no Q-head padding); on
+a mesh (``run``, a ``sharding/collectives.py::MeshRun``) the training
+forward runs the rules' ``tp`` plan on the rank's heads
+(``_attention_tp``: KV heads duplicated to the TP degree, Q heads padded,
+as ``repro/models/layers.py:153-186``) and the SwiGLU MLP on the rank's
+d_ff slice, each closing with an all-reduce over `model`.
 Attention covers what serving and training run: self-attention over the
 whole sequence for prefill and train (causal; non-causal in Whisper's
 encoder) and cross-attention over external keys and values (Whisper's
@@ -16,6 +21,7 @@ package's: wq/wk/wv [d, heads, Dh], wo [H, Dh, d].
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional, Tuple
 
@@ -31,11 +37,26 @@ Q_CHUNK = 4096          # query block size for chunked attention
 # --------------------------------------------------------------------- #
 # init helpers
 # --------------------------------------------------------------------- #
+_DRAW_HOOKS = []
+
+
+@contextlib.contextmanager
+def draw_hook(fn):
+    """Inside, every ``dense_init`` draw returns ``fn(weight)`` (the
+    sharded init keeps a rank's slice of each leaf as it is drawn)."""
+    _DRAW_HOOKS.append(fn)
+    try:
+        yield
+    finally:
+        _DRAW_HOOKS.pop()
+
+
 def dense_init(gen: torch.Generator, shape, dtype, *, fan_in: int):
     """N(0, 1/fan_in) weights drawn in f32 on the generator's device."""
     w = torch.randn(shape, generator=gen, dtype=torch.float32,
                     device=gen.device)
-    return (w * (1.0 / math.sqrt(max(fan_in, 1)))).to(dtype)
+    w = (w * (1.0 / math.sqrt(max(fan_in, 1)))).to(dtype)
+    return _DRAW_HOOKS[-1](w) if _DRAW_HOOKS else w
 
 
 # --------------------------------------------------------------------- #
@@ -173,6 +194,89 @@ def attention(p, x, cfg: ModelConfig, positions, *, causal=True, window=0,
     return out, (k, v)
 
 
+def _model_sharded(spec) -> bool:
+    return spec is not None and any(
+        "model" in (ax if isinstance(ax, tuple) else (ax,)) for ax in spec)
+
+
+def _rank_part(w, spec, dim, idx, run):
+    """The rank's part (indices ``idx`` along ``dim``) of a weight whose
+    ``dim`` is replicated over `model` (its gradient summed there), or
+    the weight itself where ``spec`` shards it over `model`."""
+    if _model_sharded(spec):
+        return w
+    from ..sharding.collectives import copy_to
+    w = copy_to(w, run.model_group)
+    return w.index_select(dim, torch.as_tensor(idx, device=w.device))
+
+
+def _attention_tp(p, x, cfg: ModelConfig, positions, specs, run, *,
+                  causal: bool, window: int):
+    """Self-attention of a training forward on the rank's heads under the
+    rules' ``tp`` plan. The rank holds padded Q heads [r Hp/tp, (r+1)
+    Hp/tp) (Hp = H + q_pad; heads past H are zero activations), i.e. KV
+    groups [r KVd/tp, (r+1) KVd/tp) of KVd = KV * kv_dup, group j reading
+    KV head j // kv_dup; weights replicated over `model` (a head count
+    the mesh does not divide) are indexed to those heads. The output
+    projection's partial sum is all-reduced over `model`
+    (``_row_parallel``)."""
+    from ..sharding.collectives import copy_to
+    plan = run.rules.attn
+    if plan.kind != "tp":
+        raise NotImplementedError(
+            f"the {plan.kind!r} attention plan ({cfg.name} at tp "
+            f"{run.tp}) waits for the fsdp / serve slice (ROADMAP.md "
+            "queue 1)")
+    B, S, _ = x.shape
+    H, KV, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    tp, r = run.tp, run.model_rank
+    dup = plan.kv_dup
+    Hp, KVd = H + plan.q_pad, KV * dup
+    hq, kvl = Hp // tp, KVd // tp
+    h0, j0 = r * hq, r * kvl
+    real = list(range(h0, min(h0 + hq, H)))
+    kv_heads = [j // dup for j in range(j0, j0 + kvl)]
+    scale = 1.0 / math.sqrt(Dh)
+    xm = copy_to(x, run.model_group)
+    wq = _rank_part(p["wq"], specs["wq"], 1, real, run)
+    wk = _rank_part(p["wk"], specs["wk"], 1, kv_heads, run)
+    wv = _rank_part(p["wv"], specs["wv"], 1, kv_heads, run)
+    q = torch.einsum("bsd,dhk->bshk", xm, wq)
+    k = torch.einsum("bsd,dhk->bshk", xm, wk)
+    v = torch.einsum("bsd,dhk->bshk", xm, wv)
+    if cfg.qk_norm:
+        q = rms_norm(q, copy_to(p["q_norm"], run.model_group), cfg.norm_eps)
+        k = rms_norm(k, copy_to(p["k_norm"], run.model_group), cfg.norm_eps)
+    if cfg.rope_theta > 0:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+    if len(real) < hq:                           # padded Q heads
+        q = torch.cat([q, q.new_zeros(B, S, hq - len(real), Dh)], dim=2)
+    if not (q.requires_grad or k.requires_grad or v.requires_grad):
+        y = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                v.transpose(1, 2), causal=causal,
+                                window=window, scale=scale).transpose(1, 2)
+    else:
+        y = _chunked_self_attention(q.reshape(B, S, kvl, hq // kvl, Dh), k,
+                                    v, positions, window, scale,
+                                    causal=causal)
+    y = y.reshape(B, S, hq, Dh)[:, :, :len(real)]
+    wo = _rank_part(p["wo"], specs["wo"], 0, real, run)
+    return _row_parallel("bshk,hkd->bsd", y, wo, run)
+
+
+def _row_parallel(eq: str, x, w, run):
+    """A product whose contraction is split over `model`: each rank's
+    partial sum in f32, all-reduced, rounded once to x's dtype (as one
+    device rounds the whole sum once). On one `model` rank, the plain
+    product."""
+    from ..sharding.collectives import reduce_to
+    if run.tp == 1:
+        return torch.einsum(eq, x, w)
+    out = torch.einsum(eq, x.float(), w.float())
+    return reduce_to(out, run.model_group).to(x.dtype)
+
+
 def _dense_decode(q, k, v, cache, cache_len: int, window: int, scale):
     """The S = 1 step against a dense cache (``repro/models/layers.py``
     ``attention``'s cache branch and ``_ring_write``)."""
@@ -240,7 +344,18 @@ def init_mlp(gen, d, ff, dtype, lead=()):
     }
 
 
-def mlp(p, x):
+def mlp(p, x, specs=None, run=None):
+    """SwiGLU. On a mesh (``run``) with d_ff sharded over `model` (its
+    ``specs``), each rank computes its d_ff slice and the down
+    projection's partial sum is all-reduced over `model`
+    (``_row_parallel``)."""
+    sharded = run is not None and run.tp > 1 \
+        and _model_sharded(specs["w_gate"])
+    if sharded:
+        from ..sharding.collectives import copy_to
+        x = copy_to(x, run.model_group)
     h = F.silu(torch.einsum("bsd,df->bsf", x, p["w_gate"]))
     h = h * torch.einsum("bsd,df->bsf", x, p["w_up"])
+    if sharded:
+        return _row_parallel("bsf,fd->bsd", h, p["w_down"], run)
     return torch.einsum("bsf,fd->bsd", h, p["w_down"])

@@ -14,6 +14,13 @@ Image tokens arrive as embeddings [B, num_image_tokens, d] and go before
 the text (``embed``). ``run_periods`` is a Python loop over periods
 where the JAX package scans; it takes zero periods too (a one-period
 stack's empty BP tail).
+
+On a mesh (``run``, a ``sharding/collectives.py::MeshRun``; training
+forwards of attention-only decoder stacks) each block gathers its
+weights' FSDP shards over `data` just before use and drops them after
+(``MeshRun.weights``), the embedding looks up the rank's vocab rows and
+all-reduces over `model`, and the loss is vocab-parallel over `model`
+and summed over `data` (``lm_loss``). The other stacks raise there.
 """
 from __future__ import annotations
 
@@ -23,7 +30,8 @@ import torch
 
 from ..configs.base import ATTN, MAMBA, RWKV, ModelConfig
 from ..core import zo
-from .layers import attention, dense_init, init_attention, init_mlp, mlp, rms_norm
+from .layers import (_attention_tp, attention, dense_init, init_attention,
+                     init_mlp, mlp, rms_norm)
 from .moe import init_moe, moe_ffn
 from .ssm import (init_mamba_block, init_mamba_state, init_rwkv_block,
                   init_rwkv_state, mamba_block, rwkv_block)
@@ -124,9 +132,41 @@ def num_periods(periods) -> int:
     return periods.shape[0]
 
 
+def check_mesh_stack(cfg: ModelConfig):
+    """Raises unless ``cfg`` is what a mesh executes: an attention-only
+    decoder stack with dense FFNs and RoPE, trained."""
+    why = None
+    if cfg.encoder_layers:
+        why = "an encoder-decoder stack"
+    elif cfg.num_image_tokens:
+        why = "an image-token prefix"
+    elif cfg.is_moe:
+        why = "MoE FFNs"
+    elif any(kind != ATTN for kind in cfg.pattern):
+        why = "recurrent (Mamba / RWKV6) blocks"
+    elif cfg.rope_theta <= 0:
+        why = "learned positions"
+    if why:
+        raise NotImplementedError(
+            f"{cfg.name} under a mesh: {why} waits for a later distribution "
+            "slice (ROADMAP.md queue 1); the port shards the training of "
+            "attention-only decoder stacks")
+
+
+def _block_on_mesh(p, x, cfg: ModelConfig, positions, run, j: int):
+    """One attention block of a training forward on a mesh."""
+    specs = run.block_specs[f"blk{j}"]
+    p = run.weights(p, specs)
+    h = rms_norm(x, p["ln_attn"], cfg.norm_eps)
+    x = x + _attention_tp(p["attn"], h, cfg, positions, specs["attn"], run,
+                          causal=True, window=cfg.sliding_window)
+    h = rms_norm(x, p["ln_ffn"], cfg.norm_eps)
+    return x + mlp(p["mlp"], h, specs["mlp"], run)
+
+
 def apply_block(p, x, cfg: ModelConfig, kind: str, *, positions, mode: str,
                 cache=None, cache_len=None, paged=None, full_kv=False,
-                enc_out=None):
+                enc_out=None, run=None, j: int = 0):
     """One block of kind ``kind``. Returns (x, cache entry).
 
     mode "prefill": the entry is this block's new state: {"k", "v"}
@@ -142,10 +182,13 @@ def apply_block(p, x, cfg: ModelConfig, kind: str, *, positions, mode: str,
     written in place, recurrent state included, and returned. mode
     "train": the full causal sequence, no cache; the entry is None. mode
     "encode": as "train", but the self-attention is not causal
-    (Whisper's encoder blocks).
+    (Whisper's encoder blocks). ``run`` (a mesh; train mode only): the
+    block is pattern position ``j``, its leaves the rank's shards.
     """
     if mode not in ("prefill", "decode", "train", "encode"):
         raise ValueError(f"unknown mode {mode!r}")
+    if run is not None:                # train_engine checked the stack
+        return _block_on_mesh(p, x, cfg, positions, run, j), None
     state = cache if mode == "decode" else None
     if kind == RWKV:
         x, new = rwkv_block(p["rwkv"], x, cfg, state)
@@ -205,14 +248,14 @@ def _entry(mode: str, cache, new):
 
 def run_periods(periods, x, cfg: ModelConfig, *, positions, mode,
                 caches=None, cache_len=None, paged=None, full_kv=False,
-                enc_out=None):
+                enc_out=None, run=None):
     """Run the stacked periods in order. caches: one entry (a dict) per
     pattern position, stacked like the params (leading dim = periods).
     ``enc_out`` [B, encoder_seq, d] is what Whisper's decoder blocks
     cross-attend to (prefill and train; decode reads the cached ck / cv).
     Returns (x, caches): prefill stacks the new entries (an empty dict
     per position over zero periods); decode returns ``caches``, updated
-    in place; train returns None."""
+    in place; train returns None. ``run``: the mesh (train mode)."""
     entries = [[] for _ in cfg.pattern]
     for i in range(num_periods(periods)):
         for j, kind in enumerate(cfg.pattern):
@@ -222,7 +265,7 @@ def run_periods(periods, x, cfg: ModelConfig, *, positions, mode,
                 tree_map(lambda a: a[i], periods[f"blk{j}"]), x, cfg, kind,
                 positions=positions, mode=mode, cache=ci,
                 cache_len=cache_len, paged=paged, full_kv=full_kv,
-                enc_out=enc_out)
+                enc_out=enc_out, run=run, j=j)
             if mode == "prefill":
                 entries[j].append(e)
     if mode == "decode":
@@ -263,10 +306,17 @@ def run_periods_paired(periods, x_pair, cfg: ModelConfig, *, positions,
     return h[0], h[1]
 
 
-def embed(params, tokens, positions=None, img=None):
+def embed(params, tokens, positions=None, img=None, run=None):
     """Token embeddings [B, S, d], after ``img`` [B, n_img, d] (LLaVA's
     image-token embeddings) when given, plus ``pos_embed[positions]``
-    where the stack learns its positions (positions [B, n_img + S])."""
+    where the stack learns its positions (positions [B, n_img + S]).
+    On a mesh (``run``) the table's FSDP shards are gathered and, where
+    its vocab rows are sharded over `model`, each rank looks up the
+    tokens in its rows (zeros elsewhere) and the rows are all-reduced
+    over `model`: one nonzero term a row, so the lookup is exact."""
+    if run is not None:
+        from ..sharding.collectives import vocab_embed
+        return vocab_embed(params["embed"], tokens, run)
     x = params["embed"][tokens.to(torch.int64)]
     if img is not None:
         x = torch.cat([img.to(x.dtype), x], dim=1)
@@ -295,25 +345,43 @@ def head_logits(params, x, cfg: ModelConfig):
     return torch.einsum("bsd,dv->bsv", h, params["unembed"])
 
 
-def lm_loss(params, x, labels, mask, cfg: ModelConfig):
+def lm_loss(params, x, labels, mask, cfg: ModelConfig, run=None):
     """Cross-entropy over the padded vocab in ``CE_CHUNKS`` sequence
     chunks (f32 logits), masked mean over tokens. labels [B, S] in
-    [0, padded_vocab); mask [B, S] f32. Returns an f32 scalar."""
+    [0, padded_vocab); mask [B, S] f32. Returns an f32 scalar. On a mesh
+    (``run``; the rank's rows) the unembedding's vocab columns are
+    sharded over `model` (a vocab-parallel log-sum-exp and label logit)
+    and the sums over tokens are all-reduced over `data`, so every rank
+    returns the global mean."""
     S = x.shape[1]
     n = CE_CHUNKS if S % CE_CHUNKS == 0 and S >= CE_CHUNKS else 1
     c = S // n
-    h = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    if run is not None:
+        from ..sharding.collectives import reduce_to
+        from ..sharding.collectives import vocab_parallel_ce
+        norm = run.weight(params["final_norm"], run.specs["final_norm"])
+        unembed = run.weight(params["unembed"], run.specs["unembed"])
+        h = rms_norm(x, norm, cfg.norm_eps)
+    else:
+        h = rms_norm(x, params["final_norm"], cfg.norm_eps)
     tot = cnt = 0.0
     for i in range(n):
         sl = slice(i * c, (i + 1) * c)
-        logits = torch.einsum("bsd,dv->bsv", h[:, sl],
-                              params["unembed"]).float()
-        logz = torch.logsumexp(logits, dim=-1)
-        ll = torch.gather(logits, -1,
-                          labels[:, sl].to(torch.int64)[..., None])[..., 0]
+        lab = labels[:, sl].to(torch.int64)
+        if run is not None:
+            nll = vocab_parallel_ce(h[:, sl], unembed, lab, run)
+        else:
+            logits = torch.einsum("bsd,dv->bsv", h[:, sl],
+                                  params["unembed"]).float()
+            logz = torch.logsumexp(logits, dim=-1)
+            ll = torch.gather(logits, -1, lab[..., None])[..., 0]
+            nll = logz - ll
         mc = mask[:, sl].float()
-        tot = tot + ((logz - ll) * mc).sum()
+        tot = tot + (nll * mc).sum()
         cnt = cnt + mc.sum()
+    if run is not None:
+        tot = reduce_to(tot, run.data_group)
+        cnt = reduce_to(cnt, run.data_group)
     return tot / torch.clamp(cnt, min=1.0)
 
 

@@ -27,8 +27,16 @@ Async: ``AsyncCheckpointer.save`` copies the leaves to host memory at
 the call, then writes the files on a background thread.
 
 Restores go onto a given device or the template leaves' devices, one
-leaf at a time; resharding onto a mesh waits for the port's distribution
-slice.
+leaf at a time.
+
+On a mesh (``run``, a ``sharding/collectives.py::MeshRun``, to save
+with; ``shardings``, its ``descs``, to restore onto) a save gathers one
+leaf at a time from every rank's shard and rank 0 writes today's files,
+so a
+checkpoint does not depend on the mesh that wrote it (and the JAX
+package reads it); a restore reads each leaf and keeps the rank's slice,
+so any mesh (or none) restores any checkpoint. ``AsyncCheckpointer``
+gathers at the call, and rank 0 writes on its thread.
 """
 from __future__ import annotations
 
@@ -86,8 +94,26 @@ def flatten_with_keys(params) -> List[Tuple[str, Any]]:
     return out
 
 
-def _snapshot(params) -> Dict[str, Tuple[np.ndarray, str]]:
-    return {k: _host(v) for k, v in flatten_with_keys(params)}
+def _snapshot(params, run=None) -> Optional[Dict[str, Tuple[np.ndarray,
+                                                               str]]]:
+    """Host copies of every leaf by key. On a mesh (``run``) every rank
+    takes part in gathering each global leaf in turn, and rank 0 alone
+    gets the snapshot (the others None)."""
+    if run is None:
+        return {k: _host(v) for k, v in flatten_with_keys(params)}
+    out = {}
+    for path, leaf in zo.leaves_with_path(params):
+        full = run.gather_leaf(path, leaf)
+        if run.rank == 0:
+            out[zo.keystr(path)] = _host(full)
+        del full
+    return out if run.rank == 0 else None
+
+
+def _barrier(run):
+    if run is not None:
+        import torch.distributed as dist
+        dist.barrier()
 
 
 def _atomic_commit(ckpt_dir: str | Path, step: int, manifest: Dict,
@@ -127,11 +153,19 @@ def _write_arrays(tmp: Path, arrays: Dict[str, Tuple[np.ndarray, str]]):
              **{str(i): a for i, (a, _) in enumerate(arrays.values())})
 
 
-def save(ckpt_dir: str | Path, step: int, params, extra: Optional[Dict] = None):
-    """Synchronous save with atomic commit."""
-    arrays = _snapshot(params)
-    return _atomic_commit(ckpt_dir, step, _array_manifest(step, arrays, extra),
-                          lambda tmp: _write_arrays(tmp, arrays))
+def save(ckpt_dir: str | Path, step: int, params, extra: Optional[Dict] = None,
+         run=None):
+    """Synchronous save with atomic commit. On a mesh (``run``, the
+    ``MeshRun``) every rank calls it; rank 0 writes, and every rank
+    returns once the checkpoint is committed. Returns its directory."""
+    arrays = _snapshot(params, run)
+    d = Path(ckpt_dir) / f"step_{step:08d}"
+    if arrays is not None:
+        d = _atomic_commit(ckpt_dir, step,
+                           _array_manifest(step, arrays, extra),
+                           lambda tmp: _write_arrays(tmp, arrays))
+    _barrier(run)
+    return d
 
 
 def save_delta(ckpt_dir: str | Path, step: int, base_step: int,
@@ -156,14 +190,19 @@ def save_delta(ckpt_dir: str | Path, step: int, base_step: int,
 class AsyncCheckpointer:
     """Snapshot on the call, write on a thread; one save in flight."""
 
-    def __init__(self, ckpt_dir: str | Path, keep: int = 3):
+    def __init__(self, ckpt_dir: str | Path, keep: int = 3, run=None):
         self.dir = Path(ckpt_dir)
         self.keep = keep
+        self.run = run
         self._thread: Optional[threading.Thread] = None
 
     def save(self, step: int, params, extra=None):
+        """Snapshots now (on a mesh every rank takes part in the gather)
+        and writes on a thread (rank 0)."""
         self.wait()
-        snapshot = _snapshot(params)
+        snapshot = _snapshot(params, self.run)
+        if snapshot is None:
+            return
         led = obs.get().memory
         key = ("ckpt.pending", id(self), step)
         if led.armed:
@@ -185,9 +224,12 @@ class AsyncCheckpointer:
         self._thread.start()
 
     def wait(self):
+        """Joins the writer; on a mesh every rank returns once it is
+        done."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        _barrier(self.run)
 
     def _gc(self):
         steps = sorted(p for p in self.dir.glob("step_*")
@@ -208,7 +250,7 @@ def latest_step(ckpt_dir: str | Path) -> Optional[int]:
 
 
 def restore(ckpt_dir: str | Path, template, step: Optional[int] = None,
-            replay_fn=None, device=None) -> Tuple[Any, int]:
+            replay_fn=None, device=None, shardings=None) -> Tuple[Any, int]:
     """Restore into ``template``'s tree structure with the saved dtypes,
     each leaf onto ``device`` when given, else onto its template leaf's
     device. Returns (params, step). A template of ``meta`` tensors (shapes
@@ -218,6 +260,11 @@ def restore(ckpt_dir: str | Path, template, step: Optional[int] = None,
     Delta checkpoints also need ``replay_fn(params, ledger_bytes,
     base_step, step) -> params``: the full checkpoint at the base is
     restored first, then the ledger slice is replayed on top.
+
+    ``shardings``: a tree like ``template`` of this rank's
+    ``sharding/params.py::ShardDesc``s (``MeshRun.descs``): each leaf is
+    read whole and the rank's slice kept. The template's shapes are then
+    the global ones (``core/api.py::abstract_params``) or the shards'.
     """
     if step is None:
         step = latest_step(ckpt_dir)
@@ -232,7 +279,7 @@ def restore(ckpt_dir: str | Path, template, step: Optional[int] = None,
                 f"{manifest['base_step']}); pass replay_fn to restore it")
         base_step = int(manifest["base_step"])
         params, _ = restore(ckpt_dir, template, step=base_step,
-                            device=device)
+                            device=device, shardings=shardings)
         params = replay_fn(params, (d / "ledger.bin").read_bytes(),
                            base_step, step)
         return params, int(manifest["step"])
@@ -242,9 +289,12 @@ def restore(ckpt_dir: str | Path, template, step: Optional[int] = None,
         raise KeyError(f"checkpoint missing keys: {sorted(missing)[:5]} ...")
 
     with np.load(d / "arrays.npz") as z:
-        def load(key, like):
+        def load(key, like, desc=None):
             i = index[key]
             t = _from_saved(z[str(i)], manifest["dtypes"][i])
+            if desc is not None:
+                from ..sharding.params import shard_leaf
+                t = shard_leaf(t, desc)
             if not isinstance(like, torch.Tensor):
                 return t
             dev = torch.device(device) if device is not None else like.device
@@ -258,5 +308,5 @@ def restore(ckpt_dir: str | Path, template, step: Optional[int] = None,
             if isinstance(v, QTensor):
                 return QTensor(load(key + ".data", v.data),
                                load(key + ".exp", v.exp))
-            return load(key, v)
+            return load(key, v, zo._at(shardings, path))
         return zo.map_with_path(leaf, template), int(manifest["step"])

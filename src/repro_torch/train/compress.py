@@ -9,8 +9,12 @@ reference's, and so are the bits: x = g + r, scale = max(max|x|, 1e-30)
 / 127, q = clip(round(x / scale)) (IEEE f32 division, round half to
 even), new_r = x - q * scale.
 
-``compressed_psum``, the multi-device collective, waits for the port's
-distribution layer.
+``compressed_psum`` is the collective over a process group
+(``repro/train/compress.py:55-81``, a ``shard_map`` helper there): the
+local maxima all-reduced with MAX fix a shared scale, every rank
+quantises against it, the int8 payloads are summed in int32 (exact) and
+dequantised, the residual kept. Like the reference, a library function:
+no train path calls it.
 """
 from __future__ import annotations
 
@@ -48,3 +52,40 @@ def compress_tree(grads, residuals):
 def decompress_tree(qs, scales):
     return zo.rebuild(qs, [int8_decompress(q, s)
                            for q, s in zip(zo.leaves(qs), zo.leaves(scales))])
+
+
+def shared_quantise(g: torch.Tensor, r: torch.Tensor, group=None):
+    """``compressed_psum``'s steps (1) and (2) for one tensor: (q int8,
+    the scale shared by every rank of ``group``, x = g + r in f32)."""
+    import torch.distributed as dist
+    x = g.to(torch.float32) + r
+    top = x.abs().amax() if x.numel() else x.new_zeros(())
+    top = torch.clamp(top, min=1e-30).reshape(1)
+    dist.all_reduce(top, op=dist.ReduceOp.MAX, group=group)
+    scale = top[0] / 127.0
+    return torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8), \
+        scale, x
+
+
+def compressed_psum(grads, residuals, group=None):
+    """Quantise -> all-reduce (int32) -> dequantise over ``group`` (the
+    default group for None): (average f32 tree, new residual tree).
+
+    Protocol: (1) an all-reduce MAX of the local max |g + r| (floored at
+    1e-30) fixes a shared scale per tensor, (2) every rank quantises
+    against it, (3) the int8 payloads are summed in int32, exactly, (4)
+    avg = sum * scale / n, and the residual keeps the rank's own
+    quantisation error. Wire format ~1 byte an element."""
+    import torch.distributed as dist
+    n = dist.get_world_size(group)
+
+    def one(g, r):
+        q, scale, x = shared_quantise(g, r, group)
+        new_r = x - q.to(torch.float32) * scale
+        tot = q.to(torch.int32)
+        dist.all_reduce(tot, group=group)
+        return tot.to(torch.float32) * scale / n, new_r
+
+    outs = [one(g, r) for g, r in zip(zo.leaves(grads), zo.leaves(residuals))]
+    return (zo.rebuild(grads, [o[0] for o in outs]),
+            zo.rebuild(grads, [o[1] for o in outs]))

@@ -7,11 +7,13 @@ The port of ``repro/train/elastic_runtime.py``. The contract
      (``core/prng.py``), the same on any device count;
   3. checkpoints restore onto whatever devices exist now.
 
-``resume_on_mesh`` packages this: given a checkpoint directory it builds
-the step function and returns a state that continues bitwise where the
-saved run stopped. This port runs on one device: ``mesh`` must be None,
-and any other raises ``NotImplementedError`` until the port's
-distribution slice (ROADMAP) brings sharding and ``--mesh``.
+``resume_on_mesh`` packages this: given a checkpoint directory and a
+mesh (a ``launch/mesh.py::make_mesh`` ``DeviceMesh``, or None for one
+device) it builds the rules, the shard descriptors and the step function,
+and returns a state that continues where the saved run stopped, whatever
+mesh saved it: bitwise on the mesh that saved it, within the sharded
+reductions' rounding on another. A mesh takes the ``tp`` strategy (the
+others raise until a later distribution slice, ROADMAP.md queue 1).
 
 The port labels a checkpoint with the number of steps its params hold
 (``train/train_loop.py``), so a resume from a checkpoint this package
@@ -21,7 +23,7 @@ resume from one of those runs one step twice.
 """
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Optional, Tuple
+from typing import Any, Callable, NamedTuple, Optional, Tuple
 
 from ..configs.base import LaneConfig, ModelConfig, ShapeConfig
 from ..core import api, keys
@@ -33,29 +35,38 @@ from .train_loop import init_state
 
 class TrainModel(NamedTuple):
     """What a step is built from: ``engine.make_step(loss_fn)`` (and
-    ``core/engine.py::profile_step_phases(engine, loss_fn, ...)``)."""
+    ``core/engine.py::profile_step_phases(engine, loss_fn, ...)``);
+    ``run``, the ``MeshRun`` of a mesh (None on one device)."""
     engine: Fp32Engine
     loss_fn: Callable
-
-
-def _single_device(mesh, strategy: str):
-    if mesh is not None or strategy != "tp":
-        raise NotImplementedError(
-            "the port runs on one device: a mesh and its sharding strategy "
-            "wait for its distribution slice (ROADMAP.md, sharding and "
-            "--mesh)")
+    run: Any = None
 
 
 def build_for_mesh(cfg: ModelConfig, shape: ShapeConfig, lane: LaneConfig,
                    mesh=None, strategy: str = "tp"
                    ) -> Tuple[TrainModel, Callable]:
-    """(model, step) of ``lane`` for ``cfg``; ``mesh`` must be None and
-    ``strategy`` its default, or this raises ``NotImplementedError``.
-    ``shape`` is the reference's signature and unused here (it sizes a
-    learned ``pos_embed`` in ``resume_on_mesh``)."""
-    _single_device(mesh, strategy)
-    engine, loss_fn = api.train_engine(cfg, lane)
-    return TrainModel(engine, loss_fn), engine.make_step(loss_fn)
+    """(model, step) of ``lane`` for ``cfg`` on ``mesh`` (None: one
+    device). A mesh binds ``ShardingRules(mesh, cfg, shape, strategy)``
+    and the params' specs and shard descriptors (``model.run``); only
+    the ``tp`` strategy runs."""
+    run = None
+    if mesh is not None:
+        from ..sharding.collectives import MeshRun
+        from ..sharding.rules import ShardingRules
+        if strategy != "tp":
+            raise NotImplementedError(
+                f"the {strategy!r} strategy under a mesh waits for a later "
+                "distribution slice (ROADMAP.md queue 1); the port runs "
+                "'tp'")
+        rules = ShardingRules(mesh, cfg, shape, strategy=strategy)
+        run = MeshRun(mesh, rules, api.abstract_params(
+            cfg, lane, max_seq=shape.seq_len))
+    elif strategy != "tp":
+        raise NotImplementedError(
+            f"strategy {strategy!r} without a mesh: the strategies but 'tp' "
+            "wait for a later distribution slice (ROADMAP.md queue 1)")
+    engine, loss_fn = api.train_engine(cfg, lane, run)
+    return TrainModel(engine, loss_fn, run), engine.make_step(loss_fn)
 
 
 def resume_on_mesh(ckpt_dir, cfg: ModelConfig, shape: ShapeConfig,
@@ -63,20 +74,26 @@ def resume_on_mesh(ckpt_dir, cfg: ModelConfig, shape: ShapeConfig,
                    strategy: str = "tp", device=None
                    ) -> Tuple[TrainState, TrainModel, Callable]:
     """Restore the newest checkpoint under ``ckpt_dir`` onto ``device``
-    (the card unless the caller passes another), at its step; without
-    one (or with ``ckpt_dir`` None) a fresh init from ``seed``. The key
-    data comes from ``seed`` either way. Returns (state, model, step).
+    (the card unless the caller passes another; a rank's own device on
+    a mesh), at its step; without one (or with ``ckpt_dir`` None) a
+    fresh init from ``seed``. The key data comes from ``seed`` either
+    way. Returns (state, model, step). On a mesh the params are the
+    rank's shards (``model.run.descs``), restored or drawn one leaf at a
+    time.
 
     The checkpoint is read into a template of shapes only
     (``api.abstract_params``): no full init is drawn and then
     overwritten, so the device holds one copy of the params."""
     model, step = build_for_mesh(cfg, shape, lane, mesh, strategy)
     dev = api.resolve_device(device)
+    run = model.run
     last: Optional[int] = ckpt.latest_step(ckpt_dir) if ckpt_dir else None
     if last is None:
         params = api.init(cfg, lane, seed=seed, device=dev,
-                          max_seq=shape.seq_len)
+                          max_seq=shape.seq_len, run=run)
         return init_state(params, seed), model, step
     template = api.abstract_params(cfg, lane, max_seq=shape.seq_len)
-    params, at_step = ckpt.restore(ckpt_dir, template, step=last, device=dev)
+    params, at_step = ckpt.restore(ckpt_dir, template, step=last, device=dev,
+                                   shardings=None if run is None
+                                   else run.descs)
     return TrainState(params, at_step, keys.key_data(seed)), model, step

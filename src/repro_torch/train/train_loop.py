@@ -22,6 +22,11 @@ one stopped. (The JAX loop labels its periodic checkpoints one step early:
 the one it calls N holds the params after N + 1 steps.)
 ``mask_fn(step)`` gives explicit per-step probe masks, as the fleet's
 single-process reference takes the realised masks of a fleet run.
+
+On a mesh (``param_shardings``, the ``sharding/collectives.py::MeshRun``
+of the params) every rank runs the loop on its shards and rows: the
+checkpoints gather to rank 0, which writes them, restores keep each
+rank's slice, and only rank 0 logs.
 """
 from __future__ import annotations
 
@@ -85,19 +90,26 @@ def _log_train(msg: str, **fields):
 
 def run(step_fn: Callable, state: TrainState,
         batch_fn: Callable[[int], Dict[str, Any]], cfg: LoopConfig,
-        log: Optional[Callable[..., None]] = _log_train) -> RunResult:
+        log: Optional[Callable[..., None]] = _log_train,
+        param_shardings=None) -> RunResult:
     """Steps ``state.step`` .. ``cfg.total_steps - 1``. batch_fn(step) ->
-    a batch on the params' device. ``state`` is consumed (the step
-    updates the ZO leaves in place). ``log(msg, step=, loss=)`` takes the
-    progress lines (``obs.log`` on the ``train`` channel; None drops
-    them)."""
-    saver = ckpt.AsyncCheckpointer(cfg.ckpt_dir, cfg.keep) \
+    a batch on the params' device (the rank's rows on a mesh).
+    ``state`` is consumed (the step updates the ZO leaves in place).
+    ``log(msg, step=, loss=)`` takes the progress lines (``obs.log`` on
+    the ``train`` channel; None drops them, as every rank but 0 does on
+    a mesh). ``param_shardings``: the params' ``MeshRun`` on a mesh."""
+    mesh = param_shardings
+    if mesh is not None and mesh.rank != 0:
+        log = None
+    saver = ckpt.AsyncCheckpointer(cfg.ckpt_dir, cfg.keep, run=mesh) \
         if cfg.ckpt_dir else None
     start = state.step
     if cfg.ckpt_dir:
         last = ckpt.latest_step(cfg.ckpt_dir)
         if last is not None and last > start:
-            params, last = ckpt.restore(cfg.ckpt_dir, state.params)
+            params, last = ckpt.restore(
+                cfg.ckpt_dir, state.params,
+                shardings=None if mesh is None else mesh.descs)
             state = TrainState(params, last, state.seed)
             start = last
             if log is not None:

@@ -282,6 +282,75 @@ def test_zo_perturb_offset_slices_equal_the_whole_leaf(dev, dtype):
                               2**32 - size + 1)
 
 
+# a rank's shard of a leaf: (global shape, spec, mesh sizes, coordinates),
+# giving index maps of one level (a contiguous run, the offset form), one
+# strided level, two and three levels, runs the 16-byte vector does and
+# does not divide, and an innermost stride of 2
+SHARD_CASES = [
+    ((8, 64), ("data", None), {"data": 4, "model": 1},
+     {"data": 2, "model": 0}, 1),
+    ((4, 8, 2), (None, None, "model"), {"data": 1, "model": 2},
+     {"data": 0, "model": 1}, 1),
+    ((64, 48), ("model", "data"), {"data": 2, "model": 2},
+     {"data": 1, "model": 1}, 2),
+    ((64, 40), (None, "model"), {"data": 1, "model": 4},
+     {"data": 0, "model": 3}, 2),
+    ((6, 40, 24), (None, "data", "model"), {"data": 2, "model": 2},
+     {"data": 1, "model": 1}, 3),
+    ((5, 16, 12, 20), (None, "data", "model", None),
+     {"data": 2, "model": 2}, {"data": 0, "model": 1}, 3),
+    ((3, 8, 16, 64), (None, "model", None, "data"),
+     {"data": 2, "model": 2}, {"data": 1, "model": 0}, 3),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", range(len(SHARD_CASES)))
+def test_zo_kernels_shard_form_matches_plain_bitwise(dev, dtype, case):
+    """The shard forms (an index map, sharding/params.py::shard_desc)
+    bitwise their plain versions, and the whole leaf's kernel output
+    sliced."""
+    from repro_torch.sharding.params import shard_desc
+    shape, spec, sizes, coords, levels = SHARD_CASES[case]
+    d = shard_desc(shape, spec, coords, sizes)
+    assert len(d.index.levels) == levels
+    g = torch.Generator(device=dev).manual_seed(case)
+    whole = torch.randn(shape, generator=g, device=dev, dtype=dtype)
+    theta = whole[d.slices].contiguous()
+    seeds, coeffs = _zo_records(dev)
+    got = zo_perturb.zo_perturb(theta, seeds[0, :1], 77, -1e-3, index=d.index)
+    assert torch.equal(got, ref.zo_perturb_ref(theta, seeds[0, :1], 77, -1e-3,
+                                               index=d.index))
+    assert torch.equal(got, zo_perturb.zo_perturb(whole, seeds[0, :1], 77,
+                                                  -1e-3)[d.slices])
+    fused = zo_fused_replay.zo_fused_replay(theta, seeds, coeffs, 77,
+                                            index=d.index)
+    assert torch.equal(fused, ref.zo_fused_replay_ref(theta, seeds, coeffs,
+                                                      77, index=d.index))
+    assert torch.equal(fused, zo_fused_replay.zo_fused_replay(
+        whole, seeds, coeffs, 77)[d.slices])
+    live = theta.clone()
+    for s in range(seeds.shape[0]):
+        zo_fused_replay.zo_fused_replay(live, seeds[s:s + 1], coeffs[s:s + 1],
+                                        77, out=live, index=d.index)
+    assert torch.equal(live, fused)
+
+
+def test_zo_kernels_refuse_a_map_past_2_32(dev):
+    from repro_torch.core.prng import IndexMap
+    seeds, coeffs = _zo_records(dev)
+    x = torch.zeros(4, 8, device=dev)
+    with pytest.raises(ValueError, match="elements"):
+        zo_perturb.zo_perturb(x, seeds[0, :1], 1, 1e-3,
+                              index=IndexMap(0, ((4, 16), (4, 1))))
+    with pytest.raises(ValueError, match="three levels"):
+        zo_fused_replay.zo_fused_replay(
+            x, seeds, coeffs, 1,
+            index=IndexMap(0, ((2, 999), (2, 99), (2, 9), (4, 1))))
+    with pytest.raises(ValueError, match="2\\*\\*32"):
+        IndexMap(2**32 - 8, ((4, 1), (8, 1)))
+
+
 # (B, H, Hkv, Sq, Sk, D, causal, window); q/k/v are transposed views of
 # [B, S, heads, D] tensors, as the model passes them, but in the last case
 FLASH_CASES = [

@@ -307,12 +307,18 @@ def test_restore_into_meta_template_needs_a_device(tmp_path):
 
 
 def test_a_mesh_is_not_ported():
-    with pytest.raises(NotImplementedError, match="distribution slice"):
-        build_for_mesh(_llama(), SHAPE, LANE, mesh=object())
-    with pytest.raises(NotImplementedError):
-        resume_on_mesh(None, _llama(), SHAPE, LANE, mesh=object(),
-                       device="cpu")
-    for strategy in ("fsdp", "dp"):     # a strategy needs a mesh too
+    """A mesh trains in the tp strategy since the distribution slice
+    (tests/test_torch_mesh.py); every other strategy still raises, on a
+    mesh and without one."""
+    from repro_torch.launch.mesh import AbstractMesh
+    mesh = AbstractMesh((2, 2), ("data", "model"))
+    for strategy in ("fsdp", "serve", "dp"):
+        with pytest.raises(NotImplementedError, match="distribution slice"):
+            build_for_mesh(_llama(), SHAPE, LANE, mesh=mesh,
+                           strategy=strategy)
+        with pytest.raises(NotImplementedError):
+            resume_on_mesh(None, _llama(), SHAPE, LANE, mesh=mesh,
+                           strategy=strategy, device="cpu")
         with pytest.raises(NotImplementedError, match="distribution slice"):
             build_for_mesh(_llama(), SHAPE, LANE, strategy=strategy)
         with pytest.raises(NotImplementedError):

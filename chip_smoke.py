@@ -135,6 +135,11 @@ def _kernel_us(prof):
     return _kernel_events(prof)[0]
 
 
+class ProfilerDroppedRecords(RuntimeError):
+    """The profiler kept dropping kernel records: a timing could not be
+    read, as distinct from a kernel that failed."""
+
+
 def device_ms(fn, iters=30, flush=None, attempts=5):
     """Device time of one fn() call in ms, for kernels under a
     millisecond: the kernels' own durations as the profiler (CUPTI)
@@ -183,10 +188,22 @@ def device_ms(fn, iters=30, flush=None, attempts=5):
                 return us
             print(f"  (the profiler recorded {got} of {iters} x {one} kernel "
                   "records; profiled again)")
-        raise RuntimeError(f"the profiler dropped kernel records in "
-                           f"{attempts} runs")
+        raise ProfilerDroppedRecords(f"the profiler dropped kernel records "
+                                     f"in {attempts} runs")
     base = full(False) if flush is not None else 0.0
     return (full(True) - base) / iters / 1e3
+
+
+def tiny_ms(fn, what):
+    """``device_ms(fn)`` for a kernel of a few microseconds, or, where the
+    profiler keeps dropping its records (it did, once, for LeNet-5's int8
+    leaves after the earlier phases of a full run), ``graph_ms(fn)``, and
+    says so."""
+    try:
+        return device_ms(fn)
+    except ProfilerDroppedRecords as e:
+        print(f"  ({what}: {e}; timed as a CUDA graph of 100 calls)")
+        return graph_ms(fn)
 
 
 def event_ms(fn, iters, flush=None):
@@ -251,8 +268,8 @@ def kernel_records(fn, calls=3, attempts=5, whole=None):
         if got and got[0] and all(c % calls == 0 for c, _ in got[0].values()) \
                 and (whole is None or whole(got[0])):
             return got[0]
-    raise RuntimeError(f"the profiler dropped kernel records in {attempts} "
-                       "runs")
+    raise ProfilerDroppedRecords(f"the profiler dropped kernel records in "
+                                 f"{attempts} runs")
 
 
 # --------------------------------------------------------------------- #
@@ -762,6 +779,63 @@ def flash_case_times(flash_attn, ref, label, timer):
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=max(by_bytes, by_tc),
                 bound_by="bytes" if by_bytes >= by_tc else "operations",
                 library_ms=library_ms)
+
+
+# the seq plan's flash calls at qwen3-4b's heads: (B, H, Hkv, S, D, ranks)
+FLASH_OFFSET = (1, 32, 8, 4096, 128, 4)
+
+
+def check_flash_offset(flash_attn, ref):
+    """The seq attention plan's calls at qwen3-4b's shapes, bf16: the
+    sequence split four ways, rank r's 1,024 query rows at ``q_offset =
+    r * 1,024`` against keys 0 .. (r + 1) * 1,024 - 1. Each call within
+    one bf16 ulp of |o| of its plain version; the four outputs
+    concatenated bitwise the whole-sequence call (every offset is a
+    multiple of the kernel's 128-row query tile, so each query tile sees
+    the same keys in the same order). Times the four calls (CUDA events,
+    each over 10 calls) beside the whole call."""
+    B, H, Hkv, S, D, tp = FLASH_OFFSET
+    q, k, v = flash_inputs(B, H, Hkv, S, S, D, torch.bfloat16, seed=3)
+    whole = flash_attn.flash_attention(q, k, v)
+    c = S // tp
+    calls, parts, worst, bad = [], [], 0.0, 0
+    for r in range(tp):
+        lo, hi = r * c, (r + 1) * c
+        args = (q[:, :, lo:hi], k[:, :, :hi], v[:, :, :hi])
+        got = flash_attn.flash_attention(*args, q_offset=lo)
+        want = ref.flash_attention_ref(*args, q_offset=lo).float()
+        d = (got.float() - want).abs()
+        worst = max(worst, d.max().item())
+        bad += int((d > 2.0**-7 * want.abs() + 1e-6).sum())
+        parts.append(got)
+        calls.append((args, lo))
+        del want, d
+    same = torch.equal(torch.cat(parts, dim=2), whole)
+    print(f"flash_attention at q_offset, B {B} H {H}/{Hkv} D {D} S {S} over "
+          f"{tp} ranks: max |o - plain| = {worst:.3g}, {bad} elements beyond "
+          f"one bf16 ulp of |o|; the chunks concatenated bitwise the whole "
+          f"call: {same}")
+    if bad or not same:
+        raise AssertionError("flash at q_offset disagrees")
+    each = [event_ms(lambda a=a, lo=lo: flash_attn.flash_attention(
+        *a, q_offset=lo), 10) for a, lo in calls]
+    ms_whole = event_ms(lambda: flash_attn.flash_attention(q, k, v), 10)
+    bounds = []
+    for a, lo in calls:
+        n = sum(min(lo + i, a[1].shape[2] - 1) + 1 for i in range(c))
+        ops = 4 * B * H * D * n
+        nbytes = 2 * (2 * a[0].numel() + a[1].numel() + a[2].numel())
+        bounds.append(max(ops / BF16_OPS_PER_S, nbytes / HBM_BYTES_PER_S)
+                      * 1e3)
+    print(f"flash_attention at q_offset: the four calls "
+          f"{[round(x, 4) for x in each]} ms (sum {sum(each):.4f}, bounds "
+          f"{[round(x, 4) for x in bounds]}), the whole call {ms_whole:.4f} "
+          "ms")
+    del q, k, v, whole, parts
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=worst, chunks_bitwise=same, ms_by_rank=each,
+                ms_sum=sum(each), bound_ms_by_rank=bounds,
+                ms_whole=ms_whole)
 
 
 # --------------------------------------------------------------------- #
@@ -1473,14 +1547,17 @@ def check_int8_noise(zo_perturb, zo_replay, ref):
     for name in one:
         mix = per_element[name]
         for layer, (leaf, leaf_salt) in lenet.items():
-            t = device_ms(lambda: one[name](leaf, leaf_salt))
+            t = tiny_ms(lambda: one[name](leaf, leaf_salt),
+                        f"{name} on {layer}")
             b, by_ = noise_bound_ms(leaf.numel(), 1, mix, hz)
             print(f"  {name} (S=1 P=1) on LeNet-5's {layer} "
                   f"({leaf.numel()} elements) alone: {t:.4f} ms a launch, "
                   f"bound {b:.3g} ms by {by_}")
-        per_leaf = device_ms(lambda: [one[name](t, s)
-                                      for t, s in zip(leaves, salts)])
-        once = device_ms(lambda: whole[name](leaves, salts))
+        per_leaf = tiny_ms(lambda: [one[name](t, s)
+                                    for t, s in zip(leaves, salts)],
+                           f"{name} per leaf")
+        once = tiny_ms(lambda: whole[name](leaves, salts),
+                       f"{name} whole model")
         b, by_ = noise_bound_ms(total, 1, mix, hz)
         print(f"{name} on LeNet-5's {len(leaves)} int8 leaves ({total} "
               f"elements, 4 a thread): one whole-model launch {once:.4f} ms; "
@@ -1488,8 +1565,8 @@ def check_int8_noise(zo_perturb, zo_replay, ref):
               f"{per_leaf:.4f} ms in all; bound {b:.3g} ms by {by_}")
         # the kernels take 16 elements a thread from 264 tiles of 4,096 on:
         # 9 copies of LeNet-5's leaves make 261 (4 a thread), 10 make 290
-        at = {c: device_ms(lambda: whole[name](leaves * c, salts * c))
-              for c in (9, 10)}
+        at = {c: tiny_ms(lambda: whole[name](leaves * c, salts * c),
+                         f"{name} x {c}") for c in (9, 10)}
         print(f"{name} where the elements a thread switch: 9 copies of the "
               f"leaves (4 a thread) {at[9]:.4f} ms, "
               f"{1e6 * at[9] / (9 * total):.4f} ns an element; 10 copies (16 "
@@ -2365,12 +2442,15 @@ def mm_shape(a, w):
     return a.shape[0], a.shape[1], w.shape[1]
 
 
-def flash_shape(q, k, v, *, causal=True, window=0, scale=None):
+def flash_shape(q, k, v, *, causal=True, window=0, scale=None,
+                q_offset=0):
     """A call's FLASH_CASES entry (without its label); a scale other than
-    the wrapper's default 1 / sqrt(D) is kept, so it matches no entry."""
+    the wrapper's default 1 / sqrt(D), or a query offset, is kept, so it
+    matches no entry (check_flash_offset holds the offset calls)."""
     B, H, Sq, D = q.shape
     return (B, H, k.shape[1], Sq, k.shape[2], D, q.dtype, causal, window) \
-        + (() if scale is None or scale == 1.0 / math.sqrt(D) else (scale,))
+        + (() if scale is None or scale == 1.0 / math.sqrt(D) else (scale,)) \
+        + ((q_offset,) if q_offset else ())
 
 
 def check_shapes_held(name, seen, held):
@@ -2870,16 +2950,44 @@ def check_train_resume(zo_perturb, zo_replay, flash_attn, steps=8):
 # training across a mesh (torch.distributed; ranks sharing the card)
 # --------------------------------------------------------------------- #
 MESH_AXES = ("data", "model")
-MESH_LAYERS = 8                  # of qwen3-4b's 36, at full width
-MESH_STEPS = 3
+MESH_LAYERS = 4                  # of qwen3-4b's 36, at full width
+MESH_STEPS = 2                   # a lane's steps: the first untimed (it
+#                                  pays the lane's one-time costs), the
+#                                  second timed
 MESH_LOSS_RTOL = 2e-3            # bf16 losses of a sharded run against one
-#                                  device's: the row-parallel and
-#                                  vocab-parallel sums round apart. Seen on
-#                                  the H100: 1.5e-5, 1.1e-4, 3.4e-4 at steps
-#                                  0-2; a step moves the loss by 2.2e-3 and
-#                                  5.9e-3, so a lost update fails
-MESH_SMALL_TOL = 1e-4            # reduced f32 qwen3-4b at 2x2, card against
-#                                  CPU (losses and params, relative)
+#                                  device's: the row-parallel, vocab-parallel
+#                                  and gather orders round apart (at most
+#                                  1.6e-4 over the lanes on the H100, PERF.md,
+#                                  PR 25). At this cut one step's update moves
+#                                  the next loss by only 1.7e-4 at 4 x 128
+#                                  and 1.5e-3 at 4 x 512 (read once against
+#                                  the same steps at lr 0, PERF.md, PR 25),
+#                                  so no loss tolerance that passes the
+#                                  rounding fails a lost update: the leaves'
+#                                  moves below do
+MESH_MOVE_RTOL = 5e-2            # each leaf's summed |change| over a lane's
+#                                  MESH_STEPS steps against one device's
+#                                  (relative; at most 2.1e-2 over the lanes
+#                                  after 1 and after 2 steps, PERF.md, PR
+#                                  25): a lost update moves a leaf by 0, a
+#                                  gradient summed twice by twice as much,
+#                                  distance 1 either way
+MESH_SMALL_TOL = 1e-4            # reduced f32 qwen3-4b, card against CPU
+#                                  (losses and params, relative)
+# the mesh phase's lanes on a 2x2 mesh, one spawn: (label, strategy, fused
+# probes, batch, seq). The unfused lanes at 4 x 512 give the peaks the
+# fused ones stand beside, and the probe pairs theirs must equal
+MESH_LANES = (("tp", "tp", False, 4, 128),
+              ("fsdp", "fsdp", False, 4, 128),
+              ("serve", "serve", False, 4, 128),
+              ("tp 4x512", "tp", False, 4, 512),
+              ("tp fused 4x512", "tp", True, 4, 512),
+              ("fsdp 4x512", "fsdp", False, 4, 512),
+              ("fsdp fused 4x512", "fsdp", True, 4, 512))
+# reduced f32 qwen3-4b with 6 Q over 2 KV heads: 4 `model` ranks pad the
+# heads to 8 (33% waste), so the rules take the seq plan
+# (tests/test_torch_strategies.py), held at 1x4 card against CPU
+MESH_SEQ_HEADS = (6, 2)
 GLOO_PROBE_OPS = ("all_reduce", "broadcast", "all_gather", "reduce_scatter")
 
 
@@ -2924,22 +3032,28 @@ def check_gloo_probe(got):
             raise AssertionError(f"gloo's {op} on CUDA tensors: {got.get(op)}")
 
 
-def mesh_per_step(cfg):
-    """Launches a rank makes a step (elastic_zo, 1 probe, unfused): 2
-    zo_perturb and 1 zo_fused_replay a ZO leaf (embed and the 11
-    periods_zo leaves: every rank holds a shard of each), 2 flash a ZO
-    period (the rank's heads)."""
+def mesh_per_step(cfg, fused=False):
+    """Launches a rank makes a step (elastic_zo, 1 probe): 1 zo_fused_replay
+    a ZO leaf (embed and the periods_zo leaves: every rank holds a shard of
+    each); zo_perturb 2 a ZO leaf unfused, and fused 2 for embed and 2 a
+    period's leaf a ZO period (one period's slice at a time); 2 flash a ZO
+    period, in every strategy."""
     zo_periods = cfg.num_layers - 1
-    return {"zo_perturb": 24, "zo_fused_replay": 12,
+    block = 9 + 2 * cfg.qk_norm         # norms, wq/wk/wv/wo, the MLP's 3
+    perturb = 2 + 2 * block * zo_periods if fused else 2 * (1 + block)
+    return {"zo_perturb": perturb, "zo_fused_replay": 1 + block,
             "flash_attention": 2 * zo_periods}
 
 
 def _mesh_noise(trainer, zo_perturb, zo_replay):
-    """Every ZO leaf's shard perturbed and updated at its index map,
-    against the one-device kernels on a whole leaf sliced (a leaf of the
-    global shape holding the shard at its place: the elements elsewhere
-    do not reach the slice); returns the number of leaves held."""
+    """Every ZO leaf's shard perturbed and updated at its index map, and
+    each period's slice of a stacked leaf's shard perturbed at its
+    ``MeshRun.period_maps`` map (the fused pair's shard form), against the
+    one-device kernels on a whole leaf sliced (a leaf of the global shape
+    holding the shard at its place: the elements elsewhere do not reach
+    the slice); returns the number of (leaf or slice) maps held."""
     from repro_torch.core import elastic, zo
+    from repro_torch.sharding.params import period_map
     run = trainer.run
     zo_part, _ = elastic.partition(trainer.state.params, trainer.lane)
     seeds = zo.device_seeds([977, 1301], trainer.device)
@@ -2951,28 +3065,36 @@ def _mesh_noise(trainer, zo_perturb, zo_replay):
         whole = torch.zeros(d.global_shape, dtype=leaf.dtype,
                             device=leaf.device)
         whole[d.slices] = leaf
+        pert = zo_perturb.zo_perturb(whole, seeds[:1], salt, 1e-3)
         ok = torch.equal(zo_perturb.zo_perturb(leaf, seeds[:1], salt, 1e-3,
                                                index=d.index),
-                         zo_perturb.zo_perturb(whole, seeds[:1], salt,
-                                               1e-3)[d.slices])
+                         pert[d.slices])
         ok &= torch.equal(
             zo_replay.zo_fused_replay(leaf, seeds.reshape(1, 2), coeffs,
                                       salt, index=d.index),
             zo_replay.zo_fused_replay(whole, seeds.reshape(1, 2), coeffs,
                                       salt)[d.slices])
-        del whole
+        n += 1
+        if path[0] == "periods_zo":
+            for p in range(leaf.shape[0]):
+                ok &= torch.equal(
+                    zo_perturb.zo_perturb(leaf[p], seeds[:1], salt, 1e-3,
+                                          index=period_map(d, p)),
+                    pert[p][d.slices[1:]])
+                n += 1
+        del whole, pert
         if not ok:
             raise AssertionError(f"rank {run.rank}: {zo.keystr(path)}'s "
                                  "shard noise is not the whole leaf's sliced")
-        n += 1
     return n
 
 
 def mesh_train(trainer, steps):
-    """``steps`` steps of a trainer through train_loop.run fed by the
-    launcher's Prefetcher, after one warm step; returns (losses, ms a
-    timed step, device peak of the timed steps, launch counts of all
-    steps)."""
+    """``steps`` (at least 2) steps of a trainer through train_loop.run
+    fed by the launcher's Prefetcher: the first untimed (it pays the
+    process's and the shapes' one-time costs), the later ones timed.
+    Returns (losses, ms a step (the mean of the later steps), device peak
+    of the later steps, launch counts of all steps)."""
     from repro_torch.kernels import flash_attn, zo_fused_replay, zo_perturb
     from repro_torch.launch.train import prefetched
     from repro_torch.train.train_loop import LoopConfig, run
@@ -2980,8 +3102,9 @@ def mesh_train(trainer, steps):
     def loop(total):
         return LoopConfig.for_lane(trainer.lane, total_steps=total,
                                    log_every=1)
+    if steps < 2:
+        raise ValueError("mesh_train times the steps after the first")
     zo_perturb.launches = zo_fused_replay.launches = flash_attn.launches = 0
-    torch.cuda.synchronize()
     with prefetched(trainer) as batch_fn:
         state, h0 = run(trainer.step_fn, trainer.state, batch_fn, loop(1),
                         log=None, param_shardings=trainer.run)
@@ -2991,34 +3114,67 @@ def mesh_train(trainer, steps):
         state, h1 = run(trainer.step_fn, state, batch_fn, loop(steps),
                         log=None, param_shardings=trainer.run)
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        ms = 1e3 * (time.perf_counter() - t0) / (steps - 1)
     trainer.state = state
     counts = {"zo_perturb": zo_perturb.launches,
               "zo_fused_replay": zo_fused_replay.launches,
               "flash_attention": flash_attn.launches}
-    return ([loss for _, loss in h0 + h1], 1e3 * wall / (steps - 1),
+    return ([loss for _, loss in h0 + h1], ms,
             torch.cuda.max_memory_allocated(), counts)
 
 
-def _mesh_small(mesh):
-    """Reduced f32 qwen3-4b, 2 elastic_zo and 2 full_bp steps on this
-    mesh on the card and on the CPU from the same shards (the CPU init's:
-    the two devices' generators draw apart): {lane: (worst relative loss
-    distance, worst relative param distance)}."""
+def leaf_moves(params, init, run=None):
+    """{keystr: the summed |theta - theta_init| of the leaf} (f64), over
+    the global leaf: on a mesh (``run``) every rank's sum over its shard,
+    the copies of a shard counted once. ``init``: the leaves' copies in
+    ``zo.leaves`` order before the steps (they update in place)."""
+    from repro_torch.core import zo
+    paths = [p for p, _ in zo.leaves_with_path(params)]
+    local = [float((t.float() - t0.float()).abs().sum(dtype=torch.float64))
+             for t, t0 in zip(zo.leaves(params), init)]
+    if run is None:
+        return {zo.keystr(p): s for p, s in zip(paths, local)}
+    import torch.distributed as dist
+    every = [None] * run.world
+    dist.all_gather_object(every, local)
+    out = {}
+    for i, p in enumerate(paths):
+        held = {run.desc_of(p, r).starts: every[r][i]
+                for r in range(run.world)}
+        out[zo.keystr(p)] = sum(held.values())
+    return out
+
+
+def mesh_argv(batch, seq):
+    """TRAIN_ARGV at ``batch`` x ``seq`` for MESH_STEPS steps."""
+    return TRAIN_ARGV[:8] + ["--batch", str(batch), "--seq", str(seq)] \
+        + TRAIN_ARGV[12:-1] + [str(MESH_STEPS)]
+
+
+def _mesh_small(mesh, heads=None, lanes=("elastic_zo", "full_bp")):
+    """Reduced f32 qwen3-4b (with ``heads`` = (Q, KV) heads where given),
+    2 steps of each of ``lanes`` on this mesh on the card and on the CPU
+    from the same shards (the CPU init's: the two devices' generators
+    draw apart): ({lane: (worst relative loss distance, worst relative
+    param distance)}, the rules' attention plan)."""
     from repro_torch.configs import ARCHS, reduced
     from repro_torch.core import zo
     from repro_torch.launch import train as launch_train
     from repro_torch.train.train_loop import LoopConfig, run
     from repro_torch.core.elastic import TrainState
     cfg = reduced(ARCHS["qwen3-4b"], dtype="float32")
+    if heads:
+        cfg = dataclasses.replace(cfg, num_heads=heads[0],
+                                  num_kv_heads=heads[1])
     out = {}
-    for lane in ("elastic_zo", "full_bp"):
+    for lane in lanes:
         got, init = {}, None
         for dev in ("cpu", "cuda"):
             t = launch_train.setup(launch_train.parse_args(
                 ["--arch", "qwen3-4b", "--smoke", "--device", dev, "--lane",
                  lane, "--batch", "2", "--seq", "16", "--steps", "2"]),
                 cfg=cfg, mesh=mesh)
+            plan = t.run.rules.attn.kind
             if init is None:        # the CPU's draws, on both devices
                 init = zo.map_with_path(lambda p, x: x.clone(),
                                         t.state.params)
@@ -3038,17 +3194,56 @@ def _mesh_small(mesh):
                      max(float((a - b).abs().max()
                                / max(float(b.abs().max()), 1.0))
                          for a, b in zip(pc, ph)))
-    return out
+    return out, plan
 
 
-def _mesh_rank(rank, world, shape, backend, store, out_dir, layers, steps,
+def _mesh_lane(mesh, cfg, lane_spec, zo_perturb, zo_replay, noise):
+    """One lane of the mesh phase on this rank: the trainer from
+    ``launch.train.setup`` in its strategy (the fused-probe lane through
+    the lane override), the shard noise of every ZO leaf (``noise``),
+    MESH_STEPS steps, the first untimed (the engine asserts each step's
+    coefficients bitwise across ranks) with the first step's probe
+    losses, each leaf's move over them, and the replicated leaves
+    bitwise across ranks after them."""
+    from repro_torch.core import zo
+    from repro_torch.launch import train as launch_train
+    label, strategy, fused, batch, seq = lane_spec
+    args = launch_train.parse_args(mesh_argv(batch, seq))
+    lane = dataclasses.replace(launch_train.lane_from_args(args),
+                               fused_probes=fused)
+    t0 = time.perf_counter()
+    trainer = launch_train.setup(args, lane, cfg=cfg, mesh=mesh,
+                                 strategy=strategy)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    held = _mesh_noise(trainer, zo_perturb, zo_replay) if noise else 0
+    torch.cuda.empty_cache()
+    init = [t.detach().clone() for t in zo.leaves(trainer.state.params)]
+    with probe_losses() as seen:
+        losses, ms, peak, counts = mesh_train(trainer, MESH_STEPS)
+    moved = leaf_moves(trainer.state.params, init, trainer.run)
+    del init
+    res = dict(setup_s=setup_s, noise_maps=held, losses=losses, ms=ms,
+               peak=peak, counts=counts, moved=moved,
+               pair=[float(x) for x in seen[:2]],
+               replica_pairs=trainer.run.check_replicas(trainer.state.params),
+               attn=trainer.run.rules.attn.kind,
+               batch_axes=list(trainer.run.batch_axes),
+               shard_bytes=sum(t.numel() * t.element_size()
+                               for t in _leaves(trainer.state.params)))
+    del trainer
+    torch.cuda.empty_cache()
+    return res
+
+
+def _mesh_rank(rank, world, shape, backend, store, out_dir, layers, lanes,
                small):
     """One rank of the mesh phase: qwen3-4b cut to ``layers`` at full
-    width on ``shape``, through the launcher's setup: the shard noise of
-    every ZO leaf, ``steps`` steps (the engine asserts each step's
-    coefficients bitwise across ranks), the replicated leaves bitwise
-    across ranks after them, and (``small``) reduced qwen3-4b card
-    against CPU on the same mesh. Writes its numbers to out_dir."""
+    width on ``shape``, through the launcher's setup, each lane of
+    ``lanes`` (``_mesh_lane``) in turn; then (``small``) reduced qwen3-4b
+    card against CPU on the same mesh, and the reduced seq-plan config
+    card against CPU on a 1x4 mesh of the same world. Writes its numbers
+    to out_dir."""
     import torch.distributed as dist
     sys.path.insert(0, str(ROOT / "src"))
     torch.set_num_threads(2)
@@ -3056,43 +3251,41 @@ def _mesh_rank(rank, world, shape, backend, store, out_dir, layers, steps,
     from repro_torch.configs import ARCHS
     from repro_torch.kernels import zo_fused_replay, zo_perturb
     from repro_torch.launch import mesh as mesh_lib
-    from repro_torch.launch import train as launch_train
     mesh_lib.init_ranks(backend, "cuda", rank, world, store)
     try:
         probe = gloo_cuda_probe(rank, world) if backend == "gloo" else None
         mesh = mesh_lib.make_mesh(shape, MESH_AXES)
         cfg = dataclasses.replace(ARCHS["qwen3-4b"], num_layers=layers)
-        t0 = time.perf_counter()
-        trainer = launch_train.setup(launch_train.parse_args(
-            TRAIN_ARGV[:-1] + [str(steps)]), cfg=cfg, mesh=mesh)
-        torch.cuda.synchronize()
-        setup_s = time.perf_counter() - t0
-        noise = _mesh_noise(trainer, zo_perturb, zo_fused_replay)
-        torch.cuda.empty_cache()
-        losses, ms, peak, counts = mesh_train(trainer, steps)
-        held = trainer.run.check_replicas(trainer.state.params)
-        res = dict(rank=rank, probe=probe, device=str(trainer.device),
-                   setup_s=setup_s,
-                   noise_leaves=noise, losses=losses, ms=ms, peak=peak,
-                   counts=counts, replica_pairs=held,
-                   shard_bytes=sum(t.numel() * t.element_size()
-                                   for t in _leaves(trainer.state.params)))
-        del trainer
-        torch.cuda.empty_cache()
+        res = dict(rank=rank, probe=probe,
+                   device=str(torch.device("cuda",
+                                           torch.cuda.current_device())),
+                   lanes={})
+        for spec in lanes:
+            res["lanes"][spec[0]] = _mesh_lane(
+                mesh, cfg, spec, zo_perturb, zo_fused_replay,
+                noise=not spec[2] and spec[3:] == lanes[0][3:])
         if small:
-            res["small"] = _mesh_small(mesh)
+            res["small"], _ = _mesh_small(mesh)
+            seq_mesh = mesh_lib.make_mesh((1, world), MESH_AXES)
+            res["small_seq"], res["small_seq_plan"] = _mesh_small(
+                seq_mesh, MESH_SEQ_HEADS)
         Path(out_dir, f"rank{rank}.json").write_text(json.dumps(res))
     finally:
         dist.destroy_process_group()
 
 
-def check_mesh(shape, backend, want_losses, small=True,
-               layers=MESH_LAYERS, steps=MESH_STEPS):
-    """The mesh phase on ``prod(shape)`` spawned ranks: prints each
-    rank's numbers and asserts the launches a step, equal counts and
-    losses on every rank, the losses within MESH_LOSS_RTOL of one
-    device's (``want_losses``), and (``small``) the reduced model card
-    == CPU. Returns rank 0's launch counts."""
+def check_mesh(shape, backend, want_losses, want_moves, small=True,
+               layers=MESH_LAYERS, lanes=MESH_LANES):
+    """The mesh phase on ``prod(shape)`` spawned ranks, one spawn for all
+    of ``lanes``: prints each rank's numbers per lane and asserts the
+    launches a step (``mesh_per_step``), equal counts and losses on every
+    rank, the losses within MESH_LOSS_RTOL of one device's at the lane's
+    shape (``want_losses``: {(batch, seq): losses}), each leaf's move
+    within MESH_MOVE_RTOL of one device's (``want_moves``: {(batch,
+    seq): leaf_moves}), the fused lanes' first (l+, l-) bitwise the
+    unfused lane's at the same shape and strategy, and (``small``) the
+    reduced models card == CPU. Returns {lane label: rank 0's launch
+    counts}."""
     import tempfile
     from repro_torch.launch import mesh as mesh_lib
     world = math.prod(shape)
@@ -3101,7 +3294,7 @@ def check_mesh(shape, backend, want_losses, small=True,
     try:
         store = "file://" + os.path.join(d, "store")
         mesh_lib.spawn(_mesh_rank, world, (world, shape, backend, store, d,
-                                           layers, steps, small))
+                                           layers, lanes, small))
         res = [json.loads(Path(d, f"rank{r}.json").read_text())
                for r in range(world)]
     finally:
@@ -3109,66 +3302,114 @@ def check_mesh(shape, backend, want_losses, small=True,
     wall = time.perf_counter() - t0
     if backend == "gloo":
         check_gloo_probe(res[0]["probe"])
-    cfg = types.SimpleNamespace(num_layers=layers)
-    per_step = mesh_per_step(cfg)
+    cfg = types.SimpleNamespace(num_layers=layers, qk_norm=True)
     name = "x".join(map(str, shape))
-    for r in res:
-        print(f"{name} over {backend}, rank {r['rank']} on {r['device']}: "
-              f"setup {r['setup_s']:.2f} s ({r['shard_bytes']} bytes of "
-              f"shards); {r['noise_leaves']} ZO leaves' shard noise bitwise "
-              f"the whole leaf's sliced; losses "
-              f"{[round(v, 5) for v in r['losses']]}; {r['ms']:.1f} ms a "
-              f"step; device peak {r['peak']} bytes; launches "
-              f"{r['counts']} in {steps} steps; {r['replica_pairs']} "
-              "replicated (leaf, rank) pairs bitwise; coefficients bitwise "
-              "across ranks every step (asserted in the step)")
-        if r["counts"] != {k: v * steps for k, v in per_step.items()}:
-            raise AssertionError(f"rank {r['rank']}: launches {r['counts']}, "
-                                 f"want {per_step} a step")
-        if r["losses"] != res[0]["losses"]:
-            raise AssertionError("the ranks' losses differ")
-        if "small" in r:
-            print(f"  reduced f32 qwen3-4b at {name}, card against CPU "
-                  f"(worst relative loss, param distance): {r['small']}")
-            if max(max(v) for v in r["small"].values()) > MESH_SMALL_TOL:
+    worst = {}
+    steps = MESH_STEPS
+    for label, strategy, fused, batch, seq in lanes:
+        per_step = mesh_per_step(cfg, fused)
+        for r in res:
+            x = r["lanes"][label]
+            print(f"{name} {label} ({strategy}, attention plan {x['attn']}, "
+                  f"batch over {x['batch_axes']}) over {backend}, rank "
+                  f"{r['rank']} on {r['device']}: setup {x['setup_s']:.2f} s "
+                  f"({x['shard_bytes']} bytes of shards); "
+                  f"{x['noise_maps']} shard and period-slice noise maps "
+                  f"bitwise the whole leaf's sliced; losses "
+                  f"{[round(v, 5) for v in x['losses']]}; {x['ms']:.1f} ms a "
+                  f"step after an untimed one; device peak {x['peak']} bytes"
+                  f" (the timed step); launches "
+                  f"{x['counts']} in {steps} steps; {x['replica_pairs']} "
+                  "replicated (leaf, rank) pairs bitwise; coefficients "
+                  "bitwise across ranks every step (asserted in the step)")
+            if x["counts"] != {k: v * steps for k, v in per_step.items()}:
+                raise AssertionError(f"rank {r['rank']} {label}: launches "
+                                     f"{x['counts']}, want {per_step} a step")
+            if x["losses"] != res[0]["lanes"][label]["losses"]:
+                raise AssertionError(f"{label}: the ranks' losses differ")
+        x = res[0]["lanes"][label]
+        want = want_losses[(batch, seq)]
+        worst[label] = max(abs(a - b) / abs(b)
+                           for a, b in zip(x["losses"], want))
+        print(f"{name} {label}: losses against one device's of the same cut "
+              f"and shape {[round(v, 5) for v in want]}: worst relative "
+              f"distance {worst[label]:.3g} (tolerance {MESH_LOSS_RTOL})")
+        ref_moves = want_moves[(batch, seq)]
+        far = max(abs(x["moved"][k] - v) / max(v, 1e-30)
+                  for k, v in ref_moves.items())
+        print(f"{name} {label}: each leaf's summed |change| in {steps} "
+              f"step(s) against one device's: worst relative distance "
+              f"{far:.3g} (tolerance {MESH_MOVE_RTOL}; {len(ref_moves)} "
+              "leaves)")
+        if far > MESH_MOVE_RTOL:
+            raise AssertionError(f"{label}: the leaves moved otherwise than "
+                                 "one device's")
+        if fused:
+            plain = next(lbl for lbl, s, f, b, n in lanes
+                         if (s, b, n) == (strategy, batch, seq) and not f)
+            y = res[0]["lanes"][plain]
+            print(f"{name} {label}: first (l+, l-) {x['pair']}, the unfused "
+                  f"lane's {y['pair']} (bitwise: {x['pair'] == y['pair']}); "
+                  f"device peak {x['peak']} bytes, the unfused lane's "
+                  f"{y['peak']} at the same shape")
+            if x["pair"] != y["pair"]:
+                raise AssertionError(f"{label}: the fused pair is not the "
+                                     "unfused one")
+    if small:
+        for r in res:
+            print(f"  rank {r['rank']}: reduced f32 qwen3-4b at {name}, card "
+                  "against CPU (worst relative loss, param distance): "
+                  f"{r['small']}; the seq-plan config ({MESH_SEQ_HEADS[0]} Q / "
+                  f"{MESH_SEQ_HEADS[1]} KV heads, plan "
+                  f"{r['small_seq_plan']}) at 1x{world}: {r['small_seq']}")
+            if r["small_seq_plan"] != "seq":
+                raise AssertionError("the reduced seq-plan config did not "
+                                     "take the seq plan")
+            if max(max(v) for k in ("small", "small_seq")
+                   for v in r[k].values()) > MESH_SMALL_TOL:
                 raise AssertionError("reduced qwen3-4b on the mesh: card "
                                      "and CPU differ")
-    rel = max(abs(a - b) / abs(b) for a, b in zip(res[0]["losses"],
-                                                   want_losses))
-    print(f"{name} losses against one device's of the same cut "
-          f"{[round(v, 5) for v in want_losses]}: worst relative distance "
-          f"{rel:.3g} (tolerance {MESH_LOSS_RTOL}); the phase took "
-          f"{wall:.1f} s with the ranks' start")
-    if rel > MESH_LOSS_RTOL:
+    print(f"{name}: the phase took {wall:.1f} s with the ranks' start; worst "
+          f"relative loss distance over the lanes {max(worst.values()):.3g}")
+    if max(worst.values()) > MESH_LOSS_RTOL:
         raise AssertionError("the sharded losses left one device's")
-    return res[0]["counts"]
+    return {label: res[0]["lanes"][label]["counts"] for label, *_ in lanes}
 
 
 def check_train_mesh():
-    """qwen3-4b cut to MESH_LAYERS at full width: one device's losses
-    (this process), then the 2x2 mesh of 4 ranks sharing the card over
-    gloo. Returns (rank 0's launches, the one-device run's)."""
+    """qwen3-4b cut to MESH_LAYERS at full width: one device's losses and
+    leaf moves at each lane shape (this process), then the lanes on the
+    2x2 mesh of 4 ranks sharing the card over gloo. Returns (rank 0's
+    launches by lane, the one-device losses and leaf moves at 4 x
+    128)."""
     from repro_torch.configs import ARCHS
     from repro_torch.launch import train as launch_train
+    from repro_torch.core import zo
     cfg = dataclasses.replace(ARCHS["qwen3-4b"], num_layers=MESH_LAYERS)
-    one = launch_train.setup(launch_train.parse_args(
-        TRAIN_ARGV[:-1] + [str(MESH_STEPS)]), cfg=cfg)
-    want, ms, peak, counts = mesh_train(one, MESH_STEPS)
-    print(f"qwen3-4b ({MESH_LAYERS} of 36 layers) on one device: losses "
-          f"{[round(v, 5) for v in want]}, {ms:.1f} ms a step, peak {peak} "
-          f"bytes, launches {counts}")
-    del one
-    torch.cuda.empty_cache()
-    return check_mesh((2, 2), "gloo", want), want
+    want, moves = {}, {}
+    for batch, seq in sorted({spec[3:] for spec in MESH_LANES}):
+        one = launch_train.setup(launch_train.parse_args(
+            mesh_argv(batch, seq)), cfg=cfg)
+        init = [t.detach().clone() for t in zo.leaves(one.state.params)]
+        want[(batch, seq)], ms, peak, counts = mesh_train(one, MESH_STEPS)
+        moves[(batch, seq)] = leaf_moves(one.state.params, init)
+        print(f"qwen3-4b ({MESH_LAYERS} of 36 layers) at {batch} x {seq} on "
+              f"one device: losses {[round(v, 5) for v in want[(batch, seq)]]}"
+              f", {ms:.1f} ms a step, peak {peak} bytes, launches {counts}")
+        del one, init
+        torch.cuda.empty_cache()
+    return (check_mesh((2, 2), "gloo", want, moves), want[(4, 128)],
+            moves[(4, 128)])
 
 
-def check_train_mesh_nccl(want_losses, cut_losses):
+def check_train_mesh_nccl(want_losses, cut_losses, cut_moves):
     """Whole qwen3-4b on a 1x1 mesh over NCCL in this process (world size
     1; the coefficient check all-gathers through NCCL every step),
     against the one-device run's losses (``want_losses``, the resume
     phase's plain run): bitwise, since a group of one rank is the
-    identity. Then, where the machine has four cards, the 2x2 phase over
-    NCCL, a card a rank, against one device's ``cut_losses``. Returns (the 1x1 run's launches, whether the
+    identity. Then, where the machine has four cards, the 2x2 ``tp`` lane
+    over NCCL, a card a rank, against one device's ``cut_losses`` and
+    ``cut_moves``. Returns (the 1x1 run's launches, whether the
     four-card run ran)."""
     import tempfile
     import torch.distributed as dist
@@ -3197,7 +3438,8 @@ def check_train_mesh_nccl(want_losses, cut_losses):
         raise AssertionError("the 1x1 mesh over NCCL left the one-device run")
     four = torch.cuda.device_count() >= 4
     if four:                # the cut's losses: check_train_mesh's one device
-        check_mesh((2, 2), "nccl", cut_losses, small=False)
+        check_mesh((2, 2), "nccl", {(4, 128): cut_losses},
+                   {(4, 128): cut_moves}, small=False, lanes=MESH_LANES[:1])
     print(f"2x2 over NCCL on four cards: {'ran' if four else 'not run'} "
           f"({torch.cuda.device_count()} card(s) here)")
     return counts, four
@@ -3907,6 +4149,8 @@ def main():
     torch.cuda.empty_cache()
     zo_times["flash_attention"] = check_flash(flash_attn, ref)
     torch.cuda.empty_cache()
+    zo_times["flash_attention"]["at_q_offset"] = check_flash_offset(
+        flash_attn, ref)
 
     phase("small model: card against CPU")
     check_small_model_on_card_vs_cpu(flash_attn, paged_attn)
@@ -4009,13 +4253,13 @@ def main():
           "reports the fused run's)")
     torch.cuda.empty_cache()
 
-    phase("train qwen3-4b on a 2x2 mesh (4 ranks sharing the card over "
-          "gloo)")
-    n_mesh, cut_losses = check_train_mesh()
+    phase("train qwen3-4b on a 2x2 mesh, strategies tp / fsdp / serve and "
+          "fused probes (4 ranks sharing the card over gloo)")
+    n_mesh, cut_losses, cut_moves = check_train_mesh()
     torch.cuda.empty_cache()
 
     phase("train qwen3-4b on a 1x1 mesh over NCCL")
-    n_nccl, _ = check_train_mesh_nccl(whole_losses, cut_losses)
+    n_nccl, _ = check_train_mesh_nccl(whole_losses, cut_losses, cut_moves)
     torch.cuda.empty_cache()
 
     # the family phases hold every flat index they give the ZO kernels to
@@ -4113,11 +4357,12 @@ def main():
         "train llava-next-34b (16 of 60 layers)": n_llava_train,
         "train llava-next-34b (16 of 60 layers), fused probes": n_llava_fused}
     resumed = "train qwen3-4b, plain, then prefetched and resumed"
-    mesh_2x2 = (f"train qwen3-4b ({MESH_LAYERS} of 36 layers), 2x2 mesh over "
-                "gloo, rank 0")
     mesh_1x1 = "train qwen3-4b, 1x1 mesh over NCCL"
-    mesh_paths = {k: {mesh_2x2: n_mesh[k], mesh_1x1: n_nccl[k]}
-                  for k in n_mesh}
+    mesh_paths = {k: {**{f"train qwen3-4b ({MESH_LAYERS} of 36 layers), 2x2 "
+                         f"mesh over gloo, {label}, rank 0": n[k]
+                         for label, n in n_mesh.items()},
+                      mesh_1x1: n_nccl[k]}
+                  for k in n_nccl}
     paths = {"zo_perturb": {resumed: n_resume["zo_perturb"],
                             **mesh_paths["zo_perturb"],
                             "train PointNet": n_pointnet["zo_perturb"],

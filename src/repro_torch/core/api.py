@@ -26,6 +26,7 @@ ends' embeddings, as in the JAX package.
 from __future__ import annotations
 
 import contextlib
+import math
 from typing import Optional
 
 import torch
@@ -250,7 +251,7 @@ def loss_fn(params, cfg: ModelConfig, batch, run=None):
 
 
 def paired_loss(bp_part, zo_part, cfg: ModelConfig, lane: LaneConfig, batch,
-                seed):
+                seed, run=None):
     """(l+, l-) of one antithetic probe pair, the two ZO-head streams
     advanced together (``repro/core/api.py`` ``paired_loss``): the
     leaves outside ``periods_zo`` (``embed``, and ``pos_embed`` and
@@ -260,34 +261,44 @@ def paired_loss(bp_part, zo_part, cfg: ModelConfig, lane: LaneConfig, batch,
     for each stream. Each stream's tail cross-attends to its own
     encoder's output, as in the unfused step (the JAX package gives both
     the +eps one). Bitwise the unfused path's two losses, with no
-    perturbed copy of the head. seed: int32 [1] on the params' device."""
+    perturbed copy of the head. seed: int32 [1] on the params' device.
+    On a mesh (``run``; the parts the rank's shards, the batch its rows)
+    ``embed`` is perturbed at its shard's index map and the periods go
+    through ``run_periods_paired``'s mesh forms; both losses are the
+    global ones on every rank."""
     tokens = batch["tokens"]
     frames, img = batch.get("frames"), batch.get("img")
     _check_inputs(cfg, tokens, frames, img)
     positions = _positions(tokens, cfg)
     rest = {k: v for k, v in zo_part.items() if k != "periods_zo"}
+    maps = None if run is None else run.index_maps()
     xs, encs = [], []
     with torch.no_grad():
         for scale in (lane.zo_eps, -lane.zo_eps):
-            pert = zo.perturb(rest, seed, scale)
+            pert = zo.perturb(rest, seed, scale, maps)
             encs.append(run_encoder(pert, frames, cfg)
                         if cfg.encoder_layers else None)
-            xs.append(embed(pert, tokens, positions, img))
+            xs.append(embed(pert, tokens, positions, img, run=run))
             del pert
     periods = zo_part["periods_zo"]
     n = num_periods(periods)
     salts = zo.map_with_path(
         lambda p, _: zo.path_salt(p, "['periods_zo']"), periods)
-    sizes = zo.map_with_path(lambda p, a: a.numel() // n, periods)
+    if run is None:
+        sizes = zo.map_with_path(lambda p, a: a.numel() // n, periods)
+    else:                   # the global slice: the offset form's stride
+        sizes = zo.map_with_path(
+            lambda p, a: math.prod(zo._at(run.shapes["periods_zo"], p)[1:]),
+            periods)
     xs = run_periods_paired(periods, xs, cfg, positions=positions,
                             seed=seed, eps=lane.zo_eps, salts=salts,
-                            sizes=sizes, enc_pair=encs)
+                            sizes=sizes, enc_pair=encs, run=run)
     losses = []
     for x, enc_out in zip(xs, encs):
         x, _ = run_periods(bp_part["periods_bp"], x, cfg, positions=positions,
-                           mode="train", enc_out=enc_out)
+                           mode="train", enc_out=enc_out, run=run)
         losses.append(lm_loss(bp_part, x[:, cfg.num_image_tokens:],
-                              batch["labels"], batch["mask"], cfg))
+                              batch["labels"], batch["mask"], cfg, run=run))
     return losses[0], losses[1]
 
 
@@ -297,16 +308,12 @@ def train_engine(cfg: ModelConfig, lane: LaneConfig, run=None):
     profile_step_phases(engine, loss, ...)`` times its phases. With
     ``lane.fused_probes`` an elastic_zo step takes each probe pair
     through ``paired_loss``. On a mesh (``run``) the engine perturbs and
-    updates shards and the loss is the sharded one; fused probes raise
-    there (ROADMAP.md queue 1)."""
+    updates shards and the loss (and the fused pair) is the sharded
+    one."""
     paired = None
     if lane.fused_probes and lane.lane == "elastic_zo":
-        if run is not None:
-            raise NotImplementedError(
-                "fused probes under a mesh wait for a later distribution "
-                "slice (ROADMAP.md queue 1)")
         paired = lambda bp, zo_part, batch, seed: paired_loss(  # noqa: E731
-            bp, zo_part, cfg, lane, batch, seed)
+            bp, zo_part, cfg, lane, batch, seed, run=run)
     if run is not None:
         from ..models.transformer import check_mesh_stack
         check_mesh_stack(cfg)

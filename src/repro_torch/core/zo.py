@@ -101,16 +101,23 @@ def perturb(params, seed: torch.Tensor, scale: float, maps=None):
 
 
 def perturb_slice(pparams, salts, sizes, p_idx: int, seed: torch.Tensor,
-                  scale: float):
+                  scale: float, maps=None):
     """theta + scale * z for one period's slice of a stacked period tree,
     z drawn so that it equals the stacked leaf's noise of that slice: the
     salt of the *stacked* leaf's path and the flat-index offset p_idx *
     size (``repro/core/zo.py::perturb_slice``). pparams: the slice;
     salts / sizes: trees of the same structure (stacked-path salt, slice
-    size); seed: int32 [1] on the params' device."""
+    size); seed: int32 [1] on the params' device. ``maps``: on a mesh,
+    where ``pparams`` holds the rank's shards of the slice, a tree of
+    their ``prng.IndexMap``s in the stacked leaf (``sharding/collectives.
+    py::MeshRun.period_maps``), in place of the offsets."""
     def f(path, leaf):
-        salt, size = _at(salts, path), _at(sizes, path)
-        return ops.zo_perturb(leaf, seed, salt, scale, p_idx * size)
+        salt = _at(salts, path)
+        if maps is not None:
+            return ops.zo_perturb(leaf, seed, salt, scale,
+                                  index=_at(maps, path))
+        return ops.zo_perturb(leaf, seed, salt, scale,
+                              p_idx * _at(sizes, path))
     return map_with_path(f, pparams)
 
 

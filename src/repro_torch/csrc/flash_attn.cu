@@ -8,9 +8,12 @@
 //
 // Function (the plain version is kernels/ref.py::flash_attention_ref):
 // q [B,H,Sq,D], k/v [B,Hkv,Sk,D] -> o [B,H,Sq,D] in q's dtype; q head h
-// reads kv head h / (H / Hkv). Scores s = (q . k) * scale in f32; the
-// causal and window masks are top-left aligned (k <= q, k > q - window)
-// and set a masked score to -1e30, as the TPU kernel does, so a row with
+// reads kv head h / (H / Hkv). Scores s = (q . k) * scale in f32; query
+// row i sits at position p = q_offset + i (0 for the TPU kernel's
+// function; a rank's rows of a sequence-sharded attention start further
+// on), and the causal and window masks are aligned to it (k <= p,
+// k > p - window): top-left at offset 0. They set a masked score to
+// -1e30, as the TPU kernel does, so a row with
 // no visible key averages V over all Sk keys, as the reference does; a
 // key past Sk scores -inf. The result is acc / max(l, 1e-30). Any Sq,
 // Sk >= 1; D in {16, 64, 128}; f32 or bf16. Each of q, k, v, o is
@@ -95,20 +98,29 @@ struct Args {
   long long o_sb, o_sh, o_ss;
   float scale;
   int causal, window;
+  int q_off;          // the position of query row 0
 };
 
-// The key range [begin, end) that the rows q_first..q_last can see; the
-// whole of [0, Sk) when one of them sees no key (it averages all of them).
+// The key range [begin, end) that the rows q_first..q_last (positions
+// q_off + q_first ..) can see; the whole of [0, Sk) when one of them sees
+// no key (it averages all of them).
 struct KeyRange {
   int begin, end;
 };
 
+// (The wrapper keeps q_off + Sq below 2**31, so positions fit an int.)
 __device__ __forceinline__ KeyRange visible_keys(const Args& a, int q_first,
                                                  int q_last) {
-  KeyRange r{a.window > 0 ? max(0, q_first - a.window + 1) : 0,
-             a.causal ? min(a.Sk, q_last + 1) : a.Sk};
-  if (a.window > 0 && q_last >= a.Sk + a.window - 1) r = KeyRange{0, a.Sk};
+  const int p_first = q_first + a.q_off, p_last = q_last + a.q_off;
+  KeyRange r{a.window > 0 ? max(0, p_first - a.window + 1) : 0,
+             a.causal ? min(a.Sk, p_last + 1) : a.Sk};
+  if (a.window > 0 && p_last >= a.Sk + a.window - 1) r = KeyRange{0, a.Sk};
   return r;
+}
+
+// Whether the row at position p sees key ki.
+__device__ __forceinline__ bool seen_by(const Args& a, int ki, int p) {
+  return (!a.causal || ki <= p) && (a.window <= 0 || ki > p - a.window);
 }
 
 // ------------------------------------------------------------------ //
@@ -160,6 +172,7 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd(Args a) {
 
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;   // longest first
+  const int p0 = q0 + a.q_off + ty * 4;                // row ty * 4's position
   const int h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (a.H / a.Hkv);
   const float* qp = static_cast<const float*>(a.q) + b * a.q_sb + h * a.q_sh;
@@ -218,13 +231,11 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd(Args a) {
 
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const int qi = q0 + ty * 4 + i;
       float mx = kNegInf;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int ki = k0 + tx + 16 * j;
-        const bool seen = (!a.causal || ki <= qi) &&
-                          (a.window <= 0 || ki > qi - a.window);
+        const bool seen = seen_by(a, ki, p0 + i);
         const float x = ki >= a.Sk ? -CUDART_INF_F
                                    : (seen ? s[i][j] * a.scale : kNegInf);
         s[i][j] = x;
@@ -568,6 +579,8 @@ __global__ void __launch_bounds__(kThreads, 1) flash_tc(Args a, int vec) {
   }
 
   const int qi0 = wq0 + 16 * w + g, qi1 = qi0 + 8;
+  const int pi0 = qi0 + a.q_off, pi1 = qi1 + a.q_off;   // their positions
+  const int pb0 = q0 + a.q_off, pb1 = q_last + a.q_off; // the block's
   float o[D / 2];
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
@@ -650,17 +663,15 @@ __global__ void __launch_bounds__(kThreads, 1) flash_tc(Args a, int vec) {
     // online softmax; the mask only where the tile crosses an edge of
     // the block's rows
     const bool inside = k0 + kBK <= a.Sk &&
-                        (!a.causal || k0 + kBK - 1 <= q0) &&
-                        (a.window <= 0 || k0 > q_last - a.window);
+                        (!a.causal || k0 + kBK - 1 <= pb0) &&
+                        (a.window <= 0 || k0 > pb1 - a.window);
     float mx0 = kNegInf, mx1 = kNegInf;
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
       float x = s[i] * a.scale;
       if (!inside) {
         const int ki = k0 + 8 * (i / 4) + 2 * t + (i & 1);
-        const int qi = (i & 2) ? qi1 : qi0;
-        const bool seen = (!a.causal || ki <= qi) &&
-                          (a.window <= 0 || ki > qi - a.window);
+        const bool seen = seen_by(a, ki, (i & 2) ? pi1 : pi0);
         x = ki >= a.Sk ? -CUDART_INF_F : (seen ? x : kNegInf);
       }
       s[i] = x;
@@ -729,21 +740,24 @@ int go(const Args& a, int vec, cudaStream_t stream) {
 
 Args make_args(const void* q, const void* k, const void* v, void* o, int B,
                int H, int Hkv, int Sq, int Sk, const long long* st,
-               float scale, int causal, int window) {
-  return Args{q,     k,     v,     o,     B,     H,     Hkv,   Sq,
+               float scale, int causal, int window, int q_offset) {
+  return Args{q,     k,     v,     o,     B,      H,      Hkv,   Sq,
               Sk,    st[0], st[1], st[2], st[3], st[4], st[5], st[6],
-              st[7], st[8], st[9], st[10], st[11], scale, causal, window};
+              st[7], st[8], st[9], st[10], st[11], scale, causal, window,
+              q_offset};
 }
 
 }  // namespace
 
-// strides: 12 element strides, (batch, head, sequence) of q, k, v, o.
+// strides: 12 element strides, (batch, head, sequence) of q, k, v, o;
+// q_offset: the position of query row 0 (>= 0).
 extern "C" int flash_attn_f32(const void* q, const void* k, const void* v,
                               void* o, int B, int H, int Hkv, int Sq, int Sk,
                               int D, const long long* strides, float scale,
-                              int causal, int window, cudaStream_t stream) {
+                              int causal, int window,
+                              int q_offset, cudaStream_t stream) {
   const Args a = make_args(q, k, v, o, B, H, Hkv, Sq, Sk, strides, scale,
-                           causal, window);
+                           causal, window, q_offset);
   switch (D) {
     case 16:
       return go<16>(a, stream);
@@ -759,9 +773,10 @@ extern "C" int flash_attn_f32(const void* q, const void* k, const void* v,
 extern "C" int flash_attn_bf16(const void* q, const void* k, const void* v,
                                void* o, int B, int H, int Hkv, int Sq, int Sk,
                                int D, const long long* strides, float scale,
-                               int causal, int window, cudaStream_t stream) {
+                               int causal, int window,
+                               int q_offset, cudaStream_t stream) {
   const Args a = make_args(q, k, v, o, B, H, Hkv, Sq, Sk, strides, scale,
-                           causal, window);
+                           causal, window, q_offset);
   // cp.async moves 16-byte chunks: every row of q, k, v must start on 16
   // bytes
   bool vec = reinterpret_cast<uintptr_t>(q) % 16 == 0 &&

@@ -2,8 +2,9 @@
 
 The port of ``repro/kernels/flash_attn.py``: causal / sliding-window
 attention with the online softmax, forward only, f32 accumulation, in the
-JAX layout (q [B,H,Sq,D], k/v [B,Hkv,Sk,D]). ``launches`` counts its
-launches and nothing else.
+JAX layout (q [B,H,Sq,D], k/v [B,Hkv,Sk,D]), query row i at position
+``q_offset + i`` (a rank's rows of the sequence-sharded attention plan
+start past 0). ``launches`` counts its launches and nothing else.
 """
 from __future__ import annotations
 
@@ -26,12 +27,12 @@ def _fn(dtype):
     fn = getattr(_build.load("flash_attn"), _SYMBOLS[dtype])
     fn.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                    ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, _I, _I,
-                   _P]
+                   _I, _P]
     fn.restype = ctypes.c_int
     return fn
 
 
-def _check(q, k, v, window):
+def _check(q, k, v, window, q_offset):
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError("flash_attention: q, k, v must be on one CUDA device")
     if q.dtype not in _SYMBOLS or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -58,17 +59,22 @@ def _check(q, k, v, window):
                          "contiguous")
     if window < 0:
         raise ValueError(f"flash_attention: window {window} < 0")
+    if not 0 <= q_offset < 2**31 - Sq:
+        raise ValueError(f"flash_attention: q_offset {q_offset} is not in "
+                         f"[0, 2**31 - Sq)")
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
-                    scale: float | None = None):
+                    scale: float | None = None, q_offset: int = 0):
     """q [B,H,Sq,D], k/v [B,Hkv,Sk,D] on a CUDA device, all f32 or all
     bf16, each with a contiguous last dim (other strides are free); q head
-    h reads kv head h // (H / Hkv). Returns o [B,H,Sq,D] in q's dtype, in
-    q's memory layout when q is dense (a transposed [B,S,H,D] view gives
-    one back). The kernel has no backward."""
+    h reads kv head h // (H / Hkv); query row i sits at position
+    ``q_offset + i`` for the causal and window masks. Returns o
+    [B,H,Sq,D] in q's dtype, in q's memory layout when q is dense (a
+    transposed [B,S,H,D] view gives one back). The kernel has no
+    backward."""
     global launches
-    _check(q, k, v, window)
+    _check(q, k, v, window, q_offset)
     B, H, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     scale = 1.0 / math.sqrt(D) if scale is None else scale
@@ -80,7 +86,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = _fn(q.dtype)(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                       out.data_ptr(), B, H, Hkv, Sq, Sk, D, strides,
-                      float(scale), int(bool(causal)), int(window), stream)
+                      float(scale), int(bool(causal)), int(window),
+                      int(q_offset), stream)
     if rc:
         raise RuntimeError(f"flash_attention: launch failed with CUDA error "
                            f"{rc}")

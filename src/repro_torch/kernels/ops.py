@@ -14,20 +14,21 @@ from . import zo_perturb as _perturb
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
-                    scale: float | None = None):
+                    scale: float | None = None, q_offset: int = 0):
     """Online-softmax attention in the JAX layout: q [B,H,Sq,D], k/v
     [B,Hkv,Sk,D] (q head h reads kv head h // (H / Hkv)) -> o [B,H,Sq,D]
-    in q's dtype; masks top-left aligned. Forward only, as the TPU kernel
+    in q's dtype; query row i at position ``q_offset + i``, key j at j
+    (masks top-left aligned at offset 0). Forward only, as the TPU kernel
     is: an input that requires grad raises, on every device."""
     if q.requires_grad or k.requires_grad or v.requires_grad:
         raise ValueError("flash_attention has no backward; an input "
                          "requires grad")
     if q.is_cuda:
         return _flash.flash_attention(q, k, v, causal=causal, window=window,
-                                      scale=scale)
+                                      scale=scale, q_offset=q_offset)
     if q.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
-                                       scale=scale)
+                                       scale=scale, q_offset=q_offset)
     raise ValueError(f"flash_attention: no path for {q.device}")
 
 

@@ -19,13 +19,15 @@ NEG_INF = -1e30
 
 
 def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
-                        scale: float | None = None) -> torch.Tensor:
+                        scale: float | None = None,
+                        q_offset: int = 0) -> torch.Tensor:
     """Dense-softmax version of the flash attention
     (``repro/kernels/ref.py::flash_attention_ref``, same layout): q
     [B,H,Sq,D], k/v [B,Hkv,Sk,D] -> o [B,H,Sq,D] in q's dtype. Hkv divides
     H and q head h reads kv head h // (H / Hkv) (the JAX function has
-    Hkv == H). Masks are top-left aligned, masked scores are -1e30, and
-    the scores, softmax and weighted sum are f32."""
+    Hkv == H). Query row i sits at position ``q_offset + i`` (the JAX
+    function's rows start at 0: masks top-left aligned), masked scores
+    are -1e30, and the scores, softmax and weighted sum are f32."""
     B, H, Sq, D = q.shape
     Sk = k.shape[2]
     scale = 1.0 / math.sqrt(D) if scale is None else scale
@@ -33,7 +35,7 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
     if G > 1:
         k, v = k.repeat_interleave(G, dim=1), v.repeat_interleave(G, dim=1)
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
-    q_pos = torch.arange(Sq, device=q.device)[:, None]
+    q_pos = q_offset + torch.arange(Sq, device=q.device)[:, None]
     k_pos = torch.arange(Sk, device=q.device)[None, :]
     mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
     if causal:

@@ -15,11 +15,14 @@ at the end, and resumes from the newest checkpoint there
 first times the engine's step phases one by one on a copy of the state
 (``core/engine.py::profile_step_phases``) and logs them.
 
-``--mesh DPxTP:data,model`` trains across a mesh of ranks
-(``launch/mesh.py``) in the rules' ``tp`` strategy: Megatron tensor
-parallelism over `model`, FSDP storage over `data`, attention-only
-decoder stacks (the others raise). Under ``torchrun`` each process is a
-rank (``RANK`` / ``WORLD_SIZE`` / ``LOCAL_RANK``); otherwise the launcher
+``--mesh DPxTP:data,model`` (or ``PxDPxTP:pod,data,model``) trains
+across a mesh of ranks (``launch/mesh.py``) in the rules' ``tp``
+strategy: Megatron tensor parallelism over `model`, FSDP storage over
+`data`, the batch over `pod` and `data`, attention-only decoder stacks
+(the others raise). As in the JAX package the CLI has no strategy flag;
+``setup(..., strategy=)`` takes ``fsdp`` or ``serve``. Under
+``torchrun`` each process is a rank (``RANK`` / ``WORLD_SIZE`` /
+``LOCAL_RANK``); otherwise the launcher
 spawns the mesh's ranks itself and rendezvouses them at ``--dist-init``
 (a fresh ``file://`` store by default). ``--dist-backend`` is ``nccl``
 (a card a rank) or ``gloo``; the default is nccl on ``cuda`` and gloo on
@@ -77,7 +80,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "the production step is untouched)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--mesh", default="",
-                    help="e.g. '2x2:data,model' to shard across ranks")
+                    help="e.g. '2x2:data,model' or '2x1x2:pod,data,model' "
+                         "to shard across ranks")
     ap.add_argument("--dist-backend", default=None, choices=["nccl", "gloo"],
                     help="default: nccl on cuda, gloo on cpu")
     ap.add_argument("--dist-init", default=None,
@@ -109,7 +113,8 @@ def lane_from_args(args: argparse.Namespace) -> LaneConfig:
 
 
 def setup(args: argparse.Namespace, lane: Optional[LaneConfig] = None,
-          cfg: Optional[ModelConfig] = None, mesh=None) -> Trainer:
+          cfg: Optional[ModelConfig] = None, mesh=None,
+          strategy: str = "tp") -> Trainer:
     """Everything ``main`` runs, from parsed flags: the state from
     ``resume_on_mesh`` (the newest checkpoint under ``--ckpt-dir``, else
     weights drawn from seed 0 on ``--device``) and the batches of
@@ -119,7 +124,8 @@ def setup(args: argparse.Namespace, lane: Optional[LaneConfig] = None,
     CLI has no fused-probe flag), and ``cfg`` the config that ``--arch``
     and ``--smoke`` name (a stack cut in depth, say). ``mesh``: a
     ``launch/mesh.py::make_mesh`` mesh that this process is a rank of
-    (its shards and its rows, on the rank's device)."""
+    (its shards and its rows, on the rank's device), sharded by the
+    rules' ``strategy`` (``tp``, ``fsdp`` or ``serve``)."""
     device = api.resolve_device(args.device)
     if mesh is not None and device.type == "cuda":
         device = torch.device("cuda", torch.cuda.current_device())
@@ -131,7 +137,8 @@ def setup(args: argparse.Namespace, lane: Optional[LaneConfig] = None,
     shape = ShapeConfig("train", seq_len=args.seq, global_batch=args.batch,
                         kind="train")
     state, model, step_fn = resume_on_mesh(args.ckpt_dir, cfg, shape, lane,
-                                           mesh=mesh, seed=0, device=device)
+                                           mesh=mesh, seed=0,
+                                           strategy=strategy, device=device)
     rows = None if model.run is None else rank_rows(
         shape, model.run.rules, model.run.coords)
     host_batch_fn = lm_batch_fn(cfg, shape, seed=1, rows=rows)

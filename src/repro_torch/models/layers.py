@@ -18,6 +18,12 @@ autograd differentiates it; and the paged decode step, both through
 baseline (``serve/engine.py::DenseServer``) in plain torch, as the JAX
 package computes it outside any kernel. Parameter layouts are the JAX
 package's: wq/wk/wv [d, heads, Dh], wo [H, Dh, d].
+
+On a mesh the attention form follows the rules (``attention_on_mesh``):
+the ``tp`` plan on the rank's heads, the ``seq`` plan on the rank's
+query rows (``_attention_seq``: weights whole over `model`, the flash
+kernel at the rows' query offset), and plain attention on gathered
+weights where no axis carries TP compute (the ``fsdp`` strategy).
 """
 from __future__ import annotations
 
@@ -210,6 +216,23 @@ def _rank_part(w, spec, dim, idx, run):
     return w.index_select(dim, torch.as_tensor(idx, device=w.device))
 
 
+def attention_on_mesh(p, x, cfg: ModelConfig, positions, specs, run, *,
+                      causal: bool = True, window: int = 0):
+    """Self-attention of a training forward on a mesh (``run``), in the
+    form the rules give: the ``seq`` plan (``_attention_seq``), plain
+    attention where there is no TP compute (``MeshRun.whole_weights``:
+    weights already gathered whole, x the rank's rows), else the ``tp``
+    plan (``_attention_tp``). Returns y [B, S, d]."""
+    if run.rules.attn.kind == "seq":
+        return _attention_seq(p, x, cfg, positions, run, causal=causal,
+                              window=window)
+    if run.whole_weights:
+        return attention(p, x, cfg, positions, causal=causal,
+                         window=window)[0]
+    return _attention_tp(p, x, cfg, positions, specs, run, causal=causal,
+                         window=window)
+
+
 def _attention_tp(p, x, cfg: ModelConfig, positions, specs, run, *,
                   causal: bool, window: int):
     """Self-attention of a training forward on the rank's heads under the
@@ -222,11 +245,6 @@ def _attention_tp(p, x, cfg: ModelConfig, positions, specs, run, *,
     (``_row_parallel``)."""
     from ..sharding.collectives import copy_to
     plan = run.rules.attn
-    if plan.kind != "tp":
-        raise NotImplementedError(
-            f"the {plan.kind!r} attention plan ({cfg.name} at tp "
-            f"{run.tp}) waits for the fsdp / serve slice (ROADMAP.md "
-            "queue 1)")
     B, S, _ = x.shape
     H, KV, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     tp, r = run.tp, run.model_rank
@@ -265,13 +283,69 @@ def _attention_tp(p, x, cfg: ModelConfig, positions, specs, run, *,
     return _row_parallel("bshk,hkd->bsd", y, wo, run)
 
 
+def seq_rows(S: int, tp: int, r: int) -> Tuple[int, int]:
+    """The query rows [lo, hi) of `model` rank ``r`` of ``tp`` under the
+    ``seq`` plan: blocks of ceil(S / tp), the last ones shorter or empty
+    (as GSPMD pads a dim the mesh does not divide)."""
+    c = -(-S // tp)
+    return min(r * c, S), min((r + 1) * c, S)
+
+
+def _attention_seq(p, x, cfg: ModelConfig, positions, run, *, causal: bool,
+                   window: int):
+    """Self-attention of a training forward under the rules' ``seq``
+    plan (``repro/models/layers.py``'s constraint of q's sequence dim
+    over `model`): the Q/K/V/O weights are whole on every `model` rank;
+    rank r takes the query rows [lo, hi) of ``seq_rows``, computes K and
+    V for the positions they can see (0 .. hi - 1; all S where not
+    causal) from the replicated input, and attends its rows through the
+    flash kernel at ``q_offset = lo`` (forwards without a gradient) or
+    the chunked attention at the rows' positions (the BP tail). A rank
+    with no rows launches nothing. The output projection runs on the
+    rank's rows, then the rows are gathered along the sequence over
+    `model` (``seq_gather``: its backward is the rank's own rows of the
+    gradient, what follows being replicated over `model`); the input and
+    the weights are ``copy_to`` `model`, so their gradients, each rank's
+    share from its rows, are summed there."""
+    from ..sharding.collectives import copy_to, seq_gather
+    B, S, _ = x.shape
+    H, KV, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    g = run.model_group
+    lo, hi = seq_rows(S, run.tp, run.model_rank)
+    T = hi if causal else S
+    scale = 1.0 / math.sqrt(Dh)
+    xm = copy_to(x, g)
+    w = {name: copy_to(t, g) for name, t in p.items()}
+    q = torch.einsum("bsd,dhk->bshk", xm[:, lo:hi], w["wq"])
+    k = torch.einsum("bsd,dhk->bshk", xm[:, :T], w["wk"])
+    v = torch.einsum("bsd,dhk->bshk", xm[:, :T], w["wv"])
+    if cfg.qk_norm:
+        q = rms_norm(q, w["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, w["k_norm"], cfg.norm_eps)
+    if cfg.rope_theta > 0:
+        q = rope(q, positions[:, lo:hi], cfg.rope_theta)
+        k = rope(k, positions[:, :T], cfg.rope_theta)
+    n = hi - lo
+    if not (q.requires_grad or k.requires_grad or v.requires_grad):
+        y = q.new_zeros(q.shape) if n == 0 else ops.flash_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            causal=causal, window=window, scale=scale,
+            q_offset=lo).transpose(1, 2)
+    else:
+        y = _chunked_self_attention(q.reshape(B, n, KV, H // KV, Dh), k, v,
+                                    positions, window, scale, causal=causal,
+                                    q_offset=lo)
+    out = torch.einsum("bshk,hkd->bsd", y.reshape(B, n, H, Dh), w["wo"])
+    return seq_gather(out, g, 1, lo, S)
+
+
 def _row_parallel(eq: str, x, w, run):
     """A product whose contraction is split over `model`: each rank's
     partial sum in f32, all-reduced, rounded once to x's dtype (as one
     device rounds the whole sum once). On one `model` rank, the plain
     product."""
     from ..sharding.collectives import reduce_to
-    if run.tp == 1:
+    if run.whole_weights:
         return torch.einsum(eq, x, w)
     out = torch.einsum(eq, x.float(), w.float())
     return reduce_to(out, run.model_group).to(x.dtype)
@@ -299,15 +373,22 @@ def _dense_decode(q, k, v, cache, cache_len: int, window: int, scale):
 
 
 def _chunked_self_attention(q, k, v, positions, window, scale, *,
-                            causal=True):
+                            causal=True, q_offset: int = 0):
     """Block-causal (optionally banded) attention, query-chunked; with
     ``causal`` False every query sees all T keys (Whisper's encoder and
     cross-attention, T = k.shape[1] of its own).
 
-    q: [B,S,KVd,G,Dh]; k,v: [B,T,KVd,Dh]. Chunks of cq = S // nq rows;
-    the last chunk also takes the S - nq * cq remainder rows."""
+    q: [B,S,KVd,G,Dh]; k,v: [B,T,KVd,Dh]; query row i at
+    ``positions[:, q_offset + i]`` and key j at ``positions[:, j]`` (a
+    rank's rows of the ``seq`` plan start at its offset). Chunks of cq =
+    S // nq rows; the last chunk also takes the S - nq * cq remainder
+    rows. No rows (S = 0): an empty result, still a function of k and v
+    for autograd."""
     B, S = q.shape[:2]
     T = k.shape[1]
+    if S == 0:
+        return _attend_block(q, k, v, torch.zeros((1, 0, T), dtype=torch.bool,
+                                                  device=q.device), scale)
     nq = max(1, S // Q_CHUNK)
     cq = S // nq
     outs = []
@@ -319,10 +400,11 @@ def _chunked_self_attention(q, k, v, positions, window, scale, *,
                               device=q.device)
             outs.append(_attend_block(q_i, k, v, mask, scale))
             continue
-        q_pos = positions[:, i * cq:q_hi]
+        q_lo, q_hi = q_offset + i * cq, q_offset + q_hi
+        q_pos = positions[:, q_lo:q_hi]
         kv_hi = min(q_hi, T)
         # lowest kv position any query in this chunk can see, chunk-aligned
-        kv_lo = max(0, ((i * cq - window + 1) // cq) * cq) if window > 0 else 0
+        kv_lo = max(0, ((q_lo - window + 1) // cq) * cq) if window > 0 else 0
         t_pos = positions[:, kv_lo:kv_hi]
         mask = t_pos[:, None, :] <= q_pos[:, :, None]
         if window > 0:
@@ -349,7 +431,7 @@ def mlp(p, x, specs=None, run=None):
     ``specs``), each rank computes its d_ff slice and the down
     projection's partial sum is all-reduced over `model`
     (``_row_parallel``)."""
-    sharded = run is not None and run.tp > 1 \
+    sharded = run is not None and not run.whole_weights \
         and _model_sharded(specs["w_gate"])
     if sharded:
         from ..sharding.collectives import copy_to

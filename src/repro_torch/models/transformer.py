@@ -17,10 +17,13 @@ stack's empty BP tail).
 
 On a mesh (``run``, a ``sharding/collectives.py::MeshRun``; training
 forwards of attention-only decoder stacks) each block gathers its
-weights' FSDP shards over `data` just before use and drops them after
-(``MeshRun.weights``), the embedding looks up the rank's vocab rows and
-all-reduces over `model`, and the loss is vocab-parallel over `model`
-and summed over `data` (``lm_loss``). The other stacks raise there.
+weights just before use and drops them after (``MeshRun.weights``: the
+FSDP shards over `data`, and over `model` too under the ``fsdp``
+strategy), attention takes the rules' form (``layers.py::
+attention_on_mesh``), the embedding and the loss are vocab-parallel
+over `model` where it carries TP compute (a whole table under
+``fsdp``), and the loss is summed over every batch axis (``lm_loss``).
+The fused probe pair runs there too. The other stacks raise there.
 """
 from __future__ import annotations
 
@@ -30,8 +33,8 @@ import torch
 
 from ..configs.base import ATTN, MAMBA, RWKV, ModelConfig
 from ..core import zo
-from .layers import (_attention_tp, attention, dense_init, init_attention,
-                     init_mlp, mlp, rms_norm)
+from .layers import (attention, attention_on_mesh, dense_init,
+                     init_attention, init_mlp, mlp, rms_norm)
 from .moe import init_moe, moe_ffn
 from .ssm import (init_mamba_block, init_mamba_state, init_rwkv_block,
                   init_rwkv_state, mamba_block, rwkv_block)
@@ -148,25 +151,30 @@ def check_mesh_stack(cfg: ModelConfig):
         why = "learned positions"
     if why:
         raise NotImplementedError(
-            f"{cfg.name} under a mesh: {why} waits for a later distribution "
-            "slice (ROADMAP.md queue 1); the port shards the training of "
-            "attention-only decoder stacks")
+            f"{cfg.name} under a mesh: {why} waits for the MoE, recurrent, "
+            "encoder and image stacks under a mesh (ROADMAP.md queue 1); "
+            "the port shards the training of attention-only decoder stacks")
 
 
-def _block_on_mesh(p, x, cfg: ModelConfig, positions, run, j: int):
-    """One attention block of a training forward on a mesh."""
+def _block_on_mesh(p, x, cfg: ModelConfig, positions, run, j: int,
+                   gathered: bool = False):
+    """One attention block of a training forward on a mesh: its weights
+    gathered (``MeshRun.weights``; ``gathered``: the caller did), the
+    attention in the rules' form, the MLP on the rank's d_ff slice where
+    `model` carries TP compute."""
     specs = run.block_specs[f"blk{j}"]
-    p = run.weights(p, specs)
+    if not gathered:
+        p = run.weights(p, specs)
     h = rms_norm(x, p["ln_attn"], cfg.norm_eps)
-    x = x + _attention_tp(p["attn"], h, cfg, positions, specs["attn"], run,
-                          causal=True, window=cfg.sliding_window)
+    x = x + attention_on_mesh(p["attn"], h, cfg, positions, specs["attn"],
+                              run, causal=True, window=cfg.sliding_window)
     h = rms_norm(x, p["ln_ffn"], cfg.norm_eps)
     return x + mlp(p["mlp"], h, specs["mlp"], run)
 
 
 def apply_block(p, x, cfg: ModelConfig, kind: str, *, positions, mode: str,
                 cache=None, cache_len=None, paged=None, full_kv=False,
-                enc_out=None, run=None, j: int = 0):
+                enc_out=None, run=None, j: int = 0, gathered: bool = False):
     """One block of kind ``kind``. Returns (x, cache entry).
 
     mode "prefill": the entry is this block's new state: {"k", "v"}
@@ -183,12 +191,13 @@ def apply_block(p, x, cfg: ModelConfig, kind: str, *, positions, mode: str,
     "train": the full causal sequence, no cache; the entry is None. mode
     "encode": as "train", but the self-attention is not causal
     (Whisper's encoder blocks). ``run`` (a mesh; train mode only): the
-    block is pattern position ``j``, its leaves the rank's shards.
+    block is pattern position ``j``, its leaves the rank's shards (or,
+    with ``gathered``, already gathered for use).
     """
     if mode not in ("prefill", "decode", "train", "encode"):
         raise ValueError(f"unknown mode {mode!r}")
     if run is not None:                # train_engine checked the stack
-        return _block_on_mesh(p, x, cfg, positions, run, j), None
+        return _block_on_mesh(p, x, cfg, positions, run, j, gathered), None
     state = cache if mode == "decode" else None
     if kind == RWKV:
         x, new = rwkv_block(p["rwkv"], x, cfg, state)
@@ -278,7 +287,7 @@ def run_periods(periods, x, cfg: ModelConfig, *, positions, mode,
 
 def run_periods_paired(periods, x_pair, cfg: ModelConfig, *, positions,
                        seed, eps: float, salts, sizes,
-                       enc_pair=(None, None)):
+                       enc_pair=(None, None), run=None):
     """Fused antithetic forward (``repro/models/transformer.py::
     run_periods_paired``): advance the theta + eps z and theta - eps z
     streams through the period stack together, perturbing one period's
@@ -286,23 +295,42 @@ def run_periods_paired(periods, x_pair, cfg: ModelConfig, *, positions,
     ``enc_pair`` holds each stream's own encoder output (Whisper).
 
     Exactness: each slice's noise is the stacked leaf's (``salts`` are the
-    stacked leaves' path salts, ``sizes`` the slice sizes, and
+    stacked leaves' path salts, ``sizes`` the global slice sizes, and
     ``core/zo.py::perturb_slice`` draws over the flat offset p * size), so
     both streams are bitwise the unfused path's. Train mode, no gradient
     (the ZO head is never differentiated); each perturbed slice is freed
     before the next is made. seed: int32 [1] on the params' device.
+
+    On a mesh (``run``; ``periods`` the rank's shards of the stacked
+    ``periods_zo`` tree): where the model computes on whole weights
+    (``MeshRun.whole_weights``: ``fsdp``, or a `model` axis of one),
+    each period's slice is gathered once and both signs' copies are made
+    from it locally (JAX's ``:246-251``); the gathered slice is freed
+    before the next period. Otherwise (``tp``, ``serve``) the rank's
+    shard of the slice is perturbed at its flat-index map
+    (``MeshRun.period_maps``: the shard's map, moved by p * size) and
+    each stream's copy is gathered in its block.
     Returns (hp, hm)."""
     h = list(x_pair)
+    whole = run is not None and run.whole_weights
     with torch.no_grad():
         for i in range(num_periods(periods)):
             pparams = tree_map(lambda a: a[i], periods)
+            maps = None
+            if whole:
+                pparams = run.weights(pparams, run.block_specs)
+            elif run is not None:
+                maps = run.period_maps("periods_zo", i)
             for s, scale in enumerate((eps, -eps)):
-                pert = zo.perturb_slice(pparams, salts, sizes, i, seed, scale)
+                pert = zo.perturb_slice(pparams, salts, sizes, i, seed, scale,
+                                        maps)
                 for j, kind in enumerate(cfg.pattern):
                     h[s], _ = apply_block(pert[f"blk{j}"], h[s], cfg, kind,
                                           positions=positions, mode="train",
-                                          enc_out=enc_pair[s])
+                                          enc_out=enc_pair[s], run=run, j=j,
+                                          gathered=whole)
                 del pert
+            del pparams
     return h[0], h[1]
 
 
@@ -349,15 +377,16 @@ def lm_loss(params, x, labels, mask, cfg: ModelConfig, run=None):
     """Cross-entropy over the padded vocab in ``CE_CHUNKS`` sequence
     chunks (f32 logits), masked mean over tokens. labels [B, S] in
     [0, padded_vocab); mask [B, S] f32. Returns an f32 scalar. On a mesh
-    (``run``; the rank's rows) the unembedding's vocab columns are
-    sharded over `model` (a vocab-parallel log-sum-exp and label logit)
-    and the sums over tokens are all-reduced over `data`, so every rank
-    returns the global mean."""
+    (``run``; the rank's rows) the unembedding's vocab columns stay
+    sharded over `model` where it carries TP compute (a vocab-parallel
+    log-sum-exp and label logit; under ``fsdp`` the gathered whole
+    table and a local one), and the sums over tokens and over the mask
+    are all-reduced over every batch axis (``MeshRun.batch_sum``), so
+    every rank returns the global mean."""
     S = x.shape[1]
     n = CE_CHUNKS if S % CE_CHUNKS == 0 and S >= CE_CHUNKS else 1
     c = S // n
     if run is not None:
-        from ..sharding.collectives import reduce_to
         from ..sharding.collectives import vocab_parallel_ce
         norm = run.weight(params["final_norm"], run.specs["final_norm"])
         unembed = run.weight(params["unembed"], run.specs["unembed"])
@@ -380,8 +409,8 @@ def lm_loss(params, x, labels, mask, cfg: ModelConfig, run=None):
         tot = tot + (nll * mc).sum()
         cnt = cnt + mc.sum()
     if run is not None:
-        tot = reduce_to(tot, run.data_group)
-        cnt = reduce_to(cnt, run.data_group)
+        tot = run.batch_sum(tot)
+        cnt = run.batch_sum(cnt)
     return tot / torch.clamp(cnt, min=1.0)
 
 

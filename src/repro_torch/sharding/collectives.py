@@ -12,10 +12,21 @@ pointers), and the model gathers and reduces through these functions:
     (Megatron's g: a row-parallel output, the loss sum over `data`, the
     vocab-parallel sums);
   * ``fsdp_gather(x, group, dim)``: all-gather of a leaf's FSDP shards
-    along ``dim`` forward, reduce-scatter of the gradient backward;
-  * ``MeshRun.weight``: a leaf as the model uses it (its FSDP shards
-    gathered over `data`, its gradient summed over `data` where the leaf
-    is replicated there).
+    along ``dim`` forward, reduce-scatter of the gradient backward (the
+    group's ranks held different rows);
+  * ``replica_gather(x, group, dim, index)``: all-gather forward, the
+    rank's own part of the gradient backward, with no sum (the group's
+    ranks held the same rows and computed the same thing);
+  * ``seq_gather``: the sequence-sharded attention's output blocks
+    gathered along the sequence, the rank's own block of the gradient
+    backward;
+  * ``MeshRun.weight``: a leaf as the model uses it, by the rules: its
+    shards gathered over every axis its spec names that carries no TP
+    compute (`data` under ``tp``; `data` and `model` under ``fsdp``), its
+    gradient summed over each batch axis (``rules.batch_axes``: `pod`,
+    `data`, and `model` under ``fsdp`` when the batch divides dp * tp);
+  * ``MeshRun.batch_sum``: a sum over every batch axis (the loss and its
+    mask count).
 
 Sums of floats run in f32 (a bf16 tensor is cast up, reduced, cast back),
 so every backend reduces alike; a group of one rank is the identity, so
@@ -36,13 +47,13 @@ import torch.distributed as dist
 
 from ..launch.mesh import axis_shape
 from .params import (ShardDesc, dict_leaves, map_dict, param_shardings,
-                     shard_desc, shard_descs, unshard_leaf)
+                     period_map, shard_desc, shard_descs, unshard_leaf)
 from .rules import ShardingRules
 
 # the collectives the port calls on CUDA tensors, which gloo must take
 # (torch 2.11 does: chip_smoke.py::gloo_cuda_probe / check_gloo_probe)
 GLOO_CUDA_OPS = ("all_reduce", "all_gather", "reduce_scatter")
-EXECUTED_AXES = ("data", "model")
+EXECUTED_AXES = ("pod", "data", "model")
 
 
 def _size(group) -> int:
@@ -125,6 +136,39 @@ class _FsdpGather(torch.autograd.Function):
         return reduce_scatter(g, ctx.group, ctx.dim), None, None
 
 
+class _ReplicaGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim, index):
+        ctx.n, ctx.dim, ctx.index = _size(group), dim, index
+        return all_gather(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        part = g.chunk(ctx.n, ctx.dim)[ctx.index].contiguous()
+        return part, None, None, None
+
+
+def _padded_gather(x, group, dim: int, total: int) -> torch.Tensor:
+    """Every rank's block of at most ceil(total / n) along ``dim``, each
+    padded to that size, gathered, and cut to ``total``."""
+    pad = list(x.shape)
+    pad[dim] = -(-total // _size(group)) - x.shape[dim]
+    return all_gather(torch.cat([x, x.new_zeros(pad)], dim=dim), group,
+                      dim).narrow(dim, 0, total)
+
+
+class _SeqGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim, lo, total):
+        ctx.dim, ctx.lo, ctx.n = dim, lo, x.shape[dim]
+        return _padded_gather(x, group, dim, total)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g.narrow(ctx.dim, ctx.lo, ctx.n).contiguous(), None, None,
+                None, None)
+
+
 def copy_to(x: torch.Tensor, group) -> torch.Tensor:
     """Identity forward; the gradient all-reduced over ``group``."""
     if _size(group) == 1 or not x.requires_grad:
@@ -150,29 +194,61 @@ def fsdp_gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     return _FsdpGather.apply(x, group, dim)
 
 
+def replica_gather(x: torch.Tensor, group, dim: int,
+                   index: int) -> torch.Tensor:
+    """All-gather along ``dim`` forward; backward, part ``index`` (this
+    rank's place in ``group``) of the gradient, unsummed: every rank of
+    the group computed the same gradient of the whole."""
+    if _size(group) == 1:
+        return x
+    if not x.requires_grad:
+        return all_gather(x, group, dim)
+    return _ReplicaGather.apply(x, group, dim, index)
+
+
+def seq_gather(x: torch.Tensor, group, dim: int, lo: int,
+               total: int) -> torch.Tensor:
+    """The ``total`` positions along ``dim`` from every rank's block of
+    them, this rank's starting at ``lo``: blocks of ceil(total / n), the
+    last ranks' shorter or empty (each padded to the full size for the
+    gather, the padding cut after it). Backward: the rank's own block of
+    the gradient, unsummed (what follows is the same on every rank of
+    the group)."""
+    if _size(group) == 1:
+        return x
+    if not x.requires_grad:
+        return _padded_gather(x, group, dim, total)
+    return _SeqGather.apply(x, group, dim, lo, total)
+
+
 class MeshRun:
     """A mesh bound to a model's parameters on this rank: the rules, the
     process group, size and coordinate of each mesh axis, every leaf's
     spec (``param_shardings``) and this rank's shard descriptors.
 
     ``abstract_params``: the global tree of shapes
-    (``core/api.py::abstract_params``). Executes meshes over `data` and
-    `model` (any other axis raises)."""
+    (``core/api.py::abstract_params``). Executes meshes over `pod`,
+    `data` and `model` (any other axis raises), in every strategy of the
+    rules: ``batch_axes`` are the rules' (the axes the batch rows are
+    split over, and the loss summed over), ``compute_axis`` the axis of
+    TP compute (`model` under ``tp`` and ``serve``, None under
+    ``fsdp``) and ``tp`` its size (1 under ``fsdp``)."""
 
     def __init__(self, mesh, rules: ShardingRules, abstract_params):
         sizes = axis_shape(mesh)
         other = [a for a in sizes if a not in EXECUTED_AXES]
         if other:
             raise NotImplementedError(
-                f"mesh axes {other}: the port executes (data, model) "
-                "meshes; the pod axis waits (ROADMAP.md queue 1)")
+                f"mesh axes {other}: the port executes meshes over "
+                f"{EXECUTED_AXES}")
         self.mesh, self.rules = mesh, rules
         self.axes = tuple(sizes)
         self.sizes = sizes
         self.groups = {a: mesh.get_group(a) for a in self.axes}
         self.coords = {a: mesh.get_local_rank(a) for a in self.axes}
-        self.dp = sizes.get("data", 1)
-        self.tp = sizes.get("model", 1)
+        self.batch_axes = tuple(rules.batch_axes)
+        self.compute_axis = rules.model_compute
+        self.tp = rules.tp
         self.world = prod(sizes.values())
         self.rank = dist.get_rank()
         self.shapes = map_dict(lambda _n, t: tuple(t.shape),
@@ -190,10 +266,6 @@ class MeshRun:
         return self.groups.get("model")
 
     @property
-    def data_group(self):
-        return self.groups.get("data")
-
-    @property
     def model_rank(self) -> int:
         return self.coords.get("model", 0)
 
@@ -205,20 +277,52 @@ class MeshRun:
             rank //= self.sizes[a]
         return out
 
+    @property
+    def whole_weights(self) -> bool:
+        """Whether the model computes on whole weights: no TP compute
+        (``tp`` 1: the ``fsdp`` strategy, or a `model` axis of one), so
+        ``weight`` gathers every leaf whole, attention and the MLP run
+        their one-device forms (``models/layers.py``), the embedding and
+        the loss use the whole table, and fused probes perturb a gathered
+        period (``models/transformer.py::run_periods_paired``)."""
+        return self.tp == 1
+
+    def batch_sum(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` summed over every batch axis (gradient passed through)."""
+        for a in self.batch_axes:
+            x = reduce_to(x, self.groups[a])
+        return x
+
     # ---- leaves --------------------------------------------------------- #
     def weight(self, t: torch.Tensor, spec) -> torch.Tensor:
-        """A leaf shard as the model uses it: gathered over `data` along
-        its FSDP dim; a leaf replicated over `data` has its gradient
-        summed there. Still sharded over `model`."""
+        """A leaf shard as the model uses it. Gathered along each dim its
+        spec shards over an axis other than the TP compute one: the
+        gradient reduce-scattered back where that axis is a batch axis
+        (its ranks held other rows), the rank's own part of it where not
+        (its ranks computed the same). A leaf replicated over a batch axis
+        has its gradient summed there. Still sharded over the compute
+        axis."""
         spec = tuple(spec) if spec is not None else (None,) * t.dim()
+        named = set()
         for dim, ax in enumerate(spec):
+            if ax is None:
+                continue
             axes = ax if isinstance(ax, tuple) else (ax,)
-            if "data" in axes:
-                if axes != ("data",):
-                    raise NotImplementedError(f"spec {spec}: a dim over "
-                                              "several axes")
-                return fsdp_gather(t, self.data_group, dim)
-        return copy_to(t, self.data_group)
+            if len(axes) != 1:
+                raise NotImplementedError(f"spec {spec}: a dim over "
+                                          "several axes")
+            a = axes[0]
+            named.add(a)
+            if a == self.compute_axis:
+                continue
+            if a in self.batch_axes:
+                t = fsdp_gather(t, self.groups[a], dim)
+            else:
+                t = replica_gather(t, self.groups[a], dim, self.coords[a])
+        for a in self.batch_axes:
+            if a not in named:
+                t = copy_to(t, self.groups[a])
+        return t
 
     def weights(self, tree, specs):
         """``weight`` of every leaf of a tree, with its spec tree."""
@@ -230,6 +334,12 @@ class MeshRun:
         default the params')."""
         return map_dict(lambda _n, d: d.index,
                         self.descs if descs is None else descs)
+
+    def period_maps(self, group: str, p: int):
+        """The ``IndexMap`` of period ``p``'s slice of the rank's shard of
+        every leaf of the stacked tree ``group`` (its period dim is never
+        sharded)."""
+        return map_dict(lambda _n, d: period_map(d, p), self.descs[group])
 
     def desc_of(self, names, rank: int) -> ShardDesc:
         tree = self.specs
@@ -312,17 +422,19 @@ def rows_slice(global_rows: int, spec_axes, coords, sizes) -> slice:
 # ---------------------------------------------------------------------- #
 def _vocab_rows(table_spec, v_local: int, run: MeshRun):
     """(first vocab row of this rank, whether rows are split over
-    `model`) of a table whose vocab dim has ``table_spec``."""
+    `model` for TP compute) of a table whose vocab dim has
+    ``table_spec``."""
     from ..models.layers import _model_sharded
-    split = run.tp > 1 and _model_sharded((table_spec,))
+    split = not run.whole_weights and _model_sharded((table_spec,))
     return (run.model_rank * v_local if split else 0), split
 
 
 def vocab_embed(table: torch.Tensor, tokens: torch.Tensor, run: MeshRun):
     """Rows of the embedding table [V, D] (spec (model, data)) for
-    tokens [B, S]: its FSDP shards gathered over `data`; where its vocab
-    rows are split over `model`, each rank takes the tokens in its rows,
-    zeros for the rest, and the rows are all-reduced over `model`."""
+    tokens [B, S]: gathered as ``MeshRun.weight`` says (whole under
+    ``fsdp``: a plain lookup then); where its vocab rows stay split over
+    `model`, each rank takes the tokens in its rows, zeros for the rest,
+    and the rows are all-reduced over `model`."""
     spec = run.specs["embed"]
     w = run.weight(table, spec)
     lo, split = _vocab_rows(spec[0], w.shape[0], run)
@@ -340,10 +452,10 @@ def vocab_parallel_ce(h: torch.Tensor, unembed: torch.Tensor,
                       labels: torch.Tensor, run: MeshRun) -> torch.Tensor:
     """-log softmax(h @ unembed)[label], f32 [B, S], for h [B, S, D]
     (the same on every `model` rank) and the rank's unembedding columns
-    [D, V_local] (FSDP shards already gathered). With the vocab split
-    over `model`: the max is all-reduced (MAX, no gradient: a shift),
-    then the sum of exp and the label's logit (SUM); otherwise
-    ``torch.logsumexp``, as one device computes it."""
+    [D, V_local] (gathered by ``MeshRun.weight``: whole under ``fsdp``).
+    With the vocab split over `model`: the max is all-reduced (MAX, no
+    gradient: a shift), then the sum of exp and the label's logit (SUM);
+    otherwise ``torch.logsumexp``, as one device computes it."""
     lo, split = _vocab_rows(run.specs["unembed"][1], unembed.shape[1], run)
     if not split:
         logits = torch.einsum("bsd,dv->bsv", h, unembed).float()

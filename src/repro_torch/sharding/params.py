@@ -16,6 +16,7 @@ global leaf, its local shape, and its global flat-index map, the
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Dict, Sequence, Tuple
 
@@ -258,6 +259,15 @@ def shard_desc(global_shape, spec, coords: Dict[str, int],
         local.append(ext)
     return ShardDesc(shape, spec, tuple(starts), tuple(local),
                      index_map(shape, starts, local))
+
+
+def period_map(desc: ShardDesc, p: int) -> IndexMap:
+    """The flat-index map of period ``p``'s slice of the shard ``desc`` of
+    a stacked leaf (its leading period dim unsharded): the shard's map of
+    one period, its base moved by p * (the global slice's size)."""
+    shape = desc.global_shape[1:]
+    m = index_map(shape, desc.starts[1:], desc.local_shape[1:])
+    return IndexMap(m.base + p * math.prod(shape), m.levels)
 
 
 def shard_descs(abstract_tree, specs, coords, sizes):

@@ -12,8 +12,10 @@ mesh (a ``launch/mesh.py::make_mesh`` ``DeviceMesh``, or None for one
 device) it builds the rules, the shard descriptors and the step function,
 and returns a state that continues where the saved run stopped, whatever
 mesh saved it: bitwise on the mesh that saved it, within the sharded
-reductions' rounding on another. A mesh takes the ``tp`` strategy (the
-others raise until a later distribution slice, ROADMAP.md queue 1).
+reductions' rounding on another. The strategy (``tp``, ``fsdp`` or
+``serve``, ``sharding/rules.py``) may differ from the saving run's: the
+checkpoint format is mesh-independent, and each rank keeps its slice
+under the new specs.
 
 The port labels a checkpoint with the number of steps its params hold
 (``train/train_loop.py``), so a resume from a checkpoint this package
@@ -32,6 +34,8 @@ from ..core.engine import Fp32Engine
 from . import checkpoint as ckpt
 from .train_loop import init_state
 
+STRATEGIES = ("tp", "fsdp", "serve")        # sharding/rules.py
+
 
 class TrainModel(NamedTuple):
     """What a step is built from: ``engine.make_step(loss_fn)`` (and
@@ -47,24 +51,20 @@ def build_for_mesh(cfg: ModelConfig, shape: ShapeConfig, lane: LaneConfig,
                    ) -> Tuple[TrainModel, Callable]:
     """(model, step) of ``lane`` for ``cfg`` on ``mesh`` (None: one
     device). A mesh binds ``ShardingRules(mesh, cfg, shape, strategy)``
-    and the params' specs and shard descriptors (``model.run``); only
-    the ``tp`` strategy runs."""
+    and the params' specs and shard descriptors (``model.run``). Without
+    a mesh every strategy is the one-device step, as the JAX package's
+    ``ShardingRules(None, ...)`` is."""
+    if strategy not in STRATEGIES:
+        raise ValueError(f"strategy {strategy!r}: want one of {STRATEGIES}")
     run = None
     if mesh is not None:
+        from ..models.transformer import check_mesh_stack
         from ..sharding.collectives import MeshRun
         from ..sharding.rules import ShardingRules
-        if strategy != "tp":
-            raise NotImplementedError(
-                f"the {strategy!r} strategy under a mesh waits for a later "
-                "distribution slice (ROADMAP.md queue 1); the port runs "
-                "'tp'")
+        check_mesh_stack(cfg)
         rules = ShardingRules(mesh, cfg, shape, strategy=strategy)
         run = MeshRun(mesh, rules, api.abstract_params(
             cfg, lane, max_seq=shape.seq_len))
-    elif strategy != "tp":
-        raise NotImplementedError(
-            f"strategy {strategy!r} without a mesh: the strategies but 'tp' "
-            "wait for a later distribution slice (ROADMAP.md queue 1)")
     engine, loss_fn = api.train_engine(cfg, lane, run)
     return TrainModel(engine, loss_fn, run), engine.make_step(loss_fn)
 

@@ -489,6 +489,44 @@ def test_flash_one_query_row_gqa(dev, dtype):
             assert _bf16_ulp_close(got, want)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,tp,window", [(4096, 4, 0), (18, 4, 0),
+                                         (300, 4, 100), (6, 4, 0)])
+def test_flash_query_offset_matches_plain(dev, dtype, S, tp, window):
+    """The seq plan's calls: rank r's rows [lo, hi) (blocks of ceil(S /
+    tp); 6 rows leave the last rank none, which launches nothing) at
+    ``q_offset = lo`` against keys 0 .. hi - 1, each within the plain
+    version's tolerance, and at offset 0 bitwise the kernel without an
+    offset; where every offset is a multiple of the 128-row query tile
+    (S 4096, bf16) the chunks are bitwise the whole call's rows."""
+    g = torch.Generator(device="cpu").manual_seed(S + window)
+    H, Hkv, D = (32, 8, 128) if S == 4096 else (6, 2, 16)
+
+    def make(heads):
+        return torch.randn(1, S, heads, D, generator=g).to(
+            dev, dtype).transpose(1, 2)
+    q, k, v = make(H), make(Hkv), make(Hkv)
+    whole = flash_attn.flash_attention(q, k, v, window=window)
+    assert torch.equal(whole, flash_attn.flash_attention(
+        q, k, v, window=window, q_offset=0))
+    c = -(-S // tp)
+    parts = []
+    for r in range(tp):
+        lo, hi = min(r * c, S), min((r + 1) * c, S)
+        if hi == lo:
+            continue
+        args = (q[:, :, lo:hi], k[:, :, :hi], v[:, :, :hi])
+        got = flash_attn.flash_attention(*args, window=window, q_offset=lo)
+        want = ref.flash_attention_ref(*args, window=window, q_offset=lo)
+        if dtype == torch.float32:
+            assert (got - want).abs().max().item() <= 1e-5
+        else:
+            assert _bf16_ulp_close(got, want)
+        parts.append(got)
+    if c % 128 == 0 and dtype == torch.bfloat16:
+        assert torch.equal(torch.cat(parts, dim=2), whole)
+
+
 def test_flash_kernel_refuses_what_it_does_not_take(dev):
     x = torch.zeros(1, 2, 8, 64, device=dev)
     with pytest.raises(ValueError, match="head dim"):
@@ -500,6 +538,8 @@ def test_flash_kernel_refuses_what_it_does_not_take(dev):
     with pytest.raises(ValueError, match="contiguous"):
         y = torch.zeros(1, 2, 64, 8, device=dev).transpose(2, 3)
         flash_attn.flash_attention(y, y, y)
+    with pytest.raises(ValueError, match="q_offset"):
+        flash_attn.flash_attention(x, x, x, q_offset=-1)
     with pytest.raises(ValueError, match="no backward"):
         from repro_torch.kernels import ops
         ops.flash_attention(x.clone().requires_grad_(), x, x)

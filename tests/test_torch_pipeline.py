@@ -307,23 +307,29 @@ def test_restore_into_meta_template_needs_a_device(tmp_path):
 
 
 def test_a_mesh_is_not_ported():
-    """A mesh trains in the tp strategy since the distribution slice
-    (tests/test_torch_mesh.py); every other strategy still raises, on a
-    mesh and without one."""
+    """What of a mesh is not ported: a strategy the rules do not name
+    raises on a mesh and without one, and a MoE stack raises on a mesh in
+    every strategy. The tp, fsdp and serve strategies run attention-only
+    stacks on a mesh (tests/test_torch_mesh.py,
+    tests/test_torch_strategies.py) and, without one, are the
+    one-device step."""
     from repro_torch.launch.mesh import AbstractMesh
     mesh = AbstractMesh((2, 2), ("data", "model"))
-    for strategy in ("fsdp", "serve", "dp"):
-        with pytest.raises(NotImplementedError, match="distribution slice"):
-            build_for_mesh(_llama(), SHAPE, LANE, mesh=mesh,
-                           strategy=strategy)
-        with pytest.raises(NotImplementedError):
-            resume_on_mesh(None, _llama(), SHAPE, LANE, mesh=mesh,
+    moe = reduced(get_arch("mixtral-8x7b"))
+    for m in (mesh, None):
+        with pytest.raises(ValueError, match="strategy 'dp'"):
+            build_for_mesh(_llama(), SHAPE, LANE, mesh=m, strategy="dp")
+        with pytest.raises(ValueError, match="strategy 'dp'"):
+            resume_on_mesh(None, _llama(), SHAPE, LANE, mesh=m,
+                           strategy="dp", device="cpu")
+    for strategy in ("tp", "fsdp", "serve"):
+        with pytest.raises(NotImplementedError, match="MoE FFNs"):
+            build_for_mesh(moe, SHAPE, LANE, mesh=mesh, strategy=strategy)
+        with pytest.raises(NotImplementedError, match="MoE FFNs"):
+            resume_on_mesh(None, moe, SHAPE, LANE, mesh=mesh,
                            strategy=strategy, device="cpu")
-        with pytest.raises(NotImplementedError, match="distribution slice"):
-            build_for_mesh(_llama(), SHAPE, LANE, strategy=strategy)
-        with pytest.raises(NotImplementedError):
-            resume_on_mesh(None, _llama(), SHAPE, LANE, strategy=strategy,
-                           device="cpu")
+        model, _ = build_for_mesh(_llama(), SHAPE, LANE, strategy=strategy)
+        assert model.run is None
 
 
 # ------------------------------------------------------------------ #

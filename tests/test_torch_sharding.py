@@ -283,28 +283,46 @@ def test_mesh_refuses_other_stacks(arch):
 
 
 def test_mesh_refuses_other_strategies_and_fused_probes():
+    """What a mesh still refuses: a strategy the rules do not name (on a
+    mesh and without one), and any strategy or fused probes for a stack
+    it does not run (MoE; tests/test_torch_strategies.py runs tp, fsdp,
+    serve and fused probes on attention-only stacks)."""
     cfg = reduced(ARCHS["qwen3-4b"])
+    moe = reduced(ARCHS["mixtral-8x7b"])
     shape = ShapeConfig("s", seq_len=16, global_batch=2, kind="train")
-    for strategy in ("fsdp", "serve"):
+    mesh = mesh_lib.AbstractMesh((2, 2), ("data", "model"))
+    for m in (mesh, None):
+        with pytest.raises(ValueError, match="strategy 'dp'"):
+            elastic_runtime.build_for_mesh(cfg, shape, LaneConfig(), m, "dp")
+    for strategy in ("tp", "fsdp", "serve"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            elastic_runtime.build_for_mesh(
-                cfg, shape, LaneConfig(),
-                mesh_lib.AbstractMesh((2, 2), ("data", "model")), strategy)
-    with pytest.raises(NotImplementedError, match="fused probes"):
-        api.train_engine(cfg, LaneConfig(fused_probes=True), run=object())
+            elastic_runtime.build_for_mesh(moe, shape, LaneConfig(), mesh,
+                                           strategy)
+    with pytest.raises(NotImplementedError, match="MoE FFNs"):
+        api.train_engine(moe, LaneConfig(fused_probes=True), run=object())
 
 
 def test_seq_plan_raises():
     """phi4-mini at tp 16 takes the seq plan (24 heads pad to 32: 33%
-    waste); its attention on a mesh raises."""
-    from repro_torch.models.layers import _attention_tp
+    waste), whose ranks split the query rows in blocks of ceil(S / tp),
+    the last ones short or empty (tests/test_torch_strategies.py runs
+    the plan); whisper-small takes it at tp 8, and its encoder-decoder
+    stack still raises under a mesh."""
+    from repro_torch.models.layers import seq_rows
     cfg = ARCHS["phi4-mini-3.8b"]
     r = ShardingRules(mesh_lib.AbstractMesh((1, 16), ("data", "model")), cfg)
     assert r.attn.kind == "seq"
-    run = type("Run", (), {"rules": r, "tp": 16})()
+    assert [seq_rows(18, 4, i) for i in range(4)] == [
+        (0, 5), (5, 10), (10, 15), (15, 18)]
+    assert [seq_rows(6, 4, i) for i in range(4)] == [
+        (0, 2), (2, 4), (4, 6), (6, 6)]
+    whisper = ARCHS["whisper-small"]
+    mesh = mesh_lib.AbstractMesh((1, 8), ("data", "model"))
+    assert ShardingRules(mesh, whisper).attn.kind == "seq"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _attention_tp({}, torch.zeros(1, 2, cfg.d_model), cfg, None, {},
-                      run, causal=True, window=0)
+        elastic_runtime.build_for_mesh(
+            whisper, ShapeConfig("s", seq_len=16, global_batch=2,
+                                 kind="train"), LaneConfig(), mesh)
 
 
 def test_nccl_needs_a_card_a_rank(monkeypatch):

@@ -45,13 +45,17 @@ optimizers (``train/optimizer.py``) on the card to the CPU, and runs the
 four examples (``repro_torch.examples``) at their JAX twins' defaults.
 Then it trains across a mesh (``launch/train.py --mesh``): the shard
 forms of the two fp32 ZO kernels against their plain versions and a
-2-D shard of w_gate against the whole leaf's noise, qwen3-4b (8 of 36
-layers, full width) on a 2x2 mesh of four spawned ranks sharing the
-card over gloo (each shard's noise bitwise the one-device kernels'
-sliced, the coefficients bitwise across ranks every step, losses
-against one device's, reduced f32 qwen3-4b card against CPU), and whole
-qwen3-4b on a 1x1 mesh over NCCL, bitwise the one-device run (with four
-cards, also 2x2 over NCCL).
+2-D shard of w_gate against the whole leaf's noise; on a 2x2 mesh of
+four spawned ranks sharing the card over gloo, qwen3-4b (4 of 36
+layers, full width, tp), whisper-small whole in f32 under tp, fsdp and
+serve with fused probes under tp and fsdp, and llava-next-34b (2 of 60
+layers, full width, f32) under tp (each shard's noise bitwise the
+one-device kernels' sliced, the coefficients bitwise across ranks every
+step, losses and leaf moves against one device's, fused pairs bitwise
+the unfused ones), reduced f32 qwen3-4b, Whisper and LLaVA card against
+CPU (the seq plan at 1x4 too); and whole qwen3-4b on a 1x1 mesh over
+NCCL, bitwise the one-device run (with four cards, also 2x2 over
+NCCL).
 
 The last three lines of its output are the card's name and power limit
 (nvidia-smi), a JSON line of per-kernel numbers, and
@@ -2972,23 +2976,67 @@ MESH_MOVE_RTOL = 5e-2            # each leaf's summed |change| over a lane's
 #                                  25): a lost update moves a leaf by 0, a
 #                                  gradient summed twice by twice as much,
 #                                  distance 1 either way
-MESH_SMALL_TOL = 1e-4            # reduced f32 qwen3-4b, card against CPU
+MESH_SMALL_TOL = 1e-4            # reduced f32 stacks, card against CPU
 #                                  (losses and params, relative)
-# the mesh phase's lanes on a 2x2 mesh, one spawn: (label, strategy, fused
-# probes, batch, seq). The unfused lanes at 4 x 512 give the peaks the
-# fused ones stand beside, and the probe pairs theirs must equal
-MESH_LANES = (("tp", "tp", False, 4, 128),
-              ("fsdp", "fsdp", False, 4, 128),
-              ("serve", "serve", False, 4, 128),
-              ("tp 4x512", "tp", False, 4, 512),
-              ("tp fused 4x512", "tp", True, 4, 512),
-              ("fsdp 4x512", "fsdp", False, 4, 512),
-              ("fsdp fused 4x512", "fsdp", True, 4, 512))
-# reduced f32 qwen3-4b with 6 Q over 2 KV heads: 4 `model` ranks pad the
-# heads to 8 (33% waste), so the rules take the seq plan
-# (tests/test_torch_strategies.py), held at 1x4 card against CPU
-MESH_SEQ_HEADS = (6, 2)
-GLOO_PROBE_OPS = ("all_reduce", "broadcast", "all_gather", "reduce_scatter")
+MESH_LLAVA_LAYERS = 2            # of llava-next-34b's 60, at full width:
+#                                  one ZO period and one tail period
+MESH_DTYPES = {"whisper-small": "float32", "llava-next-34b": "float32"}
+#                                  qwen3-4b's lanes in bf16. The first
+#                                  (l+, l-) of whisper-small and of
+#                                  LLaVA's cut differ by 2.2e-3 and
+#                                  2.4e-2 (f32), little more than bf16
+#                                  logits round (5.9e-4 in LLaVA's bf16 l+
+#                                  between the 2x2 tp lane and one
+#                                  device), so in bf16 the ZO coefficients,
+#                                  and each ZO leaf's move, rounded apart:
+#                                  0.364 and 0.0739 against MESH_MOVE_RTOL
+#                                  (PERF.md §6); in f32 1.26e-2 and 1.89e-4
+# the mesh phase's lanes on a 2x2 mesh, one spawn: (label, arch, strategy,
+# fused probes, batch, seq). qwen3-4b cut to MESH_LAYERS under tp (the
+# four-card NCCL check's lane). whisper-small whole at 4 x 128 in every
+# strategy, fused under tp and fsdp beside the unfused lanes: it holds the
+# fsdp and serve strategies and the fused pairs at full width, which
+# qwen3-4b's lanes at 4 x 128 and 4 x 512 held before (on a slow host
+# their timed steps read 9.0 to 44.5 s each, and the mesh phase 407 s,
+# PERF.md §6). llava-next-34b cut to MESH_LLAVA_LAYERS at 2 x 3,008
+# (2,880 image and 128 text tokens) under tp: under fsdp a rank would
+# gather a layer's 2.2 GB (f32) through gloo's host side, so its other
+# strategies are held by the reduced config
+MESH_LANES = (("tp", "qwen3-4b", "tp", False, 4, 128),
+              ("whisper tp", "whisper-small", "tp", False, 4, 128),
+              ("whisper fsdp", "whisper-small", "fsdp", False, 4, 128),
+              ("whisper serve", "whisper-small", "serve", False, 4, 128),
+              ("whisper tp fused", "whisper-small", "tp", True, 4, 128),
+              ("whisper fsdp fused", "whisper-small", "fsdp", True, 4, 128),
+              ("llava tp", "llava-next-34b", "tp", False, 2,
+               LLAVA_IMAGE + 128))
+# reduced f32 stacks card against CPU in the same world: (label, arch, mesh
+# shape, strategy, batch, (Q, KV) heads or None, encoder_seq or None, text
+# tokens). Whisper's and LLaVA's take random frames and image rows from a
+# numpy seed (the launcher's are zeros, in which a row-slicing fault would
+# not show); fsdp at batch 4 puts the rows over (data, model). The 6-head
+# configs take the seq plan at 1x4 (4 ranks pad 6 heads to 8, 33% waste;
+# tests/test_torch_strategies.py, tests/test_torch_mesh_encdec.py),
+# Whisper's over 18 decoder rows and 18 frames, so its last rank holds 3
+# of each
+MESH_SMALL = (("qwen3-4b 2x2 tp", "qwen3-4b", (2, 2), "tp", 2, None, None,
+               16),
+              ("qwen3-4b seq 1x4", "qwen3-4b", (1, 4), "tp", 2, (6, 2), None,
+               16),
+              ("whisper 2x2 tp", "whisper-small", (2, 2), "tp", 2, None,
+               None, 16),
+              ("whisper 2x2 fsdp", "whisper-small", (2, 2), "fsdp", 4, None,
+               None, 16),
+              ("whisper seq 1x4", "whisper-small", (1, 4), "tp", 2, (6, 6),
+               18, 18),
+              ("llava 2x2 tp", "llava-next-34b", (2, 2), "tp", 2, None, None,
+               16),
+              ("llava 2x2 fsdp", "llava-next-34b", (2, 2), "fsdp", 4, None,
+               None, 16))
+# gloo's collectives tried on CUDA tensors: the port's (GLOO_CUDA_OPS) are
+# asserted, the others recorded (all_to_all for the MoE under the ep plan)
+GLOO_PROBE_OPS = ("all_reduce", "broadcast", "all_gather", "reduce_scatter",
+                  "all_to_all")
 
 
 def gloo_cuda_probe(rank, world):
@@ -3006,8 +3054,13 @@ def gloo_cuda_probe(rank, world):
             y := torch.empty(4 * world, device="cuda"), x), y)[1],
         "reduce_scatter": lambda: (dist.reduce_scatter_tensor(
             y := torch.empty(4, device="cuda"),
-            torch.cat([x * (r + 1) for r in range(world)])), y)[1]}
+            torch.cat([x * (r + 1) for r in range(world)])), y)[1],
+        "all_to_all": lambda: (dist.all_to_all_single(
+            y := torch.empty(world, device="cuda"),
+            torch.arange(world, device="cuda", dtype=torch.float32)
+            + 10 * rank), y)[1]}
     want = {"all_reduce": [tri] * 4, "broadcast": [1.0] * 4,
+            "all_to_all": [float(10 * r + rank) for r in range(world)],
             "all_gather": [float(r + 1) for r in range(world)
                            for _ in range(4)],
             "reduce_scatter": [tri * (rank + 1)] * 4}
@@ -3027,22 +3080,35 @@ def check_gloo_probe(got):
     from repro_torch.sharding import collectives
     print(f"gloo on CUDA tensors, this build (torch {torch.__version__}): "
           f"{got}; the port calls {list(collectives.GLOO_CUDA_OPS)} on them")
+    print(f"gloo all_to_all_single on CUDA tensors (recorded for the MoE "
+          f"under the ep plan, not asserted): {got.get('all_to_all')}")
     for op in collectives.GLOO_CUDA_OPS:
         if got.get(op) is not True:
             raise AssertionError(f"gloo's {op} on CUDA tensors: {got.get(op)}")
 
 
 def mesh_per_step(cfg, fused=False):
-    """Launches a rank makes a step (elastic_zo, 1 probe): 1 zo_fused_replay
-    a ZO leaf (embed and the periods_zo leaves: every rank holds a shard of
-    each); zo_perturb 2 a ZO leaf unfused, and fused 2 for embed and 2 a
-    period's leaf a ZO period (one period's slice at a time); 2 flash a ZO
-    period, in every strategy."""
+    """Launches a rank makes a step (elastic_zo, 1 probe), from the
+    config: 1 zo_fused_replay a ZO leaf (every rank holds a shard of
+    each): the leaves outside periods_zo (embed, and pos_embed and the
+    encoder's 2 + its block's leaves where the stack has them) and a
+    decoder block's (with cross-attention's 5 in Whisper); zo_perturb 2 a
+    ZO leaf unfused, and fused 2 a leaf outside periods_zo and 2 a
+    block's leaf a ZO period (one period's slice at a time); flash 2 a
+    forward's attention calls without a gradient: each ZO period's
+    self-attention (and cross-attention) and each encoder block, in
+    every strategy."""
     zo_periods = cfg.num_layers - 1
-    block = 9 + 2 * cfg.qk_norm         # norms, wq/wk/wv/wo, the MLP's 3
-    perturb = 2 + 2 * block * zo_periods if fused else 2 * (1 + block)
-    return {"zo_perturb": perturb, "zo_fused_replay": 1 + block,
-            "flash_attention": 2 * zo_periods}
+    attn = 5 + 2 * cfg.qk_norm          # ln_attn, wq/wk/wv/wo, q/k norms
+    cross = bool(cfg.encoder_layers)
+    block = attn + 4 + cross * attn     # ln_ffn and the MLP's 3
+    encoder = 2 + attn + 4 if cross else 0
+    whole = 1 + (cfg.rope_theta <= 0) + encoder
+    perturb = 2 * whole + 2 * block * zo_periods if fused \
+        else 2 * (whole + block)
+    return {"zo_perturb": perturb, "zo_fused_replay": whole + block,
+            "flash_attention": 2 * (zo_periods * (1 + cross)
+                                    + cfg.encoder_layers)}
 
 
 def _mesh_noise(trainer, zo_perturb, zo_replay):
@@ -3145,43 +3211,95 @@ def leaf_moves(params, init, run=None):
     return out
 
 
-def mesh_argv(batch, seq):
-    """TRAIN_ARGV at ``batch`` x ``seq`` for MESH_STEPS steps."""
-    return TRAIN_ARGV[:8] + ["--batch", str(batch), "--seq", str(seq)] \
-        + TRAIN_ARGV[12:-1] + [str(MESH_STEPS)]
+def mesh_cfg(arch):
+    """The stack a mesh lane of ``arch`` trains, at full width: qwen3-4b
+    cut to MESH_LAYERS, whisper-small whole, llava-next-34b cut to
+    MESH_LLAVA_LAYERS; in MESH_DTYPES' dtype where it names one."""
+    from repro_torch.configs import ARCHS
+    cut = {"qwen3-4b": MESH_LAYERS,
+           "llava-next-34b": MESH_LLAVA_LAYERS}.get(arch)
+    cfg = ARCHS[arch]
+    cfg = dataclasses.replace(cfg, dtype=MESH_DTYPES.get(arch, cfg.dtype))
+    return cfg if cut is None else dataclasses.replace(cfg, num_layers=cut)
 
 
-def _mesh_small(mesh, heads=None, lanes=("elastic_zo", "full_bp")):
-    """Reduced f32 qwen3-4b (with ``heads`` = (Q, KV) heads where given),
-    2 steps of each of ``lanes`` on this mesh on the card and on the CPU
-    from the same shards (the CPU init's: the two devices' generators
-    draw apart): ({lane: (worst relative loss distance, worst relative
-    param distance)}, the rules' attention plan)."""
-    from repro_torch.configs import ARCHS, reduced
+def mesh_title(arch):
+    """``arch`` and its cut, as the mesh phase prints it."""
+    from repro_torch.configs import ARCHS
+    cfg = mesh_cfg(arch)
+    n, full = cfg.num_layers, ARCHS[arch].num_layers
+    cut = "" if n == full else f"{n} of {full} layers, "
+    return f"{arch} ({cut}{cfg.dtype})"
+
+
+def mesh_argv(arch, batch, seq):
+    """The launcher's flags for ``arch`` at ``batch`` x ``seq`` for
+    MESH_STEPS steps (TRAIN_ARGV's lane and rates)."""
+    return family_argv(arch, batch, seq, MESH_STEPS)
+
+
+def small_mesh_batches(cfg, batch, seq, rows):
+    """step -> the rank's ``rows`` of the global batch of the launcher's
+    token stream (seed 1), with random frames and image rows from a
+    numpy seed in place of its zeros."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.data.pipeline import lm_batch_fn
+    whole = lm_batch_fn(cfg, ShapeConfig("train", seq_len=seq,
+                                         global_batch=batch, kind="train"),
+                        seed=1)
+
+    def fn(step):
+        b = whole(step)
+        rng = np.random.default_rng(1000 + step)
+        for k in ("frames", "img"):
+            if k in b:
+                b[k] = rng.standard_normal(b[k].shape).astype(np.float32)
+        return {k: np.ascontiguousarray(v[rows]) for k, v in b.items()}
+    return fn
+
+
+def _mesh_small(mesh, spec, lanes=("elastic_zo", "full_bp")):
+    """The reduced f32 stack of ``spec`` (a MESH_SMALL entry), 2 steps of
+    each of ``lanes`` on this mesh in the spec's strategy, on the card
+    and on the CPU from the same shards (the CPU init's: the two
+    devices' generators draw apart) and the same batches
+    (``small_mesh_batches``): ({lane: (worst relative loss distance,
+    worst relative param distance)}, the rules' attention plan)."""
+    from repro_torch.configs import ARCHS, ShapeConfig, reduced
     from repro_torch.core import zo
+    from repro_torch.core.elastic import TrainState
+    from repro_torch.data.pipeline import device_put_batch, rank_rows
     from repro_torch.launch import train as launch_train
     from repro_torch.train.train_loop import LoopConfig, run
-    from repro_torch.core.elastic import TrainState
-    cfg = reduced(ARCHS["qwen3-4b"], dtype="float32")
+    _, arch, _, strategy, batch, heads, enc, text = spec
+    cfg = reduced(ARCHS[arch], dtype="float32")
     if heads:
         cfg = dataclasses.replace(cfg, num_heads=heads[0],
                                   num_kv_heads=heads[1])
+    if enc:
+        cfg = dataclasses.replace(cfg, encoder_seq=enc)
+    seq = text + cfg.num_image_tokens
     out = {}
     for lane in lanes:
         got, init = {}, None
         for dev in ("cpu", "cuda"):
             t = launch_train.setup(launch_train.parse_args(
-                ["--arch", "qwen3-4b", "--smoke", "--device", dev, "--lane",
-                 lane, "--batch", "2", "--seq", "16", "--steps", "2"]),
-                cfg=cfg, mesh=mesh)
+                ["--arch", arch, "--device", dev, "--lane", lane, "--batch",
+                 str(batch), "--seq", str(seq), "--steps", "2"]),
+                cfg=cfg, mesh=mesh, strategy=strategy)
             plan = t.run.rules.attn.kind
+            host = small_mesh_batches(cfg, batch, seq, rank_rows(
+                ShapeConfig("train", seq_len=seq, global_batch=batch,
+                            kind="train"), t.run.rules, t.run.coords))
             if init is None:        # the CPU's draws, on both devices
                 init = zo.map_with_path(lambda p, x: x.clone(),
                                         t.state.params)
             # a copy each run: the step updates the ZO leaves in place
             t.state = TrainState(zo.map_with_path(
                 lambda p, x: x.clone().to(t.device), init), 0, t.state.seed)
-            state, hist = run(t.step_fn, t.state, t.batch_fn,
+            state, hist = run(t.step_fn, t.state,
+                              lambda s: device_put_batch(host(s), t.device,
+                                                         t.dtypes),
                               LoopConfig.for_lane(t.lane, total_steps=2,
                                                   log_every=1),
                               log=None, param_shardings=t.run)
@@ -3197,22 +3315,22 @@ def _mesh_small(mesh, heads=None, lanes=("elastic_zo", "full_bp")):
     return out, plan
 
 
-def _mesh_lane(mesh, cfg, lane_spec, zo_perturb, zo_replay, noise):
+def _mesh_lane(mesh, lane_spec, zo_perturb, zo_replay, noise):
     """One lane of the mesh phase on this rank: the trainer from
-    ``launch.train.setup`` in its strategy (the fused-probe lane through
-    the lane override), the shard noise of every ZO leaf (``noise``),
-    MESH_STEPS steps, the first untimed (the engine asserts each step's
-    coefficients bitwise across ranks) with the first step's probe
-    losses, each leaf's move over them, and the replicated leaves
-    bitwise across ranks after them."""
+    ``launch.train.setup`` for the lane's arch (``mesh_cfg``) in its
+    strategy (the fused-probe lane through the lane override), the shard
+    noise of every ZO leaf (``noise``), MESH_STEPS steps, the first
+    untimed (the engine asserts each step's coefficients bitwise across
+    ranks) with the first step's probe losses, each leaf's move over
+    them, and the replicated leaves bitwise across ranks after them."""
     from repro_torch.core import zo
     from repro_torch.launch import train as launch_train
-    label, strategy, fused, batch, seq = lane_spec
-    args = launch_train.parse_args(mesh_argv(batch, seq))
+    label, arch, strategy, fused, batch, seq = lane_spec
+    args = launch_train.parse_args(mesh_argv(arch, batch, seq))
     lane = dataclasses.replace(launch_train.lane_from_args(args),
                                fused_probes=fused)
     t0 = time.perf_counter()
-    trainer = launch_train.setup(args, lane, cfg=cfg, mesh=mesh,
+    trainer = launch_train.setup(args, lane, cfg=mesh_cfg(arch), mesh=mesh,
                                  strategy=strategy)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
@@ -3236,56 +3354,54 @@ def _mesh_lane(mesh, cfg, lane_spec, zo_perturb, zo_replay, noise):
     return res
 
 
-def _mesh_rank(rank, world, shape, backend, store, out_dir, layers, lanes,
-               small):
-    """One rank of the mesh phase: qwen3-4b cut to ``layers`` at full
-    width on ``shape``, through the launcher's setup, each lane of
-    ``lanes`` (``_mesh_lane``) in turn; then (``small``) reduced qwen3-4b
-    card against CPU on the same mesh, and the reduced seq-plan config
-    card against CPU on a 1x4 mesh of the same world. Writes its numbers
-    to out_dir."""
+def _mesh_rank(rank, world, shape, backend, store, out_dir, lanes, small):
+    """One rank of the mesh phase on ``shape``, through the launcher's
+    setup: each lane of ``lanes`` (``_mesh_lane``) in turn, the shard
+    noise held in each arch's unfused lanes at its first lane's shape;
+    then (``small``) each MESH_SMALL stack card against CPU on its mesh
+    of the same world. Writes its numbers to out_dir."""
     import torch.distributed as dist
     sys.path.insert(0, str(ROOT / "src"))
     torch.set_num_threads(2)
     torch.backends.cuda.matmul.allow_tf32 = False
-    from repro_torch.configs import ARCHS
     from repro_torch.kernels import zo_fused_replay, zo_perturb
     from repro_torch.launch import mesh as mesh_lib
     mesh_lib.init_ranks(backend, "cuda", rank, world, store)
     try:
         probe = gloo_cuda_probe(rank, world) if backend == "gloo" else None
-        mesh = mesh_lib.make_mesh(shape, MESH_AXES)
-        cfg = dataclasses.replace(ARCHS["qwen3-4b"], num_layers=layers)
+        meshes = {tuple(shape): mesh_lib.make_mesh(shape, MESH_AXES)}
         res = dict(rank=rank, probe=probe,
                    device=str(torch.device("cuda",
                                            torch.cuda.current_device())),
-                   lanes={})
+                   lanes={}, small={})
+        first = {}
         for spec in lanes:
+            first.setdefault(spec[1], spec[4:])
             res["lanes"][spec[0]] = _mesh_lane(
-                mesh, cfg, spec, zo_perturb, zo_fused_replay,
-                noise=not spec[2] and spec[3:] == lanes[0][3:])
-        if small:
-            res["small"], _ = _mesh_small(mesh)
-            seq_mesh = mesh_lib.make_mesh((1, world), MESH_AXES)
-            res["small_seq"], res["small_seq_plan"] = _mesh_small(
-                seq_mesh, MESH_SEQ_HEADS)
+                meshes[tuple(shape)], spec, zo_perturb, zo_fused_replay,
+                noise=not spec[3] and spec[4:] == first[spec[1]])
+        for spec in MESH_SMALL if small else ():
+            if spec[2] not in meshes:
+                meshes[spec[2]] = mesh_lib.make_mesh(spec[2], MESH_AXES)
+            res["small"][spec[0]] = _mesh_small(meshes[spec[2]], spec)
         Path(out_dir, f"rank{rank}.json").write_text(json.dumps(res))
     finally:
         dist.destroy_process_group()
 
 
 def check_mesh(shape, backend, want_losses, want_moves, small=True,
-               layers=MESH_LAYERS, lanes=MESH_LANES):
+               lanes=MESH_LANES):
     """The mesh phase on ``prod(shape)`` spawned ranks, one spawn for all
     of ``lanes``: prints each rank's numbers per lane and asserts the
-    launches a step (``mesh_per_step``), equal counts and losses on every
-    rank, the losses within MESH_LOSS_RTOL of one device's at the lane's
-    shape (``want_losses``: {(batch, seq): losses}), each leaf's move
-    within MESH_MOVE_RTOL of one device's (``want_moves``: {(batch,
-    seq): leaf_moves}), the fused lanes' first (l+, l-) bitwise the
-    unfused lane's at the same shape and strategy, and (``small``) the
-    reduced models card == CPU. Returns {lane label: rank 0's launch
-    counts}."""
+    launches a step (``mesh_per_step`` of the lane's stack), equal counts
+    and losses on every rank, the losses within MESH_LOSS_RTOL of one
+    device's at the lane's stack and shape (``want_losses``: {(arch,
+    batch, seq): losses}), each leaf's move within MESH_MOVE_RTOL of one
+    device's (``want_moves``: {(arch, batch, seq): leaf_moves}), the
+    fused lanes' first (l+, l-) bitwise the unfused lane's at the same
+    stack, shape and strategy, and (``small``) the reduced stacks card ==
+    CPU, the 1x4 ones under the seq plan. Returns {lane label: rank 0's
+    launch counts}."""
     import tempfile
     from repro_torch.launch import mesh as mesh_lib
     world = math.prod(shape)
@@ -3294,7 +3410,7 @@ def check_mesh(shape, backend, want_losses, want_moves, small=True,
     try:
         store = "file://" + os.path.join(d, "store")
         mesh_lib.spawn(_mesh_rank, world, (world, shape, backend, store, d,
-                                           layers, lanes, small))
+                                           lanes, small))
         res = [json.loads(Path(d, f"rank{r}.json").read_text())
                for r in range(world)]
     finally:
@@ -3302,21 +3418,22 @@ def check_mesh(shape, backend, want_losses, want_moves, small=True,
     wall = time.perf_counter() - t0
     if backend == "gloo":
         check_gloo_probe(res[0]["probe"])
-    cfg = types.SimpleNamespace(num_layers=layers, qk_norm=True)
     name = "x".join(map(str, shape))
     worst = {}
     steps = MESH_STEPS
-    for label, strategy, fused, batch, seq in lanes:
-        per_step = mesh_per_step(cfg, fused)
+    for label, arch, strategy, fused, batch, seq in lanes:
+        per_step = mesh_per_step(mesh_cfg(arch), fused)
         for r in res:
             x = r["lanes"][label]
-            print(f"{name} {label} ({strategy}, attention plan {x['attn']}, "
-                  f"batch over {x['batch_axes']}) over {backend}, rank "
+            print(f"{name} {label} ({mesh_title(arch)} at {batch} x {seq}, "
+                  f"{strategy}, attention plan {x['attn']}, batch over "
+                  f"{x['batch_axes']}) over {backend}, rank "
                   f"{r['rank']} on {r['device']}: setup {x['setup_s']:.2f} s "
                   f"({x['shard_bytes']} bytes of shards); "
                   f"{x['noise_maps']} shard and period-slice noise maps "
                   f"bitwise the whole leaf's sliced; losses "
-                  f"{[round(v, 5) for v in x['losses']]}; {x['ms']:.1f} ms a "
+                  f"{[round(v, 5) for v in x['losses']]}, first (l+, l-) "
+                  f"{x['pair']}; {x['ms']:.1f} ms a "
                   f"step after an untimed one; device peak {x['peak']} bytes"
                   f" (the timed step); launches "
                   f"{x['counts']} in {steps} steps; {x['replica_pairs']} "
@@ -3328,13 +3445,13 @@ def check_mesh(shape, backend, want_losses, want_moves, small=True,
             if x["losses"] != res[0]["lanes"][label]["losses"]:
                 raise AssertionError(f"{label}: the ranks' losses differ")
         x = res[0]["lanes"][label]
-        want = want_losses[(batch, seq)]
+        want = want_losses[(arch, batch, seq)]
         worst[label] = max(abs(a - b) / abs(b)
                            for a, b in zip(x["losses"], want))
         print(f"{name} {label}: losses against one device's of the same cut "
               f"and shape {[round(v, 5) for v in want]}: worst relative "
               f"distance {worst[label]:.3g} (tolerance {MESH_LOSS_RTOL})")
-        ref_moves = want_moves[(batch, seq)]
+        ref_moves = want_moves[(arch, batch, seq)]
         far = max(abs(x["moved"][k] - v) / max(v, 1e-30)
                   for k, v in ref_moves.items())
         print(f"{name} {label}: each leaf's summed |change| in {steps} "
@@ -3345,8 +3462,9 @@ def check_mesh(shape, backend, want_losses, want_moves, small=True,
             raise AssertionError(f"{label}: the leaves moved otherwise than "
                                  "one device's")
         if fused:
-            plain = next(lbl for lbl, s, f, b, n in lanes
-                         if (s, b, n) == (strategy, batch, seq) and not f)
+            plain = next(lbl for lbl, a, s, f, b, n in lanes
+                         if (a, s, b, n) == (arch, strategy, batch, seq)
+                         and not f)
             y = res[0]["lanes"][plain]
             print(f"{name} {label}: first (l+, l-) {x['pair']}, the unfused "
                   f"lane's {y['pair']} (bitwise: {x['pair'] == y['pair']}); "
@@ -3355,19 +3473,17 @@ def check_mesh(shape, backend, want_losses, want_moves, small=True,
             if x["pair"] != y["pair"]:
                 raise AssertionError(f"{label}: the fused pair is not the "
                                      "unfused one")
-    if small:
+    for label, arch, mshape, strategy, *_ in MESH_SMALL if small else ():
         for r in res:
-            print(f"  rank {r['rank']}: reduced f32 qwen3-4b at {name}, card "
-                  "against CPU (worst relative loss, param distance): "
-                  f"{r['small']}; the seq-plan config ({MESH_SEQ_HEADS[0]} Q / "
-                  f"{MESH_SEQ_HEADS[1]} KV heads, plan "
-                  f"{r['small_seq_plan']}) at 1x{world}: {r['small_seq']}")
-            if r["small_seq_plan"] != "seq":
-                raise AssertionError("the reduced seq-plan config did not "
-                                     "take the seq plan")
-            if max(max(v) for k in ("small", "small_seq")
-                   for v in r[k].values()) > MESH_SMALL_TOL:
-                raise AssertionError("reduced qwen3-4b on the mesh: card "
+            got, plan = r["small"][label]
+            print(f"  rank {r['rank']}: reduced f32 {label} ({strategy}, "
+                  f"attention plan {plan}), card against CPU (worst "
+                  f"relative loss, param distance): {got}")
+            if (plan == "seq") != (mshape[0] == 1):
+                raise AssertionError(f"reduced {label}: attention plan "
+                                     f"{plan}")
+            if max(max(v) for v in got.values()) > MESH_SMALL_TOL:
+                raise AssertionError(f"reduced {label} on the mesh: card "
                                      "and CPU differ")
     print(f"{name}: the phase took {wall:.1f} s with the ranks' start; worst "
           f"relative loss distance over the lanes {max(worst.values()):.3g}")
@@ -3377,29 +3493,31 @@ def check_mesh(shape, backend, want_losses, want_moves, small=True,
 
 
 def check_train_mesh():
-    """qwen3-4b cut to MESH_LAYERS at full width: one device's losses and
-    leaf moves at each lane shape (this process), then the lanes on the
-    2x2 mesh of 4 ranks sharing the card over gloo. Returns (rank 0's
-    launches by lane, the one-device losses and leaf moves at 4 x
-    128)."""
-    from repro_torch.configs import ARCHS
+    """Each mesh lane's stack at full width (``mesh_cfg``): one device's
+    losses and leaf moves at each lane's stack and shape (this process),
+    then the lanes on the 2x2 mesh of 4 ranks sharing the card over
+    gloo. Returns (rank 0's launches by lane, the one-device qwen3-4b
+    losses and leaf moves at 4 x 128)."""
     from repro_torch.launch import train as launch_train
     from repro_torch.core import zo
-    cfg = dataclasses.replace(ARCHS["qwen3-4b"], num_layers=MESH_LAYERS)
     want, moves = {}, {}
-    for batch, seq in sorted({spec[3:] for spec in MESH_LANES}):
+    for arch, batch, seq in sorted({(spec[1],) + spec[4:]
+                                    for spec in MESH_LANES}):
+        key = (arch, batch, seq)
         one = launch_train.setup(launch_train.parse_args(
-            mesh_argv(batch, seq)), cfg=cfg)
+            mesh_argv(arch, batch, seq)), cfg=mesh_cfg(arch))
         init = [t.detach().clone() for t in zo.leaves(one.state.params)]
-        want[(batch, seq)], ms, peak, counts = mesh_train(one, MESH_STEPS)
-        moves[(batch, seq)] = leaf_moves(one.state.params, init)
-        print(f"qwen3-4b ({MESH_LAYERS} of 36 layers) at {batch} x {seq} on "
-              f"one device: losses {[round(v, 5) for v in want[(batch, seq)]]}"
-              f", {ms:.1f} ms a step, peak {peak} bytes, launches {counts}")
+        with probe_losses() as seen:
+            want[key], ms, peak, counts = mesh_train(one, MESH_STEPS)
+        moves[key] = leaf_moves(one.state.params, init)
+        print(f"{mesh_title(arch)} at {batch} x {seq} on one device: losses "
+              f"{[round(v, 5) for v in want[key]]}, first (l+, l-) "
+              f"{[float(x) for x in seen[:2]]}, {ms:.1f} ms a step, "
+              f"peak {peak} bytes, launches {counts}")
         del one, init
         torch.cuda.empty_cache()
-    return (check_mesh((2, 2), "gloo", want, moves), want[(4, 128)],
-            moves[(4, 128)])
+    cut = ("qwen3-4b", 4, 128)
+    return check_mesh((2, 2), "gloo", want, moves), want[cut], moves[cut]
 
 
 def check_train_mesh_nccl(want_losses, cut_losses, cut_moves):
@@ -3438,8 +3556,9 @@ def check_train_mesh_nccl(want_losses, cut_losses, cut_moves):
         raise AssertionError("the 1x1 mesh over NCCL left the one-device run")
     four = torch.cuda.device_count() >= 4
     if four:                # the cut's losses: check_train_mesh's one device
-        check_mesh((2, 2), "nccl", {(4, 128): cut_losses},
-                   {(4, 128): cut_moves}, small=False, lanes=MESH_LANES[:1])
+        cut = ("qwen3-4b", 4, 128)
+        check_mesh((2, 2), "nccl", {cut: cut_losses}, {cut: cut_moves},
+                   small=False, lanes=MESH_LANES[:1])
     print(f"2x2 over NCCL on four cards: {'ran' if four else 'not run'} "
           f"({torch.cuda.device_count()} card(s) here)")
     return counts, four
@@ -4253,8 +4372,9 @@ def main():
           "reports the fused run's)")
     torch.cuda.empty_cache()
 
-    phase("train qwen3-4b on a 2x2 mesh, strategies tp / fsdp / serve and "
-          "fused probes (4 ranks sharing the card over gloo)")
+    phase("train qwen3-4b, whisper-small and llava-next-34b on a 2x2 mesh, "
+          "strategies tp / fsdp / serve and fused probes (4 ranks sharing "
+          "the card over gloo)")
     n_mesh, cut_losses, cut_moves = check_train_mesh()
     torch.cuda.empty_cache()
 
@@ -4358,8 +4478,9 @@ def main():
         "train llava-next-34b (16 of 60 layers), fused probes": n_llava_fused}
     resumed = "train qwen3-4b, plain, then prefetched and resumed"
     mesh_1x1 = "train qwen3-4b, 1x1 mesh over NCCL"
-    mesh_paths = {k: {**{f"train qwen3-4b ({MESH_LAYERS} of 36 layers), 2x2 "
-                         f"mesh over gloo, {label}, rank 0": n[k]
+    arch_of = {spec[0]: spec[1] for spec in MESH_LANES}
+    mesh_paths = {k: {**{f"train {mesh_title(arch_of[label])}, 2x2 mesh "
+                         f"over gloo, {label}, rank 0": n[k]
                          for label, n in n_mesh.items()},
                       mesh_1x1: n_nccl[k]}
                   for k in n_nccl}

@@ -11,7 +11,8 @@ Mamba hybrid), Whisper's encoder-decoder and LLaVA's image-token prefix.
 On a mesh (a ``sharding/collectives.py::MeshRun``, ``run=``) the params
 are the rank's shards: ``init`` draws one leaf at a time and keeps the
 rank's slice, ``loss_fn`` runs the sharded forward on the rank's rows of
-the batch (``batch_shardings`` says which), and the train step perturbs
+the batch (``batch_shardings`` says which; Whisper's ``frames`` and
+LLaVA's ``img`` follow the tokens' rows), and the train step perturbs
 and updates each shard at its global flat indices
 (``core/engine.py``).
 
@@ -212,7 +213,7 @@ def _backbone(params, cfg: ModelConfig, tokens, positions, mode, *,
     if mode != "decode":
         _check_inputs(cfg, tokens, frames, img)
         if cfg.encoder_layers:
-            enc_out = run_encoder(params, frames, cfg)
+            enc_out = run_encoder(params, frames, cfg, run=run)
     x = embed(params, tokens, positions, img, run=run)
     x, cz = run_periods(params["periods_zo"], x, cfg, positions=positions,
                         mode=mode, enc_out=enc_out, run=run, **kw,
@@ -276,7 +277,7 @@ def paired_loss(bp_part, zo_part, cfg: ModelConfig, lane: LaneConfig, batch,
     with torch.no_grad():
         for scale in (lane.zo_eps, -lane.zo_eps):
             pert = zo.perturb(rest, seed, scale, maps)
-            encs.append(run_encoder(pert, frames, cfg)
+            encs.append(run_encoder(pert, frames, cfg, run=run)
                         if cfg.encoder_layers else None)
             xs.append(embed(pert, tokens, positions, img, run=run))
             del pert

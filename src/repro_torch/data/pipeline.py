@@ -53,7 +53,8 @@ def lm_batch_fn(cfg: ModelConfig, shape: ShapeConfig, seed: int = 0,
     ``frames`` [B, encoder_seq, d] for an encoder and ``img`` [B,
     num_image_tokens, d] for image tokens; ``S_tok = seq_len -
     num_image_tokens``. ``rows``: keep these rows of the global batch (a
-    rank's, ``rank_rows``)."""
+    rank's, ``rank_rows``), of every entry: ``frames`` and ``img``
+    follow the tokens' rows in every strategy."""
     if rows is not None:
         whole = lm_batch_fn(cfg, shape, seed)
         return lambda step: {k: np.ascontiguousarray(v[rows])

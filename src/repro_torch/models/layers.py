@@ -200,6 +200,15 @@ def attention(p, x, cfg: ModelConfig, positions, *, causal=True, window=0,
     return out, (k, v)
 
 
+def cross_kv(p, enc_out):
+    """The cross-attention's keys and values [B, encoder_seq, KV, Dh] of
+    the encoder output."""
+    if enc_out is None:
+        raise ValueError("a cross-attention block needs the encoder output")
+    return (torch.einsum("bsd,dhk->bshk", enc_out, p["wk"]),
+            torch.einsum("bsd,dhk->bshk", enc_out, p["wv"]))
+
+
 def _model_sharded(spec) -> bool:
     return spec is not None and any(
         "model" in (ax if isinstance(ax, tuple) else (ax,)) for ax in spec)
@@ -217,24 +226,28 @@ def _rank_part(w, spec, dim, idx, run):
 
 
 def attention_on_mesh(p, x, cfg: ModelConfig, positions, specs, run, *,
-                      causal: bool = True, window: int = 0):
+                      causal: bool = True, window: int = 0, kv_x=None):
     """Self-attention of a training forward on a mesh (``run``), in the
     form the rules give: the ``seq`` plan (``_attention_seq``), plain
     attention where there is no TP compute (``MeshRun.whole_weights``:
     weights already gathered whole, x the rank's rows), else the ``tp``
-    plan (``_attention_tp``). Returns y [B, S, d]."""
+    plan (``_attention_tp``). ``kv_x`` [B, T, d] (Whisper's encoder
+    output, the rank's rows; ``causal`` False): cross-attention, K and V
+    from ``kv_x`` with no k_norm and no RoPE, as on one device. Returns
+    y [B, S, d]."""
     if run.rules.attn.kind == "seq":
         return _attention_seq(p, x, cfg, positions, run, causal=causal,
-                              window=window)
+                              window=window, kv_x=kv_x)
     if run.whole_weights:
+        kv = None if kv_x is None else cross_kv(p, kv_x)
         return attention(p, x, cfg, positions, causal=causal,
-                         window=window)[0]
+                         window=window, kv_override=kv)[0]
     return _attention_tp(p, x, cfg, positions, specs, run, causal=causal,
-                         window=window)
+                         window=window, kv_x=kv_x)
 
 
 def _attention_tp(p, x, cfg: ModelConfig, positions, specs, run, *,
-                  causal: bool, window: int):
+                  causal: bool, window: int, kv_x=None):
     """Self-attention of a training forward on the rank's heads under the
     rules' ``tp`` plan. The rank holds padded Q heads [r Hp/tp, (r+1)
     Hp/tp) (Hp = H + q_pad; heads past H are zero activations), i.e. KV
@@ -242,7 +255,11 @@ def _attention_tp(p, x, cfg: ModelConfig, positions, specs, run, *,
     KV head j // kv_dup; weights replicated over `model` (a head count
     the mesh does not divide) are indexed to those heads. The output
     projection's partial sum is all-reduced over `model`
-    (``_row_parallel``)."""
+    (``_row_parallel``). Cross-attention (``kv_x``): K and V of the
+    rank's KV groups from ``kv_x``, repeated kv_dup times as the JAX
+    package's ``_cross_kv`` repeats them; ``kv_x`` is ``copy_to``
+    `model`, so its gradient, each rank's share from its heads, is
+    summed there."""
     from ..sharding.collectives import copy_to
     plan = run.rules.attn
     B, S, _ = x.shape
@@ -256,16 +273,19 @@ def _attention_tp(p, x, cfg: ModelConfig, positions, specs, run, *,
     kv_heads = [j // dup for j in range(j0, j0 + kvl)]
     scale = 1.0 / math.sqrt(Dh)
     xm = copy_to(x, run.model_group)
+    src = xm if kv_x is None else copy_to(kv_x, run.model_group)
     wq = _rank_part(p["wq"], specs["wq"], 1, real, run)
     wk = _rank_part(p["wk"], specs["wk"], 1, kv_heads, run)
     wv = _rank_part(p["wv"], specs["wv"], 1, kv_heads, run)
     q = torch.einsum("bsd,dhk->bshk", xm, wq)
-    k = torch.einsum("bsd,dhk->bshk", xm, wk)
-    v = torch.einsum("bsd,dhk->bshk", xm, wv)
+    k = torch.einsum("bsd,dhk->bshk", src, wk)
+    v = torch.einsum("bsd,dhk->bshk", src, wv)
     if cfg.qk_norm:
         q = rms_norm(q, copy_to(p["q_norm"], run.model_group), cfg.norm_eps)
-        k = rms_norm(k, copy_to(p["k_norm"], run.model_group), cfg.norm_eps)
-    if cfg.rope_theta > 0:
+        if kv_x is None:
+            k = rms_norm(k, copy_to(p["k_norm"], run.model_group),
+                         cfg.norm_eps)
+    if cfg.rope_theta > 0 and kv_x is None:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
     if len(real) < hq:                           # padded Q heads
@@ -292,7 +312,7 @@ def seq_rows(S: int, tp: int, r: int) -> Tuple[int, int]:
 
 
 def _attention_seq(p, x, cfg: ModelConfig, positions, run, *, causal: bool,
-                   window: int):
+                   window: int, kv_x=None):
     """Self-attention of a training forward under the rules' ``seq``
     plan (``repro/models/layers.py``'s constraint of q's sequence dim
     over `model`): the Q/K/V/O weights are whole on every `model` rank;
@@ -306,23 +326,28 @@ def _attention_seq(p, x, cfg: ModelConfig, positions, run, *, causal: bool,
     `model` (``seq_gather``: its backward is the rank's own rows of the
     gradient, what follows being replicated over `model`); the input and
     the weights are ``copy_to`` `model`, so their gradients, each rank's
-    share from its rows, are summed there."""
+    share from its rows, are summed there. Cross-attention (``kv_x``,
+    the encoder output, the same on every `model` rank): the rank's rows
+    against every encoder position, K and V from all of ``kv_x``, which
+    is ``copy_to`` `model` too."""
     from ..sharding.collectives import copy_to, seq_gather
     B, S, _ = x.shape
     H, KV, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     g = run.model_group
     lo, hi = seq_rows(S, run.tp, run.model_rank)
-    T = hi if causal else S
     scale = 1.0 / math.sqrt(Dh)
     xm = copy_to(x, g)
     w = {name: copy_to(t, g) for name, t in p.items()}
+    src = xm[:, :hi if causal else S] if kv_x is None else copy_to(kv_x, g)
     q = torch.einsum("bsd,dhk->bshk", xm[:, lo:hi], w["wq"])
-    k = torch.einsum("bsd,dhk->bshk", xm[:, :T], w["wk"])
-    v = torch.einsum("bsd,dhk->bshk", xm[:, :T], w["wv"])
+    k = torch.einsum("bsd,dhk->bshk", src, w["wk"])
+    v = torch.einsum("bsd,dhk->bshk", src, w["wv"])
+    T = k.shape[1]
     if cfg.qk_norm:
         q = rms_norm(q, w["q_norm"], cfg.norm_eps)
-        k = rms_norm(k, w["k_norm"], cfg.norm_eps)
-    if cfg.rope_theta > 0:
+        if kv_x is None:
+            k = rms_norm(k, w["k_norm"], cfg.norm_eps)
+    if cfg.rope_theta > 0 and kv_x is None:
         q = rope(q, positions[:, lo:hi], cfg.rope_theta)
         k = rope(k, positions[:, :T], cfg.rope_theta)
     n = hi - lo
@@ -330,7 +355,7 @@ def _attention_seq(p, x, cfg: ModelConfig, positions, run, *, causal: bool,
         y = q.new_zeros(q.shape) if n == 0 else ops.flash_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
             causal=causal, window=window, scale=scale,
-            q_offset=lo).transpose(1, 2)
+            q_offset=lo if causal else 0).transpose(1, 2)
     else:
         y = _chunked_self_attention(q.reshape(B, n, KV, H // KV, Dh), k, v,
                                     positions, window, scale, causal=causal,

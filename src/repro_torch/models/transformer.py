@@ -16,14 +16,19 @@ where the JAX package scans; it takes zero periods too (a one-period
 stack's empty BP tail).
 
 On a mesh (``run``, a ``sharding/collectives.py::MeshRun``; training
-forwards of attention-only decoder stacks) each block gathers its
+forwards of attention stacks with dense FFNs: decoder-only, Whisper's
+encoder-decoder and LLaVA's image-token prefix) each block gathers its
 weights just before use and drops them after (``MeshRun.weights``: the
 FSDP shards over `data`, and over `model` too under the ``fsdp``
 strategy), attention takes the rules' form (``layers.py::
 attention_on_mesh``), the embedding and the loss are vocab-parallel
 over `model` where it carries TP compute (a whole table under
 ``fsdp``), and the loss is summed over every batch axis (``lm_loss``).
-The fused probe pair runs there too. The other stacks raise there.
+Whisper's encoder runs its blocks under their own specs on the rank's
+rows of ``frames``, and its decoder blocks cross-attend in the same
+form; the learned positions and LLaVA's image rows join the embedding
+as on one device. The fused probe pair runs there too. The MoE and
+recurrent stacks raise there.
 """
 from __future__ import annotations
 
@@ -33,7 +38,7 @@ import torch
 
 from ..configs.base import ATTN, MAMBA, RWKV, ModelConfig
 from ..core import zo
-from .layers import (attention, attention_on_mesh, dense_init,
+from .layers import (attention, attention_on_mesh, cross_kv, dense_init,
                      init_attention, init_mlp, mlp, rms_norm)
 from .moe import init_moe, moe_ffn
 from .ssm import (init_mamba_block, init_mamba_state, init_rwkv_block,
@@ -136,38 +141,47 @@ def num_periods(periods) -> int:
 
 
 def check_mesh_stack(cfg: ModelConfig):
-    """Raises unless ``cfg`` is what a mesh executes: an attention-only
-    decoder stack with dense FFNs and RoPE, trained."""
+    """Raises unless ``cfg`` is what a mesh executes: attention blocks
+    with dense FFNs (decoder-only, Whisper's encoder-decoder, LLaVA's
+    image-token prefix; RoPE or learned positions), trained."""
     why = None
-    if cfg.encoder_layers:
-        why = "an encoder-decoder stack"
-    elif cfg.num_image_tokens:
-        why = "an image-token prefix"
-    elif cfg.is_moe:
+    if cfg.is_moe:
         why = "MoE FFNs"
     elif any(kind != ATTN for kind in cfg.pattern):
         why = "recurrent (Mamba / RWKV6) blocks"
-    elif cfg.rope_theta <= 0:
-        why = "learned positions"
     if why:
         raise NotImplementedError(
-            f"{cfg.name} under a mesh: {why} waits for the MoE, recurrent, "
-            "encoder and image stacks under a mesh (ROADMAP.md queue 1); "
-            "the port shards the training of attention-only decoder stacks")
+            f"{cfg.name} under a mesh: {why} are still queued (the MoE "
+            "under the ep plan, then the recurrent blocks under a mesh: "
+            "ROADMAP.md queue 1); the port shards the training of "
+            "attention stacks with dense FFNs")
 
 
 def _block_on_mesh(p, x, cfg: ModelConfig, positions, run, j: int,
-                   gathered: bool = False):
+                   gathered: bool = False, mode: str = "train",
+                   enc_out=None):
     """One attention block of a training forward on a mesh: its weights
     gathered (``MeshRun.weights``; ``gathered``: the caller did), the
     attention in the rules' form, the MLP on the rank's d_ff slice where
-    `model` carries TP compute."""
-    specs = run.block_specs[f"blk{j}"]
+    `model` carries TP compute. ``mode`` "encode" is a block of
+    Whisper's encoder (its own block specs, ``MeshRun.
+    encoder_block_specs``): non-causal self-attention. A decoder block
+    with ``ln_cross`` then cross-attends to ``enc_out`` (the rank's rows
+    of the encoder output, the same on every `model` rank)."""
+    encode = mode == "encode"
+    specs = (run.encoder_block_specs if encode else run.block_specs)[
+        f"blk{j}"]
     if not gathered:
         p = run.weights(p, specs)
     h = rms_norm(x, p["ln_attn"], cfg.norm_eps)
     x = x + attention_on_mesh(p["attn"], h, cfg, positions, specs["attn"],
-                              run, causal=True, window=cfg.sliding_window)
+                              run, causal=not encode,
+                              window=cfg.sliding_window)
+    if "ln_cross" in p:
+        h = rms_norm(x, p["ln_cross"], cfg.norm_eps)
+        x = x + attention_on_mesh(p["cross"], h, cfg, positions,
+                                  specs["cross"], run, causal=False,
+                                  kv_x=enc_out)
     h = rms_norm(x, p["ln_ffn"], cfg.norm_eps)
     return x + mlp(p["mlp"], h, specs["mlp"], run)
 
@@ -190,14 +204,15 @@ def apply_block(p, x, cfg: ModelConfig, kind: str, *, positions, mode: str,
     written in place, recurrent state included, and returned. mode
     "train": the full causal sequence, no cache; the entry is None. mode
     "encode": as "train", but the self-attention is not causal
-    (Whisper's encoder blocks). ``run`` (a mesh; train mode only): the
-    block is pattern position ``j``, its leaves the rank's shards (or,
-    with ``gathered``, already gathered for use).
+    (Whisper's encoder blocks). ``run`` (a mesh; train and encode modes
+    only): the block is pattern position ``j``, its leaves the rank's
+    shards (or, with ``gathered``, already gathered for use).
     """
     if mode not in ("prefill", "decode", "train", "encode"):
         raise ValueError(f"unknown mode {mode!r}")
     if run is not None:                # train_engine checked the stack
-        return _block_on_mesh(p, x, cfg, positions, run, j, gathered), None
+        return _block_on_mesh(p, x, cfg, positions, run, j, gathered,
+                              mode, enc_out), None
     state = cache if mode == "decode" else None
     if kind == RWKV:
         x, new = rwkv_block(p["rwkv"], x, cfg, state)
@@ -224,7 +239,7 @@ def apply_block(p, x, cfg: ModelConfig, kind: str, *, positions, mode: str,
             if mode == "decode":
                 kv = (cache["ck"], cache["cv"])
             else:
-                kv = _cross_kv(p["cross"], enc_out)
+                kv = cross_kv(p["cross"], enc_out)
                 new.update(ck=kv[0], cv=kv[1])
             y, _ = attention(p["cross"], h, cfg, positions, causal=False,
                              kv_override=kv)
@@ -234,15 +249,6 @@ def apply_block(p, x, cfg: ModelConfig, kind: str, *, positions, mode: str,
     h = rms_norm(x, p["ln_ffn"], cfg.norm_eps)
     y = moe_ffn(p["moe"], h, cfg) if "moe" in p else mlp(p["mlp"], h)
     return x + y, _entry(mode, cache, new)
-
-
-def _cross_kv(p, enc_out):
-    """The cross-attention's keys and values [B, encoder_seq, KV, Dh] of
-    the encoder output."""
-    if enc_out is None:
-        raise ValueError("a cross-attention block needs the encoder output")
-    return (torch.einsum("bsd,dhk->bshk", enc_out, p["wk"]),
-            torch.einsum("bsd,dhk->bshk", enc_out, p["wv"]))
 
 
 def _entry(mode: str, cache, new):
@@ -264,7 +270,8 @@ def run_periods(periods, x, cfg: ModelConfig, *, positions, mode,
     cross-attend to (prefill and train; decode reads the cached ck / cv).
     Returns (x, caches): prefill stacks the new entries (an empty dict
     per position over zero periods); decode returns ``caches``, updated
-    in place; train returns None. ``run``: the mesh (train mode)."""
+    in place; train returns None. ``run``: the mesh (train and encode
+    modes)."""
     entries = [[] for _ in cfg.pattern]
     for i in range(num_periods(periods)):
         for j, kind in enumerate(cfg.pattern):
@@ -338,34 +345,47 @@ def embed(params, tokens, positions=None, img=None, run=None):
     """Token embeddings [B, S, d], after ``img`` [B, n_img, d] (LLaVA's
     image-token embeddings) when given, plus ``pos_embed[positions]``
     where the stack learns its positions (positions [B, n_img + S]).
-    On a mesh (``run``) the table's FSDP shards are gathered and, where
-    its vocab rows are sharded over `model`, each rank looks up the
-    tokens in its rows (zeros elsewhere) and the rows are all-reduced
-    over `model`: one nonzero term a row, so the lookup is exact."""
+    On a mesh (``run``; tokens and ``img`` the rank's rows) the table's
+    FSDP shards are gathered and, where its vocab rows are sharded over
+    `model`, each rank looks up the tokens in its rows (zeros elsewhere)
+    and the rows are all-reduced over `model`: one nonzero term a row, so
+    the lookup is exact; ``pos_embed`` is gathered by its spec
+    (``MeshRun.weight``), in the same order as on one device."""
     if run is not None:
         from ..sharding.collectives import vocab_embed
-        return vocab_embed(params["embed"], tokens, run)
-    x = params["embed"][tokens.to(torch.int64)]
+        x = vocab_embed(params["embed"], tokens, run)
+    else:
+        x = params["embed"][tokens.to(torch.int64)]
     if img is not None:
         x = torch.cat([img.to(x.dtype), x], dim=1)
     if "pos_embed" in params:
-        x = x + params["pos_embed"][positions.to(torch.int64)]
+        pos = params["pos_embed"] if run is None else run.weight(
+            params["pos_embed"], run.specs["pos_embed"])
+        x = x + pos[positions.to(torch.int64)]
     return x
 
 
-def run_encoder(params, frames, cfg: ModelConfig):
+def run_encoder(params, frames, cfg: ModelConfig, run=None):
     """Whisper's encoder over frames [B, encoder_seq, d] (the stubbed
     front end's frame embeddings): learned positions, then
     ``encoder_layers`` non-causal attention blocks, then the RMS norm
-    (``repro/models/transformer.py::run_encoder``)."""
+    (``repro/models/transformer.py::run_encoder``). On a mesh (``run``)
+    ``frames`` are the rank's rows, ``pos_embed`` and ``final_norm`` are
+    gathered by their specs and the blocks run in their mesh form (the
+    ``seq`` plan splits the frames' query rows over `model`)."""
     enc = params["encoder"]
+    pos_embed, norm = enc["pos_embed"], enc["final_norm"]
+    if run is not None:
+        specs = run.specs["encoder"]
+        pos_embed = run.weight(pos_embed, specs["pos_embed"])
+        norm = run.weight(norm, specs["final_norm"])
     B, S = frames.shape[:2]
-    x = (frames + enc["pos_embed"][None, :S]).to(frames.dtype)
+    x = (frames + pos_embed[None, :S]).to(frames.dtype)
     positions = torch.arange(S, dtype=torch.int64,
                              device=frames.device).expand(B, S)
     x, _ = run_periods(enc["periods"], x, encoder_config(cfg),
-                       positions=positions, mode="encode")
-    return rms_norm(x, enc["final_norm"], cfg.norm_eps)
+                       positions=positions, mode="encode", run=run)
+    return rms_norm(x, norm, cfg.norm_eps)
 
 
 def head_logits(params, x, cfg: ModelConfig):

@@ -46,7 +46,7 @@ import torch
 import torch.distributed as dist
 
 from ..launch.mesh import axis_shape
-from .params import (ShardDesc, dict_leaves, map_dict, param_shardings,
+from .params import (ShardDesc, map_dict, param_shardings,
                      period_map, shard_desc, shard_descs, unshard_leaf)
 from .rules import ShardingRules
 
@@ -221,6 +221,13 @@ def seq_gather(x: torch.Tensor, group, dim: int, lo: int,
     return _SeqGather.apply(x, group, dim, lo, total)
 
 
+def _block_specs(stack):
+    """{blk: spec tree} of a stacked period group's specs, each spec's
+    leading (period) dim dropped; empty for None."""
+    return {k: map_dict(lambda _n, s: s[1:], v)
+            for k, v in (stack or {}).items()}
+
+
 class MeshRun:
     """A mesh bound to a model's parameters on this rank: the rules, the
     process group, size and coordinate of each mesh axis, every leaf's
@@ -256,9 +263,13 @@ class MeshRun:
         self.specs = param_shardings(abstract_params, rules)
         self.descs = shard_descs(abstract_params, self.specs, self.coords,
                                  sizes)
-        stack = self.specs.get("periods_zo") or self.specs.get("periods_bp")
-        self.block_specs = {k: map_dict(lambda _n, s: s[1:], v)
-                            for k, v in (stack or {}).items()}
+        # each stacked group's block specs, the period dim dropped: the
+        # decoder's (its blocks carry ln_cross / cross in Whisper) and
+        # Whisper's encoder's
+        self.block_specs = _block_specs(self.specs.get("periods_zo")
+                                        or self.specs.get("periods_bp"))
+        self.encoder_block_specs = _block_specs(
+            self.specs.get("encoder", {}).get("periods"))
 
     # ---- groups ------------------------------------------------------- #
     @property
@@ -325,9 +336,16 @@ class MeshRun:
         return t
 
     def weights(self, tree, specs):
-        """``weight`` of every leaf of a tree, with its spec tree."""
-        it = iter(dict_leaves(specs))
-        return map_dict(lambda _n, t: self.weight(t, next(it)), tree)
+        """``weight`` of every leaf of a tree, each with the spec at its
+        own names in the spec tree ``specs`` (matched by name, not by
+        order, so a tree with fewer leaves takes the right specs)."""
+        def spec_at(names):
+            s = specs
+            for k in names:
+                s = s[k]
+            return s
+        return map_dict(lambda names, t: self.weight(t, spec_at(names)),
+                        tree)
 
     def index_maps(self, descs=None):
         """The ``IndexMap`` of every leaf's shard (of ``descs``, by

@@ -310,9 +310,10 @@ def test_a_mesh_is_not_ported():
     """What of a mesh is not ported: a strategy the rules do not name
     raises on a mesh and without one, and a MoE stack raises on a mesh in
     every strategy. The tp, fsdp and serve strategies run attention-only
-    stacks on a mesh (tests/test_torch_mesh.py,
-    tests/test_torch_strategies.py) and, without one, are the
-    one-device step."""
+    decoder stacks (tests/test_torch_mesh.py,
+    tests/test_torch_strategies.py), Whisper's encoder-decoder and
+    LLaVA's image-token prefix (tests/test_torch_mesh_encdec.py) on a
+    mesh and, without one, are the one-device step."""
     from repro_torch.launch.mesh import AbstractMesh
     mesh = AbstractMesh((2, 2), ("data", "model"))
     moe = reduced(get_arch("mixtral-8x7b"))

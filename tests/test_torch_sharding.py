@@ -9,6 +9,7 @@ of every arch's full-size abstract trees; a rank's shard descriptors and
 index maps, and the plain noise at them against the global noise sliced.
 """
 import dataclasses
+import types
 
 import numpy as np
 import pytest
@@ -276,17 +277,29 @@ def test_shard_noise_is_global_noise_sliced(mesh):
                                   "rwkv6-1.6b", "whisper-small",
                                   "llava-next-34b"])
 def test_mesh_refuses_other_stacks(arch):
+    """The MoE and recurrent stacks still raise under a mesh, naming the
+    queue; Whisper's encoder-decoder and LLaVA's image-token prefix are
+    accepted (tests/test_torch_mesh_encdec.py trains them on a mesh)."""
+    cfg = reduced(ARCHS[arch])
+    if arch in ("whisper-small", "llava-next-34b"):
+        assert check_mesh_stack(cfg) is None
+        run = types.SimpleNamespace(index_maps=lambda: None)
+        engine, _ = api.train_engine(cfg, LaneConfig(), run=run)
+        assert engine.run is run
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        check_mesh_stack(reduced(ARCHS[arch]))
+        check_mesh_stack(cfg)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        api.train_engine(reduced(ARCHS[arch]), LaneConfig(), run=object())
+        api.train_engine(cfg, LaneConfig(), run=object())
 
 
 def test_mesh_refuses_other_strategies_and_fused_probes():
     """What a mesh still refuses: a strategy the rules do not name (on a
     mesh and without one), and any strategy or fused probes for a stack
     it does not run (MoE; tests/test_torch_strategies.py runs tp, fsdp,
-    serve and fused probes on attention-only stacks)."""
+    serve and fused probes on attention-only decoder stacks, and
+    tests/test_torch_mesh_encdec.py on Whisper's encoder-decoder and
+    LLaVA's image-token prefix)."""
     cfg = reduced(ARCHS["qwen3-4b"])
     moe = reduced(ARCHS["mixtral-8x7b"])
     shape = ShapeConfig("s", seq_len=16, global_batch=2, kind="train")
@@ -307,7 +320,9 @@ def test_seq_plan_raises():
     waste), whose ranks split the query rows in blocks of ceil(S / tp),
     the last ones short or empty (tests/test_torch_strategies.py runs
     the plan); whisper-small takes it at tp 8, and its encoder-decoder
-    stack still raises under a mesh."""
+    stack is accepted under a mesh (tests/test_torch_mesh_encdec.py
+    runs Whisper's seq plan at 1x4), while Jamba's recurrent and MoE
+    stack still raises there."""
     from repro_torch.models.layers import seq_rows
     cfg = ARCHS["phi4-mini-3.8b"]
     r = ShardingRules(mesh_lib.AbstractMesh((1, 16), ("data", "model")), cfg)
@@ -319,10 +334,13 @@ def test_seq_plan_raises():
     whisper = ARCHS["whisper-small"]
     mesh = mesh_lib.AbstractMesh((1, 8), ("data", "model"))
     assert ShardingRules(mesh, whisper).attn.kind == "seq"
+    assert check_mesh_stack(whisper) is None
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         elastic_runtime.build_for_mesh(
-            whisper, ShapeConfig("s", seq_len=16, global_batch=2,
-                                 kind="train"), LaneConfig(), mesh)
+            ARCHS["jamba-v0.1-52b"], ShapeConfig("s", seq_len=16,
+                                                 global_batch=2,
+                                                 kind="train"),
+            LaneConfig(), mesh)
 
 
 def test_nccl_needs_a_card_a_rank(monkeypatch):

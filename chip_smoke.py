@@ -47,13 +47,17 @@ Then it trains across a mesh (``launch/train.py --mesh``): the shard
 forms of the two fp32 ZO kernels against their plain versions and a
 2-D shard of w_gate against the whole leaf's noise; on a 2x2 mesh of
 four spawned ranks sharing the card over gloo, qwen3-4b (4 of 36
-layers, full width, tp), whisper-small whole in f32 under tp, fsdp and
-serve with fused probes under tp and fsdp, and llava-next-34b (2 of 60
-layers, full width, f32) under tp (each shard's noise bitwise the
+layers, full width, tp), whisper-small (4 of 12 decoder and encoder
+layers, full width, f32) under tp, fsdp and serve with fused probes
+under tp and fsdp, llava-next-34b (2 of 60 layers, full width, f32)
+under tp, and mixtral-8x7b (2 of 32 layers, full width, f32) under fsdp
+with the batch over (data, model), so that the MoE's expert buffers go
+through the dispatch all-to-all (each shard's noise bitwise the
 one-device kernels' sliced, the coefficients bitwise across ranks every
 step, losses and leaf moves against one device's, fused pairs bitwise
-the unfused ones), reduced f32 qwen3-4b, Whisper and LLaVA card against
-CPU (the seq plan at 1x4 too); and whole qwen3-4b on a 1x1 mesh over
+the unfused ones, the all-to-alls counted), reduced f32 qwen3-4b,
+Whisper, LLaVA and Mixtral card against CPU (the seq plan and the MoE tp
+plan at 1x4 too); and whole qwen3-4b on a 1x1 mesh over
 NCCL, bitwise the one-device run (with four cards, also 2x2 over
 NCCL).
 
@@ -2977,10 +2981,16 @@ MESH_MOVE_RTOL = 5e-2            # each leaf's summed |change| over a lane's
 #                                  gradient summed twice by twice as much,
 #                                  distance 1 either way
 MESH_SMALL_TOL = 1e-4            # reduced f32 stacks, card against CPU
-#                                  (losses and params, relative)
+#                                  (losses and params, relative; each card
+#                                  step against the CPU's from its state)
 MESH_LLAVA_LAYERS = 2            # of llava-next-34b's 60, at full width:
 #                                  one ZO period and one tail period
-MESH_DTYPES = {"whisper-small": "float32", "llava-next-34b": "float32"}
+MESH_MOE_LAYERS = 2              # of mixtral-8x7b's 32, at full width:
+#                                  one ZO period and one tail period
+MESH_WHISPER_LAYERS = 4          # of whisper-small's 12 decoder and 12
+#                                  encoder layers (3 ZO periods, 1 tail)
+MESH_DTYPES = {"whisper-small": "float32", "llava-next-34b": "float32",
+               "mixtral-8x7b": "float32"}
 #                                  qwen3-4b's lanes in bf16. The first
 #                                  (l+, l-) of whisper-small and of
 #                                  LLaVA's cut differ by 2.2e-3 and
@@ -2990,18 +3000,32 @@ MESH_DTYPES = {"whisper-small": "float32", "llava-next-34b": "float32"}
 #                                  device), so in bf16 the ZO coefficients,
 #                                  and each ZO leaf's move, rounded apart:
 #                                  0.364 and 0.0739 against MESH_MOVE_RTOL
-#                                  (PERF.md §6); in f32 1.26e-2 and 1.89e-4
+#                                  (PERF.md §6); in f32 1.26e-2 and 1.89e-4.
+#                                  Mixtral's cut likewise: l+ - l-
+#                                  -1.2e-3 on one device, -7.6e-4 on the
+#                                  2x2 tp lane in bf16, leaf moves 0.283
+#                                  apart (PERF.md §6)
 # the mesh phase's lanes on a 2x2 mesh, one spawn: (label, arch, strategy,
 # fused probes, batch, seq). qwen3-4b cut to MESH_LAYERS under tp (the
-# four-card NCCL check's lane). whisper-small whole at 4 x 128 in every
-# strategy, fused under tp and fsdp beside the unfused lanes: it holds the
+# four-card NCCL check's lane). whisper-small at full width, cut to
+# MESH_WHISPER_LAYERS (for the Mixtral lane's time), at 4 x 128 in
+# every strategy, fused under tp and fsdp beside the unfused lanes: it
+# holds the
 # fsdp and serve strategies and the fused pairs at full width, which
 # qwen3-4b's lanes at 4 x 128 and 4 x 512 held before (on a slow host
 # their timed steps read 9.0 to 44.5 s each, and the mesh phase 407 s,
 # PERF.md §6). llava-next-34b cut to MESH_LLAVA_LAYERS at 2 x 3,008
 # (2,880 image and 128 text tokens) under tp: under fsdp a rank would
 # gather a layer's 2.2 GB (f32) through gloo's host side, so its other
-# strategies are held by the reduced config
+# strategies are held by the reduced config. mixtral-8x7b cut to
+# MESH_MOE_LAYERS at 4 x 128 under the ep plan (8 experts over 2 `model`
+# ranks), fsdp: the 4 rows over (data, model), so the expert buffers go
+# through the dispatch all-to-all; a rank gathers a layer's 4 experts
+# over `data` (1.41 G parameters, f32). Its tp lane (each `model` rank
+# the same rows and its own experts) took as long, 32.3 s a warm step,
+# and its serve lane (experts resident) ran out of the card's memory in
+# f32, four ranks at ~19.5 GB (PERF.md §6): both, and the MoE tp
+# plan, are held by the reduced configs
 MESH_LANES = (("tp", "qwen3-4b", "tp", False, 4, 128),
               ("whisper tp", "whisper-small", "tp", False, 4, 128),
               ("whisper fsdp", "whisper-small", "fsdp", False, 4, 128),
@@ -3009,66 +3033,84 @@ MESH_LANES = (("tp", "qwen3-4b", "tp", False, 4, 128),
               ("whisper tp fused", "whisper-small", "tp", True, 4, 128),
               ("whisper fsdp fused", "whisper-small", "fsdp", True, 4, 128),
               ("llava tp", "llava-next-34b", "tp", False, 2,
-               LLAVA_IMAGE + 128))
+               LLAVA_IMAGE + 128),
+              ("mixtral fsdp", "mixtral-8x7b", "fsdp", False, 4, 128))
 # reduced f32 stacks card against CPU in the same world: (label, arch, mesh
-# shape, strategy, batch, (Q, KV) heads or None, encoder_seq or None, text
-# tokens). Whisper's and LLaVA's take random frames and image rows from a
-# numpy seed (the launcher's are zeros, in which a row-slicing fault would
-# not show); fsdp at batch 4 puts the rows over (data, model). The 6-head
-# configs take the seq plan at 1x4 (4 ranks pad 6 heads to 8, 33% waste;
+# shape, strategy, batch, config overrides, text tokens). Whisper's and
+# LLaVA's take random frames and image rows from a numpy seed (the
+# launcher's are zeros, in which a row-slicing fault would not show); fsdp
+# at batch 4 puts the rows over (data, model). The 6-head configs take the
+# seq plan at 1x4 (4 ranks pad 6 heads to 8, 33% waste;
 # tests/test_torch_strategies.py, tests/test_torch_mesh_encdec.py),
 # Whisper's over 18 decoder rows and 18 frames, so its last rank holds 3
-# of each
-MESH_SMALL = (("qwen3-4b 2x2 tp", "qwen3-4b", (2, 2), "tp", 2, None, None,
+# of each. Mixtral's 4 experts take the ep plan at 2x2 (fsdp at batch 4:
+# the dispatch all-to-all), its 6 experts over 4 ranks the MoE tp plan
+# (tests/test_torch_mesh_moe.py)
+MESH_SMALL = (("qwen3-4b 2x2 tp", "qwen3-4b", (2, 2), "tp", 2, {}, 16),
+              ("qwen3-4b seq 1x4", "qwen3-4b", (1, 4), "tp", 2,
+               {"num_heads": 6, "num_kv_heads": 2}, 16),
+              ("whisper 2x2 tp", "whisper-small", (2, 2), "tp", 2, {}, 16),
+              ("whisper 2x2 fsdp", "whisper-small", (2, 2), "fsdp", 4, {},
                16),
-              ("qwen3-4b seq 1x4", "qwen3-4b", (1, 4), "tp", 2, (6, 2), None,
+              ("whisper seq 1x4", "whisper-small", (1, 4), "tp", 2,
+               {"num_heads": 6, "num_kv_heads": 6, "encoder_seq": 18}, 18),
+              ("llava 2x2 tp", "llava-next-34b", (2, 2), "tp", 2, {}, 16),
+              ("llava 2x2 fsdp", "llava-next-34b", (2, 2), "fsdp", 4, {},
                16),
-              ("whisper 2x2 tp", "whisper-small", (2, 2), "tp", 2, None,
-               None, 16),
-              ("whisper 2x2 fsdp", "whisper-small", (2, 2), "fsdp", 4, None,
-               None, 16),
-              ("whisper seq 1x4", "whisper-small", (1, 4), "tp", 2, (6, 6),
-               18, 18),
-              ("llava 2x2 tp", "llava-next-34b", (2, 2), "tp", 2, None, None,
+              ("mixtral 2x2 tp", "mixtral-8x7b", (2, 2), "tp", 2, {}, 16),
+              ("mixtral 2x2 fsdp", "mixtral-8x7b", (2, 2), "fsdp", 4, {},
                16),
-              ("llava 2x2 fsdp", "llava-next-34b", (2, 2), "fsdp", 4, None,
-               None, 16))
-# gloo's collectives tried on CUDA tensors: the port's (GLOO_CUDA_OPS) are
-# asserted, the others recorded (all_to_all for the MoE under the ep plan)
+              ("mixtral 2x2 serve", "mixtral-8x7b", (2, 2), "serve", 2, {},
+               16),
+              ("mixtral 1x4 tp, 6 experts", "mixtral-8x7b", (1, 4), "tp", 2,
+               {"num_experts": 6}, 16))
+# gloo's collectives tried on CUDA tensors in f32: the port's
+# (GLOO_CUDA_OPS) are asserted, broadcast recorded. The two that move a
+# bf16 lane's tensors as they are (the weight gathers, the MoE's dispatch
+# all-to-all; the sums run in f32) are tried in bf16 too, and asserted
 GLOO_PROBE_OPS = ("all_reduce", "broadcast", "all_gather", "reduce_scatter",
                   "all_to_all")
+GLOO_PROBE_BF16 = ("all_gather", "all_to_all")
 
 
 def gloo_cuda_probe(rank, world):
     """Each collective straight on CUDA tensors over the world group (the
     ranks sharing the card under gloo): {op: True where it ran and gave
-    the right values, else what it raised}."""
+    the right values, else what it raised}; the ops of GLOO_PROBE_BF16
+    also on bf16 tensors ("<op> bfloat16"; small integers, exact in
+    bf16)."""
     import torch.distributed as dist
     got = {}
-    x = torch.full((4,), float(rank + 1), device="cuda")
     tri = world * (world + 1) / 2
-    calls = {
-        "all_reduce": lambda: (dist.all_reduce(y := x.clone()), y)[1],
-        "broadcast": lambda: (dist.broadcast(y := x.clone(), 0), y)[1],
-        "all_gather": lambda: (dist.all_gather_into_tensor(
-            y := torch.empty(4 * world, device="cuda"), x), y)[1],
-        "reduce_scatter": lambda: (dist.reduce_scatter_tensor(
-            y := torch.empty(4, device="cuda"),
-            torch.cat([x * (r + 1) for r in range(world)])), y)[1],
-        "all_to_all": lambda: (dist.all_to_all_single(
-            y := torch.empty(world, device="cuda"),
-            torch.arange(world, device="cuda", dtype=torch.float32)
-            + 10 * rank), y)[1]}
+
+    def calls(dt):
+        x = torch.full((4,), float(rank + 1), device="cuda", dtype=dt)
+        return {
+            "all_reduce": lambda: (dist.all_reduce(y := x.clone()), y)[1],
+            "broadcast": lambda: (dist.broadcast(y := x.clone(), 0), y)[1],
+            "all_gather": lambda: (dist.all_gather_into_tensor(
+                y := torch.empty(4 * world, device="cuda", dtype=dt), x),
+                y)[1],
+            "reduce_scatter": lambda: (dist.reduce_scatter_tensor(
+                y := torch.empty(4, device="cuda", dtype=dt),
+                torch.cat([x * (r + 1) for r in range(world)])), y)[1],
+            "all_to_all": lambda: (dist.all_to_all_single(
+                y := torch.empty(world, device="cuda", dtype=dt),
+                torch.arange(world, device="cuda", dtype=dt)
+                + 10 * rank), y)[1]}
     want = {"all_reduce": [tri] * 4, "broadcast": [1.0] * 4,
             "all_to_all": [float(10 * r + rank) for r in range(world)],
             "all_gather": [float(r + 1) for r in range(world)
                            for _ in range(4)],
             "reduce_scatter": [tri * (rank + 1)] * 4}
-    for op in GLOO_PROBE_OPS:
+    tries = [(op, op, torch.float32) for op in GLOO_PROBE_OPS] + [
+        (f"{op} bfloat16", op, torch.bfloat16) for op in GLOO_PROBE_BF16]
+    for key, op, dt in tries:
         try:
-            got[op] = calls[op]().cpu().tolist() == want[op]
+            y = calls(dt)[op]()
+            got[key] = y.dtype == dt and y.float().cpu().tolist() == want[op]
         except Exception as e:          # recorded: what this build refuses
-            got[op] = f"{type(e).__name__}: {str(e)[:120]}"
+            got[key] = f"{type(e).__name__}: {str(e)[:120]}"
     return got
 
 
@@ -3079,10 +3121,11 @@ def check_gloo_probe(got):
     values, since the port sends them straight to gloo."""
     from repro_torch.sharding import collectives
     print(f"gloo on CUDA tensors, this build (torch {torch.__version__}): "
-          f"{got}; the port calls {list(collectives.GLOO_CUDA_OPS)} on them")
-    print(f"gloo all_to_all_single on CUDA tensors (recorded for the MoE "
-          f"under the ep plan, not asserted): {got.get('all_to_all')}")
-    for op in collectives.GLOO_CUDA_OPS:
+          f"{got}; the port calls {list(collectives.GLOO_CUDA_OPS)} on them,"
+          f" {list(GLOO_PROBE_BF16)} also on bf16 ones (all_to_all: the "
+          "MoE's dispatch under the ep plan)")
+    for op in list(collectives.GLOO_CUDA_OPS) + [
+            f"{op} bfloat16" for op in GLOO_PROBE_BF16]:
         if got.get(op) is not True:
             raise AssertionError(f"gloo's {op} on CUDA tensors: {got.get(op)}")
 
@@ -3092,7 +3135,8 @@ def mesh_per_step(cfg, fused=False):
     config: 1 zo_fused_replay a ZO leaf (every rank holds a shard of
     each): the leaves outside periods_zo (embed, and pos_embed and the
     encoder's 2 + its block's leaves where the stack has them) and a
-    decoder block's (with cross-attention's 5 in Whisper); zo_perturb 2 a
+    decoder block's (with cross-attention's 5 in Whisper; a MoE FFN's
+    router and 3 expert leaves in place of the MLP's 3); zo_perturb 2 a
     ZO leaf unfused, and fused 2 a leaf outside periods_zo and 2 a
     block's leaf a ZO period (one period's slice at a time); flash 2 a
     forward's attention calls without a gradient: each ZO period's
@@ -3101,7 +3145,9 @@ def mesh_per_step(cfg, fused=False):
     zo_periods = cfg.num_layers - 1
     attn = 5 + 2 * cfg.qk_norm          # ln_attn, wq/wk/wv/wo, q/k norms
     cross = bool(cfg.encoder_layers)
-    block = attn + 4 + cross * attn     # ln_ffn and the MLP's 3
+    ffn = 5 if cfg.is_moe else 4        # ln_ffn, the MLP's 3 or the
+    #                                     router and the experts' 3
+    block = attn + ffn + cross * attn
     encoder = 2 + attn + 4 if cross else 0
     whole = 1 + (cfg.rope_theta <= 0) + encoder
     perturb = 2 * whole + 2 * block * zo_periods if fused \
@@ -3114,12 +3160,15 @@ def mesh_per_step(cfg, fused=False):
 def _mesh_noise(trainer, zo_perturb, zo_replay):
     """Every ZO leaf's shard perturbed and updated at its index map, and
     each period's slice of a stacked leaf's shard perturbed at its
-    ``MeshRun.period_maps`` map (the fused pair's shard form), against the
-    one-device kernels on a whole leaf sliced (a leaf of the global shape
-    holding the shard at its place: the elements elsewhere do not reach
-    the slice); returns the number of (leaf or slice) maps held."""
+    ``MeshRun.period_maps`` map (the fused pair's shard form) and, where
+    ``MeshRun.weights`` gathers it, the gathered slice at its map
+    (``period_maps(..., gathered=True)``: an expert leaf's block of
+    experts under the ep plan), against the one-device kernels on a whole
+    leaf sliced (a leaf of the global shape holding the shard at its
+    place: the elements elsewhere do not reach the slice); returns the
+    number of (leaf or slice) maps held."""
     from repro_torch.core import elastic, zo
-    from repro_torch.sharding.params import period_map
+    from repro_torch.sharding.params import kept_desc, period_map
     run = trainer.run
     zo_part, _ = elastic.partition(trainer.state.params, trainer.lane)
     seeds = zo.device_seeds([977, 1301], trainer.device)
@@ -3142,12 +3191,20 @@ def _mesh_noise(trainer, zo_perturb, zo_replay):
                                       salt)[d.slices])
         n += 1
         if path[0] == "periods_zo":
+            kd = kept_desc(d, run.kept_axes(path))
             for p in range(leaf.shape[0]):
                 ok &= torch.equal(
                     zo_perturb.zo_perturb(leaf[p], seeds[:1], salt, 1e-3,
                                           index=period_map(d, p)),
                     pert[p][d.slices[1:]])
                 n += 1
+                if kd.local_shape != d.local_shape:
+                    ok &= torch.equal(
+                        zo_perturb.zo_perturb(
+                            whole[p][kd.slices[1:]].contiguous(), seeds[:1],
+                            salt, 1e-3, index=period_map(kd, p)),
+                        pert[p][kd.slices[1:]])
+                    n += 1
         del whole, pert
         if not ok:
             raise AssertionError(f"rank {run.rank}: {zo.keystr(path)}'s "
@@ -3213,14 +3270,19 @@ def leaf_moves(params, init, run=None):
 
 def mesh_cfg(arch):
     """The stack a mesh lane of ``arch`` trains, at full width: qwen3-4b
-    cut to MESH_LAYERS, whisper-small whole, llava-next-34b cut to
-    MESH_LLAVA_LAYERS; in MESH_DTYPES' dtype where it names one."""
+    cut to MESH_LAYERS, whisper-small to MESH_WHISPER_LAYERS (decoder and
+    encoder), llava-next-34b to MESH_LLAVA_LAYERS, mixtral-8x7b to
+    MESH_MOE_LAYERS; in MESH_DTYPES' dtype where it names one."""
     from repro_torch.configs import ARCHS
-    cut = {"qwen3-4b": MESH_LAYERS,
-           "llava-next-34b": MESH_LLAVA_LAYERS}.get(arch)
+    cut = {"qwen3-4b": MESH_LAYERS, "whisper-small": MESH_WHISPER_LAYERS,
+           "llava-next-34b": MESH_LLAVA_LAYERS,
+           "mixtral-8x7b": MESH_MOE_LAYERS}[arch]
     cfg = ARCHS[arch]
-    cfg = dataclasses.replace(cfg, dtype=MESH_DTYPES.get(arch, cfg.dtype))
-    return cfg if cut is None else dataclasses.replace(cfg, num_layers=cut)
+    cfg = dataclasses.replace(cfg, dtype=MESH_DTYPES.get(arch, cfg.dtype),
+                              num_layers=cut)
+    if cfg.encoder_layers:
+        cfg = dataclasses.replace(cfg, encoder_layers=cut)
+    return cfg
 
 
 def mesh_title(arch):
@@ -3228,7 +3290,8 @@ def mesh_title(arch):
     from repro_torch.configs import ARCHS
     cfg = mesh_cfg(arch)
     n, full = cfg.num_layers, ARCHS[arch].num_layers
-    cut = "" if n == full else f"{n} of {full} layers, "
+    both = " decoder and encoder" if cfg.encoder_layers else ""
+    cut = "" if n == full else f"{n} of {full}{both} layers, "
     return f"{arch} ({cut}{cfg.dtype})"
 
 
@@ -3260,59 +3323,69 @@ def small_mesh_batches(cfg, batch, seq, rows):
 
 def _mesh_small(mesh, spec, lanes=("elastic_zo", "full_bp")):
     """The reduced f32 stack of ``spec`` (a MESH_SMALL entry), 2 steps of
-    each of ``lanes`` on this mesh in the spec's strategy, on the card
-    and on the CPU from the same shards (the CPU init's: the two
-    devices' generators draw apart) and the same batches
-    (``small_mesh_batches``): ({lane: (worst relative loss distance,
-    worst relative param distance)}, the rules' attention plan)."""
+    each of ``lanes`` on this mesh in the spec's strategy: the card's own
+    run from the CPU init's shards (the two devices' generators draw
+    apart), each of its steps held against the CPU's step from the same
+    shards (the card's state before that step) and the same batch
+    (``small_mesh_batches``), so that a step's rounding does not enter
+    the next comparison through the ZO coefficients (a loss 2 ulps apart
+    moved reduced Mixtral's leaves 1.4e-4 apart a step later, PERF.md
+    §6): ({lane: (worst relative loss distance, worst relative param
+    distance)} over the steps, the rules' attention plan, their MoE
+    plan)."""
     from repro_torch.configs import ARCHS, ShapeConfig, reduced
     from repro_torch.core import zo
     from repro_torch.core.elastic import TrainState
     from repro_torch.data.pipeline import device_put_batch, rank_rows
     from repro_torch.launch import train as launch_train
     from repro_torch.train.train_loop import LoopConfig, run
-    _, arch, _, strategy, batch, heads, enc, text = spec
-    cfg = reduced(ARCHS[arch], dtype="float32")
-    if heads:
-        cfg = dataclasses.replace(cfg, num_heads=heads[0],
-                                  num_kv_heads=heads[1])
-    if enc:
-        cfg = dataclasses.replace(cfg, encoder_seq=enc)
+    _, arch, _, strategy, batch, overrides, text = spec
+    cfg = reduced(ARCHS[arch], dtype="float32", **overrides)
     seq = text + cfg.num_image_tokens
     out = {}
     for lane in lanes:
-        got, init = {}, None
-        for dev in ("cpu", "cuda"):
-            t = launch_train.setup(launch_train.parse_args(
-                ["--arch", arch, "--device", dev, "--lane", lane, "--batch",
-                 str(batch), "--seq", str(seq), "--steps", "2"]),
-                cfg=cfg, mesh=mesh, strategy=strategy)
-            plan = t.run.rules.attn.kind
-            host = small_mesh_batches(cfg, batch, seq, rank_rows(
-                ShapeConfig("train", seq_len=seq, global_batch=batch,
-                            kind="train"), t.run.rules, t.run.coords))
-            if init is None:        # the CPU's draws, on both devices
-                init = zo.map_with_path(lambda p, x: x.clone(),
-                                        t.state.params)
-            # a copy each run: the step updates the ZO leaves in place
-            t.state = TrainState(zo.map_with_path(
-                lambda p, x: x.clone().to(t.device), init), 0, t.state.seed)
-            state, hist = run(t.step_fn, t.state,
-                              lambda s: device_put_batch(host(s), t.device,
-                                                         t.dtypes),
-                              LoopConfig.for_lane(t.lane, total_steps=2,
-                                                  log_every=1),
-                              log=None, param_shardings=t.run)
-            got[dev] = ([h[1] for h in hist],
-                        [t.run.gather_leaf(p, leaf).cpu() for p, leaf in
-                         zo.leaves_with_path(state.params)])
-        (lc, pc), (lh, ph) = got["cuda"], got["cpu"]
-        out[lane] = (max(abs(a - b) / max(abs(b), 1.0)
-                         for a, b in zip(lc, lh)),
-                     max(float((a - b).abs().max()
-                               / max(float(b.abs().max()), 1.0))
-                         for a, b in zip(pc, ph)))
-    return out, plan
+        ts = {dev: launch_train.setup(launch_train.parse_args(
+            ["--arch", arch, "--device", dev, "--lane", lane, "--batch",
+             str(batch), "--seq", str(seq), "--steps", "2"]),
+            cfg=cfg, mesh=mesh, strategy=strategy) for dev in ("cpu", "cuda")}
+        run_ = ts["cpu"].run
+        plan = run_.rules.attn.kind, run_.rules.moe
+        host = small_mesh_batches(cfg, batch, seq, rank_rows(
+            ShapeConfig("train", seq_len=seq, global_batch=batch,
+                        kind="train"), run_.rules, run_.coords))
+        seed = ts["cpu"].state.seed
+        card = TrainState(zo.map_with_path(      # the CPU's draws
+            lambda p, x: x.clone().to("cuda"), ts["cpu"].state.params), 0,
+            seed)
+        dist_loss = dist_param = 0.0
+        for step in range(2):
+            # the card's state before this step, for the CPU (the card's
+            # step updates its ZO leaves in place)
+            before = zo.map_with_path(lambda p, x: x.cpu().clone(),
+                                      card.params)
+            got = {}
+            for dev, state in (("cuda", card),
+                               ("cpu", TrainState(before, step, seed))):
+                t = ts[dev]
+                state, hist = run(t.step_fn, state,
+                                  lambda k: device_put_batch(
+                                      host(k), t.device, t.dtypes),
+                                  LoopConfig.for_lane(t.lane,
+                                                      total_steps=step + 1,
+                                                      log_every=1),
+                                  log=None, param_shardings=t.run)
+                got[dev] = (hist[-1][1],
+                            [t.run.gather_leaf(p, leaf).cpu() for p, leaf in
+                             zo.leaves_with_path(state.params)])
+                if dev == "cuda":
+                    card = state
+            (lc, pc), (lh, ph) = got["cuda"], got["cpu"]
+            dist_loss = max(dist_loss, abs(lc - lh) / max(abs(lh), 1.0))
+            dist_param = max([dist_param] + [
+                float((a - b).abs().max() / max(float(b.abs().max()), 1.0))
+                for a, b in zip(pc, ph)])
+        out[lane] = (dist_loss, dist_param)
+    return (out,) + plan
 
 
 def _mesh_lane(mesh, lane_spec, zo_perturb, zo_replay, noise):
@@ -3322,14 +3395,19 @@ def _mesh_lane(mesh, lane_spec, zo_perturb, zo_replay, noise):
     noise of every ZO leaf (``noise``), MESH_STEPS steps, the first
     untimed (the engine asserts each step's coefficients bitwise across
     ranks) with the first step's probe losses, each leaf's move over
-    them, and the replicated leaves bitwise across ranks after them."""
+    them, the calls of the MoE's dispatch all-to-all in them
+    (``collectives.all_to_all``; its backward is the reverse one inside
+    autograd, not counted), and the replicated leaves bitwise across
+    ranks after them."""
     from repro_torch.core import zo
     from repro_torch.launch import train as launch_train
+    from repro_torch.sharding import collectives
     label, arch, strategy, fused, batch, seq = lane_spec
     args = launch_train.parse_args(mesh_argv(arch, batch, seq))
     lane = dataclasses.replace(launch_train.lane_from_args(args),
                                fused_probes=fused)
     t0 = time.perf_counter()
+    start = t0
     trainer = launch_train.setup(args, lane, cfg=mesh_cfg(arch), mesh=mesh,
                                  strategy=strategy)
     torch.cuda.synchronize()
@@ -3337,20 +3415,30 @@ def _mesh_lane(mesh, lane_spec, zo_perturb, zo_replay, noise):
     held = _mesh_noise(trainer, zo_perturb, zo_replay) if noise else 0
     torch.cuda.empty_cache()
     init = [t.detach().clone() for t in zo.leaves(trainer.state.params)]
-    with probe_losses() as seen:
-        losses, ms, peak, counts = mesh_train(trainer, MESH_STEPS)
+    a2a, calls = collectives.all_to_all, [0]
+
+    def counted(*a, **k):
+        calls[0] += 1
+        return a2a(*a, **k)
+    collectives.all_to_all = counted
+    try:
+        with probe_losses() as seen:
+            losses, ms, peak, counts = mesh_train(trainer, MESH_STEPS)
+    finally:
+        collectives.all_to_all = a2a
     moved = leaf_moves(trainer.state.params, init, trainer.run)
     del init
     res = dict(setup_s=setup_s, noise_maps=held, losses=losses, ms=ms,
-               peak=peak, counts=counts, moved=moved,
+               peak=peak, counts=counts, moved=moved, all_to_all=calls[0],
                pair=[float(x) for x in seen[:2]],
                replica_pairs=trainer.run.check_replicas(trainer.state.params),
-               attn=trainer.run.rules.attn.kind,
+               attn=trainer.run.rules.attn.kind, moe=trainer.run.rules.moe,
                batch_axes=list(trainer.run.batch_axes),
                shard_bytes=sum(t.numel() * t.element_size()
                                for t in _leaves(trainer.state.params)))
     del trainer
     torch.cuda.empty_cache()
+    res["wall_s"] = time.perf_counter() - start
     return res
 
 
@@ -3380,10 +3468,12 @@ def _mesh_rank(rank, world, shape, backend, store, out_dir, lanes, small):
             res["lanes"][spec[0]] = _mesh_lane(
                 meshes[tuple(shape)], spec, zo_perturb, zo_fused_replay,
                 noise=not spec[3] and spec[4:] == first[spec[1]])
+        t0 = time.perf_counter()
         for spec in MESH_SMALL if small else ():
             if spec[2] not in meshes:
                 meshes[spec[2]] = mesh_lib.make_mesh(spec[2], MESH_AXES)
             res["small"][spec[0]] = _mesh_small(meshes[spec[2]], spec)
+        res["small_s"] = time.perf_counter() - t0
         Path(out_dir, f"rank{rank}.json").write_text(json.dumps(res))
     finally:
         dist.destroy_process_group()
@@ -3422,11 +3512,17 @@ def check_mesh(shape, backend, want_losses, want_moves, small=True,
     worst = {}
     steps = MESH_STEPS
     for label, arch, strategy, fused, batch, seq in lanes:
-        per_step = mesh_per_step(mesh_cfg(arch), fused)
+        cfg = mesh_cfg(arch)
+        per_step = mesh_per_step(cfg, fused)
         for r in res:
             x = r["lanes"][label]
+            # the dispatch and its return, each ZO forward's MoE layers
+            a2a = 2 * 2 * cfg.num_layers * steps if cfg.is_moe \
+                and "model" in x["batch_axes"] else 0
+            moe = f", MoE plan {x['moe']}, {x['all_to_all']} dispatch " \
+                f"all-to-alls (want {a2a})" if cfg.is_moe else ""
             print(f"{name} {label} ({mesh_title(arch)} at {batch} x {seq}, "
-                  f"{strategy}, attention plan {x['attn']}, batch over "
+                  f"{strategy}, attention plan {x['attn']}{moe}, batch over "
                   f"{x['batch_axes']}) over {backend}, rank "
                   f"{r['rank']} on {r['device']}: setup {x['setup_s']:.2f} s "
                   f"({x['shard_bytes']} bytes of shards); "
@@ -3438,10 +3534,15 @@ def check_mesh(shape, backend, want_losses, want_moves, small=True,
                   f" (the timed step); launches "
                   f"{x['counts']} in {steps} steps; {x['replica_pairs']} "
                   "replicated (leaf, rank) pairs bitwise; coefficients "
-                  "bitwise across ranks every step (asserted in the step)")
+                  "bitwise across ranks every step (asserted in the step); "
+                  f"the lane {x['wall_s']:.1f} s wall")
             if x["counts"] != {k: v * steps for k, v in per_step.items()}:
                 raise AssertionError(f"rank {r['rank']} {label}: launches "
                                      f"{x['counts']}, want {per_step} a step")
+            if x["all_to_all"] != a2a or (cfg.is_moe and x["moe"] != "ep"):
+                raise AssertionError(f"rank {r['rank']} {label}: MoE plan "
+                                     f"{x['moe']}, {x['all_to_all']} "
+                                     f"all-to-alls, want ep and {a2a}")
             if x["losses"] != res[0]["lanes"][label]["losses"]:
                 raise AssertionError(f"{label}: the ranks' losses differ")
         x = res[0]["lanes"][label]
@@ -3473,20 +3574,26 @@ def check_mesh(shape, backend, want_losses, want_moves, small=True,
             if x["pair"] != y["pair"]:
                 raise AssertionError(f"{label}: the fused pair is not the "
                                      "unfused one")
-    for label, arch, mshape, strategy, *_ in MESH_SMALL if small else ():
+    for label, arch, _, strategy, _, overrides, _ in MESH_SMALL if small \
+            else ():
         for r in res:
-            got, plan = r["small"][label]
+            got, plan, moe = r["small"][label]
             print(f"  rank {r['rank']}: reduced f32 {label} ({strategy}, "
-                  f"attention plan {plan}), card against CPU (worst "
-                  f"relative loss, param distance): {got}")
-            if (plan == "seq") != (mshape[0] == 1):
+                  f"attention plan {plan}, MoE plan {moe}), card against CPU"
+                  f" (worst relative loss, param distance): {got}")
+            if (plan == "seq") != (overrides.get("num_heads") == 6):
                 raise AssertionError(f"reduced {label}: attention plan "
                                      f"{plan}")
+            if arch == "mixtral-8x7b" and moe != (
+                    "tp" if "num_experts" in overrides else "ep"):
+                raise AssertionError(f"reduced {label}: MoE plan {moe}")
             if max(max(v) for v in got.values()) > MESH_SMALL_TOL:
                 raise AssertionError(f"reduced {label} on the mesh: card "
                                      "and CPU differ")
-    print(f"{name}: the phase took {wall:.1f} s with the ranks' start; worst "
-          f"relative loss distance over the lanes {max(worst.values()):.3g}")
+    print(f"{name}: the phase took {wall:.1f} s with the ranks' start (the "
+          f"reduced stacks {res[0].get('small_s', 0.0):.1f} s on rank 0); "
+          f"worst relative loss distance over the lanes "
+          f"{max(worst.values()):.3g}")
     if max(worst.values()) > MESH_LOSS_RTOL:
         raise AssertionError("the sharded losses left one device's")
     return {label: res[0]["lanes"][label]["counts"] for label, *_ in lanes}
@@ -4372,9 +4479,9 @@ def main():
           "reports the fused run's)")
     torch.cuda.empty_cache()
 
-    phase("train qwen3-4b, whisper-small and llava-next-34b on a 2x2 mesh, "
-          "strategies tp / fsdp / serve and fused probes (4 ranks sharing "
-          "the card over gloo)")
+    phase("train qwen3-4b, whisper-small, llava-next-34b and mixtral-8x7b "
+          "on a 2x2 mesh, strategies tp / fsdp / serve, fused probes and "
+          "the MoE's ep plan (4 ranks sharing the card over gloo)")
     n_mesh, cut_losses, cut_moves = check_train_mesh()
     torch.cuda.empty_cache()
 

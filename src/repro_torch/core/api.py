@@ -14,7 +14,9 @@ rank's slice, ``loss_fn`` runs the sharded forward on the rank's rows of
 the batch (``batch_shardings`` says which; Whisper's ``frames`` and
 LLaVA's ``img`` follow the tokens' rows), and the train step perturbs
 and updates each shard at its global flat indices
-(``core/engine.py``).
+(``core/engine.py``); the attention stacks with dense or MoE FFNs run
+there, the recurrent ones raise (``models/transformer.py::
+check_mesh_stack``).
 
 Whisper's encoder runs on ``frames`` [B, encoder_seq, d] wherever the
 decoder sees a whole sequence (prefill, train); a decode step reads the

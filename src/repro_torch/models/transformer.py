@@ -16,19 +16,22 @@ where the JAX package scans; it takes zero periods too (a one-period
 stack's empty BP tail).
 
 On a mesh (``run``, a ``sharding/collectives.py::MeshRun``; training
-forwards of attention stacks with dense FFNs: decoder-only, Whisper's
-encoder-decoder and LLaVA's image-token prefix) each block gathers its
-weights just before use and drops them after (``MeshRun.weights``: the
-FSDP shards over `data`, and over `model` too under the ``fsdp``
-strategy), attention takes the rules' form (``layers.py::
-attention_on_mesh``), the embedding and the loss are vocab-parallel
-over `model` where it carries TP compute (a whole table under
-``fsdp``), and the loss is summed over every batch axis (``lm_loss``).
-Whisper's encoder runs its blocks under their own specs on the rank's
-rows of ``frames``, and its decoder blocks cross-attend in the same
-form; the learned positions and LLaVA's image rows join the embedding
-as on one device. The fused probe pair runs there too. The MoE and
-recurrent stacks raise there.
+forwards of attention stacks with dense or MoE FFNs: decoder-only,
+Mixtral's and Phi-3.5-MoE's MoE stacks, Whisper's encoder-decoder and
+LLaVA's image-token prefix) each block gathers its weights just before
+use and drops them after (``MeshRun.weights``: the FSDP shards over
+`data`, and over `model` too under the ``fsdp`` strategy, but for the
+expert leaves' expert dim under the MoE ``ep`` plan), attention takes
+the rules' form (``layers.py::attention_on_mesh``), the MoE FFN its
+plan's (``moe.py::moe_ffn``: the dispatch all-to-all, the rank's own
+experts, or d_ff split over `model`), the embedding and the loss are
+vocab-parallel over `model` where it carries TP compute (a whole table
+under ``fsdp``), and the loss is summed over every batch axis
+(``lm_loss``). Whisper's encoder runs its blocks under their own specs
+on the rank's rows of ``frames``, and its decoder blocks cross-attend in
+the same form; the learned positions and LLaVA's image rows join the
+embedding as on one device. The fused probe pair runs there too. The
+recurrent stacks (Mamba, RWKV6, Jamba) raise there.
 """
 from __future__ import annotations
 
@@ -142,19 +145,15 @@ def num_periods(periods) -> int:
 
 def check_mesh_stack(cfg: ModelConfig):
     """Raises unless ``cfg`` is what a mesh executes: attention blocks
-    with dense FFNs (decoder-only, Whisper's encoder-decoder, LLaVA's
-    image-token prefix; RoPE or learned positions), trained."""
-    why = None
-    if cfg.is_moe:
-        why = "MoE FFNs"
-    elif any(kind != ATTN for kind in cfg.pattern):
-        why = "recurrent (Mamba / RWKV6) blocks"
-    if why:
+    with dense or MoE FFNs (decoder-only, the MoE stacks, Whisper's
+    encoder-decoder, LLaVA's image-token prefix; RoPE or learned
+    positions), trained."""
+    if any(kind != ATTN for kind in cfg.pattern):
         raise NotImplementedError(
-            f"{cfg.name} under a mesh: {why} are still queued (the MoE "
-            "under the ep plan, then the recurrent blocks under a mesh: "
-            "ROADMAP.md queue 1); the port shards the training of "
-            "attention stacks with dense FFNs")
+            f"{cfg.name} under a mesh: recurrent (Mamba / RWKV6) blocks "
+            "are still queued (the recurrent blocks, then Jamba, under a "
+            "mesh: ROADMAP.md queue 1); the port shards the training of "
+            "attention stacks with dense or MoE FFNs")
 
 
 def _block_on_mesh(p, x, cfg: ModelConfig, positions, run, j: int,
@@ -163,7 +162,8 @@ def _block_on_mesh(p, x, cfg: ModelConfig, positions, run, j: int,
     """One attention block of a training forward on a mesh: its weights
     gathered (``MeshRun.weights``; ``gathered``: the caller did), the
     attention in the rules' form, the MLP on the rank's d_ff slice where
-    `model` carries TP compute. ``mode`` "encode" is a block of
+    `model` carries TP compute, or the MoE FFN in its plan's form
+    (``moe.py::moe_ffn``). ``mode`` "encode" is a block of
     Whisper's encoder (its own block specs, ``MeshRun.
     encoder_block_specs``): non-causal self-attention. A decoder block
     with ``ln_cross`` then cross-attends to ``enc_out`` (the rank's rows
@@ -183,6 +183,8 @@ def _block_on_mesh(p, x, cfg: ModelConfig, positions, run, j: int,
                                   specs["cross"], run, causal=False,
                                   kv_x=enc_out)
     h = rms_norm(x, p["ln_ffn"], cfg.norm_eps)
+    if "moe" in p:
+        return x + moe_ffn(p["moe"], h, cfg, specs["moe"], run)
     return x + mlp(p["mlp"], h, specs["mlp"], run)
 
 
@@ -312,8 +314,11 @@ def run_periods_paired(periods, x_pair, cfg: ModelConfig, *, positions,
     ``periods_zo`` tree): where the model computes on whole weights
     (``MeshRun.whole_weights``: ``fsdp``, or a `model` axis of one),
     each period's slice is gathered once and both signs' copies are made
-    from it locally (JAX's ``:246-251``); the gathered slice is freed
-    before the next period. Otherwise (``tp``, ``serve``) the rank's
+    from it locally (JAX's ``:246-251``), at the gathered slice's
+    flat-index maps (``MeshRun.period_maps(..., gathered=True)``: the
+    offset p * size of a whole leaf, an expert leaf's block of E / tp
+    experts under the ``ep`` plan); the gathered slice is freed before
+    the next period. Otherwise (``tp``, ``serve``) the rank's
     shard of the slice is perturbed at its flat-index map
     (``MeshRun.period_maps``: the shard's map, moved by p * size) and
     each stream's copy is gathered in its block.
@@ -326,8 +331,8 @@ def run_periods_paired(periods, x_pair, cfg: ModelConfig, *, positions,
             maps = None
             if whole:
                 pparams = run.weights(pparams, run.block_specs)
-            elif run is not None:
-                maps = run.period_maps("periods_zo", i)
+            if run is not None:
+                maps = run.period_maps("periods_zo", i, gathered=whole)
             for s, scale in enumerate((eps, -eps)):
                 pert = zo.perturb_slice(pparams, salts, sizes, i, seed, scale,
                                         maps)

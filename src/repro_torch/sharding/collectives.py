@@ -20,11 +20,19 @@ pointers), and the model gathers and reduces through these functions:
   * ``seq_gather``: the sequence-sharded attention's output blocks
     gathered along the sequence, the rank's own block of the gradient
     backward;
+  * ``all_to_all(x, group, split_dim, cat_dim)``: x split into the
+    group's ranks' parts along ``split_dim``, part j sent to rank j, the
+    parts received concatenated along ``cat_dim`` in rank order; the
+    reverse all-to-all backward (the MoE's expert dispatch and its
+    return under the ``ep`` plan where `model` is a batch axis). It
+    moves data and sums nothing, so it is exact in any dtype;
   * ``MeshRun.weight``: a leaf as the model uses it, by the rules: its
     shards gathered over every axis its spec names that carries no TP
-    compute (`data` under ``tp``; `data` and `model` under ``fsdp``), its
-    gradient summed over each batch axis (``rules.batch_axes``: `pod`,
-    `data`, and `model` under ``fsdp`` when the batch divides dp * tp);
+    compute (`data` under ``tp``; `data` and `model` under ``fsdp``)
+    except the expert axis of an expert leaf (`model` under the MoE
+    ``ep`` plan, in every strategy), its gradient summed over each batch
+    axis (``rules.batch_axes``: `pod`, `data`, and `model` under
+    ``fsdp`` when the batch divides dp * tp);
   * ``MeshRun.batch_sum``: a sum over every batch axis (the loss and its
     mask count).
 
@@ -46,13 +54,15 @@ import torch
 import torch.distributed as dist
 
 from ..launch.mesh import axis_shape
-from .params import (ShardDesc, map_dict, param_shardings,
+from .params import (ShardDesc, kept_desc, map_dict, param_shardings,
                      period_map, shard_desc, shard_descs, unshard_leaf)
 from .rules import ShardingRules
 
 # the collectives the port calls on CUDA tensors, which gloo must take
 # (torch 2.11 does: chip_smoke.py::gloo_cuda_probe / check_gloo_probe)
-GLOO_CUDA_OPS = ("all_reduce", "all_gather", "reduce_scatter")
+GLOO_CUDA_OPS = ("all_reduce", "all_gather", "reduce_scatter", "all_to_all")
+# the leaves whose leading dim is the expert dim (under ``moe`` blocks)
+EXPERT_LEAVES = ("w_gate", "w_up", "w_down")
 EXECUTED_AXES = ("pod", "data", "model")
 
 
@@ -104,6 +114,17 @@ def reduce_scatter(t: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     return out.reshape(shape).to(t.dtype)
 
 
+def _all_to_all(t: torch.Tensor, group, split_dim: int,
+                cat_dim: int) -> torch.Tensor:
+    n = _size(group)
+    if n == 1:
+        return t
+    parts = torch.stack(t.detach().chunk(n, dim=split_dim)).contiguous()
+    out = torch.empty_like(parts)
+    dist.all_to_all_single(out.reshape(-1), parts.reshape(-1), group=group)
+    return torch.cat(out.unbind(0), dim=cat_dim)
+
+
 class _CopyTo(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
@@ -146,6 +167,18 @@ class _ReplicaGather(torch.autograd.Function):
     def backward(ctx, g):
         part = g.chunk(ctx.n, ctx.dim)[ctx.index].contiguous()
         return part, None, None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, split_dim, cat_dim):
+        ctx.group, ctx.split_dim, ctx.cat_dim = group, split_dim, cat_dim
+        return _all_to_all(x, group, split_dim, cat_dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_all_to_all(g, ctx.group, ctx.cat_dim, ctx.split_dim), None,
+                None, None)
 
 
 def _padded_gather(x, group, dim: int, total: int) -> torch.Tensor:
@@ -206,6 +239,21 @@ def replica_gather(x: torch.Tensor, group, dim: int,
     return _ReplicaGather.apply(x, group, dim, index)
 
 
+def all_to_all(x: torch.Tensor, group, split_dim: int,
+               cat_dim: int) -> torch.Tensor:
+    """``x`` split along ``split_dim`` into one part per rank of
+    ``group`` (the dim divides evenly), part j sent to rank j, and the
+    parts received concatenated along ``cat_dim`` in rank order: x's
+    dtype, every value moved exactly. Backward: the reverse all-to-all
+    of the gradient (split along ``cat_dim``, concatenated along
+    ``split_dim``)."""
+    if _size(group) == 1:
+        return x
+    if not x.requires_grad:
+        return _all_to_all(x, group, split_dim, cat_dim)
+    return _AllToAll.apply(x, group, split_dim, cat_dim)
+
+
 def seq_gather(x: torch.Tensor, group, dim: int, lo: int,
                total: int) -> torch.Tensor:
     """The ``total`` positions along ``dim`` from every rank's block of
@@ -239,7 +287,9 @@ class MeshRun:
     rules: ``batch_axes`` are the rules' (the axes the batch rows are
     split over, and the loss summed over), ``compute_axis`` the axis of
     TP compute (`model` under ``tp`` and ``serve``, None under
-    ``fsdp``) and ``tp`` its size (1 under ``fsdp``)."""
+    ``fsdp``) and ``tp`` its size (1 under ``fsdp``); ``expert_axis``
+    the axis an expert leaf's expert dim stays split over (`model` under
+    the MoE ``ep`` plan in every strategy, else None)."""
 
     def __init__(self, mesh, rules: ShardingRules, abstract_params):
         sizes = axis_shape(mesh)
@@ -256,6 +306,9 @@ class MeshRun:
         self.batch_axes = tuple(rules.batch_axes)
         self.compute_axis = rules.model_compute
         self.tp = rules.tp
+        # the expert dim's axis under the MoE ep plan: `model`, in every
+        # strategy (``fsdp`` too, where `model` carries no TP compute)
+        self.expert_axis = rules.model_axis if rules.moe == "ep" else None
         self.world = prod(sizes.values())
         self.rank = dist.get_rank()
         self.shapes = map_dict(lambda _n, t: tuple(t.shape),
@@ -305,14 +358,22 @@ class MeshRun:
         return x
 
     # ---- leaves --------------------------------------------------------- #
-    def weight(self, t: torch.Tensor, spec) -> torch.Tensor:
+    def kept_axes(self, names) -> tuple:
+        """The axes ``weight`` leaves the leaf at ``names`` split over:
+        the TP compute axis, and an expert leaf's expert axis (a
+        ``moe`` block's w_gate / w_up / w_down under the ``ep`` plan)."""
+        expert = "moe" in names and names[-1] in EXPERT_LEAVES
+        return (self.compute_axis, self.expert_axis if expert else None)
+
+    def weight(self, t: torch.Tensor, spec, keep=None) -> torch.Tensor:
         """A leaf shard as the model uses it. Gathered along each dim its
-        spec shards over an axis other than the TP compute one: the
-        gradient reduce-scattered back where that axis is a batch axis
-        (its ranks held other rows), the rank's own part of it where not
-        (its ranks computed the same). A leaf replicated over a batch axis
-        has its gradient summed there. Still sharded over the compute
-        axis."""
+        spec shards over an axis not in ``keep`` (default: the TP compute
+        axis; ``kept_axes`` of the leaf): the gradient reduce-scattered
+        back where that axis is a batch axis (its ranks held other rows),
+        the rank's own part of it where not (its ranks computed the
+        same). A leaf replicated over a batch axis has its gradient
+        summed there. Still sharded over the axes in ``keep``."""
+        keep = (self.compute_axis,) if keep is None else keep
         spec = tuple(spec) if spec is not None else (None,) * t.dim()
         named = set()
         for dim, ax in enumerate(spec):
@@ -324,7 +385,7 @@ class MeshRun:
                                           "several axes")
             a = axes[0]
             named.add(a)
-            if a == self.compute_axis:
+            if a in keep:
                 continue
             if a in self.batch_axes:
                 t = fsdp_gather(t, self.groups[a], dim)
@@ -344,8 +405,8 @@ class MeshRun:
             for k in names:
                 s = s[k]
             return s
-        return map_dict(lambda names, t: self.weight(t, spec_at(names)),
-                        tree)
+        return map_dict(lambda names, t: self.weight(
+            t, spec_at(names), self.kept_axes(names)), tree)
 
     def index_maps(self, descs=None):
         """The ``IndexMap`` of every leaf's shard (of ``descs``, by
@@ -353,11 +414,18 @@ class MeshRun:
         return map_dict(lambda _n, d: d.index,
                         self.descs if descs is None else descs)
 
-    def period_maps(self, group: str, p: int):
+    def period_maps(self, group: str, p: int, gathered: bool = False):
         """The ``IndexMap`` of period ``p``'s slice of the rank's shard of
         every leaf of the stacked tree ``group`` (its period dim is never
-        sharded)."""
-        return map_dict(lambda _n, d: period_map(d, p), self.descs[group])
+        sharded); with ``gathered``, of the slice as ``weights`` returns
+        it: gathered over every axis but the leaf's ``kept_axes`` (whole
+        under ``fsdp``, but for an expert leaf's block of E / tp experts
+        under the ``ep`` plan, one contiguous run)."""
+        def f(names, d):
+            if gathered:
+                d = kept_desc(d, self.kept_axes(names))
+            return period_map(d, p)
+        return map_dict(f, self.descs[group])
 
     def desc_of(self, names, rank: int) -> ShardDesc:
         tree = self.specs

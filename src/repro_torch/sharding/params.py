@@ -11,8 +11,10 @@ period leaves get an extra unsharded leading (layer) axis
 
 What the port adds: a rank's ``ShardDesc`` of a leaf (its slice of the
 global leaf, its local shape, and its global flat-index map, the
-``core/prng.py::IndexMap`` that the ZO noise kernels draw at), and
-``shard_leaf`` / ``unshard_leaf`` between a global leaf and its shards.
+``core/prng.py::IndexMap`` that the ZO noise kernels draw at; ``kept_desc``
+of a shard gathered over all but some axes, ``period_map`` of a period's
+slice), and ``shard_leaf`` / ``unshard_leaf`` between a global leaf and
+its shards.
 """
 from __future__ import annotations
 
@@ -259,6 +261,18 @@ def shard_desc(global_shape, spec, coords: Dict[str, int],
         local.append(ext)
     return ShardDesc(shape, spec, tuple(starts), tuple(local),
                      index_map(shape, starts, local))
+
+
+def kept_desc(desc: ShardDesc, keep) -> ShardDesc:
+    """``desc`` gathered over every axis but those in ``keep``: each dim
+    whose spec names another axis made whole (what
+    ``sharding/collectives.py::MeshRun.weight`` returns of the shard)."""
+    whole = [ax is not None and ax not in keep for ax in desc.spec]
+    starts = tuple(0 if w else s for w, s in zip(whole, desc.starts))
+    local = tuple(g if w else n for w, g, n in zip(
+        whole, desc.global_shape, desc.local_shape))
+    return ShardDesc(desc.global_shape, desc.spec, starts, local,
+                     index_map(desc.global_shape, starts, local))
 
 
 def period_map(desc: ShardDesc, p: int) -> IndexMap:

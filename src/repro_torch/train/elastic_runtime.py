@@ -15,7 +15,9 @@ mesh saved it: bitwise on the mesh that saved it, within the sharded
 reductions' rounding on another. The strategy (``tp``, ``fsdp`` or
 ``serve``, ``sharding/rules.py``) may differ from the saving run's: the
 checkpoint format is mesh-independent, and each rank keeps its slice
-under the new specs.
+under the new specs (of a MoE stack's expert leaves under the ``ep``
+plan, its block of E / tp experts in every strategy). The recurrent
+stacks raise on a mesh (``models/transformer.py::check_mesh_stack``).
 
 The port labels a checkpoint with the number of steps its params hold
 (``train/train_loop.py``), so a resume from a checkpoint this package

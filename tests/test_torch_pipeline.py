@@ -308,15 +308,16 @@ def test_restore_into_meta_template_needs_a_device(tmp_path):
 
 def test_a_mesh_is_not_ported():
     """What of a mesh is not ported: a strategy the rules do not name
-    raises on a mesh and without one, and a MoE stack raises on a mesh in
-    every strategy. The tp, fsdp and serve strategies run attention-only
-    decoder stacks (tests/test_torch_mesh.py,
-    tests/test_torch_strategies.py), Whisper's encoder-decoder and
+    raises on a mesh and without one, and a recurrent stack (RWKV6)
+    raises on a mesh in every strategy. The tp, fsdp and serve strategies
+    run attention-only decoder stacks (tests/test_torch_mesh.py,
+    tests/test_torch_strategies.py), the MoE stacks
+    (tests/test_torch_mesh_moe.py), Whisper's encoder-decoder and
     LLaVA's image-token prefix (tests/test_torch_mesh_encdec.py) on a
     mesh and, without one, are the one-device step."""
     from repro_torch.launch.mesh import AbstractMesh
     mesh = AbstractMesh((2, 2), ("data", "model"))
-    moe = reduced(get_arch("mixtral-8x7b"))
+    rwkv = reduced(get_arch("rwkv6-1.6b"))
     for m in (mesh, None):
         with pytest.raises(ValueError, match="strategy 'dp'"):
             build_for_mesh(_llama(), SHAPE, LANE, mesh=m, strategy="dp")
@@ -324,10 +325,10 @@ def test_a_mesh_is_not_ported():
             resume_on_mesh(None, _llama(), SHAPE, LANE, mesh=m,
                            strategy="dp", device="cpu")
     for strategy in ("tp", "fsdp", "serve"):
-        with pytest.raises(NotImplementedError, match="MoE FFNs"):
-            build_for_mesh(moe, SHAPE, LANE, mesh=mesh, strategy=strategy)
-        with pytest.raises(NotImplementedError, match="MoE FFNs"):
-            resume_on_mesh(None, moe, SHAPE, LANE, mesh=mesh,
+        with pytest.raises(NotImplementedError, match="recurrent"):
+            build_for_mesh(rwkv, SHAPE, LANE, mesh=mesh, strategy=strategy)
+        with pytest.raises(NotImplementedError, match="recurrent"):
+            resume_on_mesh(None, rwkv, SHAPE, LANE, mesh=mesh,
                            strategy=strategy, device="cpu")
         model, _ = build_for_mesh(_llama(), SHAPE, LANE, strategy=strategy)
         assert model.run is None

@@ -277,11 +277,12 @@ def test_shard_noise_is_global_noise_sliced(mesh):
                                   "rwkv6-1.6b", "whisper-small",
                                   "llava-next-34b"])
 def test_mesh_refuses_other_stacks(arch):
-    """The MoE and recurrent stacks still raise under a mesh, naming the
-    queue; Whisper's encoder-decoder and LLaVA's image-token prefix are
-    accepted (tests/test_torch_mesh_encdec.py trains them on a mesh)."""
+    """The recurrent stacks (RWKV6, and Jamba's Mamba blocks) still
+    raise under a mesh, naming the queue; Mixtral's MoE stack
+    (tests/test_torch_mesh_moe.py), Whisper's encoder-decoder and LLaVA's
+    image-token prefix (tests/test_torch_mesh_encdec.py) are accepted."""
     cfg = reduced(ARCHS[arch])
-    if arch in ("whisper-small", "llava-next-34b"):
+    if arch in ("mixtral-8x7b", "whisper-small", "llava-next-34b"):
         assert check_mesh_stack(cfg) is None
         run = types.SimpleNamespace(index_maps=lambda: None)
         engine, _ = api.train_engine(cfg, LaneConfig(), run=run)
@@ -296,12 +297,13 @@ def test_mesh_refuses_other_stacks(arch):
 def test_mesh_refuses_other_strategies_and_fused_probes():
     """What a mesh still refuses: a strategy the rules do not name (on a
     mesh and without one), and any strategy or fused probes for a stack
-    it does not run (MoE; tests/test_torch_strategies.py runs tp, fsdp,
-    serve and fused probes on attention-only decoder stacks, and
-    tests/test_torch_mesh_encdec.py on Whisper's encoder-decoder and
-    LLaVA's image-token prefix)."""
+    it does not run (RWKV6's recurrent blocks; tests/test_torch_strategies.py
+    runs tp, fsdp, serve and fused probes on attention-only decoder
+    stacks, tests/test_torch_mesh_encdec.py on Whisper's encoder-decoder
+    and LLaVA's image-token prefix, and tests/test_torch_mesh_moe.py on
+    the MoE stacks)."""
     cfg = reduced(ARCHS["qwen3-4b"])
-    moe = reduced(ARCHS["mixtral-8x7b"])
+    rwkv = reduced(ARCHS["rwkv6-1.6b"])
     shape = ShapeConfig("s", seq_len=16, global_batch=2, kind="train")
     mesh = mesh_lib.AbstractMesh((2, 2), ("data", "model"))
     for m in (mesh, None):
@@ -309,10 +311,10 @@ def test_mesh_refuses_other_strategies_and_fused_probes():
             elastic_runtime.build_for_mesh(cfg, shape, LaneConfig(), m, "dp")
     for strategy in ("tp", "fsdp", "serve"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            elastic_runtime.build_for_mesh(moe, shape, LaneConfig(), mesh,
+            elastic_runtime.build_for_mesh(rwkv, shape, LaneConfig(), mesh,
                                            strategy)
-    with pytest.raises(NotImplementedError, match="MoE FFNs"):
-        api.train_engine(moe, LaneConfig(fused_probes=True), run=object())
+    with pytest.raises(NotImplementedError, match="recurrent"):
+        api.train_engine(rwkv, LaneConfig(fused_probes=True), run=object())
 
 
 def test_seq_plan_raises():
@@ -321,8 +323,8 @@ def test_seq_plan_raises():
     the last ones short or empty (tests/test_torch_strategies.py runs
     the plan); whisper-small takes it at tp 8, and its encoder-decoder
     stack is accepted under a mesh (tests/test_torch_mesh_encdec.py
-    runs Whisper's seq plan at 1x4), while Jamba's recurrent and MoE
-    stack still raises there."""
+    runs Whisper's seq plan at 1x4), while Jamba's stack, Mamba blocks
+    among its attention and MoE blocks, still raises there."""
     from repro_torch.models.layers import seq_rows
     cfg = ARCHS["phi4-mini-3.8b"]
     r = ShardingRules(mesh_lib.AbstractMesh((1, 16), ("data", "model")), cfg)

@@ -2983,14 +2983,37 @@ MESH_MOVE_RTOL = 5e-2            # each leaf's summed |change| over a lane's
 MESH_SMALL_TOL = 1e-4            # reduced f32 stacks, card against CPU
 #                                  (losses and params, relative; each card
 #                                  step against the CPU's from its state)
+MESH_SMALL_ILL = ("rwkv 2x2 fsdp", "full_bp", 7.2e-4)
+#                                  the one reduced step past MESH_SMALL_TOL,
+#                                  (label, lane, bound on its params):
+#                                  reduced RWKV6's 2x2 fsdp full_bp step 1
+#                                  read 3.65e-4 card against CPU, and
+#                                  moving each element of that step's input
+#                                  one ulp moved the CPU's own step 3.60e-4
+#                                  (its floor, which _mesh_small measures
+#                                  there and check_mesh requires past
+#                                  MESH_SMALL_TOL): held to 2 times that
+#                                  floor (PERF.md §6)
 MESH_LLAVA_LAYERS = 2            # of llava-next-34b's 60, at full width:
 #                                  one ZO period and one tail period
 MESH_MOE_LAYERS = 2              # of mixtral-8x7b's 32, at full width:
 #                                  one ZO period and one tail period
 MESH_WHISPER_LAYERS = 4          # of whisper-small's 12 decoder and 12
 #                                  encoder layers (3 ZO periods, 1 tail)
+MESH_RWKV_LAYERS = 2             # of rwkv6-1.6b's 24, at full width:
+#                                  one ZO period and one tail period
+MESH_MAMBA_LAYERS = 2            # of Jamba's blocks in the Mamba lane, at
+#                                  full width: one ZO period and one tail
+#                                  period
+MESH_MAMBA_ONLY = (("block_pattern", ("mamba",)), ("num_experts", 0),
+                   ("experts_per_token", 0))
+#                                  the Mamba lane's overrides of Jamba's
+#                                  config: its Mamba block (d_inner 8192,
+#                                  configs.base.MAMBA) with a dense FFN in
+#                                  every layer
 MESH_DTYPES = {"whisper-small": "float32", "llava-next-34b": "float32",
-               "mixtral-8x7b": "float32"}
+               "mixtral-8x7b": "float32", "rwkv6-1.6b": "float32",
+               "jamba-v0.1-52b": "float32"}
 #                                  qwen3-4b's lanes in bf16. The first
 #                                  (l+, l-) of whisper-small and of
 #                                  LLaVA's cut differ by 2.2e-3 and
@@ -3004,10 +3027,11 @@ MESH_DTYPES = {"whisper-small": "float32", "llava-next-34b": "float32",
 #                                  Mixtral's cut likewise: l+ - l-
 #                                  -1.2e-3 on one device, -7.6e-4 on the
 #                                  2x2 tp lane in bf16, leaf moves 0.283
-#                                  apart (PERF.md §6)
+#                                  apart (PERF.md §6). The recurrent
+#                                  lanes run in f32 from the start
 # the mesh phase's lanes on a 2x2 mesh, one spawn: (label, arch, strategy,
-# fused probes, batch, seq). qwen3-4b cut to MESH_LAYERS under tp (the
-# four-card NCCL check's lane). whisper-small at full width, cut to
+# fused probes, batch, seq, overrides of the arch's config as pairs).
+# qwen3-4b cut to MESH_LAYERS under tp (the four-card NCCL check's lane). whisper-small at full width, cut to
 # MESH_WHISPER_LAYERS (for the Mixtral lane's time), at 4 x 128 in
 # every strategy, fused under tp and fsdp beside the unfused lanes: it
 # holds the
@@ -3025,16 +3049,26 @@ MESH_DTYPES = {"whisper-small": "float32", "llava-next-34b": "float32",
 # the same rows and its own experts) took as long, 32.3 s a warm step,
 # and its serve lane (experts resident) ran out of the card's memory in
 # f32, four ranks at ~19.5 GB (PERF.md §6): both, and the MoE tp
-# plan, are held by the reduced configs
-MESH_LANES = (("tp", "qwen3-4b", "tp", False, 4, 128),
-              ("whisper tp", "whisper-small", "tp", False, 4, 128),
-              ("whisper fsdp", "whisper-small", "fsdp", False, 4, 128),
-              ("whisper serve", "whisper-small", "serve", False, 4, 128),
-              ("whisper tp fused", "whisper-small", "tp", True, 4, 128),
-              ("whisper fsdp fused", "whisper-small", "fsdp", True, 4, 128),
+# plan, are held by the reduced configs. rwkv6-1.6b cut to
+# MESH_RWKV_LAYERS under tp at 4 x 128 (its 32 heads, 16 a `model` rank);
+# Jamba's Mamba block with its dense FFN (MESH_MAMBA_ONLY) under serve at 4 x
+# 128 (d_inner 8,192, 4,096 a rank: in_proj's product re-laid out over
+# `model`, x_proj's row-parallel sum; the weights replicated over
+# `data`, so no gather through gloo's host side). Jamba's whole period
+# (four 16-expert MoE layers) is held by the reduced configs
+MESH_LANES = (("tp", "qwen3-4b", "tp", False, 4, 128, ()),
+              ("whisper tp", "whisper-small", "tp", False, 4, 128, ()),
+              ("whisper fsdp", "whisper-small", "fsdp", False, 4, 128, ()),
+              ("whisper serve", "whisper-small", "serve", False, 4, 128, ()),
+              ("whisper tp fused", "whisper-small", "tp", True, 4, 128, ()),
+              ("whisper fsdp fused", "whisper-small", "fsdp", True, 4, 128,
+               ()),
               ("llava tp", "llava-next-34b", "tp", False, 2,
-               LLAVA_IMAGE + 128),
-              ("mixtral fsdp", "mixtral-8x7b", "fsdp", False, 4, 128))
+               LLAVA_IMAGE + 128, ()),
+              ("mixtral fsdp", "mixtral-8x7b", "fsdp", False, 4, 128, ()),
+              ("rwkv tp", "rwkv6-1.6b", "tp", False, 4, 128, ()),
+              ("mamba serve", "jamba-v0.1-52b", "serve", False, 4, 128,
+               MESH_MAMBA_ONLY))
 # reduced f32 stacks card against CPU in the same world: (label, arch, mesh
 # shape, strategy, batch, config overrides, text tokens). Whisper's and
 # LLaVA's take random frames and image rows from a numpy seed (the
@@ -3045,7 +3079,11 @@ MESH_LANES = (("tp", "qwen3-4b", "tp", False, 4, 128),
 # Whisper's over 18 decoder rows and 18 frames, so its last rank holds 3
 # of each. Mixtral's 4 experts take the ep plan at 2x2 (fsdp at batch 4:
 # the dispatch all-to-all), its 6 experts over 4 ranks the MoE tp plan
-# (tests/test_torch_mesh_moe.py)
+# (tests/test_torch_mesh_moe.py). RWKV6's 4 heads over 2 and 4 `model`
+# ranks (one head a rank at 1x4), and Jamba in its own 8-block pattern
+# (Mamba blocks, an attention block, 4 experts at the MoE positions
+# under the ep plan; tests/test_torch_mesh_rwkv.py,
+# tests/test_torch_mesh_jamba.py)
 MESH_SMALL = (("qwen3-4b 2x2 tp", "qwen3-4b", (2, 2), "tp", 2, {}, 16),
               ("qwen3-4b seq 1x4", "qwen3-4b", (1, 4), "tp", 2,
                {"num_heads": 6, "num_kv_heads": 2}, 16),
@@ -3063,7 +3101,15 @@ MESH_SMALL = (("qwen3-4b 2x2 tp", "qwen3-4b", (2, 2), "tp", 2, {}, 16),
               ("mixtral 2x2 serve", "mixtral-8x7b", (2, 2), "serve", 2, {},
                16),
               ("mixtral 1x4 tp, 6 experts", "mixtral-8x7b", (1, 4), "tp", 2,
-               {"num_experts": 6}, 16))
+               {"num_experts": 6}, 16),
+              ("rwkv 2x2 tp", "rwkv6-1.6b", (2, 2), "tp", 2, {}, 16),
+              ("rwkv 2x2 fsdp", "rwkv6-1.6b", (2, 2), "fsdp", 4, {}, 16),
+              ("rwkv 1x4 tp", "rwkv6-1.6b", (1, 4), "tp", 2, {}, 16),
+              ("jamba 2x2 tp", "jamba-v0.1-52b", (2, 2), "tp", 2, {}, 16),
+              ("jamba 2x2 fsdp", "jamba-v0.1-52b", (2, 2), "fsdp", 4, {},
+               16),
+              ("jamba 2x2 serve", "jamba-v0.1-52b", (2, 2), "serve", 2, {},
+               16))
 # gloo's collectives tried on CUDA tensors in f32: the port's
 # (GLOO_CUDA_OPS) are asserted, broadcast recorded. The two that move a
 # bf16 lane's tensors as they are (the weight gathers, the MoE's dispatch
@@ -3130,30 +3176,49 @@ def check_gloo_probe(got):
             raise AssertionError(f"gloo's {op} on CUDA tensors: {got.get(op)}")
 
 
+RWKV_BLOCK_LEAVES = 21          # models/ssm.py::init_rwkv_block
+MAMBA_BLOCK_LEAVES = 13         # models/ssm.py::init_mamba_block
+
+
 def mesh_per_step(cfg, fused=False):
-    """Launches a rank makes a step (elastic_zo, 1 probe), from the
-    config: 1 zo_fused_replay a ZO leaf (every rank holds a shard of
-    each): the leaves outside periods_zo (embed, and pos_embed and the
-    encoder's 2 + its block's leaves where the stack has them) and a
-    decoder block's (with cross-attention's 5 in Whisper; a MoE FFN's
-    router and 3 expert leaves in place of the MLP's 3); zo_perturb 2 a
-    ZO leaf unfused, and fused 2 a leaf outside periods_zo and 2 a
-    block's leaf a ZO period (one period's slice at a time); flash 2 a
-    forward's attention calls without a gradient: each ZO period's
-    self-attention (and cross-attention) and each encoder block, in
-    every strategy."""
-    zo_periods = cfg.num_layers - 1
+    """Launches a rank makes a step (elastic_zo, 1 probe, a BP tail of one
+    layer), from the config: 1 zo_fused_replay a ZO leaf (every rank
+    holds a shard of each): the leaves outside periods_zo (embed, and
+    pos_embed and the encoder's 2 + its block's leaves where the stack
+    has them) and each pattern position's block leaves by kind (an
+    attention block's, with cross-attention's 5 in Whisper; an RWKV6
+    block's 21; a Mamba block's 13; after an attention or Mamba block
+    ln_ffn and the MLP's 3 or a MoE FFN's router and 3 expert leaves);
+    zo_perturb 2 a ZO leaf unfused, and fused 2 a leaf outside
+    periods_zo and 2 a block's leaf a ZO period (one period's slice at a
+    time); flash 2 a forward's attention calls without a gradient: each
+    ZO period's self-attention (and cross-attention) blocks and each
+    encoder block, in every strategy."""
+    from repro_torch.configs import LaneConfig
+    from repro_torch.configs.base import ATTN, MAMBA, RWKV
+    from repro_torch.core.api import tail_periods
+    from repro_torch.models.transformer import _ffn_is_moe
+    zo_periods = cfg.num_periods - tail_periods(cfg, LaneConfig(
+        bp_tail_layers=1))
     attn = 5 + 2 * cfg.qk_norm          # ln_attn, wq/wk/wv/wo, q/k norms
     cross = bool(cfg.encoder_layers)
-    ffn = 5 if cfg.is_moe else 4        # ln_ffn, the MLP's 3 or the
-    #                                     router and the experts' 3
-    block = attn + ffn + cross * attn
+    block = attn_blocks = 0
+    for pos, kind in enumerate(cfg.pattern):
+        if kind == RWKV:
+            block += RWKV_BLOCK_LEAVES
+            continue
+        block += 5 if _ffn_is_moe(cfg, pos) else 4    # ln_ffn and the FFN
+        if kind == MAMBA:
+            block += MAMBA_BLOCK_LEAVES
+        elif kind == ATTN:
+            block += attn + cross * attn
+            attn_blocks += 1
     encoder = 2 + attn + 4 if cross else 0
     whole = 1 + (cfg.rope_theta <= 0) + encoder
     perturb = 2 * whole + 2 * block * zo_periods if fused \
         else 2 * (whole + block)
     return {"zo_perturb": perturb, "zo_fused_replay": whole + block,
-            "flash_attention": 2 * (zo_periods * (1 + cross)
+            "flash_attention": 2 * (zo_periods * attn_blocks * (1 + cross)
                                     + cfg.encoder_layers)}
 
 
@@ -3268,16 +3333,19 @@ def leaf_moves(params, init, run=None):
     return out
 
 
-def mesh_cfg(arch):
-    """The stack a mesh lane of ``arch`` trains, at full width: qwen3-4b
-    cut to MESH_LAYERS, whisper-small to MESH_WHISPER_LAYERS (decoder and
-    encoder), llava-next-34b to MESH_LLAVA_LAYERS, mixtral-8x7b to
-    MESH_MOE_LAYERS; in MESH_DTYPES' dtype where it names one."""
+def mesh_cfg(arch, overrides=()):
+    """The stack a mesh lane of ``arch`` trains, at full width, with the
+    lane's ``overrides`` of its config: qwen3-4b cut to MESH_LAYERS,
+    whisper-small to MESH_WHISPER_LAYERS (decoder and encoder),
+    llava-next-34b to MESH_LLAVA_LAYERS, mixtral-8x7b to MESH_MOE_LAYERS,
+    rwkv6-1.6b to MESH_RWKV_LAYERS, jamba-v0.1-52b to MESH_MAMBA_LAYERS;
+    in MESH_DTYPES' dtype where it names one."""
     from repro_torch.configs import ARCHS
     cut = {"qwen3-4b": MESH_LAYERS, "whisper-small": MESH_WHISPER_LAYERS,
            "llava-next-34b": MESH_LLAVA_LAYERS,
-           "mixtral-8x7b": MESH_MOE_LAYERS}[arch]
-    cfg = ARCHS[arch]
+           "mixtral-8x7b": MESH_MOE_LAYERS, "rwkv6-1.6b": MESH_RWKV_LAYERS,
+           "jamba-v0.1-52b": MESH_MAMBA_LAYERS}[arch]
+    cfg = dataclasses.replace(ARCHS[arch], **dict(overrides))
     cfg = dataclasses.replace(cfg, dtype=MESH_DTYPES.get(arch, cfg.dtype),
                               num_layers=cut)
     if cfg.encoder_layers:
@@ -3285,14 +3353,16 @@ def mesh_cfg(arch):
     return cfg
 
 
-def mesh_title(arch):
-    """``arch`` and its cut, as the mesh phase prints it."""
+def mesh_title(arch, overrides=()):
+    """``arch``, its cut and the lane's ``overrides``, as the mesh phase
+    prints them."""
     from repro_torch.configs import ARCHS
-    cfg = mesh_cfg(arch)
+    cfg = mesh_cfg(arch, overrides)
     n, full = cfg.num_layers, ARCHS[arch].num_layers
     both = " decoder and encoder" if cfg.encoder_layers else ""
     cut = "" if n == full else f"{n} of {full}{both} layers, "
-    return f"{arch} ({cut}{cfg.dtype})"
+    over = "".join(f", {k} {v}" for k, v in overrides)
+    return f"{arch} ({cut}{cfg.dtype}{over})"
 
 
 def mesh_argv(arch, batch, seq):
@@ -3321,6 +3391,18 @@ def small_mesh_batches(cfg, batch, seq, rows):
     return fn
 
 
+def ulp_moved(params, pattern):
+    """``params`` with every element moved one ulp up or down (the sign
+    drawn from ``pattern``): the smallest change of the step's input."""
+    from repro_torch.core import zo
+    gen = torch.Generator().manual_seed(pattern)
+
+    def f(_p, t):
+        sign = torch.randint(0, 2, t.shape, generator=gen).to(t) * 2 - 1
+        return torch.nextafter(t, t + sign * math.inf)
+    return zo.map_with_path(f, params)
+
+
 def _mesh_small(mesh, spec, lanes=("elastic_zo", "full_bp")):
     """The reduced f32 stack of ``spec`` (a MESH_SMALL entry), 2 steps of
     each of ``lanes`` on this mesh in the spec's strategy: the card's own
@@ -3330,19 +3412,22 @@ def _mesh_small(mesh, spec, lanes=("elastic_zo", "full_bp")):
     (``small_mesh_batches``), so that a step's rounding does not enter
     the next comparison through the ZO coefficients (a loss 2 ulps apart
     moved reduced Mixtral's leaves 1.4e-4 apart a step later, PERF.md
-    §6): ({lane: (worst relative loss distance, worst relative param
+    §6). In MESH_SMALL_ILL's lane of its stack, each step's floor too:
+    the CPU's step from that state with every element moved one ulp (two
+    sign patterns), its largest distance from the CPU's step. Returns
+    ({lane: (worst relative loss distance, worst relative param
     distance)} over the steps, the rules' attention plan, their MoE
-    plan)."""
+    plan, the largest floor or None)."""
     from repro_torch.configs import ARCHS, ShapeConfig, reduced
     from repro_torch.core import zo
     from repro_torch.core.elastic import TrainState
     from repro_torch.data.pipeline import device_put_batch, rank_rows
     from repro_torch.launch import train as launch_train
     from repro_torch.train.train_loop import LoopConfig, run
-    _, arch, _, strategy, batch, overrides, text = spec
+    label, arch, _, strategy, batch, overrides, text = spec
     cfg = reduced(ARCHS[arch], dtype="float32", **overrides)
     seq = text + cfg.num_image_tokens
-    out = {}
+    out, floor = {}, None
     for lane in lanes:
         ts = {dev: launch_train.setup(launch_train.parse_args(
             ["--arch", arch, "--device", dev, "--lane", lane, "--batch",
@@ -3354,38 +3439,45 @@ def _mesh_small(mesh, spec, lanes=("elastic_zo", "full_bp")):
             ShapeConfig("train", seq_len=seq, global_batch=batch,
                         kind="train"), run_.rules, run_.coords))
         seed = ts["cpu"].state.seed
-        card = TrainState(zo.map_with_path(      # the CPU's draws
-            lambda p, x: x.clone().to("cuda"), ts["cpu"].state.params), 0,
-            seed)
+
+        def step_on(dev, params, step):
+            """(state, loss, gathered leaves) after one step on ``dev``
+            from ``params``."""
+            t = ts[dev]
+            state, hist = run(t.step_fn, TrainState(params, step, seed),
+                              lambda k: device_put_batch(host(k), t.device,
+                                                         t.dtypes),
+                              LoopConfig.for_lane(t.lane,
+                                                  total_steps=step + 1,
+                                                  log_every=1),
+                              log=None, param_shardings=t.run)
+            return state, hist[-1][1], [t.run.gather_leaf(p, leaf).cpu()
+                                        for p, leaf in
+                                        zo.leaves_with_path(state.params)]
+
+        def distance(pa, pb):
+            return max(float((a - b).abs().max() / max(float(b.abs().max()),
+                                                       1.0))
+                       for a, b in zip(pa, pb) if b.numel())
+        card = zo.map_with_path(                 # the CPU's draws
+            lambda p, x: x.clone().to("cuda"), ts["cpu"].state.params)
         dist_loss = dist_param = 0.0
         for step in range(2):
             # the card's state before this step, for the CPU (the card's
             # step updates its ZO leaves in place)
-            before = zo.map_with_path(lambda p, x: x.cpu().clone(),
-                                      card.params)
-            got = {}
-            for dev, state in (("cuda", card),
-                               ("cpu", TrainState(before, step, seed))):
-                t = ts[dev]
-                state, hist = run(t.step_fn, state,
-                                  lambda k: device_put_batch(
-                                      host(k), t.device, t.dtypes),
-                                  LoopConfig.for_lane(t.lane,
-                                                      total_steps=step + 1,
-                                                      log_every=1),
-                                  log=None, param_shardings=t.run)
-                got[dev] = (hist[-1][1],
-                            [t.run.gather_leaf(p, leaf).cpu() for p, leaf in
-                             zo.leaves_with_path(state.params)])
-                if dev == "cuda":
-                    card = state
-            (lc, pc), (lh, ph) = got["cuda"], got["cpu"]
+            before = zo.map_with_path(lambda p, x: x.cpu().clone(), card)
+            state, lc, pc = step_on("cuda", card, step)
+            card = state.params
+            _, lh, ph = step_on("cpu", zo.map_with_path(
+                lambda p, x: x.clone(), before), step)
             dist_loss = max(dist_loss, abs(lc - lh) / max(abs(lh), 1.0))
-            dist_param = max([dist_param] + [
-                float((a - b).abs().max() / max(float(b.abs().max()), 1.0))
-                for a, b in zip(pc, ph)])
+            dist_param = max(dist_param, distance(pc, ph))
+            if (label, lane) == MESH_SMALL_ILL[:2]:
+                floor = max([floor or 0.0] + [distance(step_on(
+                    "cpu", ulp_moved(before, pattern), step)[2], ph)
+                    for pattern in (1, 2)])
         out[lane] = (dist_loss, dist_param)
-    return (out,) + plan
+    return (out,) + plan + (floor,)
 
 
 def _mesh_lane(mesh, lane_spec, zo_perturb, zo_replay, noise):
@@ -3402,14 +3494,14 @@ def _mesh_lane(mesh, lane_spec, zo_perturb, zo_replay, noise):
     from repro_torch.core import zo
     from repro_torch.launch import train as launch_train
     from repro_torch.sharding import collectives
-    label, arch, strategy, fused, batch, seq = lane_spec
+    label, arch, strategy, fused, batch, seq, overrides = lane_spec
     args = launch_train.parse_args(mesh_argv(arch, batch, seq))
     lane = dataclasses.replace(launch_train.lane_from_args(args),
                                fused_probes=fused)
     t0 = time.perf_counter()
     start = t0
-    trainer = launch_train.setup(args, lane, cfg=mesh_cfg(arch), mesh=mesh,
-                                 strategy=strategy)
+    trainer = launch_train.setup(args, lane, cfg=mesh_cfg(arch, overrides),
+                                 mesh=mesh, strategy=strategy)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     held = _mesh_noise(trainer, zo_perturb, zo_replay) if noise else 0
@@ -3446,8 +3538,9 @@ def _mesh_rank(rank, world, shape, backend, store, out_dir, lanes, small):
     """One rank of the mesh phase on ``shape``, through the launcher's
     setup: each lane of ``lanes`` (``_mesh_lane``) in turn, the shard
     noise held in each arch's unfused lanes at its first lane's shape;
-    then (``small``) each MESH_SMALL stack card against CPU on its mesh
-    of the same world. Writes its numbers to out_dir."""
+    then each reduced stack of ``small`` (MESH_SMALL entries) card
+    against CPU on its mesh of the same world. Writes its numbers to
+    out_dir."""
     import torch.distributed as dist
     sys.path.insert(0, str(ROOT / "src"))
     torch.set_num_threads(2)
@@ -3469,7 +3562,7 @@ def _mesh_rank(rank, world, shape, backend, store, out_dir, lanes, small):
                 meshes[tuple(shape)], spec, zo_perturb, zo_fused_replay,
                 noise=not spec[3] and spec[4:] == first[spec[1]])
         t0 = time.perf_counter()
-        for spec in MESH_SMALL if small else ():
+        for spec in small:
             if spec[2] not in meshes:
                 meshes[spec[2]] = mesh_lib.make_mesh(spec[2], MESH_AXES)
             res["small"][spec[0]] = _mesh_small(meshes[spec[2]], spec)
@@ -3479,19 +3572,20 @@ def _mesh_rank(rank, world, shape, backend, store, out_dir, lanes, small):
         dist.destroy_process_group()
 
 
-def check_mesh(shape, backend, want_losses, want_moves, small=True,
+def check_mesh(shape, backend, want_losses, want_moves, small=MESH_SMALL,
                lanes=MESH_LANES):
     """The mesh phase on ``prod(shape)`` spawned ranks, one spawn for all
     of ``lanes``: prints each rank's numbers per lane and asserts the
     launches a step (``mesh_per_step`` of the lane's stack), equal counts
     and losses on every rank, the losses within MESH_LOSS_RTOL of one
     device's at the lane's stack and shape (``want_losses``: {(arch,
-    batch, seq): losses}), each leaf's move within MESH_MOVE_RTOL of one
-    device's (``want_moves``: {(arch, batch, seq): leaf_moves}), the
+    batch, seq, overrides): losses}), each leaf's move within
+    MESH_MOVE_RTOL of one device's (``want_moves``: {(arch, batch, seq,
+    overrides): leaf_moves}), the
     fused lanes' first (l+, l-) bitwise the unfused lane's at the same
-    stack, shape and strategy, and (``small``) the reduced stacks card ==
-    CPU, the 1x4 ones under the seq plan. Returns {lane label: rank 0's
-    launch counts}."""
+    stack, shape and strategy, and the reduced stacks of ``small``
+    (MESH_SMALL entries) card == CPU, the 6-head ones under the seq plan.
+    Returns {lane label: rank 0's launch counts}."""
     import tempfile
     from repro_torch.launch import mesh as mesh_lib
     world = math.prod(shape)
@@ -3511,8 +3605,8 @@ def check_mesh(shape, backend, want_losses, want_moves, small=True,
     name = "x".join(map(str, shape))
     worst = {}
     steps = MESH_STEPS
-    for label, arch, strategy, fused, batch, seq in lanes:
-        cfg = mesh_cfg(arch)
+    for label, arch, strategy, fused, batch, seq, overrides in lanes:
+        cfg = mesh_cfg(arch, overrides)
         per_step = mesh_per_step(cfg, fused)
         for r in res:
             x = r["lanes"][label]
@@ -3521,7 +3615,8 @@ def check_mesh(shape, backend, want_losses, want_moves, small=True,
                 and "model" in x["batch_axes"] else 0
             moe = f", MoE plan {x['moe']}, {x['all_to_all']} dispatch " \
                 f"all-to-alls (want {a2a})" if cfg.is_moe else ""
-            print(f"{name} {label} ({mesh_title(arch)} at {batch} x {seq}, "
+            print(f"{name} {label} ({mesh_title(arch, overrides)} at {batch} x"
+                  f" {seq}, "
                   f"{strategy}, attention plan {x['attn']}{moe}, batch over "
                   f"{x['batch_axes']}) over {backend}, rank "
                   f"{r['rank']} on {r['device']}: setup {x['setup_s']:.2f} s "
@@ -3546,13 +3641,13 @@ def check_mesh(shape, backend, want_losses, want_moves, small=True,
             if x["losses"] != res[0]["lanes"][label]["losses"]:
                 raise AssertionError(f"{label}: the ranks' losses differ")
         x = res[0]["lanes"][label]
-        want = want_losses[(arch, batch, seq)]
+        want = want_losses[(arch, batch, seq, overrides)]
         worst[label] = max(abs(a - b) / abs(b)
                            for a, b in zip(x["losses"], want))
         print(f"{name} {label}: losses against one device's of the same cut "
               f"and shape {[round(v, 5) for v in want]}: worst relative "
               f"distance {worst[label]:.3g} (tolerance {MESH_LOSS_RTOL})")
-        ref_moves = want_moves[(arch, batch, seq)]
+        ref_moves = want_moves[(arch, batch, seq, overrides)]
         far = max(abs(x["moved"][k] - v) / max(v, 1e-30)
                   for k, v in ref_moves.items())
         print(f"{name} {label}: each leaf's summed |change| in {steps} "
@@ -3563,9 +3658,9 @@ def check_mesh(shape, backend, want_losses, want_moves, small=True,
             raise AssertionError(f"{label}: the leaves moved otherwise than "
                                  "one device's")
         if fused:
-            plain = next(lbl for lbl, a, s, f, b, n in lanes
-                         if (a, s, b, n) == (arch, strategy, batch, seq)
-                         and not f)
+            plain = next(spec[0] for spec in lanes if not spec[3] and (
+                spec[1:3] + spec[4:] == (arch, strategy, batch, seq,
+                                         overrides)))
             y = res[0]["lanes"][plain]
             print(f"{name} {label}: first (l+, l-) {x['pair']}, the unfused "
                   f"lane's {y['pair']} (bitwise: {x['pair'] == y['pair']}); "
@@ -3574,22 +3669,32 @@ def check_mesh(shape, backend, want_losses, want_moves, small=True,
             if x["pair"] != y["pair"]:
                 raise AssertionError(f"{label}: the fused pair is not the "
                                      "unfused one")
-    for label, arch, _, strategy, _, overrides, _ in MESH_SMALL if small \
-            else ():
+    bad = []                    # every reduced stack printed, then raised
+    for label, arch, _, strategy, _, overrides, _ in small:
         for r in res:
-            got, plan, moe = r["small"][label]
+            got, plan, moe, floor = r["small"][label]
+            ill = MESH_SMALL_ILL[1] if label == MESH_SMALL_ILL[0] else None
             print(f"  rank {r['rank']}: reduced f32 {label} ({strategy}, "
                   f"attention plan {plan}, MoE plan {moe}), card against CPU"
-                  f" (worst relative loss, param distance): {got}")
+                  f" (worst relative loss, param distance): {got}" + (
+                      f"; the {ill} step's floor {floor} (its bound "
+                      f"{MESH_SMALL_ILL[2]})" if ill else ""))
             if (plan == "seq") != (overrides.get("num_heads") == 6):
-                raise AssertionError(f"reduced {label}: attention plan "
-                                     f"{plan}")
-            if arch == "mixtral-8x7b" and moe != (
+                bad.append(f"reduced {label}: attention plan {plan}")
+            if arch in ("mixtral-8x7b", "jamba-v0.1-52b") and moe != (
                     "tp" if "num_experts" in overrides else "ep"):
-                raise AssertionError(f"reduced {label}: MoE plan {moe}")
-            if max(max(v) for v in got.values()) > MESH_SMALL_TOL:
-                raise AssertionError(f"reduced {label} on the mesh: card "
-                                     "and CPU differ")
+                bad.append(f"reduced {label}: MoE plan {moe}")
+            if any(loss > MESH_SMALL_TOL or param > (
+                    MESH_SMALL_ILL[2] if lane == ill else MESH_SMALL_TOL)
+                   for lane, (loss, param) in got.items()):
+                bad.append(f"reduced {label} on the mesh, rank {r['rank']}:"
+                           " card and CPU differ")
+            if ill and not floor > MESH_SMALL_TOL:
+                bad.append(f"reduced {label}: the {ill} step's floor {floor}"
+                           f" is within {MESH_SMALL_TOL}, so its bound "
+                           f"{MESH_SMALL_ILL[2]} is not")
+    if bad:
+        raise AssertionError("; ".join(bad))
     print(f"{name}: the phase took {wall:.1f} s with the ranks' start (the "
           f"reduced stacks {res[0].get('small_s', 0.0):.1f} s on rank 0); "
           f"worst relative loss distance over the lanes "
@@ -3597,6 +3702,13 @@ def check_mesh(shape, backend, want_losses, want_moves, small=True,
     if max(worst.values()) > MESH_LOSS_RTOL:
         raise AssertionError("the sharded losses left one device's")
     return {label: res[0]["lanes"][label]["counts"] for label, *_ in lanes}
+
+
+def mesh_path(lane_spec):
+    """A mesh lane's name on the kernels line."""
+    label, arch, *_, overrides = lane_spec
+    return (f"train {mesh_title(arch, overrides)}, 2x2 mesh over gloo, "
+            f"{label}, rank 0")
 
 
 def check_train_mesh():
@@ -3608,22 +3720,22 @@ def check_train_mesh():
     from repro_torch.launch import train as launch_train
     from repro_torch.core import zo
     want, moves = {}, {}
-    for arch, batch, seq in sorted({(spec[1],) + spec[4:]
-                                    for spec in MESH_LANES}):
-        key = (arch, batch, seq)
+    for key in sorted({(spec[1],) + spec[4:] for spec in MESH_LANES}):
+        arch, batch, seq, overrides = key
         one = launch_train.setup(launch_train.parse_args(
-            mesh_argv(arch, batch, seq)), cfg=mesh_cfg(arch))
+            mesh_argv(arch, batch, seq)), cfg=mesh_cfg(arch, overrides))
         init = [t.detach().clone() for t in zo.leaves(one.state.params)]
         with probe_losses() as seen:
             want[key], ms, peak, counts = mesh_train(one, MESH_STEPS)
         moves[key] = leaf_moves(one.state.params, init)
-        print(f"{mesh_title(arch)} at {batch} x {seq} on one device: losses "
+        print(f"{mesh_title(arch, overrides)} at {batch} x {seq} on one "
+              f"device: losses "
               f"{[round(v, 5) for v in want[key]]}, first (l+, l-) "
               f"{[float(x) for x in seen[:2]]}, {ms:.1f} ms a step, "
               f"peak {peak} bytes, launches {counts}")
         del one, init
         torch.cuda.empty_cache()
-    cut = ("qwen3-4b", 4, 128)
+    cut = ("qwen3-4b", 4, 128, ())
     return check_mesh((2, 2), "gloo", want, moves), want[cut], moves[cut]
 
 
@@ -3663,9 +3775,9 @@ def check_train_mesh_nccl(want_losses, cut_losses, cut_moves):
         raise AssertionError("the 1x1 mesh over NCCL left the one-device run")
     four = torch.cuda.device_count() >= 4
     if four:                # the cut's losses: check_train_mesh's one device
-        cut = ("qwen3-4b", 4, 128)
+        cut = ("qwen3-4b", 4, 128, ())
         check_mesh((2, 2), "nccl", {cut: cut_losses}, {cut: cut_moves},
-                   small=False, lanes=MESH_LANES[:1])
+                   small=(), lanes=MESH_LANES[:1])
     print(f"2x2 over NCCL on four cards: {'ran' if four else 'not run'} "
           f"({torch.cuda.device_count()} card(s) here)")
     return counts, four
@@ -4479,9 +4591,10 @@ def main():
           "reports the fused run's)")
     torch.cuda.empty_cache()
 
-    phase("train qwen3-4b, whisper-small, llava-next-34b and mixtral-8x7b "
-          "on a 2x2 mesh, strategies tp / fsdp / serve, fused probes and "
-          "the MoE's ep plan (4 ranks sharing the card over gloo)")
+    phase("train qwen3-4b, whisper-small, llava-next-34b, mixtral-8x7b, "
+          "rwkv6-1.6b and Jamba's Mamba block on a 2x2 mesh (reduced "
+          "Jamba too), strategies tp / fsdp / serve, fused probes and the "
+          "MoE's ep plan (4 ranks sharing the card over gloo)")
     n_mesh, cut_losses, cut_moves = check_train_mesh()
     torch.cuda.empty_cache()
 
@@ -4585,12 +4698,17 @@ def main():
         "train llava-next-34b (16 of 60 layers), fused probes": n_llava_fused}
     resumed = "train qwen3-4b, plain, then prefetched and resumed"
     mesh_1x1 = "train qwen3-4b, 1x1 mesh over NCCL"
-    arch_of = {spec[0]: spec[1] for spec in MESH_LANES}
-    mesh_paths = {k: {**{f"train {mesh_title(arch_of[label])}, 2x2 mesh "
-                         f"over gloo, {label}, rank 0": n[k]
+    spec_of = {spec[0]: spec for spec in MESH_LANES}
+    mesh_paths = {k: {**{mesh_path(spec_of[label]): n[k]
                          for label, n in n_mesh.items()},
                       mesh_1x1: n_nccl[k]}
                   for k in n_nccl}
+    # the mesh lanes whose stacks attend (RWKV6's and the Mamba lane's
+    # assert 0 flash launches a step: mesh_per_step)
+    attending = {mesh_path(spec) for spec in MESH_LANES
+                 if mesh_per_step(mesh_cfg(spec[1], spec[6]),
+                                  spec[3])["flash_attention"]}
+    attending.add(mesh_1x1)
     paths = {"zo_perturb": {resumed: n_resume["zo_perturb"],
                             **mesh_paths["zo_perturb"],
                             "train PointNet": n_pointnet["zo_perturb"],
@@ -4630,7 +4748,8 @@ def main():
                  "serve whisper-small": n_whisper[2],
                  "serve llava-next-34b": n_llava[2],
                  resumed: n_resume["flash_attention"],
-                 **mesh_paths["flash_attention"],
+                 **{k: v for k, v in mesh_paths["flash_attention"].items()
+                    if k in attending},
                  "train qwen3-4b, fused probes, seq 4096":
                      n_fused["flash_attention"],
                  "fleet qwen3-4b": n_fleet_lm["flash_attention"],

@@ -14,9 +14,7 @@ rank's slice, ``loss_fn`` runs the sharded forward on the rank's rows of
 the batch (``batch_shardings`` says which; Whisper's ``frames`` and
 LLaVA's ``img`` follow the tokens' rows), and the train step perturbs
 and updates each shard at its global flat indices
-(``core/engine.py``); the attention stacks with dense or MoE FFNs run
-there, the recurrent ones raise (``models/transformer.py::
-check_mesh_stack``).
+(``core/engine.py``); every stack runs there.
 
 Whisper's encoder runs on ``frames`` [B, encoder_seq, d] wherever the
 decoder sees a whole sequence (prefill, train); a decode step reads the
@@ -134,14 +132,13 @@ def init(cfg: ModelConfig, lane: Optional[LaneConfig] = None, *,
 def _init_shards(cfg: ModelConfig, seed, device, dtype, max_seq, run):
     """``init_lm`` keeping the rank's shard of each drawn leaf. The draw
     order and each draw's leaf come from a run of the init under a fake
-    tensor mode (no memory, no draws); the leaves the init does not draw
-    (norm scales, ones) are replicated."""
+    tensor mode (no memory, no draws); a leaf the init does not draw (a
+    constant: norm scales, RWKV6's gn_scale, Mamba's conv_b, dt_bias,
+    A_log, D_skip) is made whole and cut to the rank's shard after it."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     from ..models import layers
-    from ..models.transformer import check_mesh_stack
     from ..sharding.params import (map_dict, param_shardings, shard_desc,
                                    shard_leaf)
-    check_mesh_stack(cfg)
     drawn = []
     with FakeTensorMode(), layers.draw_hook(lambda w: drawn.append(w) or w):
         fake = init_lm(cfg, seed=seed, device="cpu", dtype=dtype,
@@ -149,13 +146,9 @@ def _init_shards(cfg: ModelConfig, seed, device, dtype, max_seq, run):
     where = {}
     map_dict(lambda names, t: where.setdefault(id(t), names), fake)
     specs = param_shardings(fake, run.rules)
-    order = []
-    for w in drawn:
-        names = where[id(w)]
-        spec = specs
-        for k in names:
-            spec = spec[k]
-        order.append(shard_desc(tuple(w.shape), spec, run.coords, run.sizes))
+    leaf_desc = map_dict(lambda names, t: shard_desc(
+        tuple(t.shape), zo._at(specs, names), run.coords, run.sizes), fake)
+    order = [zo._at(leaf_desc, where[id(w)]) for w in drawn]
     del fake, drawn
     descs = iter(order)
     with layers.draw_hook(lambda w: shard_leaf(w, next(descs))):
@@ -164,7 +157,9 @@ def _init_shards(cfg: ModelConfig, seed, device, dtype, max_seq, run):
     if next(descs, None) is not None:
         raise AssertionError("the sharded init drew fewer leaves than the "
                              "fake one")
-    return params
+    return map_dict(lambda names, t: shard_leaf(t, zo._at(leaf_desc, names))
+                    if tuple(t.shape) == zo._at(leaf_desc, names).global_shape
+                    else t, params)
 
 
 def abstract_params(cfg: ModelConfig, lane: Optional[LaneConfig] = None, *,
@@ -317,9 +312,6 @@ def train_engine(cfg: ModelConfig, lane: LaneConfig, run=None):
     if lane.fused_probes and lane.lane == "elastic_zo":
         paired = lambda bp, zo_part, batch, seed: paired_loss(  # noqa: E731
             bp, zo_part, cfg, lane, batch, seed, run=run)
-    if run is not None:
-        from ..models.transformer import check_mesh_stack
-        check_mesh_stack(cfg)
     return (Fp32Engine(lane, paired_loss_fn=paired, run=run),
             lambda p, b: loss_fn(p, cfg, b, run=run))
 

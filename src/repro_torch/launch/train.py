@@ -18,13 +18,14 @@ first times the engine's step phases one by one on a copy of the state
 ``--mesh DPxTP:data,model`` (or ``PxDPxTP:pod,data,model``) trains
 across a mesh of ranks (``launch/mesh.py``) in the rules' ``tp``
 strategy: Megatron tensor parallelism over `model`, FSDP storage over
-`data`, the batch over `pod` and `data`, attention stacks with dense or
-MoE FFNs: decoder-only, Mixtral and Phi-3.5-MoE (experts over `model`
-under the ``ep`` plan, d_ff over `model` where tp does not divide the
-experts), Whisper's encoder-decoder and LLaVA's image-token prefix (the
-recurrent stacks raise). As in the JAX package the
-CLI has no strategy flag; ``setup(..., strategy=)`` takes ``fsdp`` or
-``serve``. Under
+`data`, the batch over `pod` and `data`, every stack: decoder-only,
+Mixtral and Phi-3.5-MoE (experts over `model` under the ``ep`` plan,
+d_ff over `model` where tp does not divide the experts), RWKV6 (its
+heads over `model`), Jamba (its Mamba blocks' d_inner over `model`,
+beside its attention and MoE blocks), Whisper's encoder-decoder and
+LLaVA's image-token prefix. As in the JAX package the CLI has no
+strategy flag; ``setup(..., strategy=)`` takes ``fsdp`` or ``serve``.
+Under
 ``torchrun`` each process is a rank (``RANK`` / ``WORLD_SIZE`` /
 ``LOCAL_RANK``); otherwise the launcher
 spawns the mesh's ranks itself and rendezvouses them at ``--dist-init``

@@ -8,6 +8,15 @@ the port walks the chunks in order: the same recurrence, summed in
 another order, so the two agree within float tolerance, not bitwise.
 Decode (S = 1 with a state) takes the exact O(1) step, no chunking.
 
+On a mesh (``specs``, ``run``: a training forward, no state) each block
+takes its leaves' specs: where `model` splits RWKV6's heads or Mamba's
+d_inner, a rank computes its heads or channels (the WKV walk, the group
+norm, the causal conv and the selective scan act per head or channel,
+and the sequence is never split) and the row-parallel projections are
+all-reduced over `model` (``layers.py::_row_parallel``). Where it
+splits neither (``fsdp``'s whole weights, or a count tp does not
+divide), every rank computes the one-device block.
+
 Per-step log decays are clamped to ``>= -DECAY_CLAMP`` and chunks kept at
 ``CHUNK`` steps, so the factored rescaling ``exp(lc_i - lc_j)`` stays in
 f32 range (the reference's bound, e^(CHUNK * DECAY_CLAMP)). The
@@ -23,7 +32,8 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
-from .layers import dense_init, group_norm_heads, rms_norm
+from .layers import (_model_sharded, _rank_part, _row_parallel, dense_init,
+                     group_norm_heads, rms_norm)
 
 CHUNK = 16
 DECAY_CLAMP = 4.0        # per-step |log decay| bound
@@ -72,6 +82,33 @@ def init_rwkv_block(gen, cfg: ModelConfig, dtype, lead=()):
     }
 
 
+def _split(specs, name: str, run) -> bool:
+    """Whether a block on a mesh (``run``) computes the rank's part of
+    the dim that leaf ``name`` (of its heads or channels) is sharded
+    over `model` by its spec."""
+    return run is not None and not run.whole_weights and \
+        _model_sharded(specs[name])
+
+
+def _whole_over_model(p, specs, run):
+    """``p``'s leaves whole on every `model` rank where the block does
+    not split its heads or channels but a leaf of it is sharded there
+    (tp divides d_model, or Mamba's 2 d_inner, and not the heads or
+    d_inner): each such leaf all-gathered along its `model` dim, its
+    gradient the rank's own part of the whole one (every rank computes
+    the same block)."""
+    if run is None or run.whole_weights:
+        return p
+    from ..sharding.collectives import replica_gather
+    out = {}
+    for name, t in p.items():
+        dims = [d for d, ax in enumerate(specs[name] or ())
+                if _model_sharded((ax,))]
+        out[name] = replica_gather(t, run.model_group, dims[0],
+                                   run.model_rank) if dims else t
+    return out
+
+
 def _token_shift(x, last: Optional[torch.Tensor]):
     """Shift the sequence right by one; ``last`` [B, 1, D] is the previous
     token (decode carry), zeros at t = 0 otherwise."""
@@ -80,12 +117,26 @@ def _token_shift(x, last: Optional[torch.Tensor]):
     return torch.cat([last, x[:, :-1]], dim=1)
 
 
-def rwkv_time_mix(p, x, cfg: ModelConfig, state):
+def rwkv_time_mix(p, x, cfg: ModelConfig, state, specs=None, run=None):
     """x: [B, S, D]. state: {"tm_shift" [B, 1, D], "wkv" [B, H, Dk, Dv]
-    f32, ...} or None. Returns (y, {"tm_shift", "wkv"})."""
+    f32, ...} or None. Returns (y, {"tm_shift", "wkv"}).
+
+    On a mesh with the heads split over `model` (``specs["bonus"]``):
+    the ddlerp runs whole on every rank (its leaves are whole there), the
+    lerped inputs of w_r / w_k / w_v / w_g and tanh(xw @ decay_w1) are
+    ``copy_to`` `model` (each rank's share of their gradient, from its
+    heads, summed there, so the ddlerp's leaves get whole, equal
+    gradients), r / k / v / g and the decay are the rank's heads' columns
+    (``decay_base``, whole, indexed to them by ``_rank_part``), the WKV
+    walk and the group norm run on those heads, and w_o is row-parallel
+    (``_row_parallel``)."""
+    split = _split(specs, "bonus", run)
+    if not split:
+        p = _whole_over_model({k: t for k, t in p.items()
+                               if not k.startswith("cm_")}, specs, run)
     B, S, D = x.shape
     Dh = cfg.rwkv_head_dim
-    H = D // Dh
+    H = p["bonus"].shape[0]                      # the rank's heads
     xprev = _token_shift(x, state["tm_shift"] if state is not None else None)
     xx = xprev - x
     # ddlerp, computed per projection to avoid a [B, S, 5, D] residency
@@ -99,15 +150,21 @@ def rwkv_time_mix(p, x, cfg: ModelConfig, state):
         return x + xx * mu
 
     xr, xk, xv, xw, xg = (lerped(i) for i in range(5))
+    dw = torch.tanh(torch.einsum("bsd,dl->bsl", xw, p["decay_w1"]))
+    decay_base = p["decay_base"]
+    if split:
+        from ..sharding.collectives import copy_to
+        g_ = run.model_group
+        xr, xk, xv, xg, dw = (copy_to(t, g_) for t in (xr, xk, xv, xg, dw))
+        lo = run.model_rank * H * Dh
+        decay_base = _rank_part(decay_base, specs["decay_base"], 0,
+                                range(lo, lo + H * Dh), run)
     r = torch.einsum("bsd,de->bse", xr, p["w_r"]).reshape(B, S, H, Dh)
     k = torch.einsum("bsd,de->bse", xk, p["w_k"]).reshape(B, S, H, Dh)
     v = torch.einsum("bsd,de->bse", xv, p["w_v"]).reshape(B, S, H, Dh)
     g = F.silu(torch.einsum("bsd,de->bse", xg, p["w_g"]))
 
-    decay_logit = p["decay_base"] + torch.einsum(
-        "bsd,de->bse",
-        torch.tanh(torch.einsum("bsd,dl->bsl", xw, p["decay_w1"])),
-        p["decay_w2"])
+    decay_logit = decay_base + torch.einsum("bsd,de->bse", dw, p["decay_w2"])
     # log w_t in [-DECAY_CLAMP, -1e-4] (clamped data-dependent decay)
     logw = -torch.clamp(torch.exp(decay_logit.float()), 1e-4,
                         DECAY_CLAMP).reshape(B, S, H, Dh)
@@ -130,7 +187,9 @@ def rwkv_time_mix(p, x, cfg: ModelConfig, state):
         new_state = {"tm_shift": x[:, -1:], "wkv": last_wkv}
 
     out = group_norm_heads(out.to(x.dtype), p["gn_scale"], cfg.norm_eps)
-    out = out.reshape(B, S, D) * g
+    out = out.reshape(B, S, H * Dh) * g
+    if split:
+        return _row_parallel("bsd,de->bse", out, p["w_o"], run), new_state
     return torch.einsum("bsd,de->bse", out, p["w_o"]), new_state
 
 
@@ -184,25 +243,37 @@ def _wkv_chunked(r, k, v, logw, u, init=None):
     return out.reshape(B, S, H, Dh)[:, :S0], state
 
 
-def rwkv_channel_mix(p, x, state):
+def rwkv_channel_mix(p, x, state, specs=None, run=None):
+    """On a mesh with d_ff split over `model` (``specs["cm_k"]``): xk is
+    ``copy_to`` `model`, k the rank's d_ff columns, cm_v row-parallel;
+    cm_r is whole, so r is the same on every rank."""
+    split = _split(specs, "cm_k", run)
     xprev = _token_shift(x, state["cm_shift"] if state is not None else None)
     xx = xprev - x
     xk = x + xx * p["cm_mu_k"]
     xr = x + xx * p["cm_mu_r"]
+    if split:
+        from ..sharding.collectives import copy_to
+        xk = copy_to(xk, run.model_group)
     k = torch.square(F.relu(torch.einsum("bsd,df->bsf", xk, p["cm_k"])))
-    v = torch.einsum("bsf,fd->bsd", k, p["cm_v"])
+    if split:
+        v = _row_parallel("bsf,fd->bsd", k, p["cm_v"], run)
+    else:
+        v = torch.einsum("bsf,fd->bsd", k, p["cm_v"])
     r = torch.sigmoid(torch.einsum("bsd,de->bse", xr, p["cm_r"]))
     return r * v, {"cm_shift": x[:, -1:]}
 
 
-def rwkv_block(p, x, cfg: ModelConfig, state):
+def rwkv_block(p, x, cfg: ModelConfig, state, specs=None, run=None):
     """The whole RWKV6 block. state: None (train or prefill from zeros)
-    or the dict of ``init_rwkv_state``. Returns (x, new state)."""
+    or the dict of ``init_rwkv_state``. Returns (x, new state). On a mesh
+    (``run``: a training forward) ``p`` holds the leaves as
+    ``MeshRun.weights`` gives them and ``specs`` their specs."""
     h, tm_state = rwkv_time_mix(p, rms_norm(x, p["ln1"], cfg.norm_eps),
-                                cfg, state)
+                                cfg, state, specs, run)
     x = x + h
     h, cm_state = rwkv_channel_mix(p, rms_norm(x, p["ln2"], cfg.norm_eps),
-                                   state)
+                                   state, specs, run)
     return x + h, {**tm_state, **cm_state}
 
 
@@ -267,23 +338,64 @@ def _causal_conv(x, w, b, carry):
     return out + b, new_carry
 
 
-def mamba_block(p, x, cfg: ModelConfig, state):
+def in_proj_channels(h, in_proj, run):
+    """(xs, z) [B, S, di / tp] each, the rank's d_inner channels of h @
+    in_proj, from the rank's contiguous column shard of in_proj [d,
+    2 di / tp] (whose columns are not its xs and z channels: at tp 2
+    rank 0 holds all of xs): h is ``copy_to`` `model`, the product's
+    blocks are all-gathered along the last dim over `model`
+    (``fsdp_gather``: the gradient reduce-scattered back, each column
+    used on one rank) and the rank's xs and z columns are taken from the
+    whole, so in_proj keeps its layout (which the noise's flat indices
+    and the checkpoints read)."""
+    from ..sharding.collectives import copy_to, fsdp_gather
+    g = run.model_group
+    xz = fsdp_gather(torch.einsum("bsd,de->bse", copy_to(h, g), in_proj),
+                     g, 2)
+    di = xz.shape[-1] // 2
+    dl = di // run.tp
+    lo = run.model_rank * dl
+    return xz[..., lo:lo + dl], xz[..., di + lo:di + lo + dl]
+
+
+def mamba_block(p, x, cfg: ModelConfig, state, specs=None, run=None):
     """x: [B, S, D]; state: None or {"conv" [B, W-1, di], "ssm" [B, di, N]
-    f32}. Returns (x + block(x), new state)."""
+    f32}. Returns (x + block(x), new state).
+
+    On a mesh with d_inner split over `model` (``specs["conv_b"]``): the
+    rank's xs and z channels come from ``in_proj_channels``; the conv and
+    the scan run on those channels; x_proj's partial sums are all-reduced
+    before the dt, B and C norms (``_row_parallel``), whose outputs are
+    ``copy_to`` `model` (each rank's share of their gradient summed
+    there, so the replicated norm scales get whole, equal gradients);
+    out_proj is row-parallel."""
+    split = _split(specs, "conv_b", run)
+    if not split:
+        p = _whole_over_model(p, specs, run)
     N = cfg.ssm_state_dim
     S = x.shape[1]
     h = rms_norm(x, p["norm"], cfg.norm_eps)
-    xs, z = torch.einsum("bsd,de->bse", h, p["in_proj"]).chunk(2, dim=-1)
+    if split:
+        xs, z = in_proj_channels(h, p["in_proj"], run)
+    else:
+        xs, z = torch.einsum("bsd,de->bse", h, p["in_proj"]).chunk(2, dim=-1)
     xs, new_conv = _causal_conv(xs, p["conv_w"], p["conv_b"],
                                 state["conv"] if state is not None else None)
     xs = F.silu(xs)
 
-    dbc = torch.einsum("bse,ez->bsz", xs, p["x_proj"])
+    if split:
+        dbc = _row_parallel("bse,ez->bsz", xs, p["x_proj"], run)
+    else:
+        dbc = torch.einsum("bse,ez->bsz", xs, p["x_proj"])
     dt_rank = p["dt_proj"].shape[0]
     dt_low, Bc, Cc = torch.split(dbc, [dt_rank, N, N], dim=-1)
     dt_low = rms_norm(dt_low, p["dt_norm"], cfg.norm_eps)
     Bc = rms_norm(Bc, p["B_norm"], cfg.norm_eps)
     Cc = rms_norm(Cc, p["C_norm"], cfg.norm_eps)
+    if split:
+        from ..sharding.collectives import copy_to
+        dt_low, Bc, Cc = (copy_to(t, run.model_group)
+                          for t in (dt_low, Bc, Cc))
     dt = F.softplus(torch.einsum("bsr,re->bse", dt_low, p["dt_proj"])
                     + p["dt_bias"].float())                # [B, S, di] f32
     A = -torch.exp(p["A_log"].float())                     # [di, N]
@@ -303,7 +415,10 @@ def mamba_block(p, x, cfg: ModelConfig, state):
         y = y + skip
 
     y = (y * F.silu(z.float())).to(x.dtype)
-    out = torch.einsum("bse,ed->bsd", y, p["out_proj"])
+    if split:
+        out = _row_parallel("bse,ed->bsd", y, p["out_proj"], run)
+    else:
+        out = torch.einsum("bse,ed->bsd", y, p["out_proj"])
     return x + out, {"conv": new_conv, "ssm": ssm}
 
 

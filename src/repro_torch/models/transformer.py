@@ -15,23 +15,24 @@ the text (``embed``). ``run_periods`` is a Python loop over periods
 where the JAX package scans; it takes zero periods too (a one-period
 stack's empty BP tail).
 
-On a mesh (``run``, a ``sharding/collectives.py::MeshRun``; training
-forwards of attention stacks with dense or MoE FFNs: decoder-only,
-Mixtral's and Phi-3.5-MoE's MoE stacks, Whisper's encoder-decoder and
-LLaVA's image-token prefix) each block gathers its weights just before
-use and drops them after (``MeshRun.weights``: the FSDP shards over
-`data`, and over `model` too under the ``fsdp`` strategy, but for the
-expert leaves' expert dim under the MoE ``ep`` plan), attention takes
-the rules' form (``layers.py::attention_on_mesh``), the MoE FFN its
-plan's (``moe.py::moe_ffn``: the dispatch all-to-all, the rank's own
-experts, or d_ff split over `model`), the embedding and the loss are
+On a mesh (``run``, a ``sharding/collectives.py::MeshRun``; the
+training forward of every stack: decoder-only, the MoE stacks, RWKV6,
+the Mamba / attention hybrid with its MoE FFNs (Jamba), Whisper's
+encoder-decoder and LLaVA's image-token prefix) each block gathers its
+weights just before use and drops them after (``MeshRun.weights``: the
+FSDP shards over `data`, and over `model` too under the ``fsdp``
+strategy, but for the expert leaves' expert dim under the MoE ``ep``
+plan), attention takes the rules' form (``layers.py::
+attention_on_mesh``), RWKV6 and Mamba run on the rank's heads or d_inner
+channels where `model` splits them (``ssm.py``), the MoE FFN takes its
+plan's form (``moe.py::moe_ffn``: the dispatch all-to-all, the rank's
+own experts, or d_ff split over `model`), the embedding and the loss are
 vocab-parallel over `model` where it carries TP compute (a whole table
 under ``fsdp``), and the loss is summed over every batch axis
 (``lm_loss``). Whisper's encoder runs its blocks under their own specs
 on the rank's rows of ``frames``, and its decoder blocks cross-attend in
 the same form; the learned positions and LLaVA's image rows join the
-embedding as on one device. The fused probe pair runs there too. The
-recurrent stacks (Mamba, RWKV6, Jamba) raise there.
+embedding as on one device. The fused probe pair runs there too.
 """
 from __future__ import annotations
 
@@ -143,40 +144,35 @@ def num_periods(periods) -> int:
     return periods.shape[0]
 
 
-def check_mesh_stack(cfg: ModelConfig):
-    """Raises unless ``cfg`` is what a mesh executes: attention blocks
-    with dense or MoE FFNs (decoder-only, the MoE stacks, Whisper's
-    encoder-decoder, LLaVA's image-token prefix; RoPE or learned
-    positions), trained."""
-    if any(kind != ATTN for kind in cfg.pattern):
-        raise NotImplementedError(
-            f"{cfg.name} under a mesh: recurrent (Mamba / RWKV6) blocks "
-            "are still queued (the recurrent blocks, then Jamba, under a "
-            "mesh: ROADMAP.md queue 1); the port shards the training of "
-            "attention stacks with dense or MoE FFNs")
-
-
-def _block_on_mesh(p, x, cfg: ModelConfig, positions, run, j: int,
-                   gathered: bool = False, mode: str = "train",
+def _block_on_mesh(p, x, cfg: ModelConfig, kind: str, positions, run,
+                   j: int, gathered: bool = False, mode: str = "train",
                    enc_out=None):
-    """One attention block of a training forward on a mesh: its weights
-    gathered (``MeshRun.weights``; ``gathered``: the caller did), the
-    attention in the rules' form, the MLP on the rank's d_ff slice where
-    `model` carries TP compute, or the MoE FFN in its plan's form
-    (``moe.py::moe_ffn``). ``mode`` "encode" is a block of
-    Whisper's encoder (its own block specs, ``MeshRun.
-    encoder_block_specs``): non-causal self-attention. A decoder block
-    with ``ln_cross`` then cross-attends to ``enc_out`` (the rank's rows
-    of the encoder output, the same on every `model` rank)."""
+    """One block of kind ``kind`` in a training forward on a mesh: its
+    weights gathered (``MeshRun.weights``; ``gathered``: the caller did).
+    RWKV6 runs ``ssm.py::rwkv_block`` and Mamba ``ssm.py::mamba_block``
+    on the rank's heads or d_inner channels where `model` splits them;
+    attention takes the rules' form; the MLP after an attention or Mamba
+    block runs on the rank's d_ff slice where `model` carries TP
+    compute, or the MoE FFN in its plan's form (``moe.py::moe_ffn``).
+    ``mode`` "encode" is a block of Whisper's encoder (its own block
+    specs, ``MeshRun.encoder_block_specs``): non-causal self-attention.
+    A decoder block with ``ln_cross`` then cross-attends to ``enc_out``
+    (the rank's rows of the encoder output, the same on every `model`
+    rank)."""
     encode = mode == "encode"
     specs = (run.encoder_block_specs if encode else run.block_specs)[
         f"blk{j}"]
     if not gathered:
         p = run.weights(p, specs)
-    h = rms_norm(x, p["ln_attn"], cfg.norm_eps)
-    x = x + attention_on_mesh(p["attn"], h, cfg, positions, specs["attn"],
-                              run, causal=not encode,
-                              window=cfg.sliding_window)
+    if kind == RWKV:
+        return rwkv_block(p["rwkv"], x, cfg, None, specs["rwkv"], run)[0]
+    if kind == MAMBA:
+        x = mamba_block(p["mamba"], x, cfg, None, specs["mamba"], run)[0]
+    else:
+        h = rms_norm(x, p["ln_attn"], cfg.norm_eps)
+        x = x + attention_on_mesh(p["attn"], h, cfg, positions,
+                                  specs["attn"], run, causal=not encode,
+                                  window=cfg.sliding_window)
     if "ln_cross" in p:
         h = rms_norm(x, p["ln_cross"], cfg.norm_eps)
         x = x + attention_on_mesh(p["cross"], h, cfg, positions,
@@ -212,8 +208,8 @@ def apply_block(p, x, cfg: ModelConfig, kind: str, *, positions, mode: str,
     """
     if mode not in ("prefill", "decode", "train", "encode"):
         raise ValueError(f"unknown mode {mode!r}")
-    if run is not None:                # train_engine checked the stack
-        return _block_on_mesh(p, x, cfg, positions, run, j, gathered,
+    if run is not None:
+        return _block_on_mesh(p, x, cfg, kind, positions, run, j, gathered,
                               mode, enc_out), None
     state = cache if mode == "decode" else None
     if kind == RWKV:

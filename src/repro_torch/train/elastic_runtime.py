@@ -16,8 +16,9 @@ reductions' rounding on another. The strategy (``tp``, ``fsdp`` or
 ``serve``, ``sharding/rules.py``) may differ from the saving run's: the
 checkpoint format is mesh-independent, and each rank keeps its slice
 under the new specs (of a MoE stack's expert leaves under the ``ep``
-plan, its block of E / tp experts in every strategy). The recurrent
-stacks raise on a mesh (``models/transformer.py::check_mesh_stack``).
+plan, its block of E / tp experts in every strategy). Every stack runs
+there: the attention stacks, the MoE stacks, RWKV6 and the Mamba /
+attention hybrid (Jamba).
 
 The port labels a checkpoint with the number of steps its params hold
 (``train/train_loop.py``), so a resume from a checkpoint this package
@@ -60,10 +61,8 @@ def build_for_mesh(cfg: ModelConfig, shape: ShapeConfig, lane: LaneConfig,
         raise ValueError(f"strategy {strategy!r}: want one of {STRATEGIES}")
     run = None
     if mesh is not None:
-        from ..models.transformer import check_mesh_stack
         from ..sharding.collectives import MeshRun
         from ..sharding.rules import ShardingRules
-        check_mesh_stack(cfg)
         rules = ShardingRules(mesh, cfg, shape, strategy=strategy)
         run = MeshRun(mesh, rules, api.abstract_params(
             cfg, lane, max_seq=shape.seq_len))

@@ -306,18 +306,26 @@ def test_restore_into_meta_template_needs_a_device(tmp_path):
     assert at == 2 and _leaves_equal(back, params)
 
 
-def test_a_mesh_is_not_ported():
+def test_a_mesh_is_not_ported(monkeypatch):
     """What of a mesh is not ported: a strategy the rules do not name
-    raises on a mesh and without one, and a recurrent stack (RWKV6)
-    raises on a mesh in every strategy. The tp, fsdp and serve strategies
-    run attention-only decoder stacks (tests/test_torch_mesh.py,
-    tests/test_torch_strategies.py), the MoE stacks
-    (tests/test_torch_mesh_moe.py), Whisper's encoder-decoder and
-    LLaVA's image-token prefix (tests/test_torch_mesh_encdec.py) on a
-    mesh and, without one, are the one-device step."""
+    raises on a mesh and without one. Every stack builds and resumes on
+    a mesh in the tp, fsdp and serve strategies: RWKV6 and Jamba's
+    Mamba, attention and MoE blocks here (a rank's view of a 2x2 mesh,
+    ``torch_recurrent_ranks.RankView``, in place of the process groups),
+    whose sharded init is the one-device init's shards, leaf by leaf (the
+    constants it does not draw, gn_scale, conv_b, dt_bias, A_log and
+    D_skip, cut to the rank's slice too); the attention-only decoder
+    stacks (tests/test_torch_mesh.py, tests/test_torch_strategies.py),
+    the MoE stacks (tests/test_torch_mesh_moe.py), RWKV6 and Jamba
+    (tests/test_torch_mesh_rwkv.py, tests/test_torch_mesh_jamba.py),
+    Whisper's encoder-decoder and LLaVA's image-token prefix
+    (tests/test_torch_mesh_encdec.py) train on ranks; without a mesh
+    every strategy is the one-device step."""
+    import torch_recurrent_ranks
     from repro_torch.launch.mesh import AbstractMesh
+    from repro_torch.sharding import collectives
+    from repro_torch.sharding.params import shard_leaf
     mesh = AbstractMesh((2, 2), ("data", "model"))
-    rwkv = reduced(get_arch("rwkv6-1.6b"))
     for m in (mesh, None):
         with pytest.raises(ValueError, match="strategy 'dp'"):
             build_for_mesh(_llama(), SHAPE, LANE, mesh=m, strategy="dp")
@@ -325,13 +333,24 @@ def test_a_mesh_is_not_ported():
             resume_on_mesh(None, _llama(), SHAPE, LANE, mesh=m,
                            strategy="dp", device="cpu")
     for strategy in ("tp", "fsdp", "serve"):
-        with pytest.raises(NotImplementedError, match="recurrent"):
-            build_for_mesh(rwkv, SHAPE, LANE, mesh=mesh, strategy=strategy)
-        with pytest.raises(NotImplementedError, match="recurrent"):
-            resume_on_mesh(None, rwkv, SHAPE, LANE, mesh=mesh,
-                           strategy=strategy, device="cpu")
         model, _ = build_for_mesh(_llama(), SHAPE, LANE, strategy=strategy)
         assert model.run is None
+    monkeypatch.setattr(collectives, "MeshRun", torch_recurrent_ranks.RankView)
+    for arch in ("rwkv6-1.6b", "jamba-v0.1-52b"):
+        cfg = reduced(get_arch(arch))
+        whole = api.init(cfg, LANE, seed=0, device="cpu")
+        for strategy in ("tp", "fsdp", "serve"):
+            state, model, _ = resume_on_mesh(None, cfg, SHAPE, LANE,
+                                             mesh=mesh, strategy=strategy,
+                                             device="cpu")
+            assert model.run.rules.strategy == strategy
+            sharded = 0
+            for p, t in zo.leaves_with_path(state.params):
+                d = zo._at(model.run.descs, p)
+                assert torch.equal(t, shard_leaf(zo._at(whole, p), d)), \
+                    (arch, strategy, zo.keystr(p))
+                sharded += not d.whole
+            assert sharded > 0
 
 
 # ------------------------------------------------------------------ #

@@ -32,7 +32,6 @@ from repro_torch.core import api, prng, zo  # noqa: E402
 from repro_torch.core.prng import IndexMap  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.launch import mesh as mesh_lib  # noqa: E402
-from repro_torch.models.transformer import check_mesh_stack  # noqa: E402
 from repro_torch.sharding import params as sparams  # noqa: E402
 from repro_torch.sharding.rules import ShardingRules  # noqa: E402
 from repro_torch.train import elastic_runtime  # noqa: E402
@@ -277,31 +276,31 @@ def test_shard_noise_is_global_noise_sliced(mesh):
                                   "rwkv6-1.6b", "whisper-small",
                                   "llava-next-34b"])
 def test_mesh_refuses_other_stacks(arch):
-    """The recurrent stacks (RWKV6, and Jamba's Mamba blocks) still
-    raise under a mesh, naming the queue; Mixtral's MoE stack
-    (tests/test_torch_mesh_moe.py), Whisper's encoder-decoder and LLaVA's
-    image-token prefix (tests/test_torch_mesh_encdec.py) are accepted."""
+    """No stack is refused under a mesh any more: the MoE stacks
+    (tests/test_torch_mesh_moe.py), RWKV6 (tests/test_torch_mesh_rwkv.py),
+    Jamba's Mamba, attention and MoE blocks
+    (tests/test_torch_mesh_jamba.py), Whisper's encoder-decoder and
+    LLaVA's image-token prefix (tests/test_torch_mesh_encdec.py) build
+    their engines on a mesh, unfused and fused."""
     cfg = reduced(ARCHS[arch])
-    if arch in ("mixtral-8x7b", "whisper-small", "llava-next-34b"):
-        assert check_mesh_stack(cfg) is None
-        run = types.SimpleNamespace(index_maps=lambda: None)
-        engine, _ = api.train_engine(cfg, LaneConfig(), run=run)
+    run = types.SimpleNamespace(index_maps=lambda: None)
+    for fused in (False, True):
+        engine, _ = api.train_engine(cfg, LaneConfig(fused_probes=fused),
+                                     run=run)
         assert engine.run is run
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        check_mesh_stack(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        api.train_engine(cfg, LaneConfig(), run=object())
+        assert (engine.paired_loss_fn is not None) == fused
 
 
-def test_mesh_refuses_other_strategies_and_fused_probes():
+def test_mesh_refuses_other_strategies_and_fused_probes(monkeypatch):
     """What a mesh still refuses: a strategy the rules do not name (on a
-    mesh and without one), and any strategy or fused probes for a stack
-    it does not run (RWKV6's recurrent blocks; tests/test_torch_strategies.py
-    runs tp, fsdp, serve and fused probes on attention-only decoder
-    stacks, tests/test_torch_mesh_encdec.py on Whisper's encoder-decoder
-    and LLaVA's image-token prefix, and tests/test_torch_mesh_moe.py on
-    the MoE stacks)."""
+    mesh and without one). RWKV6's recurrent blocks build in every
+    strategy (a rank's view of the mesh, ``torch_recurrent_ranks.
+    RankView``, in place of the process groups) and with fused probes;
+    tests/test_torch_strategies.py, tests/test_torch_mesh_rwkv.py and
+    the other mesh tests run them on ranks."""
+    import torch_recurrent_ranks
+    from repro_torch.sharding import collectives
+    monkeypatch.setattr(collectives, "MeshRun", torch_recurrent_ranks.RankView)
     cfg = reduced(ARCHS["qwen3-4b"])
     rwkv = reduced(ARCHS["rwkv6-1.6b"])
     shape = ShapeConfig("s", seq_len=16, global_batch=2, kind="train")
@@ -310,22 +309,26 @@ def test_mesh_refuses_other_strategies_and_fused_probes():
         with pytest.raises(ValueError, match="strategy 'dp'"):
             elastic_runtime.build_for_mesh(cfg, shape, LaneConfig(), m, "dp")
     for strategy in ("tp", "fsdp", "serve"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            elastic_runtime.build_for_mesh(rwkv, shape, LaneConfig(), mesh,
-                                           strategy)
-    with pytest.raises(NotImplementedError, match="recurrent"):
-        api.train_engine(rwkv, LaneConfig(fused_probes=True), run=object())
+        for fused in (False, True):
+            model, _ = elastic_runtime.build_for_mesh(
+                rwkv, shape, LaneConfig(fused_probes=fused), mesh, strategy)
+            assert model.run.rules.strategy == strategy
+            assert model.engine.run is model.run
+            assert (model.engine.paired_loss_fn is not None) == fused
 
 
-def test_seq_plan_raises():
+def test_seq_plan_raises(monkeypatch):
     """phi4-mini at tp 16 takes the seq plan (24 heads pad to 32: 33%
     waste), whose ranks split the query rows in blocks of ceil(S / tp),
     the last ones short or empty (tests/test_torch_strategies.py runs
     the plan); whisper-small takes it at tp 8, and its encoder-decoder
     stack is accepted under a mesh (tests/test_torch_mesh_encdec.py
-    runs Whisper's seq plan at 1x4), while Jamba's stack, Mamba blocks
-    among its attention and MoE blocks, still raises there."""
+    runs Whisper's seq plan at 1x4). Jamba's stack, Mamba blocks among
+    its attention and MoE blocks, is accepted there too, and takes the
+    tp attention plan and the ep MoE plan at tp 8."""
+    import torch_recurrent_ranks
     from repro_torch.models.layers import seq_rows
+    from repro_torch.sharding import collectives
     cfg = ARCHS["phi4-mini-3.8b"]
     r = ShardingRules(mesh_lib.AbstractMesh((1, 16), ("data", "model")), cfg)
     assert r.attn.kind == "seq"
@@ -336,13 +339,14 @@ def test_seq_plan_raises():
     whisper = ARCHS["whisper-small"]
     mesh = mesh_lib.AbstractMesh((1, 8), ("data", "model"))
     assert ShardingRules(mesh, whisper).attn.kind == "seq"
-    assert check_mesh_stack(whisper) is None
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        elastic_runtime.build_for_mesh(
-            ARCHS["jamba-v0.1-52b"], ShapeConfig("s", seq_len=16,
-                                                 global_batch=2,
-                                                 kind="train"),
-            LaneConfig(), mesh)
+    monkeypatch.setattr(collectives, "MeshRun", torch_recurrent_ranks.RankView)
+    shape = ShapeConfig("s", seq_len=16, global_batch=2, kind="train")
+    for arch in ("whisper-small", "jamba-v0.1-52b"):
+        model, _ = elastic_runtime.build_for_mesh(ARCHS[arch], shape,
+                                                  LaneConfig(), mesh)
+        assert model.engine.run is model.run
+    rules = model.run.rules
+    assert (rules.attn.kind, rules.moe) == ("tp", "ep")
 
 
 def test_nccl_needs_a_card_a_rank(monkeypatch):

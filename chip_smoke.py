@@ -9,7 +9,8 @@ its kernels: it checks small (reduced, f32) qwen3-4b, Jamba, RWKV6 and
 Mixtral models on the card against the CPU, serves eight requests with
 qwen3-4b at full width and depth (36 layers, bf16, random weights from a
 seed), with Jamba at full width and one period of its four (8 layers:
-Mamba, attention and MoE blocks) and with RWKV6-1.6B whole, trains LeNet-5 in the paper's four fp32
+Mamba, attention and MoE blocks) and with RWKV6-1.6B at full width and 12
+of its 24 layers, trains LeNet-5 in the paper's four fp32
 lanes (Table 1) and in its three ElasticZO-INT8 lanes in both loss modes
 (Table 1's INT8 and INT8* columns, integer arithmetic through the int8
 kernels), runs the seed-ledger fleet (``repro_torch.fleet``) on the
@@ -59,7 +60,12 @@ the unfused ones, the all-to-alls counted), reduced f32 qwen3-4b,
 Whisper, LLaVA and Mixtral card against CPU (the seq plan and the MoE tp
 plan at 1x4 too); and whole qwen3-4b on a 1x1 mesh over
 NCCL, bitwise the one-device run (with four cards, also 2x2 over
-NCCL).
+NCCL). Last, it holds the dry run's cost model (``launch/dryrun.py``:
+a step on ``meta`` tensors over a fake process group, counted) against
+the card: the qwen3-4b train cell on the 16x16 production mesh through
+the CLI, the unfused 4 x 128 step's launches, peak memory and bound
+against the step measured here, and the 2x2 qwen3-4b ``tp`` lane's
+collectives against a dry run of it, record for record on every rank.
 
 The last three lines of its output are the card's name and power limit
 (nvidia-smi), a JSON line of per-kernel numbers, and
@@ -69,6 +75,7 @@ imports nothing of JAX.
 """
 import contextlib
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -105,8 +112,6 @@ ZO_CHUNK = 1 << 26               # flat elements per plain-version chunk
 # when fused)
 ZO_LARGE = (7, 8, 4096, 14336)
 INT8_OPS_PER_S = 1979e12         # H100 SXM dense int8 tensor-core peak
-INT32_LANES = 132 * 64           # INT32 (ALU) pipe: 64 lanes a clock an SM
-SCHED_LANES = 132 * 4 * 32       # one warp instruction a clock per scheduler
 # SASS instructions that run on the INT32 (ALU) pipe; IMAD goes to the
 # FMA pipe, and ops of unknown pipe are left out, so a bound from this
 # set stays a lower bound
@@ -626,14 +631,13 @@ def flash_inputs(B, H, Hkv, Sq, Sk, D, dtype, seed=0):
     return make(H, Sq), make(Hkv, Sk), make(Hkv, Sk)
 
 
-def visible_pairs(Sq, Sk, causal, window):
-    """The (query, key) pairs the causal and window masks leave."""
-    n = 0
-    for q in range(Sq):
-        lo = max(0, q - window + 1) if window > 0 else 0
-        hi = min(q, Sk - 1) if causal else Sk - 1
-        n += max(0, hi - lo + 1)
-    return n
+def flash_cost(q, k, causal, window, q_offset=0):
+    """``kernels/cost.py::flash_attention`` of a call on q, k (bf16: the
+    tensor cores' peak; the dry run prices the same calls so)."""
+    from repro_torch.kernels import cost
+    return cost.flash_attention(tuple(q.shape), tuple(k.shape), q.dtype,
+                                causal=causal, window=window,
+                                q_offset=q_offset)
 
 
 def attention_f64(q, k, v):
@@ -739,11 +743,10 @@ def check_flash(flash_attn, ref):
     except RuntimeError as e:
         print(f"scaled_dot_product_attention refused (a): {e}")
         library_ms = None
-    ops = 4 * B * H * D * visible_pairs(Sq, Sk, causal, window)
-    nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
-    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    c = flash_cost(q, k, causal, window)
+    ops, by_bytes = c.flops, c.bytes / HBM_BYTES_PER_S * 1e3
     by_tc = ops / BF16_OPS_PER_S * 1e3
-    bound = max(by_bytes, by_tc)
+    bound = c.bound_s * 1e3
     ratio = f"{ms / library_ms:.2f}x SDPA" if library_ms else "SDPA refused"
     print(f"flash_attention (a): kernel {ms:.4f} ms "
           f"({ops / ms / 1e9:.1f} TFLOP/s, {ratio}), plain {plain_ms:.4f} "
@@ -777,10 +780,9 @@ def flash_case_times(flash_attn, ref, label, timer):
     library_ms = timer(
         lambda: torch.nn.functional.scaled_dot_product_attention(
             q, k, v, is_causal=causal, enable_gqa=True))
-    ops = 4 * B * H * D * visible_pairs(Sq, Sk, causal, window)
-    nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
-    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    by_tc = ops / BF16_OPS_PER_S * 1e3
+    c = flash_cost(q, k, causal, window)
+    by_bytes = c.bytes / HBM_BYTES_PER_S * 1e3
+    by_tc = c.flops / BF16_OPS_PER_S * 1e3
     print(f"flash_attention {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f}"
           f" ms, SDPA {library_ms:.4f} ms, bound {max(by_bytes, by_tc):.4f} "
           f"ms (bytes {by_bytes:.4f}, operations {by_tc:.4f})")
@@ -828,13 +830,8 @@ def check_flash_offset(flash_attn, ref):
     each = [event_ms(lambda a=a, lo=lo: flash_attn.flash_attention(
         *a, q_offset=lo), 10) for a, lo in calls]
     ms_whole = event_ms(lambda: flash_attn.flash_attention(q, k, v), 10)
-    bounds = []
-    for a, lo in calls:
-        n = sum(min(lo + i, a[1].shape[2] - 1) + 1 for i in range(c))
-        ops = 4 * B * H * D * n
-        nbytes = 2 * (2 * a[0].numel() + a[1].numel() + a[2].numel())
-        bounds.append(max(ops / BF16_OPS_PER_S, nbytes / HBM_BYTES_PER_S)
-                      * 1e3)
+    bounds = [flash_cost(a[0], a[1], True, 0, lo).bound_s * 1e3
+              for a, lo in calls]
     print(f"flash_attention at q_offset: the four calls "
           f"{[round(x, 4) for x in each]} ms (sum {sum(each):.4f}, bounds "
           f"{[round(x, 4) for x in bounds]}), the whole call {ms_whole:.4f} "
@@ -989,29 +986,34 @@ def check_zo(zo_perturb, zo_replay, ref):
         return call
 
     # the bound: bytes, or the instructions the build issues an element
+    # (kernels/cost.py, its constants held to this build's SASS)
+    from repro_torch.kernels import cost
     hz = max_sm_hz()
-    mix = {"zo_perturb": noise_paths(
-        "zo_perturb", "zo_perturb_kernelI13__nv_bfloat16Li8E", 8)[0]}
-    mix["zo_fused_replay"], record = noise_paths(
-        "zo_fused_replay", "zo_replay_kernelI13__nv_bfloat16Li8E", 8)
+    sass = check_noise_sass()
+    bf16 = torch.bfloat16
+    mix = {k: sass[(k, bf16)][0] for k in ("zo_perturb", "zo_fused_replay")}
+    record = sass[("zo_fused_replay", bf16)][1]
+
+    def bound_of(c):
+        return c.bound_s * 1e3, c.bound_by
     out = {}
     ms = event_ms(lambda: zo_perturb.zo_perturb(theta, seed, salt, 1e-3), 10)
     plain_ms = event_ms(chunked(lambda lo, hi: ref.zo_perturb_ref(
         flat[lo:hi], seed, salt, 1e-3, lo)), 2)
-    bound, by = noise_bound_ms(n, 2, mix["zo_perturb"], hz)
+    bound, by = bound_of(cost.zo_perturb(n, bf16, hz))
     out["zo_perturb"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
                              bound_ms=bound, bound_by=by, library_ms=None)
     ms = event_ms(lambda: zo_replay.zo_fused_replay(theta, sd, cf, salt), 10)
     plain_ms = event_ms(chunked(lambda lo, hi: ref.zo_fused_replay_ref(
         flat[lo:hi], sd, cf, salt, lo)), 2)
-    bound, by = noise_bound_ms(n, 2, mix["zo_fused_replay"], hz)
+    bound, by = bound_of(cost.zo_fused_replay(n, bf16, 1, hz))
     out["zo_fused_replay"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
                                   bound_ms=bound, bound_by=by,
                                   library_ms=None)
     catch_up_ms = event_ms(lambda: zo_replay.zo_fused_replay(
         theta, seeds, coeffs, salt), 3)
-    catch_up_bound, catch_up_by = noise_bound_ms(
-        n, 2, tuple(32 * c for c in record), hz)
+    catch_up_bound, catch_up_by = bound_of(
+        cost.zo_fused_replay(n, bf16, seeds.numel(), hz))
     print(f"operation bound at the card's highest SM clock {hz / 1e6:.0f} "
           f"MHz: instructions an element on the fast path of the bf16 "
           "16-byte loop (total, INT32 pipe): " + ", ".join(
@@ -1089,6 +1091,27 @@ def check_zo_maps(zo_perturb, zo_replay, ref):
               f"bitwise their plain versions: {ok}")
         if not all(ok):
             raise AssertionError(f"a ZO kernel's shard form differs on {name}")
+    # a shard whose global indices pass 2**32 (a stacked expert leaf of a
+    # full-depth MoE stack on the production mesh): each drawn mod 2**32
+    from repro_torch.core.prng import IndexMap
+    for dtype in (torch.float32, torch.bfloat16):
+        past = IndexMap(2**32 - 1000, ((3, 58720256), (16, 896), (64, 1)))
+        theta = torch.randn(3, 16, 64, generator=gen, device="cuda",
+                            dtype=dtype)
+        ok = [torch.equal(zo_perturb.zo_perturb(theta, seeds[0, :1], salt,
+                                                1e-3, index=past),
+                          ref.zo_perturb_ref(theta, seeds[0, :1], salt, 1e-3,
+                                             index=past)),
+              torch.equal(zo_replay.zo_fused_replay(theta, seeds, coeffs,
+                                                    salt, index=past),
+                          ref.zo_fused_replay_ref(theta, seeds, coeffs, salt,
+                                                  index=past))]
+        print(f"shard form past 2**32 ({past}, {str(dtype)[6:]}): perturb, "
+              f"replay S=8 P=4 bitwise their plain versions (indices mod "
+              f"2**32): {ok}")
+        if not all(ok):
+            raise AssertionError("a ZO kernel's shard form differs past "
+                                 "2**32")
     shape, spec, sizes, coords = ZO_MAP_LARGE
     d = shard_desc(shape, spec, coords, sizes)
     whole = torch.empty(shape, device="cuda", dtype=torch.bfloat16)
@@ -1282,6 +1305,7 @@ def _bra_target(text):
     return int(m.group(1), 16) if m else None
 
 
+@functools.lru_cache(maxsize=None)
 def sass_functions(name, lib=None):
     """{mangled kernel name: SASS text} of the built library of
     csrc/<name>.cu (or of the library ``lib``), from cuobjdump -sass."""
@@ -1390,12 +1414,42 @@ def noise_bound_ms(n, itemsize, per_element, hz):
     whose every element costs ``per_element`` = (instructions, INT32-pipe
     instructions): the larger of the bytes (a read and a write), the
     INT32 pipe and the dispatch rate (one warp instruction a clock per
-    scheduler), at SM clock ``hz``."""
-    total, alu = per_element
+    scheduler), at SM clock ``hz`` (``kernels/cost.py::noise_seconds``)."""
+    from repro_torch.kernels import cost
     by_bytes = 2 * n * itemsize / HBM_BYTES_PER_S
-    by_ops = max(alu * n / (INT32_LANES * hz), total * n / (SCHED_LANES * hz))
+    by_ops = cost.noise_seconds(n, per_element, hz)
     return max(by_bytes, by_ops) * 1e3, \
         "bytes" if by_bytes >= by_ops else "operations"
+
+
+def check_noise_sass():
+    """The instructions an element of every noise-kernel build the
+    dispatch takes (bf16 and f32, the offset form and the unit-stride
+    shard form; noise_paths on the build this run made), and of one more
+    replay record, against ``kernels/cost.py``'s constants, which the
+    dry run and the bounds of the kernels line read: raises where one
+    went stale. Returns {(form, dtype): (an element, a record or None)}."""
+    from repro_torch.kernels import cost
+    got, stale = {}, []
+    for (form, dtype), (symbol, per) in cost.NOISE_SYMBOLS.items():
+        name = "zo_perturb" if form.startswith("zo_perturb") \
+            else "zo_fused_replay"
+        element, record = noise_paths(name, symbol, per)
+        got[(form, dtype)] = element, record
+        want = cost.NOISE_SASS[(form, dtype)]
+        want_rec = cost.REPLAY_RECORD_SASS.get((form, dtype))
+        print(f"  {form} {str(dtype)[6:]} ({symbol}): {element[0]:.4f}, "
+              f"{element[1]:.4f} instructions an element (total, INT32 "
+              f"pipe), kernels/cost.py {want[0]:.4f}, {want[1]:.4f}" + (
+                  f"; a record {record[0]:.0f}, {record[1]:.0f}, kernels/"
+                  f"cost.py {want_rec[0]:.0f}, {want_rec[1]:.0f}"
+                  if want_rec else ""))
+        if element != want or (want_rec is not None and record != want_rec):
+            stale.append(f"{form} {dtype}")
+    if stale:
+        raise AssertionError(f"kernels/cost.py's SASS counts are stale for "
+                             f"{stale}: the build issues others")
+    return got
 
 
 # the int8 noise kernels' 16-byte paths: (symbol substring, elements a
@@ -1749,6 +1803,11 @@ def counting_prefills():
 
 
 SMALL_ARCHS = ("qwen3-4b", "jamba-v0.1-52b", "rwkv6-1.6b", "mixtral-8x7b")
+SERVE_RWKV_LAYERS = 12           # of rwkv6-1.6b's 24, served at full
+#                                  width (a depth cut for the run's time
+#                                  limit; trained whole): its blocks are
+#                                  all of one kind, so the cut drops depth
+#                                  and no path
 SMALL_LOGIT_TOL = 1e-4           # f32 prefill logits, card against CPU
 
 
@@ -2835,7 +2894,8 @@ def check_train_resume(zo_perturb, zo_replay, flash_attn, steps=8):
     and the device peak of the restore; then the two feeds' ms a step in
     ABBA order (``feed_pairs``, after the counts are read) and the
     step's device time by kernel. Returns the launches, the first step's
-    peak and the plain run's losses."""
+    peak, the plain run's losses and the resumed trainer, its last state
+    in ``trainer.state``."""
     import shutil
     from repro_torch.core import elastic, zo
     from repro_torch.launch import train as launch_train
@@ -2948,10 +3008,10 @@ def check_train_resume(zo_perturb, zo_replay, flash_attn, steps=8):
                             LoopConfig)
     profile_train_step(resumed, state, run, LoopConfig,
                        med["prefetched"] / 1e3)
-    del resumed, state
-    torch.cuda.empty_cache()
+    resumed.state = state
+    del state
     return {"zo_perturb": n_p, "zo_fused_replay": n_r,
-            "flash_attention": n_f}, peak0, losses_a
+            "flash_attention": n_f}, peak0, losses_a, resumed
 
 
 # --------------------------------------------------------------------- #
@@ -3277,12 +3337,15 @@ def _mesh_noise(trainer, zo_perturb, zo_replay):
     return n
 
 
-def mesh_train(trainer, steps):
+def mesh_train(trainer, steps, counter=None):
     """``steps`` (at least 2) steps of a trainer through train_loop.run
     fed by the launcher's Prefetcher: the first untimed (it pays the
-    process's and the shapes' one-time costs), the later ones timed.
-    Returns (losses, ms a step (the mean of the later steps), device peak
-    of the later steps, launch counts of all steps)."""
+    process's and the shapes' one-time costs), the later ones timed, and
+    recorded into ``counter`` (a ``kernels/cost.py::CostCounter``) when
+    one is given. Returns (losses, ms a step (the mean of the later
+    steps), device peak of the later steps, launch counts of all
+    steps)."""
+    from repro_torch.kernels import cost
     from repro_torch.kernels import flash_attn, zo_fused_replay, zo_perturb
     from repro_torch.launch.train import prefetched
     from repro_torch.train.train_loop import LoopConfig, run
@@ -3299,9 +3362,11 @@ def mesh_train(trainer, steps):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        state, h1 = run(trainer.step_fn, state, batch_fn, loop(steps),
-                        log=None, param_shardings=trainer.run)
-        torch.cuda.synchronize()
+        with (cost.counting(counter) if counter is not None
+              else contextlib.nullcontext()):
+            state, h1 = run(trainer.step_fn, state, batch_fn, loop(steps),
+                            log=None, param_shardings=trainer.run)
+            torch.cuda.synchronize()
         ms = 1e3 * (time.perf_counter() - t0) / (steps - 1)
     trainer.state = state
     counts = {"zo_perturb": zo_perturb.launches,
@@ -3513,9 +3578,12 @@ def _mesh_lane(mesh, lane_spec, zo_perturb, zo_replay, noise):
         calls[0] += 1
         return a2a(*a, **k)
     collectives.all_to_all = counted
+    from repro_torch.kernels import cost
+    counter = cost.CostCounter() if label == COST_LANE else None
     try:
         with probe_losses() as seen:
-            losses, ms, peak, counts = mesh_train(trainer, MESH_STEPS)
+            losses, ms, peak, counts = mesh_train(trainer, MESH_STEPS,
+                                                  counter)
     finally:
         collectives.all_to_all = a2a
     moved = leaf_moves(trainer.state.params, init, trainer.run)
@@ -3526,6 +3594,10 @@ def _mesh_lane(mesh, lane_spec, zo_perturb, zo_replay, noise):
                replica_pairs=trainer.run.check_replicas(trainer.state.params),
                attn=trainer.run.rules.attn.kind, moe=trainer.run.rules.moe,
                batch_axes=list(trainer.run.batch_axes),
+               records=None if counter is None else [
+                   record_key(r) for r in counter.collectives],
+               cost_launches=None if counter is None
+               else counter.launch_counts(),
                shard_bytes=sum(t.numel() * t.element_size()
                                for t in _leaves(trainer.state.params)))
     del trainer
@@ -3669,6 +3741,7 @@ def check_mesh(shape, backend, want_losses, want_moves, small=MESH_SMALL,
             if x["pair"] != y["pair"]:
                 raise AssertionError(f"{label}: the fused pair is not the "
                                      "unfused one")
+    check_mesh_records(res, lanes, name, tuple(shape))
     bad = []                    # every reduced stack printed, then raised
     for label, arch, _, strategy, _, overrides, _ in small:
         for r in res:
@@ -3704,6 +3777,46 @@ def check_mesh(shape, backend, want_losses, want_moves, small=MESH_SMALL,
     return {label: res[0]["lanes"][label]["counts"] for label, *_ in lanes}
 
 
+COST_LANE = "tp"                 # the mesh lane held to its dry run (c)
+
+
+def check_mesh_records(res, lanes, name, shape):
+    """(c) Each rank's collective records of the COST_LANE lane's timed
+    step against a dry run of the same config, shape and lane on a fake
+    world of the mesh (rank 0's records; the ranks' groups differ, not
+    their kinds, sizes and bytes), in order, and its kernel launches."""
+    from repro_torch.launch import train as launch_train
+    spec = next((x for x in lanes if x[0] == COST_LANE), None)
+    if spec is None:
+        return
+    label, arch, strategy, fused, batch, seq, overrides = spec
+    args = launch_train.parse_args(mesh_argv(arch, batch, seq))
+    lane = dataclasses.replace(launch_train.lane_from_args(args),
+                               fused_probes=fused)
+    t0 = time.perf_counter()
+    want, launches = dry_mesh_records(arch, overrides, strategy, batch, seq,
+                                      shape, lane)
+    kinds = {}
+    for r in want:
+        kinds[r[0]] = kinds.get(r[0], 0) + 1
+    for r in res:
+        got = r["lanes"][label]["records"]
+        same = got == want
+        print(f"cost model, {name} {label} ({mesh_title(arch, overrides)}): "
+              f"rank {r['rank']}'s {len(got)} collective records of the "
+              f"timed step equal the dry run's {len(want)} ({kinds}; dry run "
+              f"{time.perf_counter() - t0:.1f} s) in order: {same}; launches "
+              f"{r['lanes'][label]['cost_launches']}, the dry run's "
+              f"{launches}")
+        if not same or r["lanes"][label]["cost_launches"] != launches:
+            first = next((i for i, (a, b) in enumerate(zip(got, want))
+                          if a != b), min(len(got), len(want)))
+            raise AssertionError(
+                f"{label}: rank {r['rank']}'s collectives differ from the dry "
+                f"run's at record {first}: {got[first:first + 3]} against "
+                f"{want[first:first + 3]}")
+
+
 def mesh_path(lane_spec):
     """A mesh lane's name on the kernels line."""
     label, arch, *_, overrides = lane_spec
@@ -3737,6 +3850,178 @@ def check_train_mesh():
         torch.cuda.empty_cache()
     cut = ("qwen3-4b", 4, 128, ())
     return check_mesh((2, 2), "gloo", want, moves), want[cut], moves[cut]
+
+
+# --------------------------------------------------------------------- #
+# the dry run's cost model (launch/dryrun.py) against the card
+# --------------------------------------------------------------------- #
+COST_PEAK_RTOL = 0.10            # the dry run's peak bytes against the
+#                                  step's measured max_memory_allocated
+COST_STEPS = 3                   # measured steps of (b); the fastest is
+#                                  held to the bound
+COST_UNITS = "bound at H100 SXM published peaks, 700 W"
+
+
+def start_cost_cli():
+    """Starts (a), ``python -m repro_torch.launch.dryrun`` on the qwen3-4b
+    train cell of the 16x16 production mesh, in a subprocess: it needs
+    no card, so it runs on the host beside the card's phases (from the
+    end of the kernel phase, whose timings it would perturb). Returns
+    the handle ``check_cost_cli`` reads; the process is killed at exit
+    if it still runs."""
+    import atexit
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="dryrun_smoke_")
+    log = open(Path(tmp, "log"), "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-W", "ignore", "-m", "repro_torch.launch.dryrun",
+         "--arch", "qwen3-4b", "--shape", "train_4k", "--mesh", "single",
+         "--force", "--out", tmp], stdout=log, stderr=subprocess.STDOUT,
+        cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+
+    def stop():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        log.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    atexit.register(stop)
+    return proc, tmp, time.perf_counter(), stop
+
+
+def check_cost_cli(handle):
+    """(a) The dry run started by ``start_cost_cli``: its status, and per
+    device its FLOPs, bytes, collective bytes by kind, peak bytes and
+    the roofline's three terms and bottleneck (``benchmarks/
+    roofline.py``; bounds at published peaks, not measurements)."""
+    from repro_torch.benchmarks import roofline
+    proc, tmp, t0, stop = handle
+    try:
+        rc = proc.wait(timeout=600)
+        wall = time.perf_counter() - t0
+        out = Path(tmp, "qwen3-4b__train_4k__single.json")
+        rec = json.loads(out.read_text()) if out.exists() else {}
+        log = Path(tmp, "log").read_text()
+    finally:
+        stop()
+    if rc or rec.get("status") != "ok":
+        raise AssertionError(f"dryrun qwen3-4b train_4k single: rc {rc}, "
+                             f"status {rec.get('status')}: "
+                             f"{rec.get('error')}\n{log[-3000:]}")
+    full, row = rec["full"], roofline.row_of(rec)
+    print(f"dryrun qwen3-4b train_4k on the 16x16 mesh (tp, rank 0 of 256 "
+          f"on a fake process group, meta tensors; started after the kernel "
+          f"phase, read {wall:.1f} s later; the cell {rec['elapsed_s']} s): "
+          f"a device "
+          f"{full['flops']:.4g} FLOPs ({full['flops_by_dtype']}), "
+          f"{full['bytes_accessed']:.4g} bytes, collective bytes "
+          f"{full['collective_bytes']:.4g} (" + ", ".join(
+              f"{k} {v['count']} calls {v['bytes']:.4g}"
+              for k, v in full["collectives"].items()) +
+          f"), peak {full['memory']['peak_bytes']} bytes; launches " +
+          str({k: v["launches"] for k, v in full["kernels"].items()}))
+    print(f"dryrun qwen3-4b train_4k roofline ({COST_UNITS}): compute "
+          f"{row['t_compute_s'] * 1e3:.2f} ms, memory "
+          f"{row['t_memory_s'] * 1e3:.2f} ms, collective "
+          f"{row['t_collective_s'] * 1e3:.2f} ms (NVLink "
+          f"{row['t_nvlink_s'] * 1e3:.2f}, NDR {row['t_ndr_s'] * 1e3:.2f}): "
+          f"bottleneck {row['bottleneck']}; MODEL / counted FLOPs "
+          f"{row['useful_flops_ratio']:.3f}")
+
+
+def check_cost_step(trainer, kernels):
+    """(b) The unfused qwen3-4b 4 x 128 elastic_zo step on one device
+    (the train phase's trainer, its state in ``trainer.state``, which is
+    consumed: no other reference to a state may hold stale tail leaves
+    on the card while the steps are measured) against its dry run with no
+    mesh and the same config, batch and lane: the dry run's launches
+    equal the card's exactly (24 / 12 / 70), its peak bytes lie within
+    COST_PEAK_RTOL of each measured step's max_memory_allocated, and its
+    bound, max(compute, memory) at the H100's published peaks, is no
+    larger than the fastest measured step. Prints the bound over the
+    step as the step's roofline share."""
+    from repro_torch.benchmarks import roofline
+    from repro_torch.configs import ARCHS, ShapeConfig
+    from repro_torch.launch.dryrun import analyze_step
+    args = dict(zip(TRAIN_ARGV[::2], TRAIN_ARGV[1::2]))
+    shape = ShapeConfig("train", seq_len=int(args["--seq"]),
+                        global_batch=int(args["--batch"]), kind="train")
+    t0 = time.perf_counter()
+    full = analyze_step(ARCHS["qwen3-4b"], shape, trainer.lane)
+    dry_s = time.perf_counter() - t0
+    state, trainer.state = trainer.state, None
+    mask = np.ones(trainer.lane.zo_num_probes, np.float32)
+    times, peaks, counts = [], [], []
+    for _ in range(COST_STEPS):
+        batch = trainer.batch_fn(state.step)
+        before = {k: getattr(m, a) for k, (m, a) in kernels.items()}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        state, _ = trainer.step_fn(state, batch, mask)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+        peaks.append(torch.cuda.max_memory_allocated())
+        counts.append({k: getattr(m, a) - before[k]
+                       for k, (m, a) in kernels.items()})
+        del batch
+    dry = {k: v["launches"] for k, v in full["kernels"].items()}
+    want = {"zo_perturb": 24, "zo_fused_replay": 12, "flash_attention": 70}
+    peak = full["memory"]["peak_bytes"]
+    t_c = roofline.compute_seconds(full)
+    t_m = full["bytes_accessed"] / roofline.HBM_BW
+    bound = max(t_c, t_m)
+    step_s = min(times)
+    smi = nvidia_smi("name,power.limit")
+    print(f"cost model, qwen3-4b unfused {shape.global_batch} x "
+          f"{shape.seq_len} step on one device ({smi}): dry run "
+          f"({dry_s:.1f} s) launches {dry}, the card's a step {counts}; "
+          f"peak {peak} bytes (argument {full['memory']['argument_bytes']}, "
+          f"temp {full['memory']['temp_bytes']}), measured "
+          f"max_memory_allocated {peaks} (dry / measured " +
+          ", ".join(f"{peak / p:.4f}" for p in peaks) + ")")
+    print(f"cost model, qwen3-4b step bound ({COST_UNITS}): compute "
+          f"{t_c * 1e3:.3f} ms ({full['flops']:.4g} FLOPs: "
+          f"{full['flops_by_dtype']}, kernels' operations "
+          f"{sum(k['ops_bound_s'] for k in full['kernels'].values()) * 1e3:.3f}"
+          f" ms), memory {t_m * 1e3:.3f} ms ({full['bytes_accessed']:.4g} "
+          f"bytes); measured steps {[round(t * 1e3, 2) for t in times]} ms; "
+          f"roofline share (bound / fastest step) {bound / step_s:.4f} on "
+          f"{smi}")
+    bad = []
+    if dry != want or any(c != want for c in counts):
+        bad.append(f"launches: dry {dry}, card {counts}, want {want}")
+    if any(abs(peak - p) > COST_PEAK_RTOL * p for p in peaks):
+        bad.append(f"peak {peak} bytes, measured {peaks}: past "
+                   f"{COST_PEAK_RTOL}")
+    if bound > step_s:
+        bad.append(f"bound {bound * 1e3:.3f} ms above the step's "
+                   f"{step_s * 1e3:.3f} ms")
+    del state
+    if bad:
+        raise AssertionError("cost model against the card: " + "; ".join(bad))
+
+
+def record_key(r):
+    """A collective record as the ranks compare it: (kind, group size,
+    output bytes, bytes moved)."""
+    return [r[0], len(r[1]), r[2], r[3]]
+
+
+def dry_mesh_records(arch, overrides, strategy, batch, seq, shape, lane):
+    """The collective records of a dry run of a mesh lane's step (its
+    config, shape and lane) on a fake world of the lane's mesh, rank 0,
+    as ``record_key``s, and its launches."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch.dryrun import analyze_step
+    shp = ShapeConfig("train", seq_len=seq, global_batch=batch, kind="train")
+    with mesh_lib.fake_world(math.prod(shape)):
+        mesh = mesh_lib.make_mesh(shape, MESH_AXES)
+        full = analyze_step(mesh_cfg(arch, overrides), shp, lane, mesh,
+                            strategy)
+    return ([record_key(r) for r in full["records"]],
+            {k: v["launches"] for k, v in full["kernels"].items()})
 
 
 def check_train_mesh_nccl(want_losses, cut_losses, cut_moves):
@@ -4490,6 +4775,10 @@ def main():
     zo_times["flash_attention"]["at_q_offset"] = check_flash_offset(
         flash_attn, ref)
 
+    # host work only, read in its phase: started after the kernels'
+    # timings, which it would share the host's cores with
+    cost_cli = start_cost_cli()
+
     phase("small model: card against CPU")
     check_small_model_on_card_vs_cpu(flash_attn, paged_attn)
 
@@ -4508,8 +4797,9 @@ def main():
     n_jamba = check_serve(jamba, *serve_kernels)
     torch.cuda.empty_cache()
 
-    phase("serve rwkv6-1.6b")
-    n_rwkv = check_serve(ARCHS["rwkv6-1.6b"], *serve_kernels)
+    phase(f"serve rwkv6-1.6b ({SERVE_RWKV_LAYERS} of 24 layers, full width)")
+    n_rwkv = check_serve(dataclasses.replace(
+        ARCHS["rwkv6-1.6b"], num_layers=SERVE_RWKV_LAYERS), *serve_kernels)
     torch.cuda.empty_cache()
 
     phase("serve whisper-small (whole)")
@@ -4574,10 +4864,18 @@ def main():
     # head and tail, a bitwise rerun) and the pipeline, checkpoint and
     # resume ones: both stepped the whole model at 4 x 128
     phase("train qwen3-4b: prefetched batches, checkpoint and elastic resume")
-    n_resume, peak0, whole_losses = check_train_resume(
+    n_resume, peak0, whole_losses, trainer = check_train_resume(
         zo_perturb, zo_fused_replay, flash_attn)
     n_zo = {k: n_resume[k] for k in ("zo_perturb", "zo_fused_replay")}
     n_zo.update(n_int8)
+
+    phase("cost model against the card")
+    check_cost_cli(cost_cli)
+    check_cost_step(trainer, {
+        "zo_perturb": (zo_perturb, "launches"),
+        "zo_fused_replay": (zo_fused_replay, "launches"),
+        "flash_attention": (flash_attn, "launches")})
+    del trainer
     torch.cuda.empty_cache()
 
     phase("train qwen3-4b, fused probes, seq 4096")

@@ -12,8 +12,12 @@ ledger beside them. It runs on the card unless given ``--device cpu``;
 on the CPU the sections ``signagree`` and ``memory`` make sense (the
 measured memory rows are None there) and the others run at CPU speed.
 
-The reference's ``roofline`` section is the XLA/TPU cost model and has no
-counterpart here. A section that raises is recorded as
+The ``roofline`` section tabulates the dry run's records
+(``launch/dryrun.py``, results/dryrun_torch/) by ``benchmarks/
+roofline.py``, the port's twin of the reference's XLA/TPU cost model, at
+the H100's published peaks; it needs no card and writes
+``results/roofline_single_torch.json`` (never the reference's
+``results/roofline_single.json``). A section that raises is recorded as
 ``<section>_error`` in the document, as the reference does, and makes the
 run exit with 1.
 """
@@ -203,9 +207,33 @@ def section_signagree(_fast: bool, device) -> Dict:
             "int_loss_sign_us_per_trial": dt}
 
 
+def section_roofline(_fast: bool, _device) -> Dict:
+    import json
+    from pathlib import Path
+    from . import roofline as rl
+    rows = rl.full_table("single")
+    ok = [r for r in rows if r.get("status") == "ok"]
+    print("# Roofline (single-pod 16x16, per-device; bounds at H100 SXM "
+          "published peaks, 700 W):")
+    print("\n".join("# " + l for l in rl.format_table(rows).splitlines()))
+    metrics = {}
+    for r in ok:
+        key = f"roofline_{r['arch']}_{r['shape']}"
+        metrics[f"{key}_us"] = max(r["t_compute_s"], r["t_memory_s"],
+                                   r["t_collective_s"]) * 1e6
+        metrics[f"{key}_fraction"] = r["roofline_fraction"]
+        metrics[f"{key}_useful_flops_ratio"] = r["useful_flops_ratio"]
+    out = Path(__file__).resolve().parents[3] / "results" / \
+        "roofline_single_torch.json"
+    out.parent.mkdir(exist_ok=True)
+    out.write_text(json.dumps(rows, indent=1, default=str))
+    return metrics
+
+
 SECTIONS = {
     "signagree": section_signagree,
     "memory": section_memory,
+    "roofline": section_roofline,
     "steptime": section_steptime,
     "accuracy": section_accuracy,
     "finetune": section_finetune,

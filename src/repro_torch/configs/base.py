@@ -133,6 +133,14 @@ class ShapeConfig:
     long_context: bool = False
 
 
+# the production shapes of the dry-run cells (``repro/configs/base.py``)
+TRAIN_4K = ShapeConfig("train_4k", 4096, 256, "train")
+PREFILL_32K = ShapeConfig("prefill_32k", 32768, 32, "prefill")
+DECODE_32K = ShapeConfig("decode_32k", 32768, 128, "decode")
+LONG_500K = ShapeConfig("long_500k", 524288, 1, "decode", long_context=True)
+SHAPES = {s.name: s for s in (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)}
+
+
 @dataclass(frozen=True)
 class LaneConfig:
     """Training-lane hyperparameters (the paper's knobs)."""

@@ -118,15 +118,28 @@ def init(cfg: ModelConfig, lane: Optional[LaneConfig] = None, *,
     leaf is drawn whole, in the same order from the same generator, and
     only the rank's shard is kept before the next is drawn: bitwise the
     one-device init's slice, with one leaf's draw at a time on top of
-    the shards."""
-    if run is None:
-        params = init_lm(cfg, seed=seed, device=device, dtype=dtype,
-                         max_seq=max_seq)
+    the shards. On ``device="meta"`` (the dry run) nothing is drawn: the
+    init runs under a fake-tensor mode and each leaf (the rank's shard
+    on a mesh) becomes a ``meta`` tensor of its shape and dtype, the two
+    halves of each stacked leaf views of one storage as on a device."""
+    if torch.device(device).type == "meta":
+        from torch._subclasses.fake_tensor import FakeTensorMode
+        with FakeTensorMode():
+            params = _draw(cfg, seed, "cpu", dtype, max_seq, run)
+        params = tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype,
+                                                device="meta"), params)
     else:
-        params = _init_shards(cfg, seed, device, dtype, max_seq, run)
+        params = _draw(cfg, seed, device, dtype, max_seq, run)
     split = split_caches(params.pop("periods"), cfg, lane or LaneConfig())
     params["periods_zo"], params["periods_bp"] = split["zo"], split["bp"]
     return params
+
+
+def _draw(cfg: ModelConfig, seed, device, dtype, max_seq, run):
+    if run is None:
+        return init_lm(cfg, seed=seed, device=device, dtype=dtype,
+                       max_seq=max_seq)
+    return _init_shards(cfg, seed, device, dtype, max_seq, run)
 
 
 def _init_shards(cfg: ModelConfig, seed, device, dtype, max_seq, run):
@@ -134,13 +147,17 @@ def _init_shards(cfg: ModelConfig, seed, device, dtype, max_seq, run):
     order and each draw's leaf come from a run of the init under a fake
     tensor mode (no memory, no draws); a leaf the init does not draw (a
     constant: norm scales, RWKV6's gn_scale, Mamba's conv_b, dt_bias,
-    A_log, D_skip) is made whole and cut to the rank's shard after it."""
+    A_log, D_skip) is made whole and cut to the rank's shard after it.
+    Under a fake-tensor mode already active (``init`` on ``meta``) the
+    order is taken under that one."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     from ..models import layers
     from ..sharding.params import (map_dict, param_shardings, shard_desc,
                                    shard_leaf)
+    active = torch._C._get_dispatch_mode(torch._C._TorchDispatchModeKey.FAKE)
     drawn = []
-    with FakeTensorMode(), layers.draw_hook(lambda w: drawn.append(w) or w):
+    with (contextlib.nullcontext() if active else FakeTensorMode()), \
+            layers.draw_hook(lambda w: drawn.append(w) or w):
         fake = init_lm(cfg, seed=seed, device="cpu", dtype=dtype,
                        max_seq=max_seq)
     where = {}
@@ -321,6 +338,42 @@ def make_train_step(cfg: ModelConfig, lane: LaneConfig, run=None):
     (state, batch, probe_mask) -> (state, metrics)."""
     engine, loss = train_engine(cfg, lane, run)
     return engine.make_step(loss)
+
+
+def input_specs(cfg: ModelConfig, shape, lane: LaneConfig) -> dict:
+    """The global inputs of a step of ``shape`` (a ``ShapeConfig``), as
+    ``meta`` tensors (shapes and dtypes, no memory; the reference's
+    ``build_input_specs``): train ``tokens``, ``labels``
+    (int32 [B, S_tok]), ``mask`` (f32) and ``probe_mask`` (f32 [probes],
+    always a host tensor: the step reads it on the host); prefill
+    ``tokens``; decode ``tokens`` [B, 1] and ``cache_len`` (int32 []).
+    ``S_tok = S - num_image_tokens`` for train and prefill, which carry
+    Whisper's ``frames`` [B, encoder_seq, d] and LLaVA's ``img`` [B,
+    num_image_tokens, d] in the config's dtype."""
+    B, S = shape.global_batch, shape.seq_len
+    n_img = cfg.num_image_tokens
+    dtype = getattr(torch, cfg.dtype)
+    S_tok = S - n_img if shape.kind in ("train", "prefill") else S
+
+    def empty(dims, dt):
+        return torch.empty(dims, dtype=dt, device="meta")
+    specs = {}
+    if shape.kind == "train":
+        specs["tokens"] = empty((B, S_tok), torch.int32)
+        specs["labels"] = empty((B, S_tok), torch.int32)
+        specs["mask"] = empty((B, S_tok), torch.float32)
+        specs["probe_mask"] = torch.ones(lane.zo_num_probes,
+                                         dtype=torch.float32)
+    elif shape.kind == "prefill":
+        specs["tokens"] = empty((B, S_tok), torch.int32)
+    else:                                                # decode
+        specs["tokens"] = empty((B, 1), torch.int32)
+        specs["cache_len"] = empty((), torch.int32)
+    if cfg.encoder_layers and shape.kind in ("train", "prefill"):
+        specs["frames"] = empty((B, cfg.encoder_seq, cfg.d_model), dtype)
+    if n_img and shape.kind in ("train", "prefill"):
+        specs["img"] = empty((B, n_img, cfg.d_model), dtype)
+    return specs
 
 
 def batch_shardings(specs, rules):

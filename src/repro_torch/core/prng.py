@@ -43,17 +43,16 @@ class IndexMap:
     leaf of n elements is ``IndexMap(0, ((n, 1),))``, a period's slice of
     a stacked leaf one level at base p * size, a rank's shard of a
     sharded leaf up to three levels (``sharding/params.py::
-    shard_desc``). Every index stays below 2**32."""
+    shard_desc``). The noise reads each index mod 2**32, as the JAX
+    package's uint32 ``iota`` wraps: a leaf of more than 2**32 elements
+    (a stacked expert leaf of Mixtral or Phi-3.5-MoE at full depth)
+    draws at its flat index mod 2**32, and so do its shards."""
 
     def __init__(self, base: int, levels):
         self.base = int(base)
         self.levels = tuple((int(e), int(s)) for e, s in levels)
         if self.base < 0 or any(e < 0 or s < 0 for e, s in self.levels):
             raise ValueError(f"index map {self}: negative base or level")
-        if self.numel and self.max_index > MASK32:
-            raise ValueError(f"index map {self}: indices up to "
-                             f"{self.max_index} pass 2**32 - 1 (flat "
-                             "indices are uint32)")
 
     @property
     def numel(self) -> int:
@@ -73,12 +72,12 @@ class IndexMap:
         return not live or (len(live) == 1 and live[0][1] == 1)
 
     def flat_indices(self, device=None) -> torch.Tensor:
-        """The int64 index of every element, row-major."""
+        """The index of every element, row-major, mod 2**32 (int64)."""
         idx = torch.full((), self.base, dtype=torch.int64, device=device)
         for e, s in self.levels:
             idx = idx[..., None] + torch.arange(
                 e, dtype=torch.int64, device=device) * s
-        return idx.reshape(-1)
+        return idx.reshape(-1) & MASK32
 
     def __eq__(self, other):
         return isinstance(other, IndexMap) and (

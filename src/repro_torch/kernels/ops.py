@@ -2,10 +2,19 @@
 
 A CUDA tensor goes to the hand-written CUDA kernel, whose wrapper
 launches it or raises; a CPU tensor goes to the plain PyTorch version in
-``ref``. There is no fallback from one to the other.
+``ref``. There is no fallback from one to the other. The three kernels a
+train step reaches (``zo_perturb``, ``zo_fused_replay``,
+``flash_attention``) also take ``meta`` tensors, for the dry run
+(``launch/dryrun.py``): outputs of the kernel's shape and dtype, or the
+kernel's in-place write, and no launch; and while a cost counter is
+active (``cost.counting``) each records its launch and its cost, on
+every device. The other kernels raise for ``meta``.
 """
 from __future__ import annotations
 
+import torch
+
+from . import cost
 from . import flash_attn as _flash
 from . import int8_matmul as _int8_matmul
 from . import paged_attn, ref, topk_mask
@@ -23,12 +32,19 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     if q.requires_grad or k.requires_grad or v.requires_grad:
         raise ValueError("flash_attention has no backward; an input "
                          "requires grad")
+    counter = cost.active()
+    if counter is not None and q.numel():
+        counter.kernel("flash_attention", q.dtype, cost.flash_attention(
+            tuple(q.shape), tuple(k.shape), q.dtype, causal=causal,
+            window=window, q_offset=q_offset))
     if q.is_cuda:
         return _flash.flash_attention(q, k, v, causal=causal, window=window,
                                       scale=scale, q_offset=q_offset)
     if q.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                        scale=scale, q_offset=q_offset)
+    if q.is_meta:
+        return torch.empty_like(q)
     raise ValueError(f"flash_attention: no path for {q.device}")
 
 
@@ -68,10 +84,19 @@ def zo_perturb(theta, seed, salt: int, scale: float, offset: int = 0,
     stacked leaf draws that leaf's noise); ``index`` (a
     ``core/prng.py::IndexMap``) places a rank's shard of a sharded leaf
     at its global flat indices."""
+    counter = cost.active()
+    if counter is not None and theta.numel():
+        shard = index is not None and not (
+            index.is_contiguous and index.max_index < 2**32)
+        counter.kernel("zo_perturb", theta.dtype, (
+            cost.zo_perturb_shard if shard else cost.zo_perturb)(
+                theta.numel(), theta.dtype))
     if theta.is_cuda:
         return _perturb.zo_perturb(theta, seed, salt, scale, offset, index)
     if theta.device.type == "cpu":
         return ref.zo_perturb_ref(theta, seed, salt, scale, offset, index)
+    if theta.is_meta:
+        return torch.empty_like(theta)
     raise ValueError(f"zo_perturb: no path for {theta.device}")
 
 
@@ -80,6 +105,13 @@ def zo_fused_replay(theta, seeds, coeffs, salt: int, out=None, index=None):
     accumulate-then-cast per step. seeds int32 [S, P] (uint32 values),
     coeffs f32 [S, P], on theta's device. ``out`` may be theta itself
     (an in-place update); ``index`` as in ``zo_perturb``."""
+    counter = cost.active()
+    if counter is not None and theta.numel():
+        shard = index is not None and not (index.is_contiguous
+                                           and index.base == 0)
+        counter.kernel("zo_fused_replay", theta.dtype, (
+            cost.zo_fused_replay_shard if shard else cost.zo_fused_replay)(
+                theta.numel(), theta.dtype, seeds.numel()))
     if theta.is_cuda:
         return _replay.zo_fused_replay(theta, seeds, coeffs, salt, out=out,
                                        index=index)
@@ -87,6 +119,8 @@ def zo_fused_replay(theta, seeds, coeffs, salt: int, out=None, index=None):
         new = ref.zo_fused_replay_ref(theta, seeds, coeffs, salt,
                                       index=index)
         return new if out is None else out.copy_(new)
+    if theta.is_meta:
+        return torch.empty_like(theta) if out is None else out
     raise ValueError(f"zo_fused_replay: no path for {theta.device}")
 
 

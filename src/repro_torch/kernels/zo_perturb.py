@@ -99,13 +99,12 @@ def map_args(name: str, index, n: int) -> "Map3":
                          f"leaf {n}")
     if len(index.levels) > 3:
         raise ValueError(f"{name}: {index} has more than three levels")
-    if index.max_index > MAX_ELEMENTS:
-        raise ValueError(f"{name}: {index} reaches flat index "
-                         f"{index.max_index}, past 2**32 - 1")
     (e0, s0), (e1, s1), (e2, s2) = ((1, 0),) * (3 - len(index.levels)) \
         + index.levels
-    return Map3(fastmod_magic(e1), fastmod_magic(e2), e1, e2, s0, s1, s2,
-                index.base)
+    # the kernels add in uint32, so base and strides mod 2**32 give each
+    # index mod 2**32, as prng.IndexMap defines it
+    return Map3(fastmod_magic(e1), fastmod_magic(e2), e1, e2,
+                *(v & MAX_ELEMENTS for v in (s0, s1, s2, index.base)))
 
 
 def zo_perturb(theta, seed, salt: int, scale: float, offset: int = 0,
@@ -122,8 +121,8 @@ def zo_perturb(theta, seed, salt: int, scale: float, offset: int = 0,
         if offset:
             raise ValueError("zo_perturb: an offset and an index map")
         m = map_args("zo_perturb", index, theta.numel())
-        if index.is_contiguous:         # one run: the offset form
-            offset, m = index.base, None
+        if index.is_contiguous and index.max_index <= MAX_ELEMENTS:
+            offset, m = index.base, None    # one run: the offset form
     if not 0 <= offset <= 2**32 - theta.numel():
         raise ValueError(f"zo_perturb: offset {offset} + {theta.numel()} "
                          "elements passes 2**32 (flat indices are uint32)")

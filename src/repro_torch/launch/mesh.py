@@ -15,9 +15,16 @@ and the rendezvous address. The backend is explicit: NCCL puts rank r on
 ``cuda:r`` and refuses a world larger than the cards; gloo with
 ``device="cuda"`` puts rank r on ``cuda:(r % device_count)``, ranks
 sharing a card, only because the caller asked for it.
+
+``fake_world(world)`` is a world without its ranks: this process joins
+PyTorch's fake process group as one rank of ``world``, whose collectives
+return at once and move nothing, so the production mesh
+(``make_production_mesh``) can be built and a step run on it on
+``meta`` tensors (``launch/dryrun.py``).
 """
 from __future__ import annotations
 
+import contextlib
 import os
 from dataclasses import dataclass
 from math import prod
@@ -82,9 +89,28 @@ def rank_device(backend: str, device: str, rank: int) -> torch.device:
     return torch.device("cuda", rank % n)
 
 
+@contextlib.contextmanager
+def fake_world(world: int, rank: int = 0):
+    """Inside, this process is rank ``rank`` of a fake process group of
+    ``world`` ranks (``torch.testing._internal.distributed.fake_pg``):
+    its collectives take tensors on any device, ``meta`` ones too, and
+    return without moving data. The group is destroyed on exit. Raises
+    if a process group exists already."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if dist.is_initialized():
+        raise RuntimeError("fake_world: a process group exists already")
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                            world_size=world)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
 def check_world(backend: str, device: str, local_world: int):
     """Raises where ``backend`` cannot put this host's ``local_world``
-    ranks on its cards (``device``)."""
+    ranks on its cards (``device``); the fake backend has no cards."""
     if device != "cpu" and backend == "nccl":
         if not torch.cuda.is_available():
             raise RuntimeError("CUDA is not available for NCCL")
@@ -150,8 +176,8 @@ def spawn(fn: Callable, world: int, args: Sequence = ()):
 def make_mesh(shape: Sequence[int], axes: Sequence[str]):
     """A ``DeviceMesh`` over the current process group: ``prod(shape)``
     ranks, row-major, with axis names ``axes``, on the cards under NCCL
-    and on the CPU under gloo. Raises unless the world size is
-    ``prod(shape)``."""
+    and on the CPU under gloo or the fake group (``fake_world``). Raises
+    unless the world size is ``prod(shape)``."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import DeviceMesh
     shape, axes = tuple(int(s) for s in shape), tuple(axes)
@@ -179,5 +205,6 @@ def production_shape(multi_pod: bool = False):
 
 def make_production_mesh(*, multi_pod: bool = False):
     """The production mesh over the current process group (256 or 512
-    ranks); raises when the world size differs."""
+    ranks; ``fake_world`` gives them without their ranks); raises when
+    the world size differs."""
     return make_mesh(*production_shape(multi_pod))

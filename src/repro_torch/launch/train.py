@@ -125,8 +125,8 @@ def setup(args: argparse.Namespace, lane: Optional[LaneConfig] = None,
     weights drawn from seed 0 on ``--device``) and the batches of
     ``lm_batch_fn(cfg, shape, seed=1)``, whose ``frames`` / ``img`` stay
     in the config's dtype. ``lane`` replaces the flags' lane (as
-    ``repro.launch.dryrun`` builds ``LaneConfig(fused_probes=True)``; the
-    CLI has no fused-probe flag), and ``cfg`` the config that ``--arch``
+    ``launch/dryrun.py --fused`` builds ``LaneConfig(fused_probes=True)``;
+    the CLI has no fused-probe flag), and ``cfg`` the config that ``--arch``
     and ``--smoke`` name (a stack cut in depth, say). ``mesh``: a
     ``launch/mesh.py::make_mesh`` mesh that this process is a rank of
     (its shards and its rows, on the rank's device), sharded by the

@@ -29,7 +29,10 @@ a compiled step without running it. Eager PyTorch has no such plan, so
 its counterpart, ``step_footprint``, runs the step: one warm step, then
 one step measured with the caching allocator's peak, reported under the
 reference's keys (``core/engine.py::step_memory_analysis`` calls it; the
-paper harness puts it beside Eqs. 2-4 / 13-15).
+paper harness puts it beside Eqs. 2-4 / 13-15). Its twin that runs
+nothing on a card, ``meta_footprint``, runs the step once on ``meta``
+tensors and follows the storages' lifetimes (``StorageTracker``): the
+dry run's memory (``launch/dryrun.py``).
 
 Like every recorder primitive the ledger is numerics-inert: it reads
 tensor metadata only (``numel``, ``element_size`` -- never a device
@@ -42,7 +45,8 @@ import threading
 from typing import Any, Dict, Hashable, Optional
 
 __all__ = ["MemoryLedger", "NullMemoryLedger", "tree_nbytes", "tree_tensors",
-           "device_memory_stats", "sample", "step_footprint"]
+           "device_memory_stats", "sample", "step_footprint",
+           "meta_footprint", "StorageTracker"]
 
 
 def _leaves(tree):
@@ -148,6 +152,121 @@ def step_footprint(step, state, batch, mask, device
     temp = max(growth - (out - alias), 0)
     return {"argument_bytes": arg, "output_bytes": out, "temp_bytes": temp,
             "alias_bytes": alias, "peak_bytes": arg + out + temp - alias}
+
+
+class StorageTracker:
+    """A dispatch mode that follows the device storages the code inside
+    makes (every one but the CPU's): a storage counts its bytes from the
+    op that made it until its last tensor is freed, whatever views of it
+    exist; an in-place write makes none. ``live`` and ``peak`` are bytes;
+    ``hold`` counts a storage made before (an argument). An op that
+    writes a storage in ``frozen`` (by id) raises. Not seen: storages
+    made inside an op's own implementation and freed in it (a library's
+    workspace), and the caching allocator's rounding of each block up to
+    512 bytes."""
+
+    def __init__(self, frozen=()):
+        import weakref
+        from torch.utils._python_dispatch import TorchDispatchMode
+        tracker = self
+        self._weakref = weakref
+        self._seen: Dict[int, Any] = {}
+        self.frozen = set(frozen)
+        self.live = 0
+        self.peak = 0
+
+        class _Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                kwargs = kwargs or {}
+                if tracker.frozen:
+                    tracker._check_writes(func, args, kwargs)
+                out = func(*args, **kwargs)
+                for t in tree_tensors(out):
+                    tracker.hold(t)
+                return out
+        self._mode = _Mode()
+
+    def _check_writes(self, func, args, kwargs):
+        import torch
+        for i, a in enumerate(func._schema.arguments):
+            if a.alias_info is None or not a.alias_info.is_write:
+                continue
+            t = args[i] if i < len(args) else kwargs.get(a.name)
+            if isinstance(t, torch.Tensor) and \
+                    id(t.untyped_storage()) in self.frozen:
+                raise ValueError(f"{func} writes an argument in place that "
+                                 "is not in donate_argnums")
+
+    def hold(self, t) -> bool:
+        """Counts ``t``'s storage if it is on a device and new; returns
+        whether it was new."""
+        if t.device.type == "cpu":
+            return False
+        st = t.untyped_storage()
+        key = id(st)
+        if key in self._seen:
+            return False
+        nbytes = st.nbytes()
+        self._seen[key] = self._weakref.finalize(st, self._free, key, nbytes)
+        self.live += nbytes
+        self.peak = max(self.peak, self.live)
+        return True
+
+    def _free(self, key, nbytes):
+        self._seen.pop(key, None)
+        self.live -= nbytes
+
+    def storages(self, tree) -> Dict[int, int]:
+        """{storage id: bytes} of the device tensors of ``tree``."""
+        return {id(t.untyped_storage()): t.untyped_storage().nbytes()
+                for t in tree_tensors(tree) if t.device.type != "cpu"}
+
+    def __enter__(self):
+        self._mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        return self._mode.__exit__(*exc)
+
+
+def meta_footprint(fn, *args, donate_argnums=()) -> Dict[str, Any]:
+    """The device memory of ``fn(*args)``, run once on ``meta`` tensors
+    (or any device: only the storages' sizes are read) under a
+    ``StorageTracker``: the twin of the reference's
+    ``compiled_footprint``, under its keys, with XLA's buffer assignment
+    replaced by the storages' lifetimes in eager execution:
+
+      * ``argument_bytes`` -- the storages of the arguments' device
+        tensors (views of one storage count once), live throughout: the
+        caller holds its arguments during the call;
+      * ``output_bytes`` -- the storages of the outputs;
+      * ``alias_bytes`` -- outputs that are arguments' storages: an
+        in-place write of a donated argument (``donate_argnums``), such
+        as the train step's ZO update, or a view. Writing an argument
+        that is not donated raises, as XLA writes donated buffers only;
+      * ``peak_bytes`` -- the most bytes live at once (arguments
+        included);
+      * ``temp_bytes`` -- peak - (argument + output - alias): the
+        intermediates live at the peak;
+      * ``generated_code_bytes`` -- None: eager execution compiles no
+        program.
+    """
+    tracker = StorageTracker()
+    held = tracker.storages(args)
+    donated = tracker.storages([args[i] for i in donate_argnums])
+    tracker.frozen = set(held) - set(donated)
+    for t in tree_tensors(args):
+        tracker.hold(t)
+    arg = sum(held.values())
+    with tracker:
+        outputs = fn(*args)
+    outs = tracker.storages(outputs)
+    out = sum(outs.values())
+    alias = sum(n for key, n in outs.items() if key in held)
+    peak = tracker.peak
+    return {"argument_bytes": arg, "output_bytes": out,
+            "temp_bytes": peak - (arg + out - alias), "alias_bytes": alias,
+            "peak_bytes": peak, "generated_code_bytes": None}
 
 
 class _Region:

@@ -36,6 +36,11 @@ pointers), and the model gathers and reduces through these functions:
   * ``MeshRun.batch_sum``: a sum over every batch axis (the loss and its
     mask count).
 
+Each collective is recorded into the active cost counter
+(``kernels/cost.py::counting``), with its kind, group, output bytes and
+the bytes it moves a rank (``kernels/cost.py::bytes_moved``'s ring
+conventions), in a real run and in the dry run alike.
+
 Sums of floats run in f32 (a bf16 tensor is cast up, reduced, cast back),
 so every backend reduces alike; a group of one rank is the identity, so
 a 1x1 mesh computes what one device does. The collectives go straight to
@@ -53,6 +58,7 @@ from typing import Dict
 import torch
 import torch.distributed as dist
 
+from ..kernels import cost
 from ..launch.mesh import axis_shape
 from .params import (ShardDesc, kept_desc, map_dict, param_shardings,
                      period_map, shard_desc, shard_descs, unshard_leaf)
@@ -70,6 +76,19 @@ def _size(group) -> int:
     return 1 if group is None else dist.get_world_size(group)
 
 
+def _record(kind: str, out: torch.Tensor, group):
+    """The collective into the active cost counter, if there is one."""
+    counter = cost.active()
+    if counter is None:
+        return
+    ranks = tuple(dist.get_process_group_ranks(group)) if group is not None \
+        else tuple(range(dist.get_world_size()))
+    nbytes = out.numel() * out.element_size()
+    counter.collective(cost.Collective(kind, ranks, nbytes,
+                                       cost.bytes_moved(kind, nbytes,
+                                                        len(ranks))))
+
+
 def all_reduce(t: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
     """The reduction of ``t`` over ``group``, a new tensor of t's dtype
     (floats summed in f32); ``t`` itself on a group of one."""
@@ -78,6 +97,7 @@ def all_reduce(t: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
     x = t.detach().to(torch.float32, copy=True) if t.is_floating_point() \
         else t.detach().clone()
     dist.all_reduce(x, op=op, group=group)
+    _record("all-reduce", x, group)
     return x.to(t.dtype)
 
 
@@ -88,6 +108,7 @@ def _gather_flat(x: torch.Tensor, group) -> torch.Tensor:
     flat = x.detach().reshape(-1).contiguous()
     out = torch.empty(n * flat.numel(), dtype=flat.dtype, device=flat.device)
     dist.all_gather_into_tensor(out, flat, group=group)
+    _record("all-gather", out, group)
     return out.reshape((n,) + tuple(x.shape))
 
 
@@ -111,6 +132,7 @@ def reduce_scatter(t: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     out = torch.empty(parts.numel() // n, dtype=parts.dtype,
                       device=parts.device)
     dist.reduce_scatter_tensor(out, parts, group=group)
+    _record("reduce-scatter", out, group)
     return out.reshape(shape).to(t.dtype)
 
 
@@ -122,6 +144,7 @@ def _all_to_all(t: torch.Tensor, group, split_dim: int,
     parts = torch.stack(t.detach().chunk(n, dim=split_dim)).contiguous()
     out = torch.empty_like(parts)
     dist.all_to_all_single(out.reshape(-1), parts.reshape(-1), group=group)
+    _record("all-to-all", out, group)
     return torch.cat(out.unbind(0), dim=cat_dim)
 
 
@@ -445,11 +468,14 @@ class MeshRun:
 
     def same_on_all_ranks(self, t: torch.Tensor, what: str):
         """Raises unless ``t`` is bitwise equal on every rank (an
-        all-gather over the world, also at one rank)."""
+        all-gather over the world, also at one rank). On ``meta`` (the
+        dry run) the gather is made and nothing compared."""
         bits = t.detach().reshape(-1)
         bits = bits.view(torch.int32) if bits.element_size() == 4 \
             else bits.to(torch.float64).view(torch.int64)
         out = _gather_flat(bits, None)
+        if out.is_meta:         # the dry run: gathered, no values to hold
+            return
         if not bool((out == out[:1]).all()):
             raise AssertionError(f"{what} differ across ranks: "
                                  f"{out.cpu().tolist()}")

@@ -347,8 +347,16 @@ def test_zo_kernels_refuse_a_map_past_2_32(dev):
         zo_fused_replay.zo_fused_replay(
             x, seeds, coeffs, 1,
             index=IndexMap(0, ((2, 999), (2, 99), (2, 9), (4, 1))))
-    with pytest.raises(ValueError, match="2\\*\\*32"):
-        IndexMap(2**32 - 8, ((4, 1), (8, 1)))
+    # a map past 2**32 wraps (prng.IndexMap): the shard form draws at
+    # each index mod 2**32, as the plain version does
+    past = IndexMap(2**32 - 8, ((4, 8), (8, 1)))
+    x = torch.randn(4, 8, device=dev)
+    assert torch.equal(
+        zo_perturb.zo_perturb(x, seeds[0, :1], 1, 1e-3, index=past),
+        ref.zo_perturb_ref(x, seeds[0, :1], 1, 1e-3, index=past))
+    assert torch.equal(
+        zo_fused_replay.zo_fused_replay(x, seeds, coeffs, 1, index=past),
+        ref.zo_fused_replay_ref(x, seeds, coeffs, 1, index=past))
 
 
 # (B, H, Hkv, Sq, Sk, D, causal, window); q/k/v are transposed views of

@@ -259,7 +259,7 @@ def test_slice_sources_import_neither_jax_nor_repro():
     files = [pkg / "models" / "pointnet.py", ROOT / "chip_smoke.py"] + \
         sorted((pkg / "benchmarks").glob("*.py")) + \
         sorted((pkg / "obs").glob("*.py"))
-    assert len(files) == 10
+    assert len(files) == 11
     for f in files:
         assert not _IMPORT.findall(f.read_text()), f
     assert not _IMPORT.findall("\n".join(

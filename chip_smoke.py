@@ -66,6 +66,17 @@ the card: the qwen3-4b train cell on the 16x16 production mesh through
 the CLI, the unfused 4 x 128 step's launches, peak memory and bound
 against the step measured here, and the 2x2 qwen3-4b ``tp`` lane's
 collectives against a dry run of it, record for record on every rank.
+It serves across a mesh too: in the same 2x2 world, qwen3-4b (4 of 36
+layers, full width, bf16) prefills two 512-token prompts and decodes 16
+greedy steps (``core/api.py::prefill_step`` / ``decode_step`` with a
+``MeshRun``) with its KV heads over `model`, with the decode cache
+context-sharded over `model`, and with a batch of one whose cache's
+slots are split over `data`, each lane's tokens and caches against one
+device's and its collectives against the dry run's; the dry run's
+launches and peak of the same prefill and decode steps on a 1x1 mesh
+against the card's; the CLI's serve cell (qwen3-4b decode_32k under
+the serve strategy); and flash's log-sum-exp (``return_lse``) against
+its plain version and float64, the output bitwise unchanged.
 
 The last three lines of its output are the card's name and power limit
 (nvidia-smi), a JSON line of per-kernel numbers, and
@@ -80,6 +91,7 @@ import json
 import math
 import os
 import shutil
+import signal
 import subprocess
 import sys
 import time
@@ -608,6 +620,10 @@ FLASH_CASES += [
     (f"(m) LLaVA, batch {b}, seq {LLAVA_IMAGE + n}", b, 56, 8,
      LLAVA_IMAGE + n, LLAVA_IMAGE + n, 128, torch.bfloat16, True, 0)
     for b, n in [(2, n) for n in LLAVA_PROMPTS] + [LLAVA_TRAIN[1]]]
+# (n) the mesh serve lanes' prefill (SERVE_MESH_LANES): a rank's row of
+# a 512-token prompt on its 16 of qwen3-4b's 32 Q heads over 4 KV heads
+FLASH_CASES += [("(n) 2x2 serve prefill, a rank's heads", 1, 16, 4, 512,
+                 512, 128, torch.bfloat16, True, 0)]
 # the bf16 tensor-core kernel's edge paths: head dims 16 and 64, ragged Sq
 # != Sk, and windows under which rows past Sk + window - 1 see no key
 FLASH_EDGE_CASES = [
@@ -841,6 +857,75 @@ def check_flash_offset(flash_attn, ref):
     return dict(max_abs_err=worst, chunks_bitwise=same, ms_by_rank=each,
                 ms_sum=sum(each), bound_ms_by_rank=bounds,
                 ms_whole=ms_whole)
+
+
+# (label, B, H, Hkv, Sq, Sk, D, dtype, causal, window) of the log-sum-exp
+# check: the serve prefill's seq 4096 (bf16, the tensor cores), Whisper's
+# decode cross-attention, one query a row over 1,500 encoder positions
+# (the context-parallel combine reads its log-sum-exp), and the f32 kernel
+# at the reduced stacks' head dim with rows that see no key
+FLASH_LSE_CASES = [
+    ("seq 4096", 1, 32, 8, 4096, 4096, 128, torch.bfloat16, True, 0),
+    ("Whisper decode cross, Sq 1", 8, 12, 12, 1, 1500, 64, torch.bfloat16,
+     False, 0),
+    ("f32, D 16, window, rows see no key", 2, 4, 2, 100, 40, 16,
+     torch.float32, True, 8),
+]
+FLASH_LSE_TOL = 1e-4             # |lse - lse_plain| and |lse - float64|, in
+#                                  units of max(1, |lse|): the kernel sums
+#                                  the same f32 exps in another order
+
+
+def check_flash_lse(flash_attn, ref):
+    """flash's log-sum-exp (``return_lse``) at FLASH_LSE_CASES: the
+    output bitwise the output without it; the lse within FLASH_LSE_TOL
+    of the plain version's and of the scores' log-sum-exp in float64
+    (rows that see no key at -1e30 in both). Times the call with and
+    without the lse (CUDA events, 10 calls each)."""
+    out = {}
+    for label, B, H, Hkv, Sq, Sk, D, dtype, causal, window in \
+            FLASH_LSE_CASES:
+        q, k, v = flash_inputs(B, H, Hkv, Sq, Sk, D, dtype, seed=7)
+        kw = dict(causal=causal, window=window)
+        plain_o = flash_attn.flash_attention(q, k, v, **kw)
+        o, lse = flash_attn.flash_attention(q, k, v, return_lse=True, **kw)
+        same = torch.equal(o, plain_o)
+        _, want = ref.flash_attention_ref(q, k, v, return_lse=True, **kw)
+        G = H // Hkv
+        s = torch.einsum("bhqd,bhkd->bhqk", q.double(),
+                         k.double().repeat_interleave(G, dim=1)) / D ** 0.5
+        qp = torch.arange(Sq, device=q.device)[:, None]
+        kp = torch.arange(Sk, device=q.device)[None, :]
+        seen = torch.ones(Sq, Sk, dtype=torch.bool, device=q.device)
+        if causal:
+            seen &= kp <= qp
+        if window:
+            seen &= kp > qp - window
+        exact = torch.logsumexp(s.masked_fill(~seen, float("-inf")), dim=-1)
+        none = ~seen.any(dim=-1)
+        exact = torch.where(none[None, None], torch.full_like(exact, -1e30),
+                            exact)
+        scale = lse.abs().clamp(min=1.0)
+        to_plain = float(((lse - want).abs() / scale).max())
+        to_exact = float(((lse.double() - exact).abs() / scale).max())
+        ms = event_ms(lambda: flash_attn.flash_attention(q, k, v, **kw), 10)
+        ms_lse = event_ms(lambda: flash_attn.flash_attention(
+            q, k, v, return_lse=True, **kw), 10)
+        print(f"flash_attention lse, {label} (B {B} H {H}/{Hkv} Sq {Sq} Sk "
+              f"{Sk} D {D} {str(dtype)[6:]}): output bitwise the call "
+              f"without it: {same}; lse against the plain version "
+              f"{to_plain:.3g}, against float64 {to_exact:.3g} (relative to "
+              f"max(1, |lse|); tolerance {FLASH_LSE_TOL}; {int(none.sum())} "
+              f"rows see no key); {ms_lse:.4f} ms with it, {ms:.4f} ms "
+              "without")
+        if not same or max(to_plain, to_exact) > FLASH_LSE_TOL:
+            raise AssertionError(f"flash lse, {label}: disagrees")
+        out[label] = dict(bitwise=same, max_rel_err_plain=to_plain,
+                          max_rel_err_f64=to_exact, ms=ms_lse,
+                          ms_without=ms)
+        del q, k, v, o, lse, want, s, exact
+    torch.cuda.empty_cache()
+    return out
 
 
 # --------------------------------------------------------------------- #
@@ -2510,14 +2595,16 @@ def mm_shape(a, w):
 
 
 def flash_shape(q, k, v, *, causal=True, window=0, scale=None,
-                q_offset=0):
+                q_offset=0, return_lse=False):
     """A call's FLASH_CASES entry (without its label); a scale other than
-    the wrapper's default 1 / sqrt(D), or a query offset, is kept, so it
-    matches no entry (check_flash_offset holds the offset calls)."""
+    the wrapper's default 1 / sqrt(D), a query offset, or a log-sum-exp,
+    is kept, so it matches no entry (check_flash_offset holds the offset
+    calls, check_flash_lse the log-sum-exp)."""
     B, H, Sq, D = q.shape
     return (B, H, k.shape[1], Sq, k.shape[2], D, q.dtype, causal, window) \
         + (() if scale is None or scale == 1.0 / math.sqrt(D) else (scale,)) \
-        + ((q_offset,) if q_offset else ())
+        + ((q_offset,) if q_offset else ()) \
+        + (("lse",) if return_lse else ())
 
 
 def check_shapes_held(name, seen, held):
@@ -3606,13 +3693,15 @@ def _mesh_lane(mesh, lane_spec, zo_perturb, zo_replay, noise):
     return res
 
 
-def _mesh_rank(rank, world, shape, backend, store, out_dir, lanes, small):
+def _mesh_rank(rank, world, shape, backend, store, out_dir, lanes, small,
+               serve=()):
     """One rank of the mesh phase on ``shape``, through the launcher's
     setup: each lane of ``lanes`` (``_mesh_lane``) in turn, the shard
     noise held in each arch's unfused lanes at its first lane's shape;
-    then each reduced stack of ``small`` (MESH_SMALL entries) card
-    against CPU on its mesh of the same world. Writes its numbers to
-    out_dir."""
+    then each serve lane of ``serve`` ((SERVE_MESH_LANES entry, one
+    device's reference file) pairs, ``_serve_lane``); then each reduced
+    stack of ``small`` (MESH_SMALL entries) card against CPU on its mesh
+    of the same world. Writes its numbers to out_dir."""
     import torch.distributed as dist
     sys.path.insert(0, str(ROOT / "src"))
     torch.set_num_threads(2)
@@ -3626,13 +3715,16 @@ def _mesh_rank(rank, world, shape, backend, store, out_dir, lanes, small):
         res = dict(rank=rank, probe=probe,
                    device=str(torch.device("cuda",
                                            torch.cuda.current_device())),
-                   lanes={}, small={})
+                   lanes={}, small={}, serve={})
         first = {}
         for spec in lanes:
             first.setdefault(spec[1], spec[4:])
             res["lanes"][spec[0]] = _mesh_lane(
                 meshes[tuple(shape)], spec, zo_perturb, zo_fused_replay,
                 noise=not spec[3] and spec[4:] == first[spec[1]])
+        for spec, ref_path in serve:
+            res["serve"][spec[0]] = _serve_lane(meshes[tuple(shape)], spec,
+                                                ref_path)
         t0 = time.perf_counter()
         for spec in small:
             if spec[2] not in meshes:
@@ -3645,7 +3737,7 @@ def _mesh_rank(rank, world, shape, backend, store, out_dir, lanes, small):
 
 
 def check_mesh(shape, backend, want_losses, want_moves, small=MESH_SMALL,
-               lanes=MESH_LANES):
+               lanes=MESH_LANES, serve_refs=None):
     """The mesh phase on ``prod(shape)`` spawned ranks, one spawn for all
     of ``lanes``: prints each rank's numbers per lane and asserts the
     launches a step (``mesh_per_step`` of the lane's stack), equal counts
@@ -3656,8 +3748,11 @@ def check_mesh(shape, backend, want_losses, want_moves, small=MESH_SMALL,
     overrides): leaf_moves}), the
     fused lanes' first (l+, l-) bitwise the unfused lane's at the same
     stack, shape and strategy, and the reduced stacks of ``small``
-    (MESH_SMALL entries) card == CPU, the 6-head ones under the seq plan.
-    Returns {lane label: rank 0's launch counts}."""
+    (MESH_SMALL entries) card == CPU, the 6-head ones under the seq plan;
+    with ``serve_refs`` ({batch: one device's reference file},
+    ``serve_references``) the serve lanes of SERVE_MESH_LANES too
+    (``check_serve_mesh``). Returns ({lane label: rank 0's launch
+    counts}, {serve lane: rank 0's flash launches})."""
     import tempfile
     from repro_torch.launch import mesh as mesh_lib
     world = math.prod(shape)
@@ -3665,8 +3760,10 @@ def check_mesh(shape, backend, want_losses, want_moves, small=MESH_SMALL,
     t0 = time.perf_counter()
     try:
         store = "file://" + os.path.join(d, "store")
+        serve = tuple((spec, serve_refs[spec[2]])
+                      for spec in SERVE_MESH_LANES) if serve_refs else ()
         mesh_lib.spawn(_mesh_rank, world, (world, shape, backend, store, d,
-                                           lanes, small))
+                                           lanes, small, serve))
         res = [json.loads(Path(d, f"rank{r}.json").read_text())
                for r in range(world)]
     finally:
@@ -3742,6 +3839,7 @@ def check_mesh(shape, backend, want_losses, want_moves, small=MESH_SMALL,
                 raise AssertionError(f"{label}: the fused pair is not the "
                                      "unfused one")
     check_mesh_records(res, lanes, name, tuple(shape))
+    served = check_serve_mesh(res, name, tuple(shape)) if serve_refs else {}
     bad = []                    # every reduced stack printed, then raised
     for label, arch, _, strategy, _, overrides, _ in small:
         for r in res:
@@ -3774,7 +3872,8 @@ def check_mesh(shape, backend, want_losses, want_moves, small=MESH_SMALL,
           f"{max(worst.values()):.3g}")
     if max(worst.values()) > MESH_LOSS_RTOL:
         raise AssertionError("the sharded losses left one device's")
-    return {label: res[0]["lanes"][label]["counts"] for label, *_ in lanes}
+    return ({label: res[0]["lanes"][label]["counts"] for label, *_ in lanes},
+            served)
 
 
 COST_LANE = "tp"                 # the mesh lane held to its dry run (c)
@@ -3817,6 +3916,273 @@ def check_mesh_records(res, lanes, name, shape):
                 f"{want[first:first + 3]}")
 
 
+# --------------------------------------------------------------------- #
+# serving across a mesh: prefill_step / decode_step with a MeshRun
+# --------------------------------------------------------------------- #
+SERVE_MESH_ROWS = 2              # prompts of the serve lanes
+SERVE_MESH_PROMPT = 512          # tokens a prompt
+SERVE_MESH_STEPS = 16            # greedy decode steps after the prefill
+# (label, strategy, global batch): qwen3-4b cut to MESH_LAYERS at full
+# width, bf16, on the mesh phase's 2x2 world. tp: KV heads over `model`
+# (its weights' FSDP shards gathered over `data` each step); serve: the
+# decode cache context-sharded over `model` (the seq plan at decode,
+# weights replicated over `data`); context: a global batch of 1 below the
+# 2 `data` ranks, the decode cache's slots over `data` (cache_seq_axes)
+SERVE_MESH_LANES = (("serve tp", "tp", 2), ("serve seq", "serve", 2),
+                    ("serve context", "serve", 1))
+SERVE_TOKEN_TOL = 2.0**-7        # a greedy token other than one device's
+#                                  only where one device's logits of the
+#                                  two lie within two bf16 ulps of the
+#                                  row's largest |logit| (a near tie the
+#                                  row-parallel and combine sums, rounded
+#                                  in another order, may flip)
+SERVE_CACHE_TOL = 5e-2           # each cache leaf after the last step,
+#                                  gathered, against one device's: the
+#                                  largest |difference| over the leaf's
+#                                  largest |value| (bf16 K / V of 528
+#                                  positions through 4 layers whose sums
+#                                  round in other orders)
+
+
+def serve_mesh_shapes(B):
+    """(prefill shape, decode shape) of a serve lane of B rows."""
+    from repro_torch.configs import ShapeConfig
+    total = SERVE_MESH_PROMPT + SERVE_MESH_STEPS
+    return (ShapeConfig("p", seq_len=SERVE_MESH_PROMPT, global_batch=B,
+                        kind="prefill"),
+            ShapeConfig("d", seq_len=total, global_batch=B, kind="decode"))
+
+
+def serve_references(out_dir):
+    """One device's greedy run of each batch of SERVE_MESH_LANES on the
+    card: the prompts (a numpy seed), the prefill and SERVE_MESH_STEPS
+    decode steps, each feeding the last token, with their logits and
+    the caches after the last step; saved to ``out_dir``/serve_ref_B<B>.pt
+    for the ranks. Returns {B: path}."""
+    from repro_torch.configs import LaneConfig
+    from repro_torch.core import api
+    from repro_torch.serve.kv_pages import grow_dense_caches
+    cfg = mesh_cfg("qwen3-4b")
+    rng = np.random.default_rng(11)
+    prompts = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (SERVE_MESH_ROWS, SERVE_MESH_PROMPT)).astype(
+            np.int32))
+    sp, sd = serve_mesh_shapes(SERVE_MESH_ROWS)
+    params = api.init(cfg, LaneConfig(), seed=0, device="cuda",
+                      max_seq=sd.seq_len)
+    paths = {}
+    for B in sorted({b for *_, b in SERVE_MESH_LANES}):
+        tok, caches, lg = api.prefill_step(params, cfg,
+                                           prompts[:B].to("cuda"),
+                                           logits=True)
+        caches = grow_dense_caches(caches, cfg, sd.seq_len)
+        toks, logits = [tok], [lg[:, 0]]
+        for i in range(SERVE_MESH_STEPS):
+            tok, caches, lg = api.decode_step(params, cfg, toks[-1], caches,
+                                              SERVE_MESH_PROMPT + i,
+                                              logits=True)
+            toks.append(tok)
+            logits.append(lg[:, 0])
+        paths[B] = os.path.join(out_dir, f"serve_ref_B{B}.pt")
+        torch.save({"prompts": prompts[:B],
+                    "tokens": torch.cat(toks, dim=1).cpu(),
+                    "logits": torch.stack(logits).cpu(),
+                    "caches": {f"{part}/{j}/{k}": t.cpu()
+                               for part, es in caches.items()
+                               for j, e in enumerate(es)
+                               for k, t in e.items()}}, paths[B])
+        del caches, toks, logits
+    del params
+    torch.cuda.empty_cache()
+    return paths
+
+
+def _serve_lane(mesh, spec, ref_path):
+    """One serve lane on this rank: qwen3-4b (``mesh_cfg``) prefilled on
+    the rank's rows of one device's prompts at the prefill shape's rules
+    (``api.mesh_run``; once untimed with its collectives recorded,
+    once timed), its caches re-laid for the decode shape's rules
+    (gathered, grown, sharded), then SERVE_MESH_STEPS decode steps fed
+    one device's tokens (the first with its collectives recorded, the
+    rest timed). Returns the rank's tokens beside one device's, the
+    near ties it took otherwise, the caches' distance from one device's
+    after the last step (rank 0), its times, records and flash
+    launches."""
+    import torch.nn.functional as F
+    from repro_torch.configs import LaneConfig
+    from repro_torch.core import api
+    from repro_torch.data.pipeline import rank_rows
+    from repro_torch.kernels import cost, flash_attn
+    from repro_torch.models.transformer import tree_map
+    from repro_torch.sharding.params import map_with_names, shard_leaf
+    label, strategy, B = spec
+    cfg, lane = mesh_cfg("qwen3-4b"), LaneConfig()
+    sp, sd = serve_mesh_shapes(B)
+    ref = torch.load(ref_path)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    t_lane = time.perf_counter()
+    rp = api.mesh_run(cfg, sp, lane, mesh, strategy)
+    rd = api.mesh_run(cfg, sd, lane, mesh, strategy)
+    flash0 = flash_attn.launches
+    params = api.init(cfg, lane, seed=0, device=dev, max_seq=sd.seq_len,
+                      run=rp)
+    rows = rank_rows(sp, rp.rules, rp.coords)
+    prompts = ref["prompts"][rows].to(dev)
+    with cost.counting() as counter:
+        api.prefill_step(params, cfg, prompts, run=rp)
+    pre_records = [record_key(r) for r in counter.collectives]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tok, caches = api.prefill_step(params, cfg, prompts, run=rp)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    got = {0: tok[:, 0].cpu()}
+
+    def descs_of(run, shape):
+        a = api.abstract_caches(cfg, shape, lane, run)
+        return a, [run.cache_descs(a, r) for r in range(run.world)]
+    _, dps = descs_of(rp, sp)
+    whole = tree_map(lambda t, *ds: rp.gather_shards(t, list(ds)), caches,
+                     *dps)
+    del caches
+    slots = rd.decode_slots()
+    dup = [r.rules.attn.kv_dup if r.rules.attn.kind == "tp" else 1
+           for r in (rp, rd)]
+    idx = [(j // dup[1]) * dup[0] for j in range(cfg.num_kv_heads * dup[1])]
+
+    def relay(names, t):
+        if names[-1] in ("k", "v"):
+            t = t[..., idx, :]
+            t = F.pad(t, (0, 0, 0, 0, 0, slots - t.shape[2]))
+        return t
+    whole = map_with_names(relay, whole)
+    _, dds = descs_of(rd, sd)
+    caches = tree_map(lambda t, d: shard_leaf(t, d).clone(), whole,
+                      dds[rd.rank])
+    del whole
+    if rd.specs != rp.specs:            # the seq plan's weights at decode
+        del params
+        params = api.init(cfg, lane, seed=0, device=dev, max_seq=sd.seq_len,
+                          run=rd)
+    rows_d = rank_rows(sd, rd.rules, rd.coords)
+    feed = ref["tokens"][rows_d].to(dev)
+    dec_records, times = None, []
+    for i in range(SERVE_MESH_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with cost.counting() as counter:
+            tok, caches = api.decode_step(params, cfg, feed[:, i:i + 1],
+                                          caches, SERVE_MESH_PROMPT + i,
+                                          run=rd)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        if dec_records is None:
+            dec_records = [record_key(r) for r in counter.collectives]
+        got[i + 1] = tok[:, 0].cpu()
+    flash = flash_attn.launches - flash0
+    ties, wrong = [], 0
+    for step, t in got.items():
+        r_rows = rows if step == 0 else rows_d
+        for i, (a, b) in enumerate(zip(t.tolist(),
+                                       ref["tokens"][r_rows, step].tolist())):
+            if a == b:
+                continue
+            lg = ref["logits"][step, r_rows.start + i]
+            gap = float(lg[b] - lg[a]) / float(lg.abs().max())
+            ties.append([step, r_rows.start + i, a, b, gap])
+            wrong += gap > SERVE_TOKEN_TOL
+    final = tree_map(lambda t, *ds: rd.gather_shards(t, list(ds)), caches,
+                     *dds)
+    cache_err = 0.0
+    if rd.rank == 0:
+        for part, es in final.items():
+            for j, e in enumerate(es):
+                for k, t in e.items():
+                    w = ref["caches"][f"{part}/{j}/{k}"].to(dev).float()
+                    cache_err = max(cache_err, float(
+                        (t.float() - w).abs().max() / w.abs().max()))
+    del params, caches, final
+    torch.cuda.empty_cache()
+    return dict(ties=ties, wrong=wrong,
+                cache_err=cache_err, prefill_ms=prefill_ms,
+                decode_ms=sum(times[1:]) / max(1, len(times) - 1),
+                records={"prefill": pre_records, "decode": dec_records},
+                flash=flash, plans=[rp.rules.attn.kind, rd.rules.attn.kind],
+                slot_axes=list(rd.kv_layout(rd.decode_slots())[0]),
+                wall_s=time.perf_counter() - t_lane)
+
+
+def dry_serve_records(strategy, B, world_shape):
+    """The collective records (``record_key``) of a dry run of a serve
+    lane's prefill and decode steps on a fake world of the lane's mesh,
+    rank 0, with their launches."""
+    from repro_torch.configs import LaneConfig
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch.dryrun import analyze_serve
+    out = {}
+    for shape in serve_mesh_shapes(B):
+        with mesh_lib.fake_world(math.prod(world_shape)):
+            mesh = mesh_lib.make_mesh(world_shape, MESH_AXES)
+            full = analyze_serve(mesh_cfg("qwen3-4b"), shape, LaneConfig(),
+                                 mesh, strategy)
+        out[shape.kind] = ([record_key(r) for r in full["records"]],
+                           {k: v["launches"]
+                            for k, v in full["kernels"].items()})
+    return out
+
+
+def check_serve_mesh(res, name, shape):
+    """The serve lanes' numbers from every rank: tokens equal to one
+    device's (or a near tie within SERVE_TOKEN_TOL), rank 0's gathered
+    caches within SERVE_CACHE_TOL of one device's, each step's
+    collective records equal on every rank and equal to the dry run's of
+    the same step on a fake world of the mesh, flash launched by the
+    prefill. Returns {lane: rank 0's flash launches}."""
+    smi = nvidia_smi("name,power.limit")
+    out, bad = {}, []
+    for label, strategy, B in SERVE_MESH_LANES:
+        t0 = time.perf_counter()
+        dry = dry_serve_records(strategy, B, shape)
+        dry_s = time.perf_counter() - t0
+        x0 = res[0]["serve"][label]
+        for r in res:
+            x = r["serve"][label]
+            same = {k: x["records"][k] == dry[k][0] for k in dry}
+            print(f"{name} {label} (qwen3-4b, {MESH_LAYERS} of 36 layers, "
+                  f"bf16, {B} x {SERVE_MESH_PROMPT} prefilled, "
+                  f"{SERVE_MESH_STEPS} decode steps, {strategy}, plans "
+                  f"{x['plans']}, decode cache slots over "
+                  f"{x['slot_axes'] or 'no axis'}), rank {r['rank']}: "
+                  f"{len(x['ties'])} token(s) other than one device's "
+                  f"{x['ties']} ({x['wrong']} past SERVE_TOKEN_TOL); "
+                  f"records equal the dry run's (prefill "
+                  f"{len(x['records']['prefill'])}, decode "
+                  f"{len(x['records']['decode'])}): {same}; flash launches "
+                  f"{x['flash']}; warm prefill {x['prefill_ms']:.1f} ms, "
+                  f"decode {x['decode_ms']:.2f} ms a step; the lane "
+                  f"{x['wall_s']:.1f} s wall")
+            if x["wrong"] or not all(same.values()) or not x["flash"]:
+                bad.append(f"{label} rank {r['rank']}")
+            if x["records"] != x0["records"]:
+                bad.append(f"{label}: rank {r['rank']}'s records differ "
+                           "from rank 0's")
+        print(f"{name} {label}: rank 0's caches after the last step against "
+              f"one device's: {x0['cache_err']:.3g} of each leaf's largest "
+              f"|value| (tolerance {SERVE_CACHE_TOL}); dry run "
+              f"{dry_s:.1f} s, its launches {dry['prefill'][1]} / "
+              f"{dry['decode'][1]}; rank 0's warm prefill "
+              f"{x0['prefill_ms']:.1f} ms and decode step "
+              f"{x0['decode_ms']:.2f} ms on {smi} (4 ranks sharing the card "
+              "over gloo)")
+        if x0["cache_err"] > SERVE_CACHE_TOL:
+            bad.append(f"{label}: caches {x0['cache_err']:.3g} from one "
+                       "device's")
+        out[label] = x0["flash"]
+    if bad:
+        raise AssertionError("serve lanes: " + "; ".join(bad))
+    return out
+
+
 def mesh_path(lane_spec):
     """A mesh lane's name on the kernels line."""
     label, arch, *_, overrides = lane_spec
@@ -3826,10 +4192,12 @@ def mesh_path(lane_spec):
 
 def check_train_mesh():
     """Each mesh lane's stack at full width (``mesh_cfg``): one device's
-    losses and leaf moves at each lane's stack and shape (this process),
-    then the lanes on the 2x2 mesh of 4 ranks sharing the card over
-    gloo. Returns (rank 0's launches by lane, the one-device qwen3-4b
-    losses and leaf moves at 4 x 128)."""
+    losses and leaf moves at each lane's stack and shape, and one
+    device's serve runs (``serve_references``), in this process; then
+    the lanes and the serve lanes on the 2x2 mesh of 4 ranks sharing the
+    card over gloo. Returns (rank 0's launches by lane, the one-device
+    qwen3-4b losses and leaf moves at 4 x 128, rank 0's flash launches
+    by serve lane)."""
     from repro_torch.launch import train as launch_train
     from repro_torch.core import zo
     want, moves = {}, {}
@@ -3848,8 +4216,20 @@ def check_train_mesh():
               f"peak {peak} bytes, launches {counts}")
         del one, init
         torch.cuda.empty_cache()
+    import tempfile
     cut = ("qwen3-4b", 4, 128, ())
-    return check_mesh((2, 2), "gloo", want, moves), want[cut], moves[cut]
+    d = tempfile.mkdtemp(prefix="serve_refs_")
+    try:
+        t0 = time.perf_counter()
+        refs = serve_references(d)
+        print(f"serve lanes' one-device references (qwen3-4b, {MESH_LAYERS} "
+              f"of 36 layers, bf16, {SERVE_MESH_PROMPT} + {SERVE_MESH_STEPS} "
+              f"tokens, batches {sorted(refs)}): "
+              f"{time.perf_counter() - t0:.1f} s")
+        n, served = check_mesh((2, 2), "gloo", want, moves, serve_refs=refs)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    return n, want[cut], moves[cut], served
 
 
 # --------------------------------------------------------------------- #
@@ -3862,26 +4242,38 @@ COST_STEPS = 3                   # measured steps of (b); the fastest is
 COST_UNITS = "bound at H100 SXM published peaks, 700 W"
 
 
+COST_CLI_CELLS = (("train_4k", "tp"), ("decode_32k", "serve"))
+#                                  (shape, strategy) of qwen3-4b's cells
+#                                  the dry run's CLI runs in (a)
+
+
 def start_cost_cli():
     """Starts (a), ``python -m repro_torch.launch.dryrun`` on the qwen3-4b
-    train cell of the 16x16 production mesh, in a subprocess: it needs
-    no card, so it runs on the host beside the card's phases (from the
-    end of the kernel phase, whose timings it would perturb). Returns
-    the handle ``check_cost_cli`` reads; the process is killed at exit
-    if it still runs."""
+    cells of COST_CLI_CELLS on the 16x16 production mesh (the train cell,
+    then a serve cell: the decode under the serve strategy's seq plan),
+    one CLI run after the other in a subprocess: it needs no card, so it
+    runs on the host beside the card's phases (from the end of the
+    kernel phase, whose timings it would perturb). Returns the handle
+    ``check_cost_cli`` reads; the process is killed at exit if it still
+    runs."""
     import atexit
+    import shlex
     import tempfile
     tmp = tempfile.mkdtemp(prefix="dryrun_smoke_")
     log = open(Path(tmp, "log"), "w")
     proc = subprocess.Popen(
-        [sys.executable, "-W", "ignore", "-m", "repro_torch.launch.dryrun",
-         "--arch", "qwen3-4b", "--shape", "train_4k", "--mesh", "single",
-         "--force", "--out", tmp], stdout=log, stderr=subprocess.STDOUT,
-        cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+        ["sh", "-c", " && ".join(" ".join(shlex.quote(a) for a in [
+            sys.executable, "-W", "ignore", "-m",
+            "repro_torch.launch.dryrun", "--arch", "qwen3-4b", "--shape",
+            shape, "--mesh", "single", "--strategy", strategy, "--force",
+            "--out", tmp]) for shape, strategy in COST_CLI_CELLS)],
+        stdout=log, stderr=subprocess.STDOUT, cwd=ROOT,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+        start_new_session=True)
 
     def stop():
         if proc.poll() is None:
-            proc.kill()
+            os.killpg(proc.pid, signal.SIGKILL)
             proc.wait()
         log.close()
         shutil.rmtree(tmp, ignore_errors=True)
@@ -3890,43 +4282,52 @@ def start_cost_cli():
 
 
 def check_cost_cli(handle):
-    """(a) The dry run started by ``start_cost_cli``: its status, and per
-    device its FLOPs, bytes, collective bytes by kind, peak bytes and
-    the roofline's three terms and bottleneck (``benchmarks/
+    """(a) The dry runs started by ``start_cost_cli``: each cell's status,
+    and per device its FLOPs, bytes, collective bytes by kind, peak bytes
+    and the roofline's three terms and bottleneck (``benchmarks/
     roofline.py``; bounds at published peaks, not measurements)."""
     from repro_torch.benchmarks import roofline
+    from repro_torch.launch.dryrun import out_name
     proc, tmp, t0, stop = handle
     try:
         rc = proc.wait(timeout=600)
         wall = time.perf_counter() - t0
-        out = Path(tmp, "qwen3-4b__train_4k__single.json")
-        rec = json.loads(out.read_text()) if out.exists() else {}
+        recs = {}
+        for shape, strategy in COST_CLI_CELLS:
+            out = Path(tmp, out_name("qwen3-4b", shape, "single", strategy,
+                                     False))
+            recs[shape] = json.loads(out.read_text()) if out.exists() else {}
         log = Path(tmp, "log").read_text()
     finally:
         stop()
-    if rc or rec.get("status") != "ok":
-        raise AssertionError(f"dryrun qwen3-4b train_4k single: rc {rc}, "
-                             f"status {rec.get('status')}: "
-                             f"{rec.get('error')}\n{log[-3000:]}")
-    full, row = rec["full"], roofline.row_of(rec)
-    print(f"dryrun qwen3-4b train_4k on the 16x16 mesh (tp, rank 0 of 256 "
-          f"on a fake process group, meta tensors; started after the kernel "
-          f"phase, read {wall:.1f} s later; the cell {rec['elapsed_s']} s): "
-          f"a device "
-          f"{full['flops']:.4g} FLOPs ({full['flops_by_dtype']}), "
-          f"{full['bytes_accessed']:.4g} bytes, collective bytes "
-          f"{full['collective_bytes']:.4g} (" + ", ".join(
-              f"{k} {v['count']} calls {v['bytes']:.4g}"
-              for k, v in full["collectives"].items()) +
-          f"), peak {full['memory']['peak_bytes']} bytes; launches " +
-          str({k: v["launches"] for k, v in full["kernels"].items()}))
-    print(f"dryrun qwen3-4b train_4k roofline ({COST_UNITS}): compute "
-          f"{row['t_compute_s'] * 1e3:.2f} ms, memory "
-          f"{row['t_memory_s'] * 1e3:.2f} ms, collective "
-          f"{row['t_collective_s'] * 1e3:.2f} ms (NVLink "
-          f"{row['t_nvlink_s'] * 1e3:.2f}, NDR {row['t_ndr_s'] * 1e3:.2f}): "
-          f"bottleneck {row['bottleneck']}; MODEL / counted FLOPs "
-          f"{row['useful_flops_ratio']:.3f}")
+    for (shape, strategy), rec in zip(COST_CLI_CELLS, recs.values()):
+        if rc or rec.get("status") != "ok":
+            raise AssertionError(f"dryrun qwen3-4b {shape} single "
+                                 f"{strategy}: rc {rc}, status "
+                                 f"{rec.get('status')}: {rec.get('error')}"
+                                 f"\n{log[-3000:]}")
+        full, row = rec["full"], roofline.row_of(rec)
+        extra = f", cache_len {rec['cache_len']}" if "cache_len" in rec \
+            else ""
+        print(f"dryrun qwen3-4b {shape} on the 16x16 mesh ({strategy}, "
+              f"attention plan {rec['attn_plan']['kind']}{extra}; rank 0 "
+              f"of 256 on a fake process group, meta tensors; started after "
+              f"the kernel phase, read {wall:.1f} s later; the cell "
+              f"{rec['elapsed_s']} s): a device "
+              f"{full['flops']:.4g} FLOPs ({full['flops_by_dtype']}), "
+              f"{full['bytes_accessed']:.4g} bytes, collective bytes "
+              f"{full['collective_bytes']:.4g} (" + ", ".join(
+                  f"{k} {v['count']} calls {v['bytes']:.4g}"
+                  for k, v in full["collectives"].items()) +
+              f"), peak {full['memory']['peak_bytes']} bytes; launches " +
+              str({k: v["launches"] for k, v in full["kernels"].items()}))
+        print(f"dryrun qwen3-4b {shape} roofline ({COST_UNITS}): compute "
+              f"{row['t_compute_s'] * 1e3:.2f} ms, memory "
+              f"{row['t_memory_s'] * 1e3:.2f} ms, collective "
+              f"{row['t_collective_s'] * 1e3:.2f} ms (NVLink "
+              f"{row['t_nvlink_s'] * 1e3:.2f}, NDR "
+              f"{row['t_ndr_s'] * 1e3:.2f}): bottleneck {row['bottleneck']};"
+              f" MODEL / counted FLOPs {row['useful_flops_ratio']:.3f}")
 
 
 def check_cost_step(trainer, kernels):
@@ -4000,6 +4401,123 @@ def check_cost_step(trainer, kernels):
     del state
     if bad:
         raise AssertionError("cost model against the card: " + "; ".join(bad))
+
+
+def check_cost_serve(kernels):
+    """(d) qwen3-4b's serving steps (``mesh_cfg``: MESH_LAYERS of 36
+    layers at full width, bf16): a prefill of SERVE_MESH_ROWS x
+    SERVE_MESH_PROMPT tokens and a decode step against caches of
+    SERVE_MESH_PROMPT + SERVE_MESH_STEPS slots at their last, dry run on
+    a fake 1x1 world, against the same steps on the card on a 1x1 mesh
+    (a gloo world of one rank on the card: every collective is the
+    identity), COST_STEPS times each: the dry run's launches equal the
+    card's, its peak bytes lie within COST_PEAK_RTOL of each step's
+    max_memory_allocated less what the process held before the step's
+    arguments were made (earlier phases leave ~0.44 GB allocated, which
+    the 2.4 GB steps would show as a 15% miss), and its bound,
+    max(compute, memory) at the H100's published peaks, is no larger
+    than the fastest step. Prints the bound over the step as its
+    roofline share."""
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch.benchmarks import roofline
+    from repro_torch.configs import LaneConfig
+    from repro_torch.core import api
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch.dryrun import analyze_serve
+    from repro_torch.models.transformer import make_caches
+    cfg, lane = mesh_cfg("qwen3-4b"), LaneConfig()
+    shapes = serve_mesh_shapes(SERVE_MESH_ROWS)
+    dry = {}
+    t0 = time.perf_counter()
+    for shape in shapes:
+        with mesh_lib.fake_world(1):
+            mesh = mesh_lib.make_mesh((1, 1), MESH_AXES)
+            dry[shape.kind] = analyze_serve(cfg, shape, lane, mesh, "tp")
+    dry_s = time.perf_counter() - t0
+    store = tempfile.mkdtemp(prefix="serve_cost_")
+    mesh_lib.init_ranks("gloo", "cuda", 0, 1,
+                        "file://" + os.path.join(store, "store"))
+    smi = nvidia_smi("name,power.limit")
+    bad = []
+    try:
+        mesh = mesh_lib.make_mesh((1, 1), MESH_AXES)
+        rng = np.random.default_rng(13)
+        for shape in shapes:
+            torch.cuda.synchronize()
+            held = torch.cuda.memory_allocated()
+            run = api.mesh_run(cfg, shape, lane, mesh, "tp")
+            params = api.init(cfg, lane, seed=0, device="cuda",
+                              max_seq=shape.seq_len, run=run)
+            B = shape.global_batch
+            if shape.kind == "prefill":
+                toks = torch.from_numpy(rng.integers(
+                    0, cfg.vocab_size, (B, shape.seq_len)).astype(
+                        np.int32)).to("cuda")
+                caches = None
+
+                def step():
+                    return api.prefill_step(params, cfg, toks, run=run)
+            else:
+                toks = torch.from_numpy(rng.integers(
+                    0, cfg.vocab_size, (B, 1)).astype(np.int32)).to("cuda")
+                caches = api.split_caches(make_caches(
+                    cfg, B, shape.seq_len, device="cuda", run=run), cfg,
+                    lane)
+
+                def step():
+                    return api.decode_step(params, cfg, toks, caches,
+                                           shape.seq_len - 1, run=run)
+            times, peaks, counts = [], [], []
+            for _ in range(COST_STEPS):
+                before = {k: getattr(m, a) for k, (m, a) in kernels.items()}
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                t1 = time.perf_counter()
+                out = step()
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t1)
+                peaks.append(torch.cuda.max_memory_allocated() - held)
+                counts.append({k: getattr(m, a) - before[k]
+                               for k, (m, a) in kernels.items()
+                               if getattr(m, a) - before[k]})
+                del out
+            full = dry[shape.kind]
+            want = {k: v["launches"] for k, v in full["kernels"].items()}
+            peak = full["memory"]["peak_bytes"]
+            t_c = roofline.compute_seconds(full)
+            t_m = full["bytes_accessed"] / roofline.HBM_BW
+            bound = max(t_c, t_m)
+            print(f"cost model, qwen3-4b ({MESH_LAYERS} of 36 layers, bf16) "
+                  f"{shape.kind} step, {B} x {shape.seq_len}, 1x1 mesh "
+                  f"({smi}): dry run launches {want}, the card's {counts}; "
+                  f"peak {peak} bytes (argument "
+                  f"{full['memory']['argument_bytes']}, temp "
+                  f"{full['memory']['temp_bytes']}), measured "
+                  f"max_memory_allocated less the {held} bytes held before "
+                  f"{peaks} (dry / measured " +
+                  ", ".join(f"{peak / p:.4f}" for p in peaks) + "); bound "
+                  f"({COST_UNITS}) compute {t_c * 1e3:.3f} ms, memory "
+                  f"{t_m * 1e3:.3f} ms; measured "
+                  f"{[round(t * 1e3, 3) for t in times]} ms; roofline share "
+                  f"(bound / fastest step) {bound / min(times):.4f}")
+            if any(c != want for c in counts):
+                bad.append(f"{shape.kind} launches: dry {want}, card {counts}")
+            if any(abs(peak - p) > COST_PEAK_RTOL * p for p in peaks):
+                bad.append(f"{shape.kind} peak {peak} bytes, measured "
+                           f"{peaks}: past {COST_PEAK_RTOL}")
+            if bound > min(times):
+                bad.append(f"{shape.kind} bound {bound * 1e3:.3f} ms above "
+                           f"the step's {min(times) * 1e3:.3f} ms")
+            del params, caches, toks
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    print(f"cost model, serving steps: the two dry runs took {dry_s:.1f} s")
+    if bad:
+        raise AssertionError("cost model against the card (serve): " +
+                             "; ".join(bad))
 
 
 def record_key(r):
@@ -4774,6 +5292,8 @@ def main():
     torch.cuda.empty_cache()
     zo_times["flash_attention"]["at_q_offset"] = check_flash_offset(
         flash_attn, ref)
+    zo_times["flash_attention"]["with_lse"] = check_flash_lse(flash_attn,
+                                                              ref)
 
     # host work only, read in its phase: started after the kernels'
     # timings, which it would share the host's cores with
@@ -4877,6 +5397,9 @@ def main():
         "flash_attention": (flash_attn, "launches")})
     del trainer
     torch.cuda.empty_cache()
+    check_cost_serve({"flash_attention": (flash_attn, "launches"),
+                      "paged_attention_step": (paged_attn, "launches"),
+                      "topk_topp_mask": (topk_mask, "launches")})
 
     phase("train qwen3-4b, fused probes, seq 4096")
     n_fused = check_train_fused({"zo_perturb": zo_perturb,
@@ -4892,8 +5415,10 @@ def main():
     phase("train qwen3-4b, whisper-small, llava-next-34b, mixtral-8x7b, "
           "rwkv6-1.6b and Jamba's Mamba block on a 2x2 mesh (reduced "
           "Jamba too), strategies tp / fsdp / serve, fused probes and the "
-          "MoE's ep plan (4 ranks sharing the card over gloo)")
-    n_mesh, cut_losses, cut_moves = check_train_mesh()
+          "MoE's ep plan; serve qwen3-4b there: KV heads over model, the "
+          "decode cache over model, and over data (4 ranks sharing the "
+          "card over gloo)")
+    n_mesh, cut_losses, cut_moves, n_serve_mesh = check_train_mesh()
     torch.cuda.empty_cache()
 
     phase("train qwen3-4b on a 1x1 mesh over NCCL")
@@ -5042,6 +5567,9 @@ def main():
                  "serve llava-next-34b": n_llava[1]},
              "flash_attention": {
                  "serve qwen3-4b": n_flash_serve,
+                 **{f"serve qwen3-4b ({MESH_LAYERS} of 36 layers), 2x2 mesh "
+                    f"over gloo, {label}, rank 0": n
+                    for label, n in n_serve_mesh.items()},
                  "serve jamba-v0.1-52b": n_jamba[2],
                  "serve whisper-small": n_whisper[2],
                  "serve llava-next-34b": n_llava[2],

@@ -41,6 +41,7 @@ HBM_BW = cost.HBM_BYTES_PER_S                            # 3.35e12
 NVLINK_BW = 450e9
 NDR_BW = 50e9
 HOST_CARDS = 8
+CARD_BYTES = 80e9            # an H100 SXM's device memory
 RESULTS = Path(__file__).resolve().parents[3] / "results" / "dryrun_torch"
 
 
@@ -112,8 +113,10 @@ def compute_seconds(full: dict) -> float:
 
 
 def load_cell(arch: str, shape: str, mesh: str,
-              results: Path = RESULTS) -> Optional[dict]:
-    f = results / f"{arch}__{shape}__{mesh}.json"
+              results: Path = RESULTS, strategy: str = "tp"
+              ) -> Optional[dict]:
+    from ..launch.dryrun import out_name
+    f = results / out_name(arch, shape, mesh, strategy, False)
     if not f.exists():
         return None
     return json.loads(f.read_text())
@@ -153,6 +156,7 @@ def row_of(rec: dict, lane: Optional[LaneConfig] = None) -> dict:
         "useful_flops_ratio": util,
         "roofline_fraction": frac,
         "peak_bytes_dev": full["memory"].get("peak_bytes"),
+        "fits_card": (full["memory"].get("peak_bytes") or 0) <= CARD_BYTES,
         "temp_bytes_dev": full["memory"].get("temp_bytes"),
         "arg_bytes_dev": full["memory"].get("argument_bytes"),
         "collectives": full.get("collectives", {}),
@@ -163,8 +167,8 @@ def row_of(rec: dict, lane: Optional[LaneConfig] = None) -> dict:
 
 def roofline_row(arch: str, shape: str, mesh: str = "single",
                  lane: Optional[LaneConfig] = None,
-                 results: Path = RESULTS) -> dict:
-    rec = load_cell(arch, shape, mesh, results)
+                 results: Path = RESULTS, strategy: str = "tp") -> dict:
+    rec = load_cell(arch, shape, mesh, results, strategy)
     if rec is None or rec.get("status") != "ok":
         return {"arch": arch, "shape": shape, "mesh": mesh,
                 "status": (rec or {}).get("error")
@@ -172,7 +176,8 @@ def roofline_row(arch: str, shape: str, mesh: str = "single",
     return row_of(rec, lane)
 
 
-def full_table(mesh: str = "single", results: Path = RESULTS):
+def full_table(mesh: str = "single", results: Path = RESULTS,
+               strategy: str = "tp"):
     from ..configs import cell_matrix
     rows = []
     for a, s, run, why in cell_matrix():
@@ -180,7 +185,8 @@ def full_table(mesh: str = "single", results: Path = RESULTS):
             rows.append({"arch": a, "shape": s, "mesh": mesh,
                          "status": f"skipped: {why}"})
             continue
-        rows.append(roofline_row(a, s, mesh, results=results))
+        rows.append(roofline_row(a, s, mesh, results=results,
+                                 strategy=strategy))
     return rows
 
 
@@ -203,36 +209,102 @@ def format_table(rows) -> str:
 
 
 def format_detail(rows) -> str:
-    """The train cells' per-device counts beside the three terms (the
-    PERF.md table): FLOPs, bytes, collective bytes, peak bytes."""
-    out = ["| arch | mesh | FLOPs | bytes | coll. bytes | peak bytes | "
-           "t_comp ms | t_mem ms | t_coll ms | bottleneck | MODEL/counted |",
-           "|---|---|---|---|---|---|---|---|---|---|---|"]
+    """Each cell's per-device counts beside the three terms (the PERF.md
+    tables; train, prefill and decode cells alike): FLOPs, bytes,
+    collective bytes, peak bytes and whether they fit one card."""
+    out = ["| arch | shape | mesh | FLOPs | bytes | coll. bytes | peak bytes "
+           "| fits 80 GB | t_comp ms | t_mem ms | t_coll ms | bottleneck | "
+           "MODEL/counted |",
+           "|---|---|---|---|---|---|---|---|---|---|---|---|---|"]
     for r in rows:
         if r.get("status") != "ok":
             continue
         out.append(
-            f"| {r['arch']} | {r['mesh']} | {r['flops_dev']:.4g} "
+            f"| {r['arch']} | {r['shape']} | {r['mesh']} "
+            f"| {r['flops_dev']:.4g} "
             f"| {r['bytes_dev']:.4g} | {r['coll_bytes_dev']:.4g} "
-            f"| {r['peak_bytes_dev']:.4g} | {r['t_compute_s'] * 1e3:.1f} "
-            f"| {r['t_memory_s'] * 1e3:.1f} | {r['t_collective_s'] * 1e3:.1f} "
+            f"| {r['peak_bytes_dev']:.4g} "
+            f"| {'yes' if r['fits_card'] else 'no'} "
+            f"| {r['t_compute_s'] * 1e3:.3g} "
+            f"| {r['t_memory_s'] * 1e3:.3g} "
+            f"| {r['t_collective_s'] * 1e3:.3g} "
             f"| {r['bottleneck']} | {r['useful_flops_ratio']:.3f} |")
     return "\n".join(out)
 
 
+def format_both(rows, other=None, other_name: str = "") -> str:
+    """One line a cell with its single- and two-pod numbers side by side
+    (a / b): FLOPs, bytes, collective bytes and peak bytes a device,
+    whether the peak fits one card, and the bottleneck; with ``other``
+    (the same cells' rows under another strategy, ``other_name``) its
+    collective bytes, peak and bottleneck too."""
+    def by_cell(rs):
+        cells = {}
+        for r in rs or ():
+            if r.get("status") == "ok":
+                cells.setdefault((r["arch"], r["shape"]), {})[r["mesh"]] = r
+        return cells
+    cells, alt = by_cell(rows), by_cell(other)
+    head = ("| arch | shape | FLOPs | bytes | coll. bytes | peak bytes | "
+            "fits 80 GB | bottleneck |")
+    if other is not None:
+        head += (f" {other_name}: coll. bytes | {other_name}: peak | "
+                 f"{other_name}: bottleneck |")
+    out = [head, "|" + "---|" * (head.count("|") - 1)]
+
+    def pair(by, key, fmt="{:.3g}"):
+        def one(v):
+            return ("yes" if v else "no") if isinstance(v, bool) \
+                else fmt.format(v)
+        return " / ".join(one(by[m][key]) if m in by else "—"
+                          for m in ("single", "multi"))
+    for (arch, shape), by in cells.items():
+        line = (f"| {arch} | {shape} | {pair(by, 'flops_dev')} "
+                f"| {pair(by, 'bytes_dev')} | {pair(by, 'coll_bytes_dev')} "
+                f"| {pair(by, 'peak_bytes_dev')} "
+                f"| {pair(by, 'fits_card', '{}')} "
+                f"| {pair(by, 'bottleneck', '{}')} |")
+        if other is not None:
+            o = alt.get((arch, shape), {})
+            line += (f" {pair(o, 'coll_bytes_dev')} "
+                     f"| {pair(o, 'peak_bytes_dev')} "
+                     f"| {pair(o, 'bottleneck', '{}')} |")
+        out.append(line)
+    return "\n".join(out)
+
+
 def main(argv=None):
-    """``python -m repro_torch.benchmarks.roofline [--mesh ...]``: the
-    detailed table of the train cells' dry-run records."""
+    """``python -m repro_torch.benchmarks.roofline [--mesh ...] [--kind
+    ...] [--strategy ...]``: the detailed table of the dry-run records
+    of a strategy (every cell, or
+    the train, prefill or decode cells; with ``--mesh both`` a line a
+    cell, the two meshes side by side)."""
     import argparse
     ap = argparse.ArgumentParser(description=main.__doc__.splitlines()[0])
     ap.add_argument("--mesh", default="both",
                     choices=["single", "multi", "both"])
+    ap.add_argument("--kind", choices=["train", "prefill", "decode"])
+    ap.add_argument("--strategy", default="tp",
+                    choices=["tp", "fsdp", "serve"])
     ap.add_argument("--results", default=str(RESULTS))
+    ap.add_argument("--beside", choices=["tp", "fsdp", "serve"],
+                    help="with --mesh both: another strategy's collective "
+                         "bytes, peak and bottleneck in the same lines")
     args = ap.parse_args(argv)
     meshes = ["single", "multi"] if args.mesh == "both" else [args.mesh]
-    rows = [r for m in meshes for r in full_table(m, Path(args.results))]
+
+    def table(strategy):
+        return [r for m in meshes
+                for r in full_table(m, Path(args.results), strategy)
+                if args.kind is None
+                or get_shape(r["shape"]).kind == args.kind]
+    rows = table(args.strategy)
     print("# per device; bounds at H100 SXM published peaks, 700 W")
-    print(format_detail(rows))
+    if args.mesh != "both":
+        print(format_detail(rows))
+        return
+    other = None if args.beside is None else table(args.beside)
+    print(format_both(rows, other, args.beside or ""))
 
 
 if __name__ == "__main__":

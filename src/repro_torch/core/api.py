@@ -14,7 +14,8 @@ rank's slice, ``loss_fn`` runs the sharded forward on the rank's rows of
 the batch (``batch_shardings`` says which; Whisper's ``frames`` and
 LLaVA's ``img`` follow the tokens' rows), and the train step perturbs
 and updates each shard at its global flat indices
-(``core/engine.py``); every stack runs there.
+(``core/engine.py``); every stack runs there, and so do
+``prefill_step`` and ``decode_step`` over the rank's cache shards.
 
 Whisper's encoder runs on ``frames`` [B, encoder_seq, d] wherever the
 decoder sees a whole sequence (prefill, train); a decode step reads the
@@ -190,6 +191,20 @@ def abstract_params(cfg: ModelConfig, lane: Optional[LaneConfig] = None, *,
         params = init(cfg, lane, seed=0, device="cpu", max_seq=max_seq)
     return tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype,
                                           device="meta"), params)
+
+
+def mesh_run(cfg: ModelConfig, shape, lane: Optional[LaneConfig], mesh,
+             strategy: str = "tp"):
+    """The ``MeshRun`` of ``cfg`` at ``shape`` on ``mesh`` (None for one
+    device): ``ShardingRules(mesh, cfg, shape, strategy)`` and the
+    params' specs and shard descriptors over the abstract init (a
+    learned ``pos_embed`` of ``shape.seq_len`` rows)."""
+    if mesh is None:
+        return None
+    from ..sharding.collectives import MeshRun
+    from ..sharding.rules import ShardingRules
+    return MeshRun(mesh, ShardingRules(mesh, cfg, shape, strategy=strategy),
+                   abstract_params(cfg, lane, max_seq=shape.seq_len))
 
 
 def _check_inputs(cfg: ModelConfig, tokens, frames, img):
@@ -438,27 +453,78 @@ def decode_step_paged(params, cfg: ModelConfig, tokens, caches, page_table,
     return head_logits(params, x, cfg)[:, 0].float()
 
 
-def prefill_step(params, cfg: ModelConfig, tokens, frames=None, img=None):
+def _greedy(params, cfg: ModelConfig, x, run, logits: bool):
+    """(the greedy token [B, 1] int64 of the hidden rows x [B, 1, d],
+    and with ``logits`` the f32 logits [B, 1, V] it is the argmax of:
+    the padded vocab on one device, the rank's vocab columns on a
+    mesh)."""
+    out = head_logits(params, x, cfg, run).float()
+    if run is None:
+        tok = torch.argmax(out, dim=-1)
+    else:
+        from ..sharding.collectives import vocab_argmax
+        tok = vocab_argmax(out, run)
+    return tok, (out if logits else None)
+
+
+def prefill_step(params, cfg: ModelConfig, tokens, frames=None, img=None,
+                 run=None, logits: bool = False):
     """The dense baseline's prefill of tokens [B, S], no padding (with
     Whisper's ``frames``, LLaVA's ``img``). Returns (the greedy next
     token [B, 1] int64, caches {"zo", "bp"}: attention KV [periods, B,
     n_img + S, KV, Dh], a window's ring when that exceeds it, Whisper's
-    ck / cv, and the recurrent state)."""
+    ck / cv, and the recurrent state); with ``logits``, also the f32
+    logits the token is the argmax of (``_greedy``).
+
+    On a mesh (``run``, a ``MeshRun`` bound to the rules of the prefill
+    shape; ``params`` the rank's shards; ``tokens``, ``frames`` and
+    ``img`` the rank's rows, ``batch_shardings``) every block runs its
+    mesh form (``transformer.py::_block_on_mesh``), the greedy token is
+    taken over the vocab split across `model`
+    (``collectives.vocab_argmax``), and the caches are the rank's shards
+    in the JAX package's layout for the rules (``sharding/params.py::
+    cache_shardings``; KV * kv_dup heads under the ``tp`` plan)."""
     x, caches = _backbone(params, cfg, tokens, _positions(tokens, cfg),
-                          "prefill", frames=frames, img=img)
-    logits = head_logits(params, x[:, -1:], cfg)
-    return torch.argmax(logits.float(), dim=-1), caches
+                          "prefill", frames=frames, img=img, run=run)
+    tok, out = _greedy(params, cfg, x[:, -1:], run, logits)
+    return (tok, caches, out) if logits else (tok, caches)
 
 
-def decode_step(params, cfg: ModelConfig, tokens, caches, cache_len: int):
+def decode_step(params, cfg: ModelConfig, tokens, caches, cache_len: int,
+                run=None, logits: bool = False):
     """One dense decode step: tokens [B, 1] at position ``cache_len``
     (image tokens included) against caches grown by
     ``serve.kv_pages.grow_dense_caches``, which are written in place.
-    Returns (the greedy next token [B, 1] int64, caches)."""
+    Returns (the greedy next token [B, 1] int64, caches); with
+    ``logits``, also the f32 logits (``_greedy``).
+
+    On a mesh (``run``, bound to the rules of the decode shape, whose
+    ``seq_len`` sizes the caches; ``tokens`` the rank's rows) the caches
+    are the rank's shards laid out by ``cache_shardings`` for those
+    rules (``make_caches(..., run=)``; the ``serve`` strategy's ``seq``
+    plan context-shards them over `model`, and a batch below the batch
+    axes' size over `data`), written in place as on one device."""
     B = tokens.shape[0]
     positions = torch.full((B, 1), cache_len, dtype=torch.int64,
                            device=tokens.device)
     x, caches = _backbone(params, cfg, tokens, positions, "decode",
-                          caches=caches, cache_len=cache_len)
-    logits = head_logits(params, x, cfg)
-    return torch.argmax(logits.float(), dim=-1), caches
+                          caches=caches, cache_len=cache_len, run=run)
+    tok, out = _greedy(params, cfg, x, run, logits)
+    return (tok, caches, out) if logits else (tok, caches)
+
+
+def abstract_caches(cfg: ModelConfig, shape, lane: Optional[LaneConfig] = None,
+                    run=None):
+    """The global caches of a decode at ``shape`` (B = global_batch,
+    T = seq_len capped at the window), split into {"zo", "bp"}, as
+    ``meta`` tensors: the counterpart of the reference's
+    ``BuiltModel.abstract_caches``, in its layout for ``run``'s rules
+    (KV * kv_dup heads under the ``tp`` plan; one device's without a
+    mesh). ``MeshRun.cache_descs`` gives a rank's shards of it."""
+    from ..models.transformer import make_caches
+    dup = 1
+    if run is not None and run.rules.attn.kind == "tp":
+        dup = run.rules.attn.kv_dup
+    caches = make_caches(cfg, shape.global_batch, shape.seq_len,
+                         device="meta", kv_dup=dup)
+    return split_caches(caches, cfg, lane or LaneConfig())

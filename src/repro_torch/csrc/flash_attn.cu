@@ -15,7 +15,11 @@
 // k > p - window): top-left at offset 0. They set a masked score to
 // -1e30, as the TPU kernel does, so a row with
 // no visible key averages V over all Sk keys, as the reference does; a
-// key past Sk scores -inf. The result is acc / max(l, 1e-30). Any Sq,
+// key past Sk scores -inf. The result is acc / max(l, 1e-30). Given an
+// lse buffer, each row's log-sum-exp m + log(max(l, 1e-30)) is written
+// too (f32 [B,H,Sq]: a rank's partial attention over its share of the
+// keys, which a context-parallel decode combines across ranks); the
+// output's arithmetic is the same with or without it. Any Sq,
 // Sk >= 1; D in {16, 64, 128}; f32 or bf16. Each of q, k, v, o is
 // addressed through its own (b, h, s) element strides with a contiguous
 // last dim, so the model's transposed [B,S,H,D] views need no copy. Key
@@ -99,6 +103,7 @@ struct Args {
   float scale;
   int causal, window;
   int q_off;          // the position of query row 0
+  float* lse;         // [B, H, Sq] row log-sum-exps, or null
 };
 
 // The key range [begin, end) that the rows q_first..q_last (positions
@@ -296,6 +301,9 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd(Args a) {
 #pragma unroll
     for (int c = 0; c < L::NC; ++c)
       op[qi * a.o_ss + out_col<D>(tx, c)] = acc[i][c] / den;
+    if (a.lse != nullptr && tx == 0)
+      a.lse[(static_cast<long long>(b) * a.H + h) * a.Sq + qi] =
+          m[i] + logf(den);
   }
 }
 
@@ -723,6 +731,11 @@ __global__ void __launch_bounds__(kThreads, 1) flash_tc(Args a, int vec) {
       op[qi * a.o_ss + 8 * (i / 4) + 2 * t + (i & 1)] =
           __float2bfloat16_rn(o[i] / ((i & 2) ? den1 : den0));
   }
+  if (a.lse != nullptr && t == 0) {
+    const long long row = (static_cast<long long>(b) * a.H + h) * a.Sq;
+    if (qi0 < a.Sq) a.lse[row + qi0] = m0 + logf(den0);
+    if (qi1 < a.Sq) a.lse[row + qi1] = m1 + logf(den1);
+  }
 }
 
 template <int D>
@@ -740,24 +753,27 @@ int go(const Args& a, int vec, cudaStream_t stream) {
 
 Args make_args(const void* q, const void* k, const void* v, void* o, int B,
                int H, int Hkv, int Sq, int Sk, const long long* st,
-               float scale, int causal, int window, int q_offset) {
+               float scale, int causal, int window, int q_offset,
+               void* lse) {
   return Args{q,     k,     v,     o,     B,      H,      Hkv,   Sq,
               Sk,    st[0], st[1], st[2], st[3], st[4], st[5], st[6],
               st[7], st[8], st[9], st[10], st[11], scale, causal, window,
-              q_offset};
+              q_offset, static_cast<float*>(lse)};
 }
 
 }  // namespace
 
 // strides: 12 element strides, (batch, head, sequence) of q, k, v, o;
-// q_offset: the position of query row 0 (>= 0).
+// q_offset: the position of query row 0 (>= 0); lse: null, or f32
+// [B, H, Sq] (contiguous) for each row's log-sum-exp of its scaled,
+// masked scores, m + log(l) of the online softmax.
 extern "C" int flash_attn_f32(const void* q, const void* k, const void* v,
                               void* o, int B, int H, int Hkv, int Sq, int Sk,
                               int D, const long long* strides, float scale,
-                              int causal, int window,
-                              int q_offset, cudaStream_t stream) {
+                              int causal, int window, int q_offset,
+                              void* lse, cudaStream_t stream) {
   const Args a = make_args(q, k, v, o, B, H, Hkv, Sq, Sk, strides, scale,
-                           causal, window, q_offset);
+                           causal, window, q_offset, lse);
   switch (D) {
     case 16:
       return go<16>(a, stream);
@@ -773,10 +789,10 @@ extern "C" int flash_attn_f32(const void* q, const void* k, const void* v,
 extern "C" int flash_attn_bf16(const void* q, const void* k, const void* v,
                                void* o, int B, int H, int Hkv, int Sq, int Sk,
                                int D, const long long* strides, float scale,
-                               int causal, int window,
-                               int q_offset, cudaStream_t stream) {
+                               int causal, int window, int q_offset,
+                               void* lse, cudaStream_t stream) {
   const Args a = make_args(q, k, v, o, B, H, Hkv, Sq, Sk, strides, scale,
-                           causal, window, q_offset);
+                           causal, window, q_offset, lse);
   // cp.async moves 16-byte chunks: every row of q, k, v must start on 16
   // bytes
   bool vec = reinterpret_cast<uintptr_t>(q) % 16 == 0 &&

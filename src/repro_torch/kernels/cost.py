@@ -172,15 +172,18 @@ def visible_pairs(Sq: int, Sk: int, causal: bool, window: int,
 
 
 def flash_attention(q_shape, k_shape, dtype, *, causal: bool = True,
-                    window: int = 0, q_offset: int = 0) -> KernelCost:
+                    window: int = 0, q_offset: int = 0,
+                    lse: bool = False) -> KernelCost:
     """o = softmax(q k^T) v for q [B, H, Sq, D], k / v [B, Hkv, Sk, D]:
     4 B H D FLOPs a visible (query, key) pair (Q K^T and P V) at the
-    card's peak for ``dtype``; q, k, v read and o written once."""
+    card's peak for ``dtype``; q, k, v read and o written once, and with
+    ``lse`` the f32 [B, H, Sq] log-sum-exps written too."""
     B, H, Sq, D = q_shape
     Sk = k_shape[2]
     itemsize = _itemsize(dtype)
     flops = 4 * B * H * D * visible_pairs(Sq, Sk, causal, window, q_offset)
-    nbytes = itemsize * (2 * B * H * Sq * D + 2 * B * k_shape[1] * Sk * D)
+    nbytes = itemsize * (2 * B * H * Sq * D + 2 * B * k_shape[1] * Sk * D) \
+        + (4 * B * H * Sq if lse else 0)
     return _cost(flops, nbytes, flops / peak_ops(dtype))
 
 

@@ -4,7 +4,8 @@ The port of ``repro/kernels/flash_attn.py``: causal / sliding-window
 attention with the online softmax, forward only, f32 accumulation, in the
 JAX layout (q [B,H,Sq,D], k/v [B,Hkv,Sk,D]), query row i at position
 ``q_offset + i`` (a rank's rows of the sequence-sharded attention plan
-start past 0). ``launches`` counts its launches and nothing else.
+start past 0), and with ``return_lse`` each row's log-sum-exp too.
+``launches`` counts its launches and nothing else.
 """
 from __future__ import annotations
 
@@ -27,7 +28,7 @@ def _fn(dtype):
     fn = getattr(_build.load("flash_attn"), _SYMBOLS[dtype])
     fn.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                    ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, _I, _I,
-                   _I, _P]
+                   _I, _P, _P]
     fn.restype = ctypes.c_int
     return fn
 
@@ -65,13 +66,16 @@ def _check(q, k, v, window, q_offset):
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
-                    scale: float | None = None, q_offset: int = 0):
+                    scale: float | None = None, q_offset: int = 0,
+                    return_lse: bool = False):
     """q [B,H,Sq,D], k/v [B,Hkv,Sk,D] on a CUDA device, all f32 or all
     bf16, each with a contiguous last dim (other strides are free); q head
     h reads kv head h // (H / Hkv); query row i sits at position
     ``q_offset + i`` for the causal and window masks. Returns o
     [B,H,Sq,D] in q's dtype, in q's memory layout when q is dense (a
-    transposed [B,S,H,D] view gives one back). The kernel has no
+    transposed [B,S,H,D] view gives one back); with ``return_lse``,
+    (o, lse): lse f32 [B,H,Sq], each row's log-sum-exp of its scaled,
+    masked scores (o is the same bits either way). The kernel has no
     backward."""
     global launches
     _check(q, k, v, window, q_offset)
@@ -79,17 +83,20 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     Hkv, Sk = k.shape[1], k.shape[2]
     scale = 1.0 / math.sqrt(D) if scale is None else scale
     out = torch.empty_like(q)
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device) \
+        if return_lse else None
     if out.numel() == 0:
-        return out
+        return (out, lse) if return_lse else out
     strides = (ctypes.c_longlong * 12)(*(t.stride(i) for t in (q, k, v, out)
                                          for i in range(3)))
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = _fn(q.dtype)(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                       out.data_ptr(), B, H, Hkv, Sq, Sk, D, strides,
                       float(scale), int(bool(causal)), int(window),
-                      int(q_offset), stream)
+                      int(q_offset), None if lse is None else lse.data_ptr(),
+                      stream)
     if rc:
         raise RuntimeError(f"flash_attention: launch failed with CUDA error "
                            f"{rc}")
     launches += 1
-    return out
+    return (out, lse) if return_lse else out

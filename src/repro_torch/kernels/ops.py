@@ -23,12 +23,15 @@ from . import zo_perturb as _perturb
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
-                    scale: float | None = None, q_offset: int = 0):
+                    scale: float | None = None, q_offset: int = 0,
+                    return_lse: bool = False):
     """Online-softmax attention in the JAX layout: q [B,H,Sq,D], k/v
     [B,Hkv,Sk,D] (q head h reads kv head h // (H / Hkv)) -> o [B,H,Sq,D]
     in q's dtype; query row i at position ``q_offset + i``, key j at j
-    (masks top-left aligned at offset 0). Forward only, as the TPU kernel
-    is: an input that requires grad raises, on every device."""
+    (masks top-left aligned at offset 0). With ``return_lse``, (o, lse):
+    each row's log-sum-exp of its scaled, masked scores, f32 [B,H,Sq].
+    Forward only, as the TPU kernel is: an input that requires grad
+    raises, on every device."""
     if q.requires_grad or k.requires_grad or v.requires_grad:
         raise ValueError("flash_attention has no backward; an input "
                          "requires grad")
@@ -36,15 +39,18 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     if counter is not None and q.numel():
         counter.kernel("flash_attention", q.dtype, cost.flash_attention(
             tuple(q.shape), tuple(k.shape), q.dtype, causal=causal,
-            window=window, q_offset=q_offset))
+            window=window, q_offset=q_offset, lse=return_lse))
+    kw = dict(causal=causal, window=window, scale=scale, q_offset=q_offset)
+    if return_lse:
+        kw["return_lse"] = True
     if q.is_cuda:
-        return _flash.flash_attention(q, k, v, causal=causal, window=window,
-                                      scale=scale, q_offset=q_offset)
+        return _flash.flash_attention(q, k, v, **kw)
     if q.device.type == "cpu":
-        return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
-                                       scale=scale, q_offset=q_offset)
+        return ref.flash_attention_ref(q, k, v, **kw)
     if q.is_meta:
-        return torch.empty_like(q)
+        o = torch.empty_like(q)
+        return (o, torch.empty(q.shape[:3], dtype=torch.float32,
+                               device="meta")) if return_lse else o
     raise ValueError(f"flash_attention: no path for {q.device}")
 
 

@@ -19,15 +19,17 @@ NEG_INF = -1e30
 
 
 def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
-                        scale: float | None = None,
-                        q_offset: int = 0) -> torch.Tensor:
+                        scale: float | None = None, q_offset: int = 0,
+                        return_lse: bool = False):
     """Dense-softmax version of the flash attention
     (``repro/kernels/ref.py::flash_attention_ref``, same layout): q
     [B,H,Sq,D], k/v [B,Hkv,Sk,D] -> o [B,H,Sq,D] in q's dtype. Hkv divides
     H and q head h reads kv head h // (H / Hkv) (the JAX function has
     Hkv == H). Query row i sits at position ``q_offset + i`` (the JAX
     function's rows start at 0: masks top-left aligned), masked scores
-    are -1e30, and the scores, softmax and weighted sum are f32."""
+    are -1e30, and the scores, softmax and weighted sum are f32. With
+    ``return_lse`` also each row's log-sum-exp of those scores, f32
+    [B,H,Sq] (the port's addition: the JAX function has none)."""
     B, H, Sq, D = q.shape
     Sk = k.shape[2]
     scale = 1.0 / math.sqrt(D) if scale is None else scale
@@ -44,7 +46,8 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
         mask &= k_pos > q_pos - window
     s = torch.where(mask[None, None], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
-    return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
+    o = torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
+    return (o, torch.logsumexp(s, dim=-1)) if return_lse else o
 
 
 def _monotone_key(x: torch.Tensor) -> torch.Tensor:

@@ -1,8 +1,9 @@
 """Collective audit: the dry run's microscope.
 
 The port's twin of ``repro/launch/audit.py``. Runs one (arch x shape x
-strategy) train cell as ``launch/dryrun.py`` does (a fake world of the
-production mesh, rank 0's step on ``meta`` tensors, counted) and prints
+strategy) cell as ``launch/dryrun.py`` does (a fake world of the
+production mesh, rank 0's train step, prefill or decode step on
+``meta`` tensors, counted) and prints
 the top collectives by per-device bytes, each with its link and its time
 there (``benchmarks/roofline.py``: bounds at the links' published rates,
 not measurements), then FLOPs, bytes, temp and argument bytes, so each
@@ -18,7 +19,7 @@ from math import prod
 
 from ..configs import LaneConfig, get_arch, get_shape
 from .comm_analysis import collective_bytes
-from .dryrun import analyze_step
+from .dryrun import analyze
 from .mesh import fake_world, make_production_mesh, production_shape
 
 
@@ -28,14 +29,10 @@ def audit(arch: str, shape_name: str, strategy: str = "tp", top: int = 15,
     from ..benchmarks.roofline import NDR_BW, NVLINK_BW, link_of
     cfg = get_arch(arch)
     shape = get_shape(shape_name)
-    if shape.kind != "train":
-        raise SystemExit(f"{shape_name}: the dry run runs the train cells "
-                         "only (launch/dryrun.py)")
     with fake_world(prod(production_shape(multi_pod)[0])):
         mesh = make_production_mesh(multi_pod=multi_pod)
-        full = analyze_step(cfg, shape, LaneConfig(lane=lane,
-                                                   fused_probes=fused),
-                            mesh, strategy)
+        full = analyze(cfg, shape, LaneConfig(lane=lane, fused_probes=fused),
+                       mesh, strategy)
     total, ops = collective_bytes(full["records"])
     ops.sort(key=lambda o: -o.bytes_moved)
     print(f"total per-device collective bytes: {total:.3e} "

@@ -32,11 +32,16 @@ rank 0's). ``MeshRun``'s replica checks read values, which ``meta``
 tensors have none of: the step's check of the coefficients gathers but
 does not compare, and ``check_replicas`` is not called.
 
-The train cells run. The prefill and decode cells are recorded as
-skipped: a mesh needs ``prefill_step`` and ``decode_step`` with a
-``MeshRun``, over the caches laid out by ``sharding/params.py::
-cache_shardings``, and ``long_500k``'s context-parallel decode
-(``rules.cache_seq_axes``), which the port does not run yet.
+The prefill and decode cells run the serving steps the same way
+(``analyze_serve``): rank 0's ``core/api.py::prefill_step`` on its rows
+of the tokens (and of Whisper's frames and LLaVA's image embeddings), or
+its ``decode_step`` of one token a row against its shards of the caches
+(``MeshRun.cache_descs`` of ``api.abstract_caches``: the ``serve``
+strategy's ``seq`` plan context-shards them over `model`, and
+``long_500k``'s batch of 1 over `data`, the rules' ``cache_seq_axes``),
+with the caches donated to ``meta_footprint`` as the reference donates
+argument 2. A decode runs at ``cache_len = seq_len - 1`` (the record's
+``cache_len``), so the whole cache is attended.
 
 Every time written is a bound at the H100 SXM's published peaks (700 W;
 ``kernels/cost.py``), not a measurement.
@@ -67,10 +72,6 @@ from .comm_analysis import collective_bytes, summarize
 from .mesh import fake_world, make_production_mesh, production_shape
 
 RESULTS = Path(__file__).resolve().parents[3] / "results" / "dryrun_torch"
-SERVE_SKIP = ("the port runs no prefill_step / decode_step on a mesh yet: "
-              "they need a MeshRun over the caches of sharding/params.py::"
-              "cache_shardings, and long_500k's context-parallel decode "
-              "(rules.cache_seq_axes)")
 # ops that allocate and write nothing
 _NO_BYTES = ("empty", "new_empty", "empty_like", "empty_strided")
 
@@ -122,17 +123,20 @@ class OpCounter:
 
 
 def rank_inputs(cfg, shape, lane: LaneConfig, run=None):
-    """(batch, probe_mask) of the rank's rows of a train ``shape``: meta
-    tensors of each entry's local shape (``api.batch_shardings``' rows),
-    and the host probe mask."""
+    """(batch, probe_mask) of the rank's rows of ``shape``: meta tensors
+    of each entry's local shape (``api.batch_shardings``' rows), and the
+    host probe mask of a train shape (None for prefill and decode)."""
     from ..sharding.collectives import rows_slice
     specs = api.input_specs(cfg, shape, lane)
-    pm = specs.pop("probe_mask")
+    pm = specs.pop("probe_mask", None)
     if run is None:
         return specs, pm
     sh = api.batch_shardings(specs, run.rules)
     out = {}
     for k, t in specs.items():
+        if not t.dim():                          # decode's cache_len
+            out[k] = t
+            continue
         rows = rows_slice(t.shape[0], sh[k][0], run.coords, run.sizes)
         out[k] = torch.empty((rows.stop - rows.start,) + tuple(t.shape[1:]),
                              dtype=t.dtype, device="meta")
@@ -157,6 +161,55 @@ def analyze_step(cfg, shape, lane: LaneConfig, mesh=None,
     del params
     with cost.counting() as counter, OpCounter() as ops:
         mem = meta_footprint(step, state, batch, pm, donate_argnums=(0,))
+    return _summary(counter, ops, mem, run)
+
+
+def analyze_serve(cfg, shape, lane: LaneConfig, mesh=None,
+                  strategy: str = "tp") -> Dict:
+    """One serving step of ``cfg`` at a prefill or decode ``shape`` on
+    ``mesh`` (as ``analyze_step``), on ``meta`` tensors under the three
+    counters: rank 0's ``api.prefill_step`` of its rows of the inputs,
+    or its ``api.decode_step`` of one token a row at ``cache_len =
+    seq_len - 1`` against its shards of the caches
+    (``make_caches(..., run=)``), donated. The same keys as
+    ``analyze_step``, and ``"cache_len"`` for a decode."""
+    from ..models.transformer import make_caches
+    run = api.mesh_run(cfg, shape, lane, mesh, strategy)
+    params = api.init(cfg, lane, seed=0, device="meta",
+                      max_seq=shape.seq_len, run=run)
+    batch, _ = rank_inputs(cfg, shape, lane, run)
+    if shape.kind == "decode":
+        cache_len = shape.seq_len - 1
+        caches = api.split_caches(make_caches(
+            cfg, shape.global_batch, shape.seq_len, device="meta", run=run),
+            cfg, lane)
+    with cost.counting() as counter, OpCounter() as ops:
+        if shape.kind == "prefill":
+            mem = meta_footprint(
+                lambda p, b: api.prefill_step(
+                    p, cfg, b["tokens"], b.get("frames"), b.get("img"),
+                    run=run), params, batch)
+        else:
+            mem = meta_footprint(
+                lambda p, t, c: api.decode_step(p, cfg, t, c, cache_len,
+                                                run=run),
+                params, batch["tokens"], caches, donate_argnums=(2,))
+    out = _summary(counter, ops, mem, run)
+    if shape.kind == "decode":
+        out["cache_len"] = cache_len
+    return out
+
+
+def analyze(cfg, shape, lane: LaneConfig, mesh=None,
+            strategy: str = "tp") -> Dict:
+    """``analyze_step`` of a train shape, ``analyze_serve`` of a
+    prefill or decode one."""
+    fn = analyze_step if shape.kind == "train" else analyze_serve
+    return fn(cfg, shape, lane, mesh, strategy)
+
+
+def _summary(counter, ops, mem, run) -> Dict:
+    """A step's record from its counters (``analyze_step``)."""
     total, coll = collective_bytes(counter.collectives)
     groups: Dict[tuple, Dict] = {}
     for o in coll:
@@ -215,26 +268,25 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, lane: LaneConfig,
     rec = {"arch": arch, "shape": shape_name, "mesh": mesh_kind,
            "strategy": strategy, "mesh_shape": dict(zip(axes, dims)),
            "lane": lane.lane, "status": "ok"}
-    if shape.kind != "train":
-        rec["status"] = "skipped"
-        rec["reason"] = SERVE_SKIP
-    else:
-        try:
-            world = 1
-            for d in dims:
-                world *= d
-            with fake_world(world):
-                mesh = make_production_mesh(multi_pod=(mesh_kind == "multi"))
-                full = analyze_step(cfg, shape, lane, mesh, strategy)
-            rules = full.pop("rules")
-            full.pop("records")
-            rec["full"] = full
-            rec["attn_plan"] = dataclasses.asdict(rules.attn)
-            rec["moe_plan"] = rules.moe
-        except Exception as e:  # noqa: BLE001 - record the failure, go on
-            rec["status"] = "error"
-            rec["error"] = f"{type(e).__name__}: {e}"
-            rec["traceback"] = traceback.format_exc(limit=20)
+    try:
+        world = 1
+        for d in dims:
+            world *= d
+        with fake_world(world):
+            mesh = make_production_mesh(multi_pod=(mesh_kind == "multi"))
+            full = analyze(cfg, shape, lane, mesh, strategy)
+        rules = full.pop("rules")
+        full.pop("records")
+        if "cache_len" in full:
+            rec["cache_len"] = full.pop("cache_len")
+        rec["full"] = full
+        rec["attn_plan"] = dataclasses.asdict(rules.attn)
+        rec["moe_plan"] = rules.moe
+        rec["cache_seq_axes"] = list(rules.cache_seq_axes)
+    except Exception as e:  # noqa: BLE001 - record the failure, go on
+        rec["status"] = "error"
+        rec["error"] = f"{type(e).__name__}: {e}"
+        rec["traceback"] = traceback.format_exc(limit=20)
     rec["elapsed_s"] = round(time.perf_counter() - t0, 1)
     out_dir.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(rec, indent=1))
@@ -295,9 +347,7 @@ def main(argv=None) -> int:
             rec = run_cell(a, s, mk, lane, out_dir, force=args.force,
                            strategy=args.strategy)
             st = rec["status"]
-            if st == "skipped":
-                print(f"SKIP {a} x {s} x {mk}: {rec['reason']}", flush=True)
-            elif st != "ok":
+            if st != "ok":
                 failures += 1
                 print(f"FAIL {a} x {s} x {mk}: {rec.get('error')}",
                       flush=True)

@@ -23,7 +23,11 @@ On a mesh the attention form follows the rules (``attention_on_mesh``):
 the ``tp`` plan on the rank's heads, the ``seq`` plan on the rank's
 query rows (``_attention_seq``: weights whole over `model`, the flash
 kernel at the rows' query offset), and plain attention on gathered
-weights where no axis carries TP compute (the ``fsdp`` strategy).
+weights where no axis carries TP compute (the ``fsdp`` strategy). A
+prefill on a mesh keeps its keys and values in the cache's layout
+(``cache_kv``); a decode step writes and attends the rank's shard of the
+cache (``decode_attention_on_mesh``, ``cross_decode_on_mesh``), its
+partials combined across ranks where the rules split the cache's slots.
 """
 from __future__ import annotations
 
@@ -226,40 +230,44 @@ def _rank_part(w, spec, dim, idx, run):
 
 
 def attention_on_mesh(p, x, cfg: ModelConfig, positions, specs, run, *,
-                      causal: bool = True, window: int = 0, kv_x=None):
-    """Self-attention of a training forward on a mesh (``run``), in the
-    form the rules give: the ``seq`` plan (``_attention_seq``), plain
-    attention where there is no TP compute (``MeshRun.whole_weights``:
-    weights already gathered whole, x the rank's rows), else the ``tp``
-    plan (``_attention_tp``). ``kv_x`` [B, T, d] (Whisper's encoder
-    output, the rank's rows; ``causal`` False): cross-attention, K and V
-    from ``kv_x`` with no k_norm and no RoPE, as on one device. Returns
-    y [B, S, d]."""
+                      causal: bool = True, window: int = 0, kv_x=None,
+                      keep_kv: bool = False):
+    """Attention over the whole sequence on a mesh (``run``: a training
+    forward, Whisper's encoder, or a prefill), in the form the rules
+    give: the ``seq`` plan (``_attention_seq``), plain attention where
+    there is no TP compute (``MeshRun.whole_weights``: weights already
+    gathered whole, x the rank's rows), else the ``tp`` plan
+    (``_attention_tp``). ``kv_x`` [B, T, d] (Whisper's encoder output,
+    the rank's rows; ``causal`` False): cross-attention, K and V from
+    ``kv_x`` with no k_norm and no RoPE, as on one device. Returns y
+    [B, S, d]; with ``keep_kv`` (a prefill), (y, (k, v)): every
+    position's keys and values [B, T, heads, Dh] of the rank's heads
+    (its KVd / tp groups under the ``tp`` plan; every head otherwise),
+    for ``cache_kv`` to lay out."""
     if run.rules.attn.kind == "seq":
-        return _attention_seq(p, x, cfg, positions, run, causal=causal,
-                              window=window, kv_x=kv_x)
-    if run.whole_weights:
+        out = _attention_seq(p, x, cfg, positions, run, causal=causal,
+                             window=window, kv_x=kv_x, keep_kv=keep_kv)
+    elif run.whole_weights:
         kv = None if kv_x is None else cross_kv(p, kv_x)
-        return attention(p, x, cfg, positions, causal=causal,
-                         window=window, kv_override=kv)[0]
-    return _attention_tp(p, x, cfg, positions, specs, run, causal=causal,
-                         window=window, kv_x=kv_x)
+        out = attention(p, x, cfg, positions, causal=causal, window=window,
+                        kv_override=kv)
+    else:
+        out = _attention_tp(p, x, cfg, positions, specs, run, causal=causal,
+                            window=window, kv_x=kv_x)
+    return out if keep_kv else out[0]
 
 
-def _attention_tp(p, x, cfg: ModelConfig, positions, specs, run, *,
-                  causal: bool, window: int, kv_x=None):
-    """Self-attention of a training forward on the rank's heads under the
-    rules' ``tp`` plan. The rank holds padded Q heads [r Hp/tp, (r+1)
-    Hp/tp) (Hp = H + q_pad; heads past H are zero activations), i.e. KV
-    groups [r KVd/tp, (r+1) KVd/tp) of KVd = KV * kv_dup, group j reading
-    KV head j // kv_dup; weights replicated over `model` (a head count
-    the mesh does not divide) are indexed to those heads. The output
-    projection's partial sum is all-reduced over `model`
-    (``_row_parallel``). Cross-attention (``kv_x``): K and V of the
-    rank's KV groups from ``kv_x``, repeated kv_dup times as the JAX
-    package's ``_cross_kv`` repeats them; ``kv_x`` is ``copy_to``
-    `model`, so its gradient, each rank's share from its heads, is
-    summed there."""
+def _tp_qkv(p, x, cfg: ModelConfig, positions, specs, run, kv_x=None):
+    """Q, K and V of the rank's heads under the rules' ``tp`` plan: q
+    [B, S, Hp / tp, Dh] (its padded Q heads [r Hp/tp, (r+1) Hp/tp), Hp
+    = H + q_pad, zeros past H), k and v [B, T, KVd / tp, Dh] (its KV
+    groups [r KVd/tp, (r+1) KVd/tp) of KVd = KV * kv_dup, group j
+    reading KV head j // kv_dup; from ``kv_x`` for cross-attention, with
+    no k_norm and no RoPE), and the rank's real Q heads. Weights
+    replicated over `model` (a head count the mesh does not divide) are
+    indexed to those heads (``_rank_part``); x and ``kv_x`` are
+    ``copy_to`` `model`, so their gradients, each rank's share from its
+    heads, are summed there."""
     from ..sharding.collectives import copy_to
     plan = run.rules.attn
     B, S, _ = x.shape
@@ -271,7 +279,6 @@ def _attention_tp(p, x, cfg: ModelConfig, positions, specs, run, *,
     h0, j0 = r * hq, r * kvl
     real = list(range(h0, min(h0 + hq, H)))
     kv_heads = [j // dup for j in range(j0, j0 + kvl)]
-    scale = 1.0 / math.sqrt(Dh)
     xm = copy_to(x, run.model_group)
     src = xm if kv_x is None else copy_to(kv_x, run.model_group)
     wq = _rank_part(p["wq"], specs["wq"], 1, real, run)
@@ -290,6 +297,21 @@ def _attention_tp(p, x, cfg: ModelConfig, positions, specs, run, *,
         k = rope(k, positions, cfg.rope_theta)
     if len(real) < hq:                           # padded Q heads
         q = torch.cat([q, q.new_zeros(B, S, hq - len(real), Dh)], dim=2)
+    return q, k, v, real
+
+
+def _attention_tp(p, x, cfg: ModelConfig, positions, specs, run, *,
+                  causal: bool, window: int, kv_x=None):
+    """Attention over the whole sequence on the rank's heads under the
+    rules' ``tp`` plan (``_tp_qkv``; cross-attention's K and V of the
+    rank's KV groups repeated kv_dup times, as the JAX package's
+    ``_cross_kv`` repeats them). The output projection's partial sum is
+    all-reduced over `model` (``_row_parallel``). Returns (y, (k, v))."""
+    B, S, _ = x.shape
+    Dh = cfg.head_dim
+    q, k, v, real = _tp_qkv(p, x, cfg, positions, specs, run, kv_x)
+    hq, kvl = q.shape[2], k.shape[2]
+    scale = 1.0 / math.sqrt(Dh)
     if not (q.requires_grad or k.requires_grad or v.requires_grad):
         y = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                                 v.transpose(1, 2), causal=causal,
@@ -300,7 +322,7 @@ def _attention_tp(p, x, cfg: ModelConfig, positions, specs, run, *,
                                     causal=causal)
     y = y.reshape(B, S, hq, Dh)[:, :, :len(real)]
     wo = _rank_part(p["wo"], specs["wo"], 0, real, run)
-    return _row_parallel("bshk,hkd->bsd", y, wo, run)
+    return _row_parallel("bshk,hkd->bsd", y, wo, run), (k, v)
 
 
 def seq_rows(S: int, tp: int, r: int) -> Tuple[int, int]:
@@ -312,7 +334,7 @@ def seq_rows(S: int, tp: int, r: int) -> Tuple[int, int]:
 
 
 def _attention_seq(p, x, cfg: ModelConfig, positions, run, *, causal: bool,
-                   window: int, kv_x=None):
+                   window: int, kv_x=None, keep_kv: bool = False):
     """Self-attention of a training forward under the rules' ``seq``
     plan (``repro/models/layers.py``'s constraint of q's sequence dim
     over `model`): the Q/K/V/O weights are whole on every `model` rank;
@@ -329,7 +351,12 @@ def _attention_seq(p, x, cfg: ModelConfig, positions, run, *, causal: bool,
     share from its rows, are summed there. Cross-attention (``kv_x``,
     the encoder output, the same on every `model` rank): the rank's rows
     against every encoder position, K and V from all of ``kv_x``, which
-    is ``copy_to`` `model` too."""
+    is ``copy_to`` `model` too. Returns (y, (k, v)). With ``keep_kv``
+    (a prefill) K and V are computed for every position from the
+    replicated input, so each rank holds the keys and values of the
+    cache slots it keeps, a window's ring slots included, whichever
+    rank's rows their positions are; flash still reads keys 0 .. hi - 1
+    only."""
     from ..sharding.collectives import copy_to, seq_gather
     B, S, _ = x.shape
     H, KV, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -338,7 +365,8 @@ def _attention_seq(p, x, cfg: ModelConfig, positions, run, *, causal: bool,
     scale = 1.0 / math.sqrt(Dh)
     xm = copy_to(x, g)
     w = {name: copy_to(t, g) for name, t in p.items()}
-    src = xm[:, :hi if causal else S] if kv_x is None else copy_to(kv_x, g)
+    src = xm[:, :hi if causal and not keep_kv else S] if kv_x is None \
+        else copy_to(kv_x, g)
     q = torch.einsum("bsd,dhk->bshk", xm[:, lo:hi], w["wq"])
     k = torch.einsum("bsd,dhk->bshk", src, w["wk"])
     v = torch.einsum("bsd,dhk->bshk", src, w["wv"])
@@ -350,6 +378,9 @@ def _attention_seq(p, x, cfg: ModelConfig, positions, run, *, causal: bool,
     if cfg.rope_theta > 0 and kv_x is None:
         q = rope(q, positions[:, lo:hi], cfg.rope_theta)
         k = rope(k, positions[:, :T], cfg.rope_theta)
+    kept = k, v
+    if keep_kv and causal and kv_x is None:
+        k, v = k[:, :hi], v[:, :hi]
     n = hi - lo
     if not (q.requires_grad or k.requires_grad or v.requires_grad):
         y = q.new_zeros(q.shape) if n == 0 else ops.flash_attention(
@@ -361,7 +392,160 @@ def _attention_seq(p, x, cfg: ModelConfig, positions, run, *, causal: bool,
                                     positions, window, scale, causal=causal,
                                     q_offset=lo)
     out = torch.einsum("bshk,hkd->bsd", y.reshape(B, n, H, Dh), w["wo"])
-    return seq_gather(out, g, 1, lo, S)
+    return seq_gather(out, g, 1, lo, S), kept
+
+
+def cache_kv(k, v, run, window: int = 0):
+    """The rank's cache entries of a prefill's keys and values [B, S,
+    heads, Dh] (every position; ``attention_on_mesh(keep_kv=True)``), in
+    the layout of ``MeshRun.kv_layout``: a window's ring first, slot =
+    position mod window, as on one device, then the rank's block of the
+    slots where the rules split them."""
+    if window and k.shape[1] > window:
+        p0 = k.shape[1] - window
+        k = torch.roll(k[:, -window:], p0 % window, dims=1)
+        v = torch.roll(v[:, -window:], p0 % window, dims=1)
+    axes, t0, n = run.kv_layout(k.shape[1])
+    if axes:
+        k, v = k[:, t0:t0 + n], v[:, t0:t0 + n]
+    return k.contiguous(), v.contiguous()
+
+
+def _decode_qkv(p, x, cfg: ModelConfig, positions, specs, run):
+    """(q [B, 1, heads, Dh], k, v [B, 1, kv heads, Dh], the rank's real Q
+    heads or None) of a decode token: the rank's heads under the
+    ``tp`` plan with TP compute (``_tp_qkv``), every head otherwise (the
+    ``seq`` plan's whole weights, or ``fsdp``'s gathered ones)."""
+    if run.rules.attn.kind == "tp" and not run.whole_weights:
+        return _tp_qkv(p, x, cfg, positions, specs, run)
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
+    v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    if cfg.rope_theta > 0:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+    return q, k, v, None
+
+
+def _decode_out(y, p, specs, run, real):
+    """The output projection of a decode's heads y [B, 1, heads, Dh]:
+    row-parallel over `model` on the rank's real Q heads (``tp`` plan),
+    the whole ``wo`` otherwise."""
+    B, S = y.shape[:2]
+    if real is None:
+        return torch.einsum("bshk,hkd->bsd", y, p["wo"])
+    y = y[:, :, :len(real)]
+    wo = _rank_part(p["wo"], specs["wo"], 0, real, run)
+    return _row_parallel("bshk,hkd->bsd", y, wo, run)
+
+
+def _attend_partial(q, k, v, mask, scale):
+    """A rank's share of a softmax attention over its keys: q [B, Sq, KV,
+    G, Dh], k / v [B, T, KV, Dh], mask [B or 1, Sq, T]. Returns (o
+    [B, Sq, KV, G, Dh] f32, unnormalised: sum_t exp(s_t - m) v_t; m and
+    l [B, Sq, KV, G] f32, the row max (-1e30 for a row that sees none of
+    the keys) and the row sum of exp(s_t - m)), for
+    ``sharding/collectives.py::attend_combine``."""
+    s = torch.einsum("bskgh,btkh->bskgt", q.float(), k.float()) * scale
+    s = s.masked_fill(~mask[:, :, None, None, :], -1e30)
+    m = s.amax(dim=-1)
+    e = torch.exp(s - m[..., None])
+    o = torch.einsum("bskgt,btkh->bskgh", e, v.float())
+    return o, m, e.sum(dim=-1)
+
+
+def decode_attention_on_mesh(p, x, cfg: ModelConfig, positions, specs, run,
+                             cache, cache_len: int, window: int = 0):
+    """The S = 1 self-attention step against the rank's dense cache
+    shard (k, v) [B, T_loc, heads, Dh], laid out by
+    ``MeshRun.kv_layout`` of the decode's ``MeshRun.decode_slots``, the
+    cache written in place. The token's K / V is written by the rank
+    that holds its slot (``cache_len``, or ``cache_len % T`` in a
+    window's ring; a ring slot's position is read from the slot, so the
+    ring splits like any cache). Where the slots are not split, the
+    one-device form, ``_dense_decode``, on the rank's heads; where they
+    are (the ``seq`` plan at decode: over `model`; ``cache_seq_axes``,
+    a batch below the batch axes' size: over `data`, or `pod` and
+    `data`), each rank attends over its own slots with their validity
+    mask (``_attend_partial``) and the partials are combined across the
+    split (``collectives.attend_combine``). Then the output projection:
+    row-parallel on the rank's heads under the ``tp`` plan, whole
+    otherwise. Returns y [B, 1, d]."""
+    from ..sharding.collectives import attend_combine
+    B, S, _ = x.shape
+    Dh = cfg.head_dim
+    scale = 1.0 / math.sqrt(Dh)
+    q, k, v, real = _decode_qkv(p, x, cfg, positions, specs, run)
+    k_cache, v_cache = cache
+    T = run.decode_slots()
+    axes, t0, n = run.kv_layout(T)
+    kvl = k_cache.shape[2]
+    if k_cache.shape[1] != n or k.shape[2] != kvl:
+        raise ValueError(f"cache shard {tuple(k_cache.shape)}: the rules "
+                         f"lay out {n} slots and {k.shape[2]} heads a rank")
+    q = q.reshape(B, S, kvl, q.shape[2] // kvl, Dh)
+    if not axes:
+        y = _dense_decode(q, k, v, cache, cache_len, window, scale)
+        return _decode_out(y.reshape(B, S, -1, Dh), p, specs, run, real)
+    pos_w = cache_len % T if window > 0 else cache_len
+    if t0 <= pos_w < t0 + n:
+        k_cache[:, pos_w - t0:pos_w - t0 + S] = k.to(k_cache.dtype)
+        v_cache[:, pos_w - t0:pos_w - t0 + S] = v.to(v_cache.dtype)
+    t_pos = torch.arange(t0, t0 + n, device=q.device)
+    if window > 0:
+        abs_pos = cache_len - torch.remainder(pos_w - t_pos, T)
+        valid = (abs_pos >= 0) & (abs_pos <= cache_len) \
+            & (abs_pos > cache_len - window)
+    else:
+        valid = t_pos <= cache_len
+    o, m, l = _attend_partial(q, k_cache, v_cache,
+                              valid[None, None, :].expand(B, S, n), scale)
+    y = attend_combine(o, m, l, [run.groups[a] for a in axes])
+    return _decode_out(y.to(v_cache.dtype).reshape(B, S, -1, Dh), p, specs,
+                       run, real)
+
+
+def cross_decode_on_mesh(p, x, cfg: ModelConfig, specs, run, ck, cv):
+    """Whisper's decoder cross-attention at a decode step on a mesh,
+    against the rank's shard of the cached ck / cv [B, T_loc, heads, Dh]
+    (``MeshRun.kv_layout`` of the encoder's length): the rank's heads
+    under the ``tp`` plan, every head otherwise, through the flash
+    kernel as on one device (non-causal; no RoPE, no k_norm). Where the
+    encoder positions are split (the length divides the axes), flash
+    returns each row's log-sum-exp too, and the normalised partials are
+    combined across the split (``collectives.attend_combine`` with m =
+    lse, l = 1). Returns y [B, 1, d]."""
+    from ..sharding.collectives import attend_combine
+    B, S, _ = x.shape
+    Dh = cfg.head_dim
+    scale = 1.0 / math.sqrt(Dh)
+    if run.rules.attn.kind == "tp" and not run.whole_weights:
+        q, _, _, real = _tp_qkv(p, x, cfg, None, specs, run,
+                                kv_x=x[:, :0])
+    else:
+        real = None
+        q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+        if cfg.qk_norm:
+            q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+    axes, _, n = run.kv_layout(cfg.encoder_seq)
+    if ck.shape[1] != n:
+        raise ValueError(f"ck shard {tuple(ck.shape)}: the rules lay out "
+                         f"{n} encoder positions a rank")
+    qt, kt, vt = q.transpose(1, 2), ck.transpose(1, 2), cv.transpose(1, 2)
+    if not axes:
+        y = ops.flash_attention(qt, kt, vt, causal=False, scale=scale)
+    else:
+        o, lse = ops.flash_attention(qt, kt, vt, causal=False, scale=scale,
+                                     return_lse=True)
+        y = attend_combine(o.float().transpose(1, 2),
+                           lse.transpose(1, 2),
+                           torch.ones_like(lse.transpose(1, 2)),
+                           [run.groups[a] for a in axes]
+                           ).to(q.dtype).transpose(1, 2)
+    return _decode_out(y.transpose(1, 2), p, specs, run, real)
 
 
 def _row_parallel(eq: str, x, w, run):

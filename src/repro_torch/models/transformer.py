@@ -32,7 +32,10 @@ under ``fsdp``), and the loss is summed over every batch axis
 (``lm_loss``). Whisper's encoder runs its blocks under their own specs
 on the rank's rows of ``frames``, and its decoder blocks cross-attend in
 the same form; the learned positions and LLaVA's image rows join the
-embedding as on one device. The fused probe pair runs there too.
+embedding as on one device. The fused probe pair runs there too, and so
+do prefill and decode: each block's cache entry is the rank's shard in
+the JAX package's layout (``make_caches(..., run=)``), and the head's
+logits are the rank's vocab columns (``head_logits(..., run=)``).
 """
 from __future__ import annotations
 
@@ -42,8 +45,10 @@ import torch
 
 from ..configs.base import ATTN, MAMBA, RWKV, ModelConfig
 from ..core import zo
-from .layers import (attention, attention_on_mesh, cross_kv, dense_init,
-                     init_attention, init_mlp, mlp, rms_norm)
+from .layers import (attention, attention_on_mesh, cache_kv,
+                     cross_decode_on_mesh, cross_kv,
+                     decode_attention_on_mesh, dense_init, init_attention,
+                     init_mlp, mlp, rms_norm)
 from .moe import init_moe, moe_ffn
 from .ssm import (init_mamba_block, init_mamba_state, init_rwkv_block,
                   init_rwkv_state, mamba_block, rwkv_block)
@@ -146,42 +151,79 @@ def num_periods(periods) -> int:
 
 def _block_on_mesh(p, x, cfg: ModelConfig, kind: str, positions, run,
                    j: int, gathered: bool = False, mode: str = "train",
-                   enc_out=None):
-    """One block of kind ``kind`` in a training forward on a mesh: its
-    weights gathered (``MeshRun.weights``; ``gathered``: the caller did).
-    RWKV6 runs ``ssm.py::rwkv_block`` and Mamba ``ssm.py::mamba_block``
-    on the rank's heads or d_inner channels where `model` splits them;
-    attention takes the rules' form; the MLP after an attention or Mamba
-    block runs on the rank's d_ff slice where `model` carries TP
-    compute, or the MoE FFN in its plan's form (``moe.py::moe_ffn``).
-    ``mode`` "encode" is a block of Whisper's encoder (its own block
-    specs, ``MeshRun.encoder_block_specs``): non-causal self-attention.
-    A decoder block with ``ln_cross`` then cross-attends to ``enc_out``
-    (the rank's rows of the encoder output, the same on every `model`
-    rank)."""
+                   enc_out=None, cache=None, cache_len=None):
+    """One block of kind ``kind`` on a mesh: its weights gathered
+    (``MeshRun.weights``; ``gathered``: the caller did). RWKV6 runs
+    ``ssm.py::rwkv_block`` and Mamba ``ssm.py::mamba_block`` on the
+    rank's heads or d_inner channels where `model` splits them (their
+    state, ``wkv``, ``ssm`` and ``conv``, split the same way; the token
+    shifts by rows only); attention takes the rules' form; the MLP
+    after an attention or Mamba block runs on the rank's d_ff slice
+    where `model` carries TP compute, or the MoE FFN in its plan's form
+    (``moe.py::moe_ffn``). ``mode`` "encode" is a block of Whisper's
+    encoder (its own block specs, ``MeshRun.encoder_block_specs``):
+    non-causal self-attention. A decoder block with ``ln_cross`` then
+    cross-attends to ``enc_out`` (the rank's rows of the encoder output,
+    the same on every `model` rank). "prefill": the entry is the rank's
+    shard of the block's cache in the layout of ``sharding/params.py::
+    cache_shardings`` (``layers.py::cache_kv``: its KV groups under the
+    ``tp`` plan, its slots where the rules split them; Whisper's ck /
+    cv alike). "decode": ``cache`` is the rank's shard of this block's
+    entry, written in place (``layers.py::decode_attention_on_mesh``,
+    ``cross_decode_on_mesh``). Returns (x, entry)."""
     encode = mode == "encode"
     specs = (run.encoder_block_specs if encode else run.block_specs)[
         f"blk{j}"]
     if not gathered:
         p = run.weights(p, specs)
+    state = cache if mode == "decode" else None
     if kind == RWKV:
-        return rwkv_block(p["rwkv"], x, cfg, None, specs["rwkv"], run)[0]
+        x, new = rwkv_block(p["rwkv"], x, cfg, state, specs["rwkv"], run)
+        return x, _entry(mode, cache, new)
+    new = {}
+    window = cfg.sliding_window
     if kind == MAMBA:
-        x = mamba_block(p["mamba"], x, cfg, None, specs["mamba"], run)[0]
+        x, new = mamba_block(p["mamba"], x, cfg, state, specs["mamba"], run)
+        if mode not in ("prefill", "decode"):
+            new = {}
     else:
         h = rms_norm(x, p["ln_attn"], cfg.norm_eps)
-        x = x + attention_on_mesh(p["attn"], h, cfg, positions,
+        if mode == "decode":
+            x = x + decode_attention_on_mesh(p["attn"], h, cfg, positions,
+                                             specs["attn"], run,
+                                             (cache["k"], cache["v"]),
+                                             cache_len, window)
+        else:
+            y = attention_on_mesh(p["attn"], h, cfg, positions,
                                   specs["attn"], run, causal=not encode,
-                                  window=cfg.sliding_window)
+                                  window=window, keep_kv=mode == "prefill")
+            if mode == "prefill":
+                y, kv = y
+                new = dict(zip(("k", "v"), cache_kv(*kv, run, window)))
+                del kv
+            x = x + y
+            del y
     if "ln_cross" in p:
         h = rms_norm(x, p["ln_cross"], cfg.norm_eps)
-        x = x + attention_on_mesh(p["cross"], h, cfg, positions,
+        if mode == "decode":
+            x = x + cross_decode_on_mesh(p["cross"], h, cfg, specs["cross"],
+                                         run, cache["ck"], cache["cv"])
+        else:
+            y = attention_on_mesh(p["cross"], h, cfg, positions,
                                   specs["cross"], run, causal=False,
-                                  kv_x=enc_out)
+                                  kv_x=enc_out, keep_kv=mode == "prefill")
+            if mode == "prefill":
+                y, kv = y
+                new.update(zip(("ck", "cv"), cache_kv(*kv, run)))
+                del kv
+            x = x + y
+            del y
     h = rms_norm(x, p["ln_ffn"], cfg.norm_eps)
     if "moe" in p:
-        return x + moe_ffn(p["moe"], h, cfg, specs["moe"], run)
-    return x + mlp(p["mlp"], h, specs["mlp"], run)
+        x = x + moe_ffn(p["moe"], h, cfg, specs["moe"], run)
+    else:
+        x = x + mlp(p["mlp"], h, specs["mlp"], run)
+    return x, _entry(mode, cache, new)
 
 
 def apply_block(p, x, cfg: ModelConfig, kind: str, *, positions, mode: str,
@@ -202,15 +244,18 @@ def apply_block(p, x, cfg: ModelConfig, kind: str, *, positions, mode: str,
     written in place, recurrent state included, and returned. mode
     "train": the full causal sequence, no cache; the entry is None. mode
     "encode": as "train", but the self-attention is not causal
-    (Whisper's encoder blocks). ``run`` (a mesh; train and encode modes
-    only): the block is pattern position ``j``, its leaves the rank's
-    shards (or, with ``gathered``, already gathered for use).
+    (Whisper's encoder blocks). ``run`` (a mesh, every mode but the
+    paged one): the block is pattern position ``j``, its leaves the
+    rank's shards (or, with ``gathered``, already gathered for use), its
+    cache entry the rank's shard (``_block_on_mesh``).
     """
     if mode not in ("prefill", "decode", "train", "encode"):
         raise ValueError(f"unknown mode {mode!r}")
     if run is not None:
+        if paged is not None or full_kv:
+            raise NotImplementedError("the paged caches run on one device")
         return _block_on_mesh(p, x, cfg, kind, positions, run, j, gathered,
-                              mode, enc_out), None
+                              mode, enc_out, cache, cache_len)
     state = cache if mode == "decode" else None
     if kind == RWKV:
         x, new = rwkv_block(p["rwkv"], x, cfg, state)
@@ -268,8 +313,8 @@ def run_periods(periods, x, cfg: ModelConfig, *, positions, mode,
     cross-attend to (prefill and train; decode reads the cached ck / cv).
     Returns (x, caches): prefill stacks the new entries (an empty dict
     per position over zero periods); decode returns ``caches``, updated
-    in place; train returns None. ``run``: the mesh (train and encode
-    modes)."""
+    in place; train returns None. ``run``: the mesh (the caches the
+    rank's shards)."""
     entries = [[] for _ in cfg.pattern]
     for i in range(num_periods(periods)):
         for j, kind in enumerate(cfg.pattern):
@@ -389,9 +434,19 @@ def run_encoder(params, frames, cfg: ModelConfig, run=None):
     return rms_norm(x, norm, cfg.norm_eps)
 
 
-def head_logits(params, x, cfg: ModelConfig):
-    h = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return torch.einsum("bsd,dv->bsv", h, params["unembed"])
+def head_logits(params, x, cfg: ModelConfig, run=None):
+    """The logits [B, S, Vp] of the final norm and the unembedding. On a
+    mesh (``run``) the rank's vocab columns where `model` carries TP
+    compute (``MeshRun.weight``: the unembedding stays split there, a
+    whole table under ``fsdp``); ``collectives.vocab_argmax`` takes the
+    greedy token over them."""
+    if run is None:
+        norm, unembed = params["final_norm"], params["unembed"]
+    else:
+        norm = run.weight(params["final_norm"], run.specs["final_norm"])
+        unembed = run.weight(params["unembed"], run.specs["unembed"])
+    h = rms_norm(x, norm, cfg.norm_eps)
+    return torch.einsum("bsd,dv->bsv", h, unembed)
 
 
 def lm_loss(params, x, labels, mask, cfg: ModelConfig, run=None):
@@ -440,30 +495,42 @@ def _state_entry(cfg: ModelConfig, kind: str, B: int, dtype, device):
     return make(cfg, B, dtype, device=device, lead=(cfg.num_periods,))
 
 
-def _cross_entry(cfg: ModelConfig, rows: int, dtype, device):
+def _cross_entry(cfg: ModelConfig, rows: int, dtype, device, kv_dup: int = 1):
     """Whisper's cross-attention keys and values, dense per row (a batch
     row, or a decode slot of the paged engine): {"ck", "cv"} [periods,
-    rows, encoder_seq, KV, Dh]; empty for a stack without an encoder."""
+    rows, encoder_seq, KV * kv_dup, Dh]; empty for a stack without an
+    encoder."""
     if not cfg.encoder_layers:
         return {}
-    shape = (cfg.num_periods, rows, cfg.encoder_seq, cfg.num_kv_heads,
-             cfg.head_dim)
+    shape = (cfg.num_periods, rows, cfg.encoder_seq,
+             cfg.num_kv_heads * kv_dup, cfg.head_dim)
     return {"ck": torch.zeros(shape, dtype=dtype, device=device),
             "cv": torch.zeros(shape, dtype=dtype, device=device)}
 
 
 def make_caches(cfg: ModelConfig, B: int, seq_len: int, *, device,
-                dtype=None):
+                dtype=None, kv_dup: int = 1, run=None):
     """Zero dense caches, one entry per pattern position, stacked
-    [periods, B, ...]: attention {"k", "v"} [periods, B, T, KV, Dh] with
-    T = seq_len capped at the sliding window (and Whisper's {"ck",
-    "cv"}), recurrent state per row."""
+    [periods, B, ...]: attention {"k", "v"} [periods, B, T, KV * kv_dup,
+    Dh] with T = seq_len capped at the sliding window (and Whisper's
+    {"ck", "cv"}), recurrent state per row. On a mesh (``run``) the
+    rank's shards of the global caches in the JAX package's layout
+    (``repro/models/transformer.py::make_caches``: KV * kv_dup heads
+    under the rules' ``tp`` plan), split by ``sharding/params.py::
+    cache_shardings`` (``MeshRun.cache_descs``), B the global batch."""
     dtype = dtype or getattr(torch, cfg.dtype)
+    if run is not None:
+        plan = run.rules.attn
+        whole = make_caches(cfg, B, seq_len, device="meta", dtype=dtype,
+                            kv_dup=plan.kv_dup if plan.kind == "tp" else 1)
+        return tree_map(lambda t, d: torch.zeros(d.local_shape, dtype=t.dtype,
+                                                 device=device),
+                        whole, run.cache_descs(whole))
     T = min(seq_len, cfg.sliding_window) if cfg.sliding_window else seq_len
-    shape = (cfg.num_periods, B, T, cfg.num_kv_heads, cfg.head_dim)
+    shape = (cfg.num_periods, B, T, cfg.num_kv_heads * kv_dup, cfg.head_dim)
     return tuple({"k": torch.zeros(shape, dtype=dtype, device=device),
                   "v": torch.zeros(shape, dtype=dtype, device=device),
-                  **_cross_entry(cfg, B, dtype, device)}
+                  **_cross_entry(cfg, B, dtype, device, kv_dup)}
                  if kind == ATTN else _state_entry(cfg, kind, B, dtype, device)
                  for kind in cfg.pattern)
 

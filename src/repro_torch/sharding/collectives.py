@@ -34,7 +34,14 @@ pointers), and the model gathers and reduces through these functions:
     axis (``rules.batch_axes``: `pod`, `data`, and `model` under
     ``fsdp`` when the batch divides dp * tp);
   * ``MeshRun.batch_sum``: a sum over every batch axis (the loss and its
-    mask count).
+    mask count);
+  * ``attend_combine(o, m, l, groups)``: partial attentions over a
+    cache's sequence split across ranks (a context-parallel decode),
+    combined: the row max all-reduced (MAX), each rank's output and row
+    sum rescaled to it and all-reduced in f32;
+  * ``vocab_argmax(logits, run)``: the greedy token over a vocab split
+    across `model` (each rank's best, all-gathered, the lowest index on
+    a tie).
 
 Each collective is recorded into the active cost counter
 (``kernels/cost.py::counting``), with its kind, group, output bytes and
@@ -60,8 +67,9 @@ import torch.distributed as dist
 
 from ..kernels import cost
 from ..launch.mesh import axis_shape
-from .params import (ShardDesc, kept_desc, map_dict, param_shardings,
-                     period_map, shard_desc, shard_descs, unshard_leaf)
+from .params import (ShardDesc, cache_spec, kept_desc, map_dict,
+                     map_with_names, param_shardings, period_map, shard_desc,
+                     shard_descs, unshard_leaf)
 from .rules import ShardingRules
 
 # the collectives the port calls on CUDA tensors, which gloo must take
@@ -460,11 +468,59 @@ class MeshRun:
     def gather_leaf(self, names, t: torch.Tensor) -> torch.Tensor:
         """The global leaf at ``names`` from every rank's shard ``t``
         (all ranks call it; every rank gets the leaf)."""
-        descs = [self.desc_of(names, r) for r in range(self.world)]
-        if descs[0].whole and all(d.whole for d in descs):
+        return self.gather_shards(
+            t, [self.desc_of(names, r) for r in range(self.world)])
+
+    def gather_shards(self, t: torch.Tensor, descs) -> torch.Tensor:
+        """The global leaf from every rank's shard ``t``, ``descs`` the
+        world's descriptors in rank order (all ranks call it)."""
+        if all(d.whole for d in descs):
             return t
-        parts = _gather_flat(t, None)
+        parts = _gather_flat(t.contiguous(), None)
         return unshard_leaf(list(parts.unbind(0)), descs)
+
+    # ---- caches --------------------------------------------------------- #
+    def cache_descs(self, abstract_caches, rank=None):
+        """The ``ShardDesc`` of every leaf of a cache tree (its global
+        shapes, e.g. ``core/api.py::abstract_caches``) on this rank (or
+        on ``rank``), by ``params.cache_shardings`` of the rules: a dim
+        may be split over an axis tuple (the multi-pod cache sequence
+        over (`pod`, `data`))."""
+        coords = self.coords if rank is None else self.coords_of(rank)
+        return map_with_names(lambda names, t: shard_desc(
+            tuple(t.shape), cache_spec(names[-1], t.shape, self.rules),
+            coords, self.sizes), abstract_caches)
+
+    def kv_layout(self, T: int):
+        """How the rules lay out the slots of a KV cache leaf [periods, B,
+        T, KVd, Dh] of ``T`` slots (``params.cache_shardings``, fitted):
+        (the axes they are split over, or (); this rank's first slot; its
+        slots). The cross-attention's ck / cv take the same spec, with
+        ``T`` the encoder's length."""
+        from .params import _fit, axis_index
+        from .rules import axes_size
+        cfg, plan = self.rules.cfg, self.rules.attn
+        dup = plan.kv_dup if plan.kind == "tp" else 1
+        spec = _fit(self.rules.spec_kv_cache(),
+                    (1, 0, T, cfg.num_kv_heads * dup, cfg.head_dim),
+                    self.rules)
+        seq = spec[2]
+        if seq is None:
+            return (), 0, T
+        axes = seq if isinstance(seq, tuple) else (seq,)
+        n = axes_size(self.sizes, axes)
+        i = axis_index(self.coords, self.sizes, axes)
+        return axes, i * (T // n), T // n
+
+    def decode_slots(self) -> int:
+        """The self-attention cache's global slots at a decode of the
+        rules' shape: its length, capped at a sliding window (a ring)."""
+        shape, cfg = self.rules.shape, self.rules.cfg
+        if shape is None:
+            raise ValueError("a decode on a mesh needs the rules bound to "
+                             "its decode shape")
+        w = cfg.sliding_window
+        return min(shape.seq_len, w) if w else shape.seq_len
 
     def same_on_all_ranks(self, t: torch.Tensor, what: str):
         """Raises unless ``t`` is bitwise equal on every rank (an
@@ -516,6 +572,31 @@ class MeshRun:
         return held
 
 
+def attend_combine(o: torch.Tensor, m: torch.Tensor, l: torch.Tensor,
+                   groups) -> torch.Tensor:
+    """Softmax attention over keys split across ranks, from each rank's
+    partial: ``o`` [..., D] its unnormalised output sum_t exp(s_t - m)
+    v_t, ``m`` [...] its row max (-1e30 where it sees no key), ``l``
+    [...] its row sum of exp(s_t - m). One reduction per group of
+    ``groups`` in turn (each axis of the cache's sequence split, e.g.
+    `pod` then `data`; no flattened group): the max first (exact in any
+    order), then each rank's output and row sum, rescaled by exp(m -
+    max), summed in f32 in one all-reduce a group. The sums are thus
+    added per axis, an association a flat group does not share, so the
+    result is the same on every rank and agrees with one device's
+    within f32 rounding, not bitwise. Returns the f32 output [..., D].
+    A group of one rank is the identity."""
+    big = m.float()
+    for g in groups:
+        big = all_reduce(big, g, dist.ReduceOp.MAX)
+    a = torch.exp(m.float() - big)
+    x = torch.cat([o.float() * a[..., None], (l.float() * a)[..., None]],
+                  dim=-1)
+    for g in groups:
+        x = all_reduce(x, g)
+    return x[..., :-1] / x[..., -1:]
+
+
 def rows_slice(global_rows: int, spec_axes, coords, sizes) -> slice:
     """This rank's rows of a batch split over ``spec_axes`` (None:
     every row)."""
@@ -558,6 +639,29 @@ def vocab_embed(table: torch.Tensor, tokens: torch.Tensor, run: MeshRun):
     x = torch.where(mine[..., None], x, torch.zeros((), dtype=x.dtype,
                                                     device=x.device))
     return reduce_to(x, run.model_group)
+
+
+def vocab_argmax(logits: torch.Tensor, run: MeshRun) -> torch.Tensor:
+    """The greedy token, int64 [...], of ``logits`` [..., V_local]
+    (f32; the rank's unembedding columns, whole under ``fsdp``): where
+    the vocab is split over `model`, each rank's largest logit and its
+    global index are all-gathered over `model` and the largest taken,
+    the lowest index on a tie (the first rank's, whose columns come
+    first), as ``torch.argmax`` and ``jnp.argmax`` take. The range is
+    the padded vocab, as on one device."""
+    lo, split = _vocab_rows(run.specs["unembed"][1], logits.shape[-1], run)
+    idx = torch.argmax(logits, dim=-1)
+    if not split:
+        return idx
+    if run.tp * logits.shape[-1] >= 2**24:
+        raise ValueError("vocab_argmax carries indices in f32: a padded "
+                         "vocab below 2**24")
+    best = torch.gather(logits, -1, idx[..., None])[..., 0]
+    pair = torch.stack([best.float(), (idx + lo).float()], dim=-1)
+    every = _gather_flat(pair, run.model_group)          # [tp, ..., 2]
+    top = every[..., 0].amax(dim=0)
+    first = torch.argmax((every[..., 0] == top).to(torch.int32), dim=0)
+    return torch.gather(every[..., 1], 0, first[None])[0].to(torch.int64)
 
 
 def vocab_parallel_ce(h: torch.Tensor, unembed: torch.Tensor,

@@ -159,28 +159,29 @@ def param_shardings(abstract_params, rules: ShardingRules):
     return map_dict(f, abstract_params)
 
 
+def cache_spec(name: str, shape, rules: ShardingRules):
+    """The spec of a cache leaf called ``name`` of ``shape`` (fitted)."""
+    if name in ("k", "v", "ck", "cv"):
+        spec = rules.spec_kv_cache()
+    elif name == "ssm":
+        spec = rules.spec_ssm_cache()
+    elif name == "wkv":
+        spec = rules.spec_rwkv_cache()
+    elif name == "conv":
+        spec = rules.spec_conv_cache()
+    elif name in ("tm_shift", "cm_shift"):
+        spec = (None, rules.batch, None, None)
+    else:
+        spec = (None,) * len(shape)
+    return _fit(spec, tuple(shape), rules)
+
+
 def cache_shardings(abstract_caches, rules: ShardingRules):
     """Specs of the (zo, bp) cache tree by leaf name and rank."""
     if rules.mesh is None:
         return map_with_names(lambda _n, _l: None, abstract_caches)
-
-    def f(names, leaf):
-        n = names[-1] if names else ""
-        if n in ("k", "v", "ck", "cv"):
-            spec = rules.spec_kv_cache()
-        elif n == "ssm":
-            spec = rules.spec_ssm_cache()
-        elif n == "wkv":
-            spec = rules.spec_rwkv_cache()
-        elif n == "conv":
-            spec = rules.spec_conv_cache()
-        elif n in ("tm_shift", "cm_shift"):
-            spec = (None, rules.batch, None, None)
-        else:
-            spec = (None,) * len(leaf.shape)
-        return _fit(spec, tuple(leaf.shape), rules)
-
-    return map_with_names(f, abstract_caches)
+    return map_with_names(lambda names, leaf: cache_spec(
+        names[-1] if names else "", leaf.shape, rules), abstract_caches)
 
 
 # ---------------------------------------------------------------------- #

@@ -59,13 +59,7 @@ def build_for_mesh(cfg: ModelConfig, shape: ShapeConfig, lane: LaneConfig,
     ``ShardingRules(None, ...)`` is."""
     if strategy not in STRATEGIES:
         raise ValueError(f"strategy {strategy!r}: want one of {STRATEGIES}")
-    run = None
-    if mesh is not None:
-        from ..sharding.collectives import MeshRun
-        from ..sharding.rules import ShardingRules
-        rules = ShardingRules(mesh, cfg, shape, strategy=strategy)
-        run = MeshRun(mesh, rules, api.abstract_params(
-            cfg, lane, max_seq=shape.seq_len))
+    run = api.mesh_run(cfg, shape, lane, mesh, strategy)
     engine, loss_fn = api.train_engine(cfg, lane, run)
     return TrainModel(engine, loss_fn, run), engine.make_step(loss_fn)
 

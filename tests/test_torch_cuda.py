@@ -535,6 +535,29 @@ def test_flash_query_offset_matches_plain(dev, dtype, S, tp, window):
         assert torch.equal(torch.cat(parts, dim=2), whole)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Sq,Sk,causal,window", [(300, 300, True, 0),
+                                                 (1, 1500, False, 0),
+                                                 (100, 40, True, 8)])
+def test_flash_lse_matches_plain(dev, dtype, Sq, Sk, causal, window):
+    """``return_lse``: the output bitwise the call without it, and each
+    row's log-sum-exp within 1e-5 of the plain version's (relative to
+    max(1, |lse|); rows that see no key at -1e30 in both)."""
+    g = torch.Generator(device="cpu").manual_seed(Sq + Sk)
+    H, Hkv, D = (12, 12, 64) if Sq == 1 else (6, 2, 16)
+
+    def make(heads, S):
+        return torch.randn(2, S, heads, D, generator=g).to(
+            dev, dtype).transpose(1, 2)
+    q, k, v = make(H, Sq), make(Hkv, Sk), make(Hkv, Sk)
+    kw = dict(causal=causal, window=window)
+    o, lse = flash_attn.flash_attention(q, k, v, return_lse=True, **kw)
+    assert torch.equal(o, flash_attn.flash_attention(q, k, v, **kw))
+    _, want = ref.flash_attention_ref(q, k, v, return_lse=True, **kw)
+    assert lse.shape == (2, H, Sq) and lse.dtype == torch.float32
+    assert ((lse - want).abs() / lse.abs().clamp(min=1.0)).max() <= 1e-5
+
+
 def test_flash_kernel_refuses_what_it_does_not_take(dev):
     x = torch.zeros(1, 2, 8, 64, device=dev)
     with pytest.raises(ValueError, match="head dim"):

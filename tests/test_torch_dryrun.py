@@ -7,12 +7,16 @@ each; rendezvous at a ``file://`` store under the test's temporary
 directory) run one train step of reduced f32 stacks on a 2x2 mesh under
 a cost counter: qwen3-4b in ``tp``, ``fsdp`` and ``serve``, and Mixtral
 under the MoE ``ep`` plan with its rows over (data, model), so that the
-dispatch all-to-all runs. The dry run of the same steps, on ``meta``
-tensors over a fake process group as rank 0 and as rank 3 in this
-process (each fake world destroyed on exit), must record the same
-collectives in the same order, group ranks and bytes included, and the
-same kernel launches. Meanwhile a subprocess with 4 forced host devices
-compiles JAX's train steps of the same cells for their argument bytes.
+dispatch all-to-all runs; then the serving steps of ``SERVE_CASES``
+(prefills, and decodes with the cache's slots over `model`, over
+`data`, Whisper's ck / cv split, and the MoE's all-to-all under
+``fsdp``), and ``attend_combine`` over keys split across ranks. The dry
+run of the same steps, on ``meta`` tensors over a fake process group as
+rank 0 and as rank 3 in this process (each fake world destroyed on
+exit), must record the same collectives in the same order, group ranks
+and bytes included, and the same kernel launches. Meanwhile a
+subprocess with 4 forced host devices compiles JAX's train, prefill and
+decode steps of the same cells for their argument bytes.
 """
 import dataclasses
 import json
@@ -50,9 +54,10 @@ _JAX_SCRIPT = textwrap.dedent("""
     from repro.launch.mesh import make_mesh
     mesh = make_mesh((2, 2), ("data", "model"))
     out = {}
-    for name, (arch, strategy, B, S) in json.loads(sys.argv[1]).items():
+    for name, (arch, strategy, B, S, kind) in json.loads(
+            sys.argv[1]).items():
         cfg = reduced(ARCHS[arch], dtype="float32")
-        shape = ShapeConfig("t", seq_len=S, global_batch=B, kind="train")
+        shape = ShapeConfig("t", seq_len=S, global_batch=B, kind=kind)
         lane = LaneConfig(lane="elastic_zo", bp_tail_layers=1,
                           zo_num_probes=1)
         _, compiled = lower_cell(cfg, shape, mesh, lane, strategy=strategy)
@@ -61,12 +66,22 @@ _JAX_SCRIPT = textwrap.dedent("""
 """)
 
 
+SERVE_JAX = ("prefill_tp", "decode_serve", "decode_context")
+
+
+def _case(name):
+    """(arch, strategy, batch, seq, kind) of a train or serve case."""
+    if name in ranks.CASES:
+        return tuple(ranks.CASES[name]) + ("train",)
+    return ranks.SERVE_CASES[name]
+
+
 def _dry(name, rank):
-    arch, strategy, B, S = ranks.CASES[name]
+    arch, strategy, B, S, kind = _case(name)
     with mesh_lib.fake_world(4, rank=rank):
         mesh = mesh_lib.make_mesh(*ranks.MESH)
-        full = dryrun.analyze_step(ranks.cfg_of(arch), ranks.shape_of(B, S),
-                                   ranks.lane_of(), mesh, strategy)
+        full = dryrun.analyze(ranks.cfg_of(arch), ranks.shape_of(B, S, kind),
+                              ranks.lane_of(), mesh, strategy)
     full["records"] = [ranks.record(r) for r in full["records"]]
     return full
 
@@ -75,7 +90,7 @@ def _dry(name, rank):
 def runs(tmp_path_factory):
     out = tmp_path_factory.mktemp("dryrun_ranks")
     env = {**os.environ, "PYTHONPATH": SRC, "JAX_PLATFORMS": "cpu"}
-    jax_cases = {k: ranks.CASES[k] for k in DECODER}
+    jax_cases = {k: _case(k) for k in DECODER + SERVE_JAX}
     proc = subprocess.Popen([sys.executable, "-c", _JAX_SCRIPT,
                              json.dumps(jax_cases)], stdout=subprocess.PIPE,
                             stderr=subprocess.PIPE, text=True, env=env)
@@ -84,7 +99,8 @@ def runs(tmp_path_factory):
                        ("file://" + str(out / "store"), str(out)))
         real = [json.loads((out / f"rank{r}.json").read_text())
                 for r in range(4)]
-        dry = {(name, r): _dry(name, r) for name in ranks.CASES
+        dry = {(name, r): _dry(name, r)
+               for name in list(ranks.CASES) + list(ranks.SERVE_CASES)
                for r in (0, 3)}
         stdout, stderr = proc.communicate(timeout=600)
     finally:
@@ -182,6 +198,103 @@ def test_argument_bytes_match_jax(runs, case):
     host_terms = 4 + 8 + 4
     got = dry[(case, 0)]["memory"]["argument_bytes"]
     assert got == jax_args[case] - host_terms
+
+
+@pytest.mark.parametrize("case", list(ranks.SERVE_CASES))
+def test_serve_records_and_launches_match_a_gloo_run(runs, case):
+    """A prefill or decode step's dry run, as rank 0 and as rank 3,
+    records the collectives of a gloo run of the same step on those
+    ranks (kinds, groups, bytes, in order) and its launches; every rank
+    launches the same."""
+    real, dry, _ = runs
+    for rank in (0, 3):
+        assert dry[(case, rank)]["records"] == real[rank][case]["records"]
+    got = {k: v["launches"] for k, v in dry[(case, 0)]["kernels"].items()}
+    assert got == real[0][case]["launches"]
+    assert all(r[case]["launches"] == got for r in real)
+    kinds = {r[0] for r in real[0][case]["records"]}
+    assert "all-gather" in kinds
+    if case in ("decode_serve", "decode_context", "decode_whisper"):
+        assert "all-reduce" in kinds        # attend_combine's MAX and sums
+    if case == "decode_moe_fsdp":
+        assert "all-to-all" in kinds
+    if case in ("prefill_tp", "prefill_whisper", "decode_whisper"):
+        assert got.get("flash_attention")
+
+
+@pytest.mark.parametrize("case", SERVE_JAX)
+def test_serve_argument_bytes_match_jax(runs, case):
+    """A prefill's argument bytes (rank 0's param shards and its rows of
+    the tokens) and a decode's (with its cache shards, donated) are
+    JAX's per-device argument bytes, less the decode's cache_len (an
+    int32 the port keeps on the host)."""
+    _, dry, jax_args = runs
+    host = 4 if _case(case)[4] == "decode" else 0
+    assert dry[(case, 0)]["memory"]["argument_bytes"] == \
+        jax_args[case] - host
+    if _case(case)[4] == "decode":
+        mem = dry[(case, 0)]["memory"]
+        assert mem["alias_bytes"] > 0 and dry[(case, 0)]["cache_len"] == 17
+
+
+@pytest.mark.parametrize("split", ["data", "data_model"])
+def test_attend_combine_is_the_whole_attention(runs, split):
+    """Partial attentions over 12 keys split 2 ways over `data` and 4
+    ways over (`data`, `model`), one of them masked, combined by
+    ``attend_combine``: the whole softmax attention within f32
+    rounding, on every rank."""
+    real, _, _ = runs
+    for r in real:
+        assert r["combine"][split] < 1e-6
+
+
+def test_flash_ref_lse_by_hand():
+    """The plain flash's log-sum-exp, f32 [B, H, Sq], against float64 by
+    hand over the visible keys (a causal window at a query offset, and
+    a row that sees no key: -1e30, its scores' fill); the output with
+    ``return_lse`` is bitwise the output without it, and the meta branch
+    gives the lse's shape."""
+    from repro_torch.kernels import ref
+    g = torch.Generator().manual_seed(5)
+    q = torch.randn(2, 4, 5, 16, generator=g)
+    k = torch.randn(2, 2, 9, 16, generator=g)
+    v = torch.randn(2, 2, 9, 16, generator=g)
+    kw = dict(causal=True, window=3, scale=0.3, q_offset=2)
+    o, lse = ref.flash_attention_ref(q, k, v, return_lse=True, **kw)
+    assert torch.equal(o, ref.flash_attention_ref(q, k, v, **kw))
+    assert lse.shape == (2, 4, 5) and lse.dtype == torch.float32
+    qd, kd = q.double(), k.double().repeat_interleave(2, dim=1)
+    for b in range(2):
+        for h in range(4):
+            for i in range(5):
+                p = 2 + i
+                keys = [j for j in range(9) if p - 3 < j <= p]
+                s = [float(qd[b, h, i] @ kd[b, h, j]) * 0.3 for j in keys]
+                want = np.log(np.sum(np.exp(s)))
+                assert abs(float(lse[b, h, i]) - want) < 1e-5
+    _, none = ref.flash_attention_ref(q[:, :, :1], k[:, :, :2], v[:, :, :2],
+                                      causal=True, window=1, q_offset=5,
+                                      return_lse=True)
+    assert torch.all(none == -1e30)
+    qm, km = q.to("meta"), k.to("meta")
+    om, lm = ops.flash_attention(qm, km, km, return_lse=True)
+    assert (om.shape, lm.shape, lm.dtype) == (qm.shape, (2, 4, 5),
+                                              torch.float32)
+    c0 = cost.flash_attention((2, 4, 5, 16), (2, 2, 9, 16), torch.float32)
+    c1 = cost.flash_attention((2, 4, 5, 16), (2, 2, 9, 16), torch.float32,
+                              lse=True)
+    assert c1.bytes - c0.bytes == 4 * 2 * 4 * 5 and c1.flops == c0.flops
+
+
+def test_audit_runs_a_serve_cell(capsys):
+    """``audit`` of a decode cell on the 16x16 mesh under ``serve``: the
+    seq plan's combine all-reduces and the vocab argmax's gather among
+    its collectives."""
+    from repro_torch.launch import audit
+    total, ops_ = audit.audit("qwen3-4b", "decode_32k", "serve", top=5)
+    assert total > 0 and {o.kind for o in ops_} >= {"all-gather",
+                                                    "all-reduce"}
+    assert "total per-device collective bytes" in capsys.readouterr().out
 
 
 # ---------------------------------------------------------------------- #
@@ -409,5 +522,7 @@ def test_dryrun_main_writes_the_reference_keys(tmp_path, monkeypatch,
                         "--mesh", "single", "--out", str(tmp_path)]) == 0
     rec = json.loads((tmp_path / "qwen3-4b__prefill_32k__single.json")
                      .read_text())
-    assert rec["status"] == "skipped" and "cache_shardings" in rec["reason"]
-    assert "SKIP qwen3-4b x prefill_32k" in capsys.readouterr().out
+    assert rec["status"] == "ok" and rec["full"]["flops"] > 0
+    assert rec["full"]["kernels"]["flash_attention"]["launches"] > 0
+    assert roofline.row_of(rec)["status"] == "ok"
+    assert "OK   qwen3-4b x prefill_32k" in capsys.readouterr().out

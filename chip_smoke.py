@@ -78,6 +78,13 @@ against the card's; the CLI's serve cell (qwen3-4b decode_32k under
 the serve strategy); and flash's log-sum-exp (``return_lse``) against
 its plain version and float64, the output bitwise unchanged.
 
+First of all, on the card's host and before any kernel is built, it
+runs the port's static checker (``python -m repro_torch.analysis``,
+reprolint's rules over ``src/repro_torch``) and fails unless it is
+clean; at the end it holds the checker's inventory of ``csrc/*.cu``
+kernels (rule ``kernel-dispatch-complete``) to the ``source`` entries of
+the kernels line.
+
 The last three lines of its output are the card's name and power limit
 (nvidia-smi), a JSON line of per-kernel numbers, and
 ``{"ok": true, "device": {...}}``. Any failing phase raises: the script
@@ -4247,6 +4254,55 @@ COST_CLI_CELLS = (("train_4k", "tp"), ("decode_32k", "serve"))
 #                                  the dry run's CLI runs in (a)
 
 
+def check_static_analysis():
+    """The port's static checker, ``python -m repro_torch.analysis``, over
+    this checkout on the card's host (it needs no card and imports no
+    torch): it must exit 0 with a clean JSON report. Returns the kernel
+    rule's inventory of ``csrc/*.cu`` kernels ({source: its wrappers, ops
+    entries and refs}), which the kernels line is held to at the end."""
+    import tempfile
+    from repro_torch.analysis import build_project
+    from repro_torch.analysis.rules.kernels import kernel_inventory
+    with tempfile.TemporaryDirectory(prefix="reprolint_smoke_") as tmp:
+        out = Path(tmp, "report.json")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.analysis", "--root",
+             str(ROOT), "--report", str(out)],
+            capture_output=True, text=True, cwd=ROOT, timeout=300,
+            env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+        wall = time.perf_counter() - t0
+        report = json.loads(out.read_text()) if out.exists() else {}
+    if proc.returncode or report.get("clean") is not True \
+            or report.get("findings"):
+        raise AssertionError(
+            f"reprolint over the port: rc {proc.returncode}, report "
+            f"clean={report.get('clean')}\n{proc.stdout[-3000:]}"
+            f"{proc.stderr[-3000:]}")
+    inventory = kernel_inventory(build_project(ROOT))
+    print(f"reprolint over the port: {len(report['rules'])} rules, 0 "
+          f"findings, {len(report['suppressed'])} suppressions in use, "
+          f"{wall:.2f} s (python -m repro_torch.analysis on the card's "
+          f"host); kernel-dispatch-complete inventories {len(inventory)} "
+          "csrc kernels: " + "; ".join(
+              f"{Path(src).name} <- {', '.join(seam['entries'])} "
+              f"({', '.join(seam['refs'])} on the CPU)"
+              for src, seam in inventory.items()))
+    return inventory
+
+
+def check_inventory(inventory, kernels):
+    """The checker's kernel inventory (``check_static_analysis``) against
+    the kernels line: the same ``csrc/*.cu`` sources, each once."""
+    sources = [k["source"] for k in kernels]
+    if sorted(sources) != sorted(inventory):
+        raise AssertionError(
+            f"the kernels line's sources {sorted(sources)} are not the "
+            f"checker's csrc inventory {sorted(inventory)}")
+    print(f"the kernels line's {len(sources)} sources equal the checker's "
+          "csrc inventory")
+
+
 def start_cost_cli():
     """Starts (a), ``python -m repro_torch.launch.dryrun`` on the qwen3-4b
     cells of COST_CLI_CELLS on the 16x16 production mesh (the train cell,
@@ -5245,6 +5301,9 @@ def main():
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
 
+    phase("static checker over the port (host only)")
+    inventory = check_static_analysis()
+
     phase("build")
     t0 = time.perf_counter()
     logs = _build.build_all()
@@ -5623,6 +5682,7 @@ def main():
              launches=n_zo["flash_attention"],
              **zo_times["flash_attention"],
              launches_by_path=paths["flash_attention"])]
+    check_inventory(inventory, kernels)
     print(f"chip_smoke: {time.perf_counter() - _PHASE['start']:.1f} s in all")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -84,6 +84,7 @@ class IndexMap:
             self.base, self.levels) == (other.base, other.levels)
 
     def __hash__(self):
+        # reprolint: allow(no-builtin-hash) -- unsalted ints, in __hash__ only
         return hash((self.base, self.levels))
 
     def __repr__(self):

@@ -47,7 +47,8 @@ def main(steps: int = 40, device=None):
             print(f"  step {i:3d}  loss {float(metrics['loss']):.4f}  "
                   f"|g|={float(metrics['zo_g']):.3f}")
     losses = [float(v) for v in losses]
-    assert all(np.isfinite(losses)), losses
+    if not all(np.isfinite(losses)):
+        raise RuntimeError(losses)
 
     # 3. serve it: prefill a prompt, then decode greedily with the KV cache
     prompt = torch.from_numpy(token_batch(2, 128, cfg.vocab_size,

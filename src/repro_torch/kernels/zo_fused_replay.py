@@ -109,7 +109,8 @@ def zo_fused_replay_int8_leaves(thetas, seeds, gs, salts, r_max: int,
     gs = device_ints(f"{name} gs", gs, thetas[0].device, (S, P))
     rows, outs = leaf_table(name, thetas, salts, outs)
     r, magic, keep = int8_noise_args(name, r_max, p_zero)
-    fn = _build.function(name, name, _INT8_ARGS)
+    fn = _build.function("zo_fused_replay_int8", "zo_fused_replay_int8",
+                         _INT8_ARGS)
     stream = torch.cuda.current_stream(thetas[0].device).cuda_stream
     int8_launches += launch_leaves(name, rows, lambda table, count: fn(
         table, count, seeds.data_ptr(), gs.data_ptr(), S, P, r, magic, keep,

@@ -140,7 +140,8 @@ def _array_manifest(step: int, arrays: Dict[str, Tuple[np.ndarray, str]],
     return {
         "step": int(step),
         "mode": "full",
-        "time": time.time(),            # wall-clock stamp of the manifest
+        # reprolint: allow(monotonic-clock) -- wall-clock manifest stamp
+        "time": time.time(),
         "keys": list(arrays.keys()),
         "shapes": [list(a.shape) for a, _ in arrays.values()],
         "dtypes": [dt for _, dt in arrays.values()],
@@ -177,6 +178,7 @@ def save_delta(ckpt_dir: str | Path, step: int, base_step: int,
     a delta is not supported).
     """
     manifest = {"step": int(step), "mode": "delta",
+                # reprolint: allow(monotonic-clock) -- wall-clock manifest stamp
                 "base_step": int(base_step), "time": time.time(),
                 "extra": extra or {}}
     led = obs.get().memory
